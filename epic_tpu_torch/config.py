@@ -1,0 +1,188 @@
+"""Typed configuration for the solver stack (SURVEY §5 "config/flag system").
+
+The reference's configuration surface is ROS parameters + keyword defaults
+scattered across launch files (epic_navigation_node_main.cpp:43-68,
+launch/*.launch). Here it is one dataclass tree covering solver numerics,
+kernel selection/tiling, mesh shape, and service endpoints. PlannerConfig
+(epic_tpu_torch.planner) embeds SolverConfig semantics for the anytime node.
+
+A copy of ``epic_tpu.config``, so that ``configs/*.yaml`` loads unchanged.
+The kernel-selection fields (``backend``, ``kernel``, ``tile_*``) are kept
+for that reason only: the port has one kernel family and takes only
+``backend="auto"`` (see :func:`check_backend`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from . import constants as C
+
+
+@dataclasses.dataclass
+class SolverConfig:
+    """Numerics + kernel selection."""
+
+    epsilon: float = C.DEFAULT_EPSILON_NODE
+    stagger: int = C.DEFAULT_STAGGER
+    max_iterations: int = 1_000_000
+    # backend: the port takes only "auto" (the CUDA kernels for a tensor on
+    # the card, the plain torch version for one on the CPU).
+    backend: str = "auto"
+    # kernel: the masked full-grid layout (the parity-packed half-grid
+    # variant measured worse on v5e — lane shifts/selects cost more than the
+    # saved logsumexps, docs/BENCH_NOTES.md — and was retired in round 3
+    # with pallas_packed; "masked" is the only value).
+    kernel: str = "masked"           # "masked"
+    # Big-grid (beyond-VMEM) kernel parameters (solver.pallas_biggrid):
+    # tile_depth is the temporal-blocking K (sweeps per HBM round trip;
+    # K=16 measured best, docs/BENCH_NOTES.md); tile_band overrides the
+    # auto row-band height (None = choose_layout picks from the VMEM
+    # budget). Consumed by Planner's big-grid update path.
+    tile_band: int | None = None
+    tile_depth: int = 16
+    # Opt-in coarse-to-fine warm start for blocking solves (solver.cascade
+    # in epic_tpu; not ported yet, the port's Planner raises on it).
+    cascade: bool = False
+
+    def __post_init__(self):
+        check_backend(self.backend)
+
+
+def check_backend(backend: str) -> None:
+    """The port has one kernel route per device; any other backend name
+    (the JAX package's "xla"/"pallas") is refused rather than ignored."""
+    if backend != "auto":
+        raise ValueError(
+            f"backend {backend!r} is not supported by epic_tpu_torch; "
+            "use 'auto'")
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Multi-chip decomposition (epic_tpu.parallel; not ported yet)."""
+
+    shape: tuple[int, int] | None = None   # None -> near-square over devices
+    axis_names: tuple[str, str] = ("my", "mx")
+
+
+@dataclasses.dataclass
+class ServiceConfig:
+    """Service-plane endpoints (epic_tpu_torch.services.server)."""
+
+    host: str = "127.0.0.1"
+    port: int = 7171
+    steps_per_update: int = 50
+    update_rate_hz: float = 10.0
+
+
+@dataclasses.dataclass
+class VizConfig:
+    """Display profile — the declarative analog of the reference's rviz
+    view config (rviz/default.rviz wired by
+    launch/epic_navigation_node_umass.launch:26): what the demos and the
+    interactive session render and how streamlines are walked. Consumed
+    by the JAX package's ``tools/anytime_demo.py`` and ``epic_tpu.viz``."""
+
+    show_field: bool = True          # False: draw over the original map
+    interpolation: str = "bilinear"  # path walker mode ("reference" quirk-faithful)
+    starts: int = 6                  # demo sample start points
+
+
+@dataclasses.dataclass
+class EpicConfig:
+    """The full configuration tree. Consumed by :class:`epic_tpu_torch.
+    planner.Planner` (pass it in place of a PlannerConfig) and the
+    service-server CLI (``python -m epic_tpu_torch.services.server``).
+
+    Serializable to/from YAML session files (``configs/*.yaml``) — the
+    declarative analog of the reference's per-map launch tuning
+    (launch/epic_navigation_node_umass.launch:8-23 carries map_name +
+    steps_per_update/update_rate per map; here the same knobs live in a
+    checked-in config file instead of code defaults)."""
+
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    service: ServiceConfig = dataclasses.field(default_factory=ServiceConfig)
+    viz: VizConfig = dataclasses.field(default_factory=VizConfig)
+    # Startup map: a map_server YAML or PNG path. ``${VAR}`` env refs are
+    # expanded at resolve time; relative paths resolve against the config
+    # file's directory first, then maps.reference_map_path.
+    map: str | None = None
+
+    # -- serialization ----------------------------------------------------
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EpicConfig":
+        d = dict(d)
+        sections = {}
+        for name, sub_cls in (("solver", SolverConfig), ("mesh", MeshConfig),
+                              ("service", ServiceConfig),
+                              ("viz", VizConfig)):
+            sub = d.pop(name, None) or {}
+            fields = {f.name for f in dataclasses.fields(sub_cls)}
+            unknown = set(sub) - fields
+            if unknown:
+                raise ValueError(
+                    f"unknown {name} config keys: {sorted(unknown)}")
+            sections[name] = sub_cls(**sub)
+        if sections["mesh"].shape is not None:
+            sections["mesh"].shape = tuple(sections["mesh"].shape)
+        sections["mesh"].axis_names = tuple(sections["mesh"].axis_names)
+        map_path = d.pop("map", None)
+        if d:
+            raise ValueError(f"unknown config keys: {sorted(d)}")
+        return cls(map=map_path, **sections)
+
+    def save_yaml(self, path) -> None:
+        import yaml
+
+        d = self.to_dict()
+        if d.get("map") is None:
+            d.pop("map", None)
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f, sort_keys=False)
+
+    @classmethod
+    def load_yaml(cls, path) -> "EpicConfig":
+        import pathlib
+
+        import yaml
+
+        path = pathlib.Path(path)
+        with open(path) as f:
+            d = yaml.safe_load(f) or {}
+        cfg = cls.from_dict(d)
+        cfg._config_dir = path.parent   # for relative map resolution
+        cfg._config_path = path.resolve()
+        return cfg
+
+    def resolve_map_path(self):
+        """Resolve :attr:`map` to an existing file path, or None.
+
+        Order: env-var expansion, absolute path, then the path relative to
+        the config file's directory. Raises FileNotFoundError for a
+        configured map that resolves nowhere."""
+        import os
+        import pathlib
+
+        if self.map is None:
+            return None
+        p = pathlib.Path(os.path.expandvars(self.map))
+        if p.is_absolute():
+            if p.exists():
+                return p
+        else:
+            base = getattr(self, "_config_dir", pathlib.Path("."))
+            cand = base / p
+            # Guard the name collision: a session config whose ``map`` is
+            # a bare name like "maze.yaml" must not resolve to the config
+            # file ITSELF (both live in configs/).
+            self_path = getattr(self, "_config_path", None)
+            if cand.exists() and (self_path is None
+                                  or cand.resolve() != self_path):
+                return cand
+        raise FileNotFoundError(f"configured map not found: {self.map}")

@@ -1,0 +1,330 @@
+"""The anytime planner: warm-started incremental re-solves + service verbs.
+
+The counterpart of ``epic_tpu.planner`` (2D). The state is one ``GridState``
+on the planner's device; edits are scatters into fresh tensors; ``update()``
+is one launch of the CUDA chunk kernel on the card (the plain torch version
+on the CPU), which relaxes ``u`` in place — so there is no padded-buffer
+cache to keep: the kernels take the grid as it is.
+
+Key semantic carried over (SURVEY §3.2): the planner NEVER stops relaxing —
+edits perturb ``u``/``locked`` and relaxation resumes from the current state.
+
+Not ported yet, and refused loudly: ``compute_paths_batch`` (the batched
+device walker, ``solver.batched_path``) and ``cascade=True`` solves
+(``solver.cascade``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+
+import numpy as np
+import torch
+
+from . import constants as C
+from . import grid as G
+from .config import EpicConfig, SolverConfig, check_backend
+from .errors import EpicError, InvalidLocationError
+from .path import compute_path
+from .solver import hopper_sweep
+
+logger = logging.getLogger("epic_tpu_torch.planner")
+
+
+@dataclasses.dataclass
+class PlannerConfig:
+    """Typed config covering the reference's ROS-parameter surface
+    (src/epic_navigation_node_main.cpp:43-68 + map_server YAML metadata)."""
+
+    epsilon: float = C.DEFAULT_EPSILON_NODE
+    stagger: int = C.DEFAULT_STAGGER
+    steps_per_update: int = 50       # launch/epic_navigation_node_maze.launch:11
+    resolution: float = 1.0
+    origin_x: float = 0.0
+    origin_y: float = 0.0
+    interpolation: str = "reference"  # or "bilinear" (epic_tpu extension)
+    # Kept so configs written for epic_tpu load; only "auto" is accepted
+    # (the kernels on the card, the plain version on the CPU).
+    backend: str = "auto"
+    # Coarse-to-fine warm start (epic_tpu.solver.cascade): not ported yet.
+    cascade: bool = False
+
+    def __post_init__(self):
+        check_backend(self.backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class PathPose:
+    """A path pose: world coordinates + yaw from the segment direction
+    (epic_navigation_node_harmonic.cpp:655-668)."""
+
+    x: float
+    y: float
+    yaw: float
+
+
+class Planner:
+    """Incremental anytime harmonic planner with the reference's verbs.
+
+    Verb mapping (srv/*.srv -> methods):
+      SetStatus      -> set_status(paused)
+      ModifyGoals +  -> add_goals(world_points)
+      ModifyGoals -  -> remove_goals(world_points)
+      GetCell        -> get_cell(x, y)
+      SetCells       -> set_cells(xy_cells, types)     [cell coords, no transform]
+      ResetFreeCells -> reset_free_cells()
+      ComputePath    -> compute_path(start_world, ...)
+      (OccupancyGrid subscriber) -> update_occupancy(grid, resolution, origin)
+      (main loop)    -> update(num_steps)
+
+    ``device`` places the grid: a CUDA device runs the kernels of
+    ``csrc/sweep2d.cu``, the CPU the plain torch version.
+    """
+
+    def __init__(self, config: "PlannerConfig | EpicConfig | None" = None, *,
+                 device: torch.device | str):
+        if isinstance(config, EpicConfig):
+            self.solver_config = config.solver
+            config = PlannerConfig(
+                epsilon=config.solver.epsilon,
+                stagger=config.solver.stagger,
+                steps_per_update=config.service.steps_per_update,
+                backend=config.solver.backend,
+            )
+        else:
+            cfg = config or PlannerConfig()
+            self.solver_config = SolverConfig(
+                epsilon=cfg.epsilon, stagger=cfg.stagger, backend=cfg.backend)
+        self.config = config or PlannerConfig()
+        self.device = torch.device(device)
+        self.state: G.GridState | None = None
+        self.paused = False
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def initialized(self) -> bool:
+        return self.state is not None
+
+    def init(self, width: int, height: int) -> None:
+        """initAlg equivalent (epic_navigation_node_harmonic.cpp:207-244):
+        u = 0 everywhere, unlocked, boundary ring forced obstacle."""
+        self.state = G.empty_state(height, width, epsilon=self.config.epsilon,
+                                   device=self.device)
+        logger.info("planner init %dx%d eps=%g device=%s", width, height,
+                    self.config.epsilon, self.device)
+
+    def uninit(self) -> None:
+        self.state = None
+
+    def _require_state(self) -> G.GridState:
+        if self.state is None:
+            raise EpicError(2, "planner not initialized")
+        return self.state
+
+    # -- world <-> map transforms -----------------------------------------
+
+    def map_to_world(self, mx: float, my: float) -> tuple[float, float]:
+        """epic_navigation_node_harmonic.cpp:310-315."""
+        return (
+            self.config.origin_x + mx * self.config.resolution,
+            self.config.origin_y + my * self.config.resolution,
+        )
+
+    def world_to_map(self, wx: float, wy: float) -> tuple[float, float]:
+        """epic_navigation_node_harmonic.cpp:318-330; raises if outside."""
+        cfg = self.config
+        st = self._require_state()
+        h, w = st.u.shape
+        if (
+            wx < cfg.origin_x
+            or wy < cfg.origin_y
+            or wx >= cfg.origin_x + w * cfg.resolution
+            or wy >= cfg.origin_y + h * cfg.resolution
+        ):
+            raise InvalidLocationError(f"world ({wx}, {wy}) outside map")
+        return (wx - cfg.origin_x) / cfg.resolution, (wy - cfg.origin_y) / cfg.resolution
+
+    # -- the anytime loop --------------------------------------------------
+
+    def update(self, num_steps: int | None = None) -> None:
+        """Run a chunk of relaxation sweeps (no-op when paused / uninit),
+        mirroring EpicNavigationNodeHarmonic::update (:165-204)."""
+        if self.state is None or self.paused:
+            return
+        n = num_steps if num_steps is not None else self.config.steps_per_update
+        if n < 1:
+            return
+        self.state = hopper_sweep.update_n(self.state, n)
+
+    def solve(self, max_iterations: int | None = None) -> None:
+        """Blocking solve-to-convergence (harmonic_complete semantics), as
+        the nav_core plugin does per makePlan (epic_nav_core_plugin.cpp:256).
+        ``max_iterations`` caps the solve; a capped solve leaves
+        ``state.converged`` False and can be resumed by calling again."""
+        if self.config.cascade:
+            raise NotImplementedError(
+                "cascade solves (epic_tpu.solver.cascade) are not ported to "
+                "epic_tpu_torch yet")
+        cap = 1_000_000 if max_iterations is None else int(max_iterations)
+        self.state = hopper_sweep.solve(self._require_state(),
+                                        stagger=self.config.stagger,
+                                        max_iterations=cap)
+
+    # -- service verbs -----------------------------------------------------
+
+    def set_status(self, paused: bool) -> bool:
+        """srvSetStatus (:429-438)."""
+        self.paused = bool(paused)
+        return True
+
+    def set_cells(self, xy, types) -> bool:
+        """srvSetCells (:545-579): raw cell coordinates, no world transform."""
+        st = self._require_state()
+        self.state = G.set_cells(st, xy, types)
+        return True
+
+    def add_goals(self, world_points) -> bool:
+        """srvAddGoals (:441-482): world coords -> cells; goals are refused
+        inside obstacles; returns False if no goal could be added."""
+        st = self._require_state()
+        # One host fetch for the whole batch.
+        u_np = G.host_u(st)
+        locked_np = G.host_locked(st)
+        h, w = u_np.shape
+        xy = []
+        for wx, wy in world_points:
+            try:
+                mx, my = self.world_to_map(wx, wy)
+            except InvalidLocationError:
+                continue
+            cx, cy = int(mx + 0.5), int(my + 0.5)
+            is_obstacle = not (0 <= cx < w and 0 <= cy < h) or (
+                bool(locked_np[cy, cx])
+                and float(u_np[cy, cx]) == float(C.LOG_SPACE_OBSTACLE)
+            )
+            if is_obstacle:
+                continue
+            xy.append((int(mx), int(my)))
+        if not xy:
+            return False
+        self.state = G.set_cells(st, xy, [C.CELL_TYPE_GOAL] * len(xy))
+        return True
+
+    def remove_goals(self, world_points) -> bool:
+        """srvRemoveGoals (:485-519): removed goals become FREE cells."""
+        st = self._require_state()
+        xy = []
+        for wx, wy in world_points:
+            try:
+                mx, my = self.world_to_map(wx, wy)
+            except InvalidLocationError:
+                continue
+            xy.append((int(mx), int(my)))
+        if xy:
+            self.state = G.set_cells(st, xy, [C.CELL_TYPE_FREE] * len(xy))
+        return True
+
+    def get_cell(self, x: int, y: int) -> float:
+        """srvGetCell (:522-542): the cell's log hitting probability, a
+        4-byte read from the device."""
+        st = self._require_state()
+        h, w = st.u.shape
+        if not (0 <= x < w and 0 <= y < h):
+            raise InvalidLocationError(f"cell ({x}, {y}) outside map")
+        return float(st.u[y, x])
+
+    def reset_free_cells(self) -> bool:
+        """srvResetFreeCells (:582-611)."""
+        self.state = G.reset_free_cells(self._require_state())
+        return True
+
+    def update_occupancy(
+        self,
+        data: np.ndarray,
+        resolution: float | None = None,
+        origin: tuple[float, float] | None = None,
+    ) -> None:
+        """OccupancyGrid ingest (subOccupancyGrid, :383-426).
+
+        ``data``: int [H, W], occupancy 0..100, or OCCUPANCY_NO_CHANGE (-2).
+        Values >= 50 -> OBSTACLE, else FREE; NO_CHANGE and existing-goal
+        cells untouched; size change triggers full reinit (goals are lost,
+        as in the reference); boundary ring stays obstacle.
+        """
+        data = np.asarray(data)
+        h, w = data.shape
+        if self.state is None or tuple(self.state.u.shape) != (h, w):
+            if self.state is not None:
+                logger.warning(
+                    "occupancy resize %s -> (%d, %d): full reinit, goals lost"
+                    " (reference behaviour)", tuple(self.state.u.shape), h, w)
+            self.uninit()
+            self.init(w, h)
+        if resolution is not None:
+            self.config.resolution = float(resolution)
+        if origin is not None:
+            self.config.origin_x, self.config.origin_y = map(float, origin)
+
+        st = self._require_state()
+        u_np = G.host_u(st)
+        locked_np = G.host_locked(st)
+        goal_mask = locked_np & (u_np == float(C.LOG_SPACE_GOAL))
+
+        interior = np.zeros((h, w), dtype=bool)
+        interior[1:-1, 1:-1] = True
+        changeable = interior & (data != C.OCCUPANCY_NO_CHANGE) & ~goal_mask
+        obstacle = changeable & (data >= C.OCCUPANCY_OBSTACLE_THRESHOLD)
+        free = changeable & ~obstacle
+        ys, xs = np.nonzero(obstacle | free)
+        if len(ys) == 0:
+            return
+        types = np.where(obstacle[ys, xs], C.CELL_TYPE_OBSTACLE, C.CELL_TYPE_FREE)
+        self.state = G.set_cells(st, np.stack([xs, ys], axis=1), types)
+
+    def compute_path(
+        self,
+        start_world: tuple[float, float],
+        step_size: float = 0.05,
+        cd_precision: float = 0.5,
+        max_length: int | None = None,
+    ) -> list[PathPose]:
+        """srvComputePath (:614-674): extract a streamline from the current
+        field (fetched to the host) and convert to world poses with
+        per-segment yaw. Parameter defaults follow the rviz node
+        (epic_navigation_node_harmonic_rviz.cpp:114-116); max_length defaults
+        to w*h/step_size as there.
+        """
+        st = self._require_state()
+        h, w = st.u.shape
+        if max_length is None:
+            max_length = int(w * h / step_size)
+        mx, my = self.world_to_map(*start_world)
+        pts = compute_path(
+            G.host_u(st),
+            G.host_locked(st),
+            mx,
+            my,
+            step_size=step_size,
+            cd_precision=cd_precision,
+            max_length=max_length,
+            mode=self.config.interpolation,
+        )
+        poses: list[PathPose] = []
+        sx, sy = self.map_to_world(float(pts[0, 0]), float(pts[0, 1]))
+        poses.append(PathPose(sx, sy, 0.0))
+        for i in range(1, len(pts)):
+            x, y = float(pts[i, 0]), float(pts[i, 1])
+            yaw = math.atan2(y - float(pts[i - 1, 1]), x - float(pts[i - 1, 0]))
+            wx, wy = self.map_to_world(x, y)
+            poses.append(PathPose(wx, wy, yaw))
+        return poses
+
+    def compute_paths_batch(self, starts_world, **kwargs):
+        """Many streamlines at once through a device walker — not ported
+        yet (epic_tpu.solver.batched_path)."""
+        raise NotImplementedError(
+            "compute_paths_batch (the batched device walker, "
+            "epic_tpu.solver.batched_path) is not ported to epic_tpu_torch yet")

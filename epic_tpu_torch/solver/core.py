@@ -1,0 +1,155 @@
+"""Plain PyTorch red-black relaxation: the reference version of the kernels.
+
+The counterpart of ``epic_tpu.solver.core``, on torch tensors. It is the
+plain version of both CUDA kernels in ``csrc/sweep2d.cu``: the CPU path of
+the package, and what ``chip_smoke.py`` holds the kernels against on the
+card. Any rank >= 2 works here; the kernels are 2D.
+
+Semantics carried over from the JAX version (and harmonic_complete_cpu,
+harmonic_cpu.cpp:136-184):
+
+- a sweep updates the unlocked interior cells of one parity class,
+  ``sum(coords) % 2 != (t + flip) % 2`` with ``flip = ndim % 2`` (2D updates
+  ``(y + x) % 2 != t % 2``; 3D the other class);
+- ``update_n`` records the delta of its first sweep;
+- ``solve`` resets the iteration to 0, checks every ``stagger`` sweeps, and
+  exits only right after a passing check with ``iteration >= max(shape)``,
+  keeping the post-check state. The verdict is not sticky.
+
+``calls`` counts the calls of ``update_n`` and ``solve``, so a run on the
+card can show that its main path never came here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..grid import GridState
+from ._sweep_body import lse4
+
+calls = {"update_n": 0, "solve": 0}
+
+
+def _log2n(nd: int) -> float:
+    """log(2n) as a float32 value: log(4) in 2D, log(6) in 3D."""
+    return float(np.float32(np.log(np.float64(2.0 * nd))))
+
+
+def _neighbor_logsumexp(u: torch.Tensor) -> torch.Tensor:
+    """Shifted logsumexp of the 2n axis neighbours over the interior, in the
+    pinned op order (2D goes through :func:`lse4`, the kernels' twin)."""
+    nd = u.ndim
+    nbrs = []
+    for axis in range(nd):
+        lo = tuple(slice(0, -2) if a == axis else slice(1, -1) for a in range(nd))
+        hi = tuple(slice(2, None) if a == axis else slice(1, -1) for a in range(nd))
+        nbrs.append(u[lo])
+        nbrs.append(u[hi])
+    if nd == 2:
+        return lse4(*nbrs)
+    m = nbrs[0]
+    for nb in nbrs[1:]:
+        m = torch.maximum(m, nb)
+    s = torch.exp(nbrs[0] - m)
+    for nb in nbrs[1:]:
+        s = s + torch.exp(nb - m)
+    return (m + torch.log(s)) - _log2n(nd)
+
+
+@functools.lru_cache(maxsize=8)
+def _parity(shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """(sum of coordinates) % 2 over the interior, as uint8."""
+    total = torch.zeros([s - 2 for s in shape], dtype=torch.int64, device=device)
+    for axis, s in enumerate(shape):
+        view = [1] * len(shape)
+        view[axis] = s - 2
+        total = total + torch.arange(1, s - 1, device=device).view(view)
+    return (total % 2).to(torch.uint8)
+
+
+def sweep(u: torch.Tensor, locked: torch.Tensor, iteration) -> tuple[torch.Tensor, torch.Tensor]:
+    """One red-black sweep over the parity class selected by ``iteration``
+    (an int or a 0-d tensor). Returns ``(u_new, delta)``, delta = max
+    |u' - u| over the interior (0 where nothing updates)."""
+    inner = (slice(1, -1),) * u.ndim
+    val = _neighbor_logsumexp(u)
+    flip = u.ndim % 2
+    update = (_parity(tuple(u.shape), u.device) != (iteration + flip) % 2) & ~locked[inner]
+    old = u[inner]
+    new = torch.where(update, val, old)
+    if new.numel():
+        delta = (new - old).abs().max()
+    else:
+        delta = torch.zeros((), dtype=u.dtype, device=u.device)
+    u_new = u.clone()
+    u_new[inner] = new
+    return u_new, delta
+
+
+def update_n(state: GridState, num_steps: int) -> GridState:
+    """The anytime stepper: ``num_steps`` sweeps, delta checked on the first
+    (EpicNavigationNodeHarmonic::update, epic_navigation_node_harmonic.cpp:
+    165-204). ``num_steps`` must be >= 1."""
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    calls["update_n"] += 1
+    u, delta = sweep(state.u, state.locked, state.iteration)
+    for k in range(1, num_steps):
+        u, _ = sweep(u, state.locked, state.iteration + k)
+    return dataclasses.replace(
+        state,
+        u=u,
+        iteration=state.iteration + num_steps,
+        delta=delta,
+        converged=(delta < state.epsilon) if num_steps == 1
+        else torch.zeros((), dtype=torch.bool, device=u.device),
+    )
+
+
+def solve(
+    state: GridState,
+    stagger: int = C.DEFAULT_STAGGER,
+    max_iterations: int = 1_000_000,
+) -> GridState:
+    """Relax to convergence with the protocol of harmonic_complete_cpu
+    (:136-184), driven from the host: one checked sweep, then, unless the
+    exit fired, ``stagger - 1`` plain sweeps. The host reads the check's
+    delta only once ``iteration >= max(shape)`` makes an exit possible.
+    ``iteration`` is reset to 0 on entry (harmonic_cpu.cpp:153); final
+    iteration counts are 1 mod ``stagger`` when converged."""
+    if stagger < 1:
+        raise ValueError(f"stagger must be >= 1, got {stagger}")
+    calls["solve"] += 1
+    m_max = max(state.u.shape)
+    locked = state.locked
+    u = state.u
+    iteration = 0
+    delta = state.epsilon + 1.0
+    converged = False
+    while not converged and iteration < max_iterations:
+        u, delta = sweep(u, locked, iteration)
+        iteration += 1
+        if iteration >= m_max and bool(delta < state.epsilon):
+            converged = True
+            break
+        for s in range(stagger - 1):
+            u, _ = sweep(u, locked, iteration + s)
+        iteration += stagger - 1
+    dev = u.device
+    return dataclasses.replace(
+        state,
+        u=u,
+        iteration=torch.tensor(iteration, dtype=torch.int32, device=dev),
+        delta=delta,
+        converged=torch.tensor(converged, dtype=torch.bool, device=dev),
+    )
+
+
+# epic_tpu.solver.core has a jitted solve and a host-driven solve_py; the
+# plain torch version is host-driven either way, so the two are one.
+solve_py = solve
