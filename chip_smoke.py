@@ -1,34 +1,55 @@
 #!/usr/bin/env python3
-"""Drive epic_tpu_torch's main path once on one CUDA card, and check it.
+"""Drive epic_tpu_torch's main paths once on one CUDA card, and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
 
   1. build    — the card's name and power limit, the nvcc build time;
-  2. maze     — each kernel against its plain torch version on the maze
+  2. maze     — each 2D kernel against its plain torch version on the maze
                 demo map (tests/goldens/maze.npz): a 50-sweep tick at an even
                 and an odd start iteration, and a full solve. Tolerance: the
                 same bits (max abs diff 0.0);
-  3. goldens  — the kernels on maze and umass against the reference
+  3. goldens  — the 2D kernels on maze and umass against the reference
                 binary's goldens, by tests/test_goldens.py's rules: 300
                 sweeps within 1e-3 of the recorded field; the solve's
                 iterations equal, or a whole number of stagger cycles apart
                 with the deciding delta within 5e-4 of eps. The converged
                 free-cell field is held within 1e-2 (FIELD_TOL below);
-  4. session  — the main path: the JSON/TCP server on localhost with
+  4. session  — the 2D main path: the JSON/TCP server on localhost with
                 configs/maze.yaml's settings and the maze map, driven over a
                 real socket (info, ticks, a cell edit, a blocking solve,
                 get_cell, compute_path from the golden starts, whose paths
                 must reach the goal). The kernels' launch counts are zeroed
-                just before and read just after; each kernel must have run
-                and the plain version must not;
+                just before and read just after; each 2D kernel must have
+                run and the plain version must not;
   5. size     — a 4096 x 4096 random-obstacle planner: a 100-sweep tick and a
                 solve capped at 2000 iterations, kernel against plain, same
-                bits, with both times.
+                bits, with both times;
+  6. volume   — the 3D kernels against the plain version on a 30 x 256 x 256
+                volume (numpy default_rng(0), 10% obstacle voxels, the shell
+                locked, one goal voxel, as tests/test_pallas3d.py builds
+                them): 50-sweep ticks from an even and an odd iteration and a
+                solve capped at 3000 sweeps, same bits; an uncapped kernel
+                solve, converged under the protocol;
+  7. golden3d — 60 single-sweep kernel ticks on tests/goldens/fuzz3d_seed0
+                against the reference binary's deltas and field
+                (tests/test_goldens.py's rules): pins the 3D parity class;
+  8. session3d — the 3D main path on the same server, over the same socket:
+                occupancy_volume with phase 6's volume, add_goals_3d, ticks
+                (both sessions tick), set_cells_3d, get_cell_3d, info, a
+                blocking solve, compute_path_3d and compute_paths_3d from
+                seeded starts (paths must reach the goal), and the 2D
+                compute_paths from the golden starts. Counts zeroed just
+                before, read just after: both 3D kernels must have run and
+                the plain version must not;
+  9. size3d   — a 256^3 volume (67 MB of u, beyond the 50 MB L2): a 100-sweep
+                tick and a solve capped at 2000 sweeps, kernel against plain,
+                same bits, with both times.
 
 Each phase prints one JSON line and raises on failure. Then come the kernels'
 JSON line, the nvidia-smi line, and last ``{"ok": true, "device": ...}``.
-Times are CUDA-event times on the card the script ran on.
+Times are CUDA-event times on the card the script ran on, unless a name
+says ``_s`` (host clock around work that ends in a synchronize).
 """
 
 from __future__ import annotations
@@ -55,10 +76,21 @@ EPS = 1e-3                 # configs/maze.yaml and the goldens' epsilon
 # tests/test_goldens.py; the converged fields are held to FIELD_TOL.
 FIELD_TOL = 1e-2
 SIZE_SIDE = 4096          # 67 MB of u: beyond the 50 MB L2, all 132 SMs busy
-SOURCE = "epic_tpu_torch/csrc/sweep2d.cu"
+VOLUME = (30, 256, 256)   # 1.97M cells, 7.9 MB of u: the VMEM-resident regime's full width
+VOLUME_CAP = 3000         # the capped kernel-vs-plain solve
+SIZE3D = (256, 256, 256)  # 67 MB of u: beyond L2
+SOURCES = {
+    "epic_sweep2d_chunk": "epic_tpu_torch/csrc/sweep2d.cu",
+    "epic_sweep2d_solve": "epic_tpu_torch/csrc/sweep2d.cu",
+    "epic_sweep3d_chunk": "epic_tpu_torch/csrc/sweep3d.cu",
+    "epic_sweep3d_solve": "epic_tpu_torch/csrc/sweep3d.cu",
+}
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
     "epic_sweep2d_solve": "epic_tpu/solver/pallas_sweep.py:130",
+    # K7; ticks via sweep3d_chunk_flat (:110 -> :125), solves via _solve_padded (:261)
+    "epic_sweep3d_chunk": "epic_tpu/solver/pallas_sweep3d.py:88",
+    "epic_sweep3d_solve": "epic_tpu/solver/pallas_sweep3d.py:88",
 }
 
 
@@ -101,6 +133,14 @@ def compare(k, p, what: str) -> float:
 
 def copy_state(state):
     return dataclasses.replace(state, u=state.u.clone())
+
+
+def zero_counts() -> None:
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_sweep3d
+
+    for d in (hopper_sweep.launches, hopper_sweep3d.launches, core.calls):
+        for k in d:
+            d[k] = 0
 
 
 def phase_build() -> dict:
@@ -232,7 +272,19 @@ class LoopbackSession:
         """Send one request; spin until its answer arrives. Returns the
         answer and the number of ticks that ran before it was served."""
         sock = self.client.sock
-        sock.sendall(json.dumps({"srv": srv, **args}).encode() + b"\n")
+        # The server reads on this thread, so a request larger than the
+        # socket buffers is sent in pieces, spinning the server between them.
+        pending = memoryview(json.dumps({"srv": srv, **args}).encode() + b"\n")
+        timeout = sock.gettimeout()
+        sock.settimeout(0.0)
+        try:
+            while pending:
+                try:
+                    pending = pending[sock.send(pending):]
+                except BlockingIOError:
+                    self.spin()
+        finally:
+            sock.settimeout(timeout)
         buf = self.client._buf
         served_after = self.ticks
         while b"\n" not in buf:
@@ -264,9 +316,7 @@ def phase_session(dev, maze) -> dict:
     client = EpicClient(port=server.port, timeout=60.0)
     s = LoopbackSession(server, client)
     try:
-        for d in (hopper_sweep.launches, core.calls):
-            for k in d:
-                d[k] = 0
+        zero_counts()
         r, at = s.call("info")
         require(r["success"] and r["initialized"] and r["shape"] == list(img.shape),
                 f"info: {r}")
@@ -320,9 +370,10 @@ def phase_session(dev, maze) -> dict:
         r, _ = s.call("info")
         require(r["success"] and r["iteration"] >= solve_iterations, f"info: {r}")
         session_s = time.perf_counter() - t_start
-    finally:
+    except BaseException:
         client.close()
         server.close()
+        raise
     launches = dict(hopper_sweep.launches)
     plain = dict(core.calls)
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")
@@ -331,7 +382,7 @@ def phase_session(dev, maze) -> dict:
          ten_ticks_s=ten_ticks_s, solve_iterations=solve_iterations, solve_s=solve_s,
          paths=len(lengths), path_points=lengths, compute_path_s=path_s,
          session_s=session_s, launches=launches, plain_calls=plain)
-    return launches
+    return launches, s
 
 
 def phase_size(dev) -> dict:
@@ -368,6 +419,251 @@ def phase_size(dev) -> dict:
     return {"tick_err": tick_err, "solve_err": solve_err}
 
 
+def volume_arrays(shape, density: float = 0.1, seed: int = 0):
+    """u, locked of a boundary-locked volume with seeded obstacle voxels and
+    one goal voxel at the centre (tests/test_pallas3d.py:15-29)."""
+    d, h, w = shape
+    rng = np.random.default_rng(seed)
+    u = np.full(shape, -1e6, dtype=np.float32)
+    locked = np.zeros(shape, dtype=bool)
+    locked[0], locked[-1] = True, True
+    locked[:, 0], locked[:, -1] = True, True
+    locked[:, :, 0], locked[:, :, -1] = True, True
+    locked |= rng.random(shape) < density
+    u[d // 2, h // 2, w // 2] = 0.0
+    locked[d // 2, h // 2, w // 2] = True
+    return u, locked
+
+
+def volume_state(dev, u, locked, t0: int = 0):
+    import epic_tpu_torch as T
+
+    st = T.make_state(u, locked, EPS, device=dev)
+    return dataclasses.replace(st, iteration=torch.tensor(t0, dtype=torch.int32, device=dev))
+
+
+def kernel_vs_plain_3d(dev, u, locked, tick_sweeps: int, cap: int, what: str) -> dict:
+    """A tick from an even and an odd iteration and a capped solve, through
+    the 3D kernels and the plain version, compared bit for bit and timed."""
+    from epic_tpu_torch.solver import core, hopper_sweep3d
+
+    res, errs = {}, []
+    for t0 in (0, 1):
+        k, p = volume_state(dev, u, locked, t0), volume_state(dev, u, locked, t0)
+        tick_k_ms = event_ms(lambda: res.__setitem__("k", hopper_sweep3d.update_n(k, tick_sweeps)))
+        tick_p_ms = event_ms(lambda: res.__setitem__("p", core.update_n(p, tick_sweeps)))
+        errs.append(compare(res["k"], res["p"], f"{what} {tick_sweeps}-sweep tick from iteration {t0}"))
+    state = {"s": res["k"]}
+    tick_k_ms10 = event_ms(lambda: state.__setitem__(
+        "s", hopper_sweep3d.update_n(state["s"], tick_sweeps)), reps=10)
+    k, p = volume_state(dev, u, locked), volume_state(dev, u, locked)
+    solve_k_ms = event_ms(lambda: res.__setitem__("k", hopper_sweep3d.solve(k, STAGGER, cap)))
+    solve_p_ms = event_ms(lambda: res.__setitem__("p", core.solve(p, STAGGER, cap)))
+    solve_err = compare(res["k"], res["p"], f"{what} solve capped at {cap}")
+    return dict(tick_sweeps=tick_sweeps, tick_max_abs_err=max(errs), tick_kernel_ms=tick_k_ms,
+                tick_kernel_ms_mean10=tick_k_ms10, tick_plain_ms=tick_p_ms,
+                solve_cap=cap, solve_iterations=int(res["k"].iteration),
+                solve_converged=bool(res["k"].converged), solve_max_abs_err=solve_err,
+                solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms)
+
+
+def phase_volume(dev) -> dict:
+    from epic_tpu_torch.solver import hopper_sweep3d
+
+    u, locked = volume_arrays(VOLUME)
+    out = kernel_vs_plain_3d(dev, u, locked, 50, VOLUME_CAP, "30x256x256")
+    st = volume_state(dev, u, locked)
+    res = {}
+    ms = event_ms(lambda: res.__setitem__("s", hopper_sweep3d.solve(st, STAGGER)))
+    solved = res["s"]
+    iters = int(solved.iteration)
+    require(bool(solved.converged), "30x256x256 uncapped solve did not converge")
+    require(iters >= max(VOLUME) and iters % STAGGER == 1,
+            f"30x256x256 solve ended at iteration {iters}: not >= {max(VOLUME)} and 1 mod {STAGGER}")
+    require(bool(torch.isfinite(solved.u).all()), "30x256x256 solve: non-finite values")
+    d, h, w = VOLUME
+    per_sweep = (d - 2) * (h - 2) * (w - 2) / 2
+    emit(phase="volume", shape=list(VOLUME), obstacle_density=0.1, eps=EPS, **out,
+         full_solve_iterations=iters, full_solve_delta=float(solved.delta),
+         full_solve_kernel_ms=ms,
+         cell_updates_per_s_kernel_tick=per_sweep * 50 / (out["tick_kernel_ms_mean10"] / 1e3),
+         cell_updates_per_s_kernel_solve=per_sweep * iters / (ms / 1e3))
+    return {"volume": (u, locked), "solved": solved, **out}
+
+
+def phase_golden3d(dev) -> None:
+    """tests/test_goldens.py:151-160 through the 3D chunk kernel."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch.solver import hopper_sweep3d
+
+    g = np.load(GOLDENS / "fuzz3d_seed0.npz")
+    st = T.make_state(g["u0"], g["locked"], 1e-2, device=dev)
+    worst = 0.0
+    for t, d_ref in enumerate(g["deltas"]):
+        st = hopper_sweep3d.update_n(st, 1)
+        err = abs(float(st.delta) - float(d_ref))
+        require(err <= 1e-6 + 1e-4 * abs(float(d_ref)),
+                f"fuzz3d sweep {t}: delta {float(st.delta)} vs the reference's {float(d_ref)}")
+        worst = max(worst, err / (1e-6 + 1e-4 * abs(float(d_ref))))
+    field_err = float(np.max(np.abs(st.u.cpu().numpy() - g["ref_u"])))
+    require(field_err <= 1e-3, f"fuzz3d field differs from the golden by {field_err}")
+    emit(phase="golden3d", shape=list(g["u0"].shape), sweeps=len(g["deltas"]),
+         worst_delta_err_over_bound=worst, field_max_abs_err=field_err)
+
+
+def reaching_starts(planner, n: int, seed: int = 1) -> tuple[list, float]:
+    """The first ``n`` of 512 seeded free voxels near the goal whose walk
+    (the batched walker on the card, step 0.2, precision 0.4) ends in the
+    goal, and the share of the 512 that do. On a field of single-voxel
+    obstacles most walks stop at a plateau between obstacles, so the starts
+    are picked; the server's walkers must then reach the goal from them."""
+    from epic_tpu_torch import grid as G
+    from epic_tpu_torch.solver import batched_path3d
+
+    st = planner.state
+    locked = G.host_locked(st)
+    d, h, w = locked.shape
+    zs, ys, xs = np.nonzero(~locked)
+    dist = np.abs(zs - d // 2) + np.abs(ys - h // 2) + np.abs(xs - w // 2)
+    near = np.nonzero((dist >= 8) & (dist <= 60))[0]
+    pick = np.random.default_rng(seed).permutation(near)[:512]
+    cand = np.stack([xs[pick], ys[pick], zs[pick]], 1).astype(np.float32)
+    out = batched_path3d.walk(st.u, st.locked, cand, 0.2, 0.4, 4096, record_trajectories=False)
+    reached = np.nonzero(out["reached_goal"].cpu().numpy())[0]
+    require(len(reached) >= n, f"only {len(reached)} of {len(cand)} seeded starts reach the goal")
+    return [tuple(float(v) for v in cand[i]) for i in reached[:n]], len(reached) / len(cand)
+
+
+def phase_session3d(dev, s, maze, volume) -> dict:
+    """The 3D verbs on phase 4's server over its socket, then the 2D
+    compute_paths; the server is closed at the end."""
+    from epic_tpu_torch import grid as G
+    from epic_tpu_torch import path, path3d
+    from epic_tpu_torch.solver import core, hopper_sweep3d
+
+    server = s.server
+    u, locked = volume
+    d, h, w = u.shape
+    occ = np.where(locked & (u != 0.0), 100, 0).astype(np.int8)
+    goal = [float(w // 2), float(h // 2), float(d // 2)]
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        r, _ = s.call("occupancy_volume", depth=d, height=h, width=w,
+                      data=occ.reshape(-1).tolist(), resolution=1.0, origin=[0.0, 0.0, 0.0])
+        ingest_s = time.perf_counter() - t0
+        require(r["success"], f"occupancy_volume: {r}")
+        vol = server.volume_planner
+        require(vol.device == dev, f"the volume lives on {vol.device}, not {dev}")
+        r, _ = s.call("add_goals_3d", goals=[goal])
+        require(r["success"], f"add_goals_3d: {r}")
+        # The ingested volume is phase 6's: the same locked voxels and values
+        # (the free ones have ticked since).
+        ul, ll = G.host_u(vol.state), G.host_locked(vol.state)
+        require(np.array_equal(ll, locked) and np.array_equal(ul[ll], u[locked]),
+                "the ingested volume differs from phase 6's")
+        t0 = time.perf_counter()
+        s.spin(10)
+        torch.cuda.synchronize()
+        ten_ticks_s = time.perf_counter() - t0
+
+        free = np.argwhere(~locked)
+        ez, ey, ex = (int(v) for v in free[len(free) // 3])
+        r, _ = s.call("set_cells_3d", v=[ex, ey, ez], types=[1])
+        require(r["success"], f"set_cells_3d: {r}")
+        r, _ = s.call("get_cell_3d", x=ex, y=ey, z=ez)
+        require(r["success"] and r["value"] == -1e6, f"get_cell_3d on the new obstacle: {r}")
+        s.spin(10)
+        r, _ = s.call("set_cells_3d", v=[ex, ey, ez], types=[2])
+        require(r["success"], f"set_cells_3d: {r}")
+        s.spin(5)
+        r, _ = s.call("info")
+        require(r["success"] and "volume" in r and r["volume"]["shape"] == [d, h, w]
+                and r["volume"]["iteration"] > 0 and not r["volume"]["paused"], f"info: {r}")
+        ticked = r["volume"]["iteration"]
+
+        t0 = time.perf_counter()
+        vol.solve()
+        require(bool(vol.state.converged), "session volume solve did not converge")
+        solve_iterations = int(vol.state.iteration)
+        solve_s = time.perf_counter() - t0
+        r, _ = s.call("get_cell_3d", x=int(goal[0]), y=int(goal[1]), z=int(goal[2]))
+        require(r["success"] and r["value"] == 0.0, f"get_cell_3d on the goal: {r}")
+        r, _ = s.call("get_cell_3d", x=ex, y=ey, z=ez)
+        require(r["success"] and -1e6 < r["value"] < 0.0, f"get_cell_3d on the freed voxel: {r}")
+
+        t0 = time.perf_counter()
+        starts, reach_share = reaching_starts(vol, 3)
+        pick_s = time.perf_counter() - t0
+        st = vol.state
+        ul, ll = G.host_u(st), G.host_locked(st)
+        path_points, path_s = [], []
+        for x, y, z in starts:
+            t0 = time.perf_counter()
+            r, _ = s.call("compute_path_3d", x=x, y=y, z=z, step_size=0.2, precision=0.4)
+            path_s.append(time.perf_counter() - t0)
+            require(r["success"], f"compute_path_3d from ({x}, {y}, {z}): {r}")
+            pts = np.asarray(r["path"], dtype=np.float32)[:, :3]
+            require(path3d.path_reaches_goal(ul, ll, pts), f"3D path from ({x}, {y}, {z}) misses the goal")
+            path_points.append(len(pts))
+        rng = np.random.default_rng(2)
+        extra = [tuple(float(v) for v in free[i][::-1]) for i in rng.choice(len(free), 5, replace=False)]
+        t0 = time.perf_counter()
+        r, _ = s.call("compute_paths_3d", starts=[list(p) for p in starts + extra],
+                      step_size=0.2, precision=0.4, max_steps=4096)
+        batch_s = time.perf_counter() - t0
+        require(r["success"] and len(r["paths"]) == 8, f"compute_paths_3d: {str(r)[:200]}")
+        batch_points, batch_reach = [], []
+        for i, p in enumerate(r["paths"]):
+            reached = p is not None and path3d.path_reaches_goal(
+                ul, ll, np.asarray(p, dtype=np.float32)[:, :3])
+            batch_points.append(0 if p is None else len(p))
+            batch_reach.append(bool(reached))
+            if i < len(starts):
+                require(reached, f"batched 3D path from {starts[i]} misses the goal")
+        launches = dict(hopper_sweep3d.launches)
+        plain = dict(core.calls)
+
+        # The 2D batched walker on the session's maze field.
+        g_starts = golden_goal_starts(maze)
+        t0 = time.perf_counter()
+        r, _ = s.call("compute_paths", starts=[list(p) for p in g_starts], step_size=0.2,
+                      precision=0.4, max_steps=20000)
+        paths2d_s = time.perf_counter() - t0
+        require(r["success"], f"compute_paths: {str(r)[:200]}")
+        st2 = server.node.planner.state
+        paths2d_points = []
+        for (x, y), p in zip(g_starts, r["paths"]):
+            require(p is not None, f"compute_paths from ({x}, {y}): no path")
+            pts = np.asarray(p, dtype=np.float32)[:, :2]
+            require(path.path_reaches_goal(G.host_u(st2), G.host_locked(st2), pts),
+                    f"batched 2D path from ({x}, {y}) ends at {pts[-1].tolist()}, not in a goal")
+            paths2d_points.append(len(pts))
+    finally:
+        s.client.close()
+        server.close()
+    require(all(v > 0 for v in launches.values()), f"a 3D kernel never ran on the main path: {launches}")
+    require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
+    emit(phase="session3d", shape=[d, h, w], ingest_s=ingest_s, ten_ticks_s=ten_ticks_s,
+         volume_iteration_at_info=ticked, solve_iterations=solve_iterations, solve_s=solve_s,
+         seeded_reach_share=reach_share, pick_starts_s=pick_s, path3d_points=path_points,
+         compute_path_3d_s=path_s, compute_paths_3d_points=batch_points,
+         compute_paths_3d_reached=batch_reach, compute_paths_3d_s=batch_s,
+         compute_paths_2d_points=paths2d_points, compute_paths_2d_s=paths2d_s,
+         launches=launches, plain_calls=plain)
+    return launches
+
+
+def phase_size3d(dev) -> dict:
+    u, locked = volume_arrays(SIZE3D)
+    out = kernel_vs_plain_3d(dev, u, locked, 100, 2000, "256^3")
+    d, h, w = SIZE3D
+    emit(phase="size3d", shape=list(SIZE3D), **out,
+         cell_updates_per_s_kernel=(d - 2) * (h - 2) * (w - 2) / 2 * 100
+         / (out["tick_kernel_ms_mean10"] / 1e3))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -379,23 +675,33 @@ def main() -> None:
     built = phase_build()
     m = phase_maze(dev, maze)
     phase_goldens(dev, maze, m["maze_solved"])
-    launches = phase_session(dev, maze)
+    launches, session = phase_session(dev, maze)
     z = phase_size(dev)
-    kernels = [
-        dict(name="epic_sweep2d_chunk", route="cuda", source=SOURCE,
-             replaces=REPLACES["epic_sweep2d_chunk"], launches=launches["epic_sweep2d_chunk"],
-             max_abs_err=max(m["tick_err"], z["tick_err"]),
-             ms=m["tick_ms"], plain_ms=m["tick_plain_ms"]),
-        dict(name="epic_sweep2d_solve", route="cuda", source=SOURCE,
-             replaces=REPLACES["epic_sweep2d_solve"], launches=launches["epic_sweep2d_solve"],
-             max_abs_err=max(m["solve_err"], z["solve_err"]),
-             ms=m["solve_ms"], plain_ms=m["solve_plain_ms"]),
-    ]
+    v = phase_volume(dev)
+    phase_golden3d(dev)
+    launches.update(phase_session3d(dev, session, maze, v["volume"]))
+    z3 = phase_size3d(dev)
+    errs = {
+        "epic_sweep2d_chunk": max(m["tick_err"], z["tick_err"]),
+        "epic_sweep2d_solve": max(m["solve_err"], z["solve_err"]),
+        "epic_sweep3d_chunk": max(v["tick_max_abs_err"], z3["tick_max_abs_err"]),
+        "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
+    }
+    times = {   # the main paths' shapes: maze 482^2 and the 30 x 256 x 256 volume
+        "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"]),
+        "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"]),
+        "epic_sweep3d_chunk": (v["tick_kernel_ms"], v["tick_plain_ms"]),
+        "epic_sweep3d_solve": (v["solve_kernel_ms"], v["solve_plain_ms"]),
+    }
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+                    launches=launches[name], max_abs_err=errs[name], ms=times[name][0],
+                    plain_ms=times[name][1])
+               for name in SOURCES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(built["smi"], flush=True)
+    # One card drove every phase.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

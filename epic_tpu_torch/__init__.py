@@ -2,26 +2,32 @@
 
 Log-space harmonic-function path planning: occupancy-grid ingest,
 red-black relaxation of the harmonic potential, gradient-ascent streamline
-extraction, and the anytime planner with its JSON/TCP service verbs. The 2D
-sweep and solve run as hand-written CUDA kernels (``csrc/sweep2d.cu``,
-built with nvcc at first use) on a CUDA tensor, and as plain torch
-(``solver.core``) on a CPU tensor. ``epic_tpu`` (JAX) stays the reference;
+extraction, and the anytime planners (2D grids and 3D volumes) with their
+JSON/TCP service verbs. The 2D and 3D sweeps and solves run as hand-written
+CUDA kernels (``csrc/sweep2d.cu``, ``csrc/sweep3d.cu``, built with nvcc at
+first use) on a CUDA tensor, and as plain torch (``solver.core``) on a CPU
+tensor. ``epic_tpu`` (JAX) stays the reference;
 this package imports torch and NumPy, never JAX.
 """
 
-from . import config, constants, errors, maps, path
+from . import config, constants, errors, maps, path, path3d
 from .grid import (
     GridState,
     empty_state,
+    empty_volume,
     from_occupancy_image,
+    from_occupancy_volume,
     make_state,
     reset_free_cells,
     set_cells,
+    set_cells_3d,
     state_from_numpy,
     state_to_numpy,
 )
 from .planner import Planner, PlannerConfig
+from .planner3d import VolumePlanner, VolumePlannerConfig
 from .solver import core as solver_core
+from .solver import solve_volume, update_volume
 
 __version__ = "0.1.0"
 
@@ -29,17 +35,25 @@ __all__ = [
     "GridState",
     "Planner",
     "PlannerConfig",
+    "VolumePlanner",
+    "VolumePlannerConfig",
     "config",
     "constants",
     "errors",
     "empty_state",
+    "empty_volume",
     "from_occupancy_image",
+    "from_occupancy_volume",
     "make_state",
     "maps",
     "path",
+    "path3d",
     "reset_free_cells",
     "set_cells",
+    "set_cells_3d",
+    "solve_volume",
     "solver_core",
     "state_from_numpy",
     "state_to_numpy",
+    "update_volume",
 ]

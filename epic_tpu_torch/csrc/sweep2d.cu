@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -78,21 +80,6 @@ __device__ float sweep(float* u, const uint8_t* locked, int H, int W, int t) {
   return local;
 }
 
-// Block-wide max of v, then one atomicMax on the float bits at acc.
-__device__ void block_max_atomic(float v, unsigned int* acc) {
-  __shared__ float warp_max[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kThreads / 32 ? warp_max[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) atomicMax(acc, __float_as_uint(v));
-  }
-}
-
 // K1: num_sweeps sweeps starting at iteration *it; the delta of sweep 0 is
 // max-accumulated into delta_bits, which the caller zeroed.
 __global__ void __launch_bounds__(kThreads)
@@ -100,7 +87,7 @@ chunk_kernel(float* u, const uint8_t* locked, int H, int W, const int* it,
              int num_sweeps, unsigned int* delta_bits) {
   cg::grid_group grid = cg::this_grid();
   const int t0 = *it;
-  block_max_atomic(sweep<true>(u, locked, H, W, t0), delta_bits);
+  block_max_atomic<kThreads>(sweep<true>(u, locked, H, W, t0), delta_bits);
   for (int k = 1; k < num_sweeps; ++k) {
     grid.sync();
     sweep<false>(u, locked, H, W, t0 + k);
@@ -126,7 +113,7 @@ solve_kernel(float* u, const uint8_t* locked, int H, int W, const float* eps_ptr
   bool done = false;
   int slot = 0;
   while (!done && it < max_iterations) {
-    block_max_atomic(sweep<true>(u, locked, H, W, it), acc + slot);
+    block_max_atomic<kThreads>(sweep<true>(u, locked, H, W, it), acc + slot);
     grid.sync();
     delta = __uint_as_float(__ldcg(acc + slot));
     if (grid.thread_rank() == 0) acc[slot ^ 1] = 0u;
@@ -150,21 +137,6 @@ solve_kernel(float* u, const uint8_t* locked, int H, int W, const float* eps_ptr
   }
 }
 
-// Blocks for a cooperative launch: one per interior row, at most what the
-// card holds at once (a larger cooperative grid is refused at launch).
-cudaError_t grid_blocks(const void* kernel, int device, int H, int* blocks) {
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  const int rows = H > 2 ? H - 2 : 1;
-  const int cap = sms * per_sm;
-  *blocks = rows < cap ? rows : cap;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -178,7 +150,7 @@ int epic_sweep2d_chunk(void* u, const void* locked, int H, int W, const void* it
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = grid_blocks(reinterpret_cast<const void*>(chunk_kernel), device, H, &blocks);
+  err = grid_blocks(reinterpret_cast<const void*>(chunk_kernel), kThreads, device, H - 2, &blocks);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);
@@ -198,7 +170,7 @@ int epic_sweep2d_solve(void* u, const void* locked, int H, int W, const void* ep
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = grid_blocks(reinterpret_cast<const void*>(solve_kernel), device, H, &blocks);
+  err = grid_blocks(reinterpret_cast<const void*>(solve_kernel), kThreads, device, H - 2, &blocks);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);

@@ -9,8 +9,7 @@ cache to keep: the kernels take the grid as it is.
 Key semantic carried over (SURVEY §3.2): the planner NEVER stops relaxing —
 edits perturb ``u``/``locked`` and relaxation resumes from the current state.
 
-Not ported yet, and refused loudly: ``compute_paths_batch`` (the batched
-device walker, ``solver.batched_path``) and ``cascade=True`` solves
+Not ported yet, and refused loudly: ``cascade=True`` solves
 (``solver.cascade``).
 """
 
@@ -28,7 +27,7 @@ from . import grid as G
 from .config import EpicConfig, SolverConfig, check_backend
 from .errors import EpicError, InvalidLocationError
 from .path import compute_path
-from .solver import hopper_sweep
+from .solver import batched_path, hopper_sweep
 
 logger = logging.getLogger("epic_tpu_torch.planner")
 
@@ -312,6 +311,11 @@ class Planner:
             max_length=max_length,
             mode=self.config.interpolation,
         )
+        return self._poses(pts)
+
+    def _poses(self, pts: np.ndarray) -> list[PathPose]:
+        """Map-frame points -> world poses with per-segment yaw
+        (epic_navigation_node_harmonic.cpp:655-668)."""
         poses: list[PathPose] = []
         sx, sy = self.map_to_world(float(pts[0, 0]), float(pts[0, 1]))
         poses.append(PathPose(sx, sy, 0.0))
@@ -322,9 +326,48 @@ class Planner:
             poses.append(PathPose(wx, wy, yaw))
         return poses
 
-    def compute_paths_batch(self, starts_world, **kwargs):
-        """Many streamlines at once through a device walker — not ported
-        yet (epic_tpu.solver.batched_path)."""
-        raise NotImplementedError(
-            "compute_paths_batch (the batched device walker, "
-            "epic_tpu.solver.batched_path) is not ported to epic_tpu_torch yet")
+    def compute_paths_batch(
+        self,
+        starts_world,
+        step_size: float = 0.05,
+        cd_precision: float = 0.5,
+        max_steps: int = 4096,
+        mode: str | None = None,
+    ) -> list[list[PathPose] | None]:
+        """Many streamlines at once through the batched walker
+        (:mod:`epic_tpu_torch.solver.batched_path`) on the planner's device.
+        Entries are None for invalid starts or <= 2-point walks (the
+        reference's EPIC_ERROR_INVALID_PATH contract per lane). ``mode``
+        defaults to ``config.interpolation``.
+
+        The lane count is padded to a power of two (at least 8) with
+        off-map starts, as in ``epic_tpu``, so that lanes match its walker
+        one for one."""
+        st = self._require_state()
+        starts_world = list(starts_world)
+        if mode is None:
+            mode = self.config.interpolation
+        starts_map, valid_idx = [], []
+        for i, (wx, wy) in enumerate(starts_world):
+            try:
+                starts_map.append(self.world_to_map(wx, wy))
+                valid_idx.append(i)
+            except InvalidLocationError:
+                continue
+        results: list[list[PathPose] | None] = [None] * len(starts_world)
+        if not starts_map:
+            return results
+        n_lanes = max(8, 1 << (len(starts_map) - 1).bit_length())
+        padded = starts_map + [(-1.0, -1.0)] * (n_lanes - len(starts_map))
+        out = batched_path.walk(
+            st.u, st.locked, np.asarray(padded, np.float32),
+            step_size=step_size, cd_precision=cd_precision,
+            max_steps=max_steps, mode=mode,
+        )
+        positions = out["positions"].cpu().numpy()
+        lengths = out["lengths"].cpu().numpy()
+        for lane, i in enumerate(valid_idx):
+            n = int(lengths[lane])
+            if n > 2:
+                results[i] = self._poses(positions[lane, :n])
+        return results

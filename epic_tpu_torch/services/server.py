@@ -12,8 +12,13 @@ Protocol: one JSON object per line.
 
 Verbs: set_status, add_goals, remove_goals, get_cell, set_cells,
 reset_free_cells, compute_path, occupancy_grid, info, metrics, and the
-epic_tpu extensions get_field (potential-field window) and get_map
-(cell-type window). The JAX package's compute_paths, *_3d and sampling_*
+epic_tpu extensions get_field (potential-field window), get_map (cell-type
+window), compute_paths (batched multi-start paths) and the 3D family
+(occupancy_volume, add_goals_3d, remove_goals_3d, get_cell_3d, set_cells_3d,
+reset_free_cells_3d, set_status_3d, compute_path_3d, compute_paths_3d),
+which drives an independent volume session
+(:class:`epic_tpu_torch.planner3d.VolumePlanner`, on the 2D planner's
+device) that relaxes in the same anytime loop. The JAX package's sampling_*
 verbs are not ported yet; they answer ``{"success": false, "error": "<verb>
 is not ported yet"}``.
 
@@ -36,18 +41,20 @@ from .. import grid as G
 from ..errors import EpicError
 from ..maps import MapMeta
 from ..metrics import MetricsRegistry
+from ..planner3d import VolumePlanner, VolumePlannerConfig
 from . import messages as msg
 from .navigation_node import EpicNavigationNodeRviz
 
 logger = logging.getLogger("epic_tpu_torch.server")
 
 NOT_PORTED = frozenset({
-    "compute_paths",
-    "occupancy_volume", "add_goals_3d", "remove_goals_3d", "get_cell_3d",
-    "set_cells_3d", "reset_free_cells_3d", "set_status_3d", "compute_path_3d",
-    "compute_paths_3d",
     "sampling_occupancy", "sampling_add_goals", "sampling_remove_goals",
     "sampling_set_cells", "sampling_compute_path",
+})
+
+VERBS_3D = frozenset({
+    "add_goals_3d", "remove_goals_3d", "get_cell_3d", "set_cells_3d",
+    "reset_free_cells_3d", "set_status_3d", "compute_path_3d", "compute_paths_3d",
 })
 
 
@@ -69,6 +76,9 @@ class EpicServiceServer:
         port: int = 7171,
     ):
         self.node = node
+        # The 3D session, created by the first occupancy_volume ingest on
+        # the 2D planner's device; ticks in spin_once beside the 2D planner.
+        self.volume_planner: VolumePlanner | None = None
         self.sel = selectors.DefaultSelector()
         self.listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -145,6 +155,39 @@ class EpicServiceServer:
                     )
                 )
                 return {"success": True}
+            if srv == "compute_paths":
+                starts = [(float(x), float(y)) for x, y in req["starts"]]
+                results = node.planner.compute_paths_batch(
+                    starts,
+                    step_size=float(req.get("step_size", 0.05)),
+                    cd_precision=float(req.get("precision", 0.5)),
+                    max_steps=int(req.get("max_steps", 4096)),
+                    # None -> the session's configured interpolation mode.
+                    mode=req.get("mode"),
+                )
+                return {
+                    "success": True,
+                    "paths": [None if poses is None else [[p.x, p.y, p.yaw] for p in poses]
+                              for poses in results],
+                }
+            if srv == "occupancy_volume":
+                d, h, w = int(req["depth"]), int(req["height"]), int(req["width"])
+                data = np.asarray(req["data"], dtype=np.int8).reshape(d, h, w)
+                if self.volume_planner is None:
+                    cfg = node.planner.config
+                    self.volume_planner = VolumePlanner(
+                        VolumePlannerConfig(epsilon=cfg.epsilon,
+                                            steps_per_update=cfg.steps_per_update),
+                        device=node.planner.device)
+                origin = req.get("origin")
+                self.volume_planner.update_occupancy(
+                    data,
+                    resolution=req.get("resolution"),
+                    origin=tuple(map(float, origin)) if origin else None,
+                )
+                return {"success": True}
+            if srv in VERBS_3D:
+                return self._handle_3d(srv, req)
             if srv == "get_field":
                 # A window of the potential field (the reference only exposes
                 # per-cell GetCell; remote UIs need the array).
@@ -179,7 +222,7 @@ class EpicServiceServer:
                 }
             if srv == "info":
                 st = node.planner.state
-                return {
+                out = {
                     "success": True,
                     "initialized": st is not None,
                     "shape": list(st.u.shape) if st is not None else None,
@@ -187,6 +230,15 @@ class EpicServiceServer:
                     "delta": float(st.delta) if st is not None else None,
                     "paused": node.planner.paused,
                 }
+                vol = self.volume_planner
+                if vol is not None and vol.state is not None:
+                    out["volume"] = {
+                        "shape": list(vol.state.u.shape),
+                        "iteration": int(vol.state.iteration),
+                        "delta": float(vol.state.delta),
+                        "paused": vol.paused,
+                    }
+                return out
             if srv == "metrics":
                 return {"success": True, **self.metrics.snapshot()}
             if srv in NOT_PORTED:
@@ -196,6 +248,47 @@ class EpicServiceServer:
             return {"success": False, "error": str(e)}
         except (KeyError, ValueError, TypeError) as e:
             return {"success": False, "error": f"bad request: {e}"}
+
+    def _handle_3d(self, srv: str, req: dict) -> dict:
+        """The *_3d verbs on the volume session."""
+        vol = self.volume_planner
+        if vol is None:
+            return {"success": False, "error": "no 3D session (send occupancy_volume first)"}
+        if srv in ("add_goals_3d", "remove_goals_3d"):
+            pts = [tuple(map(float, g)) for g in req["goals"]]
+            handler = vol.add_goals if srv == "add_goals_3d" else vol.remove_goals
+            return {"success": handler(pts)}
+        if srv == "get_cell_3d":
+            return {"success": True,
+                    "value": vol.get_cell(int(req["x"]), int(req["y"]), int(req["z"]))}
+        if srv == "set_cells_3d":
+            v = [int(x) for x in req["v"]]
+            xyz = list(zip(v[0::3], v[1::3], v[2::3]))
+            return {"success": vol.set_cells(xyz, [int(t) for t in req["types"]])}
+        if srv == "reset_free_cells_3d":
+            return {"success": vol.reset_free_cells()}
+        if srv == "set_status_3d":
+            return {"success": vol.set_status(bool(req["paused"]))}
+        if srv == "compute_paths_3d":
+            results = vol.compute_paths_batch(
+                [tuple(map(float, p)) for p in req["starts"]],
+                step_size=float(req.get("step_size", 0.05)),
+                cd_precision=float(req.get("precision", 0.5)),
+                max_steps=int(req.get("max_steps", 4096)),
+            )
+            return {
+                "success": True,
+                "paths": [None if poses is None
+                          else [[p.x, p.y, p.z, p.yaw, p.pitch] for p in poses]
+                          for poses in results],
+            }
+        poses = vol.compute_path(
+            (float(req["x"]), float(req["y"]), float(req["z"])),
+            step_size=float(req.get("step_size", 0.05)),
+            cd_precision=float(req.get("precision", 0.5)),
+            max_length=int(req["max_length"]) if req.get("max_length") else None,
+        )
+        return {"success": True, "path": [[p.x, p.y, p.z, p.yaw, p.pitch] for p in poses]}
 
     # -- event loop --------------------------------------------------------
 
@@ -271,11 +364,14 @@ class EpicServiceServer:
 
     def spin_once(self, num_steps: int | None = None) -> None:
         """One tick: service pending requests, then one relaxation chunk —
-        the spinOnce()/update() interleave."""
+        the spinOnce()/update() interleave. A live 3D session relaxes in the
+        same tick."""
         self._service_sockets()
         self.metrics.inc("ticks")
         with self.metrics.timed("tick.update"):
             self.node.update(num_steps)
+            if self.volume_planner is not None:
+                self.volume_planner.update(num_steps)
 
     def run_forever(self) -> None:  # pragma: no cover - long-running
         while True:

@@ -1,10 +1,12 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-``csrc/sweep2d.cu`` has a plain C interface and includes no PyTorch header,
-so ``nvcc`` builds it in seconds into a shared library under
-``build/epic_tpu_torch/`` beside the package (named by a hash of the source
-and the flags, so an edited source is rebuilt). Tensors cross as
-``data_ptr()`` integers and the stream as PyTorch's current stream handle.
+The sources in ``csrc/`` (``sweep2d.cu``, ``sweep3d.cu`` and the header they
+share) have a plain C interface and include no PyTorch header. ``nvcc``
+compiles each ``.cu`` file to an object, all at once in parallel, and links
+them into one shared library under ``build/epic_tpu_torch/`` beside the
+package, named by a hash of every source and the flags (an edited source is
+rebuilt). Tensors cross as ``data_ptr()`` integers and the stream as
+PyTorch's current stream handle.
 
 A failed build raises with nvcc's output. Nothing here falls back to the
 plain version: a CUDA tensor gets the kernel or an exception.
@@ -20,13 +22,15 @@ import shutil
 import subprocess
 import time
 
-SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "sweep2d.cu"
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (CSRC / "sweep2d.cu", CSRC / "sweep3d.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "epic_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-c", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",   # registers and spills of each kernel, kept in build_info
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 # What the last build in this process did: seconds, nvcc path, its output.
 build_info: dict = {}
@@ -48,28 +52,46 @@ def find_nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsweep2d-{digest.hexdigest()[:16]}.so"
+    """The library's path, keyed on every file in csrc/ and the flags."""
+    digest = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):
+        digest.update(f.name.encode() + f.read_bytes())
+    digest.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"libepic_sweep-{digest.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise with nvcc's output if one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels unless this source's library already exists."""
+    """Compile the kernels unless this source set's library already exists."""
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    tmp = out.with_name(f"{tag}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(s)] for o, s in zip(objs, SOURCES)])
+        log += _run([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent process never loads a half-written file
-    build_info.update(seconds=seconds, nvcc=nvcc, log=proc.stdout + proc.stderr)
+    build_info.update(seconds=seconds, nvcc=nvcc, log=log)
     return out
 
 
@@ -80,9 +102,12 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.epic_sweep2d_chunk.argtypes = [p, p, i, i, p, i, p, p, i]
-        lib.epic_sweep2d_chunk.restype = i
         lib.epic_sweep2d_solve.argtypes = [p, p, i, i, p, i, i, i, p, p, p, p, p, i]
-        lib.epic_sweep2d_solve.restype = i
+        lib.epic_sweep3d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, i]
+        lib.epic_sweep3d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i]
+        for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
+                   lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve):
+            fn.restype = i
         lib.epic_cuda_error_string.argtypes = [i]
         lib.epic_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,9 +1,10 @@
 """Plain PyTorch red-black relaxation: the reference version of the kernels.
 
 The counterpart of ``epic_tpu.solver.core``, on torch tensors. It is the
-plain version of both CUDA kernels in ``csrc/sweep2d.cu``: the CPU path of
-the package, and what ``chip_smoke.py`` holds the kernels against on the
-card. Any rank >= 2 works here; the kernels are 2D.
+plain version of the CUDA kernels in ``csrc/sweep2d.cu`` (2D) and
+``csrc/sweep3d.cu`` (3D): the CPU path of the package, and what
+``chip_smoke.py`` holds the kernels against on the card. Any rank >= 2
+works here.
 
 Semantics carried over from the JAX version (and harmonic_complete_cpu,
 harmonic_cpu.cpp:136-184):
@@ -30,7 +31,7 @@ import torch
 
 from .. import constants as C
 from ..grid import GridState
-from ._sweep_body import lse4
+from ._sweep_body import lse2n, lse4, lse6
 
 calls = {"update_n": 0, "solve": 0}
 
@@ -42,7 +43,8 @@ def _log2n(nd: int) -> float:
 
 def _neighbor_logsumexp(u: torch.Tensor) -> torch.Tensor:
     """Shifted logsumexp of the 2n axis neighbours over the interior, in the
-    pinned op order (2D goes through :func:`lse4`, the kernels' twin)."""
+    pinned op order (2D and 3D go through :func:`lse4` and :func:`lse6`, the
+    kernels' twins)."""
     nd = u.ndim
     nbrs = []
     for axis in range(nd):
@@ -52,13 +54,9 @@ def _neighbor_logsumexp(u: torch.Tensor) -> torch.Tensor:
         nbrs.append(u[hi])
     if nd == 2:
         return lse4(*nbrs)
-    m = nbrs[0]
-    for nb in nbrs[1:]:
-        m = torch.maximum(m, nb)
-    s = torch.exp(nbrs[0] - m)
-    for nb in nbrs[1:]:
-        s = s + torch.exp(nb - m)
-    return (m + torch.log(s)) - _log2n(nd)
+    if nd == 3:
+        return lse6(*nbrs)
+    return lse2n(nbrs, _log2n(nd))
 
 
 @functools.lru_cache(maxsize=8)

@@ -1,5 +1,8 @@
 """The CUDA kernels of epic_tpu_torch against their plain torch version, on
-the card. Every test here needs a CUDA card and skips without one.
+the card: the 2D kernels (csrc/sweep2d.cu), the 3D kernels
+(csrc/sweep3d.cu), the planners that drive them, and the batched walkers
+on the card against the same walkers on the CPU. Every test here needs a
+CUDA card and skips without one.
 
 This file imports neither JAX nor epic_tpu, so it runs on a host that has
 only torch. tests/conftest.py imports jax, so run it there without it:
@@ -7,7 +10,8 @@ only torch. tests/conftest.py imports jax, so run it there without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: the same bits. The kernels and torch's CUDA exp/log call the
-same accurate expf/logf, in the same op order (solver/_sweep_body.py).
+same accurate expf/logf, in the same op order (solver/_sweep_body.py); the
+walkers use only IEEE-exact ops (+, -, *, /, sqrt) and gathers.
 """
 
 import dataclasses
@@ -20,8 +24,10 @@ import torch
 from epic_tpu_torch import constants as C
 from epic_tpu_torch import grid as TG
 from epic_tpu_torch import maps
+import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
-from epic_tpu_torch.solver import core, hopper_sweep
+from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
+from epic_tpu_torch.solver import batched_path3d, core, hopper_sweep, hopper_sweep3d
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +139,138 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             with pytest.raises(exc):
                 call(dataclasses.replace(st, **fields))
     assert hopper_sweep.launches == launches and core.calls == calls
+
+
+def _volume(shape, density, seed, dev, t0=0):
+    """Boundary-locked volume with one goal voxel and seeded obstacles, as
+    tests/test_pallas3d.py builds them, at iteration ``t0``."""
+    d, h, w = shape
+    rng = np.random.default_rng(seed)
+    u = np.full(shape, -1e6, dtype=np.float32)
+    locked = np.zeros(shape, dtype=bool)
+    locked[0], locked[-1] = True, True
+    locked[:, 0], locked[:, -1] = True, True
+    locked[:, :, 0], locked[:, :, -1] = True, True
+    locked |= rng.random(shape) < density
+    u[d // 2, h // 2, w // 2] = 0.0
+    locked[d // 2, h // 2, w // 2] = True
+    st = TG.make_state(u, locked, 1e-2, device=dev)
+    return dataclasses.replace(st, iteration=torch.tensor(t0, dtype=torch.int32, device=dev))
+
+
+VOLUMES = [((7, 9, 21), 0.15, 3), ((6, 8, 17), 0.1, 1), ((10, 12, 14), 0.1, 2),
+           ((5, 9, 131), 0.0, 0), ((3, 3, 3), 0.0, 0), ((4, 40, 3), 0.1, 5)]
+
+
+@pytest.mark.parametrize("t0", [0, 1])
+@pytest.mark.parametrize("vol", VOLUMES, ids=lambda v: "x".join(map(str, v[0])))
+def test_chunk3d_kernel_gives_the_plain_versions_bits(dev, vol, t0):
+    for num_steps in (1, 2, 50):
+        before = hopper_sweep3d.launches["epic_sweep3d_chunk"]
+        k = hopper_sweep3d.update_n(_volume(*vol, dev, t0), num_steps)
+        p = core.update_n(_volume(*vol, dev, t0), num_steps)
+        _assert_same(k, p)
+        assert hopper_sweep3d.launches["epic_sweep3d_chunk"] == before + 1
+
+
+@pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000),
+                                         (100, 250), (10, 95)])
+@pytest.mark.parametrize("vol", VOLUMES[:4], ids=lambda v: "x".join(map(str, v[0])))
+def test_solve3d_kernel_gives_the_plain_versions_bits(dev, vol, stagger, cap):
+    before = hopper_sweep3d.launches["epic_sweep3d_solve"]
+    k = TS.solve_volume(_volume(*vol, dev, t0=5), stagger, cap)
+    p = core.solve(_volume(*vol, dev, t0=5), stagger, cap)
+    _assert_same(k, p)
+    assert hopper_sweep3d.launches["epic_sweep3d_solve"] == before + 1
+    if cap == 1_000_000:
+        assert bool(k.converged) and int(k.iteration) % stagger == 1 % stagger
+
+
+def test_volume_planner_session_runs_the_kernels(dev):
+    """A VolumePlanner on the card: every tick and the solve launch a 3D
+    kernel, the plain version never runs, and the field equals a plain
+    replay; the batched walker on the card gives the CPU walker's bits."""
+    rng = np.random.default_rng(4)
+    occ = np.where(rng.random((12, 20, 28)) < 0.05, 100, 0).astype(np.int8)
+    occ[6, 10, 14] = 0   # the goal voxel is free
+    tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+    tp.update_occupancy(occ)
+    assert tp.add_goals([(14.0, 10.0, 6.0)])
+    replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
+    launches, calls = dict(hopper_sweep3d.launches), dict(core.calls)
+    for _ in range(4):
+        tp.update()
+    tp.set_cells([(5, 5, 5)], [C.CELL_TYPE_OBSTACLE])
+    tp.update(13)
+    tp.solve()
+    assert bool(tp.state.converged)
+    assert tp.get_cell(14, 10, 6) == 0.0 and tp.get_cell(5, 5, 5) == -1e6
+    assert hopper_sweep3d.launches["epic_sweep3d_chunk"] == launches["epic_sweep3d_chunk"] + 5
+    assert hopper_sweep3d.launches["epic_sweep3d_solve"] == launches["epic_sweep3d_solve"] + 1
+    assert core.calls == calls
+
+    for _ in range(4):
+        replay = core.update_n(replay, 25)
+    replay = core.update_n(TG.set_cells_3d(replay, [(5, 5, 5)], [C.CELL_TYPE_OBSTACLE]), 13)
+    _assert_same(tp.state, core.solve(replay))
+
+    starts = np.array([[3.0, 3.0, 3.0], [25.0, 17.0, 9.0], [-1.0, 0.0, 0.0]], np.float32)
+    kw = dict(step_size=0.2, cd_precision=0.4, max_steps=500)
+    on_card = batched_path3d.walk(tp.state.u, tp.state.locked, starts, **kw)
+    on_cpu = batched_path3d.walk(tp.state.u.cpu(), tp.state.locked.cpu(), starts, **kw)
+    for key, v in on_card.items():
+        assert torch.equal(v.cpu(), on_cpu[key]), key
+    cpu = VolumePlanner(VolumePlannerConfig(epsilon=1e-2), device="cpu")
+    cpu.state = TG.state_from_numpy(TG.state_to_numpy(tp.state), device="cpu")
+    ours = tp.compute_paths_batch(starts.tolist(), 0.2, 0.4, 500)
+    theirs = cpu.compute_paths_batch(starts.tolist(), 0.2, 0.4, 500)
+    assert ours[2] is None and theirs[2] is None
+    assert [None if a is None else [dataclasses.astuple(q) for q in a] for a in ours] == \
+        [None if b is None else [dataclasses.astuple(q) for q in b] for b in theirs]
+
+
+def test_planner_compute_paths_batch_on_the_card(dev):
+    """The 2D batched walker on the card gives the CPU walker's bits."""
+    img = maps.random_obstacles(48, 72, density=0.15, seed=3)
+    occ = np.where(img == 0, 100, 0).astype(np.int8)
+    tp = Planner(PlannerConfig(epsilon=1e-2), device=dev)
+    tp.update_occupancy(occ)
+    assert tp.add_goals([(36.0, 24.0)])
+    tp.solve()
+    cpu = Planner(PlannerConfig(epsilon=1e-2), device="cpu")
+    cpu.state = TG.state_from_numpy(TG.state_to_numpy(tp.state), device="cpu")
+    starts = [(5.0, 5.0), (60.0, 40.0), (-3.0, 2.0)]
+    ours = tp.compute_paths_batch(starts, 0.2, 0.4, 2000)
+    theirs = cpu.compute_paths_batch(starts, 0.2, 0.4, 2000)
+    assert ours[2] is None and theirs[2] is None
+    for a, b in zip(ours[:2], theirs[:2]):
+        assert [dataclasses.astuple(p) for p in a] == [dataclasses.astuple(p) for p in b]
+        assert abs(a[-1].x - 36) < 2 and abs(a[-1].y - 24) < 2
+
+
+def test_3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Checked before any launch; nothing falls back to the plain version."""
+    st = TG.empty_volume(6, 7, 8, 1e-2, device=dev)
+    launches, calls = dict(hopper_sweep3d.launches), dict(core.calls)
+    bad = [
+        (ValueError, dict(u=torch.zeros(5, 6, device=dev),
+                          locked=torch.zeros(5, 6, dtype=torch.bool, device=dev))),
+        (TypeError, dict(u=st.u.double())),
+        (TypeError, dict(locked=st.locked.to(torch.uint8))),
+        (ValueError, dict(u=st.u.transpose(0, 2))),           # not contiguous
+        (ValueError, dict(locked=st.locked.cpu())),
+        (ValueError, dict(locked=st.locked[:, :, :4].contiguous())),
+        (TypeError, dict(iteration=st.iteration.long())),
+        (ValueError, dict(epsilon=st.epsilon.cpu())),
+    ]
+    for exc, fields in bad:
+        for call in (lambda s: hopper_sweep3d.update_n(s, 3), lambda s: hopper_sweep3d.solve(s)):
+            with pytest.raises(exc):
+                call(dataclasses.replace(st, **fields))
+    four_d = dataclasses.replace(st, u=torch.zeros(3, 4, 5, 6, device=dev),
+                                 locked=torch.zeros(3, 4, 5, 6, dtype=torch.bool, device=dev))
+    with pytest.raises(NotImplementedError, match="N-d"):
+        TS.solve_grid(four_d)
+    with pytest.raises(NotImplementedError, match="hopper_sweep3d"):
+        hopper_sweep.update_n(st, 1)
+    assert hopper_sweep3d.launches == launches and core.calls == calls

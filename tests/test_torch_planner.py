@@ -141,6 +141,32 @@ def test_walks_on_reference_goldens_are_bit_exact(name):
     assert compared >= 2
 
 
+@pytest.mark.parametrize("mode", ["reference", "bilinear"])
+def test_compute_paths_batch_matches_jax_planner(mode):
+    """Batched paths through both planners on one field: the same lanes are
+    None (off-map and obstacle starts), the rest reach the goal, with the
+    same number of points, and end within 0.05 of each other (the walkers
+    agree bit for bit op by op; XLA's fusion moves the last bits:
+    tests/test_torch_batched_path.py)."""
+    img = maps.random_obstacles(32, 48, density=0.15, seed=5)
+    jp, tp = _pair(epsilon=1e-2, interpolation=mode)
+    for p in (jp, tp):
+        p.update_occupancy(_occupancy(img))
+        p.add_goals([(24.0, 16.0)])
+        p.solve()
+    oy, ox = np.argwhere(img == 0)[3]
+    starts = [(5.0, 5.0), (-2.0, 3.0), (40.0, 25.0), (float(ox), float(oy)), (30.0, 5.0)]
+    ours = tp.compute_paths_batch(starts, step_size=0.2, cd_precision=0.4, max_steps=800)
+    theirs = jp.compute_paths_batch(starts, step_size=0.2, cd_precision=0.4, max_steps=800)
+    assert [p is None for p in ours] == [p is None for p in theirs]
+    assert ours[1] is None and ours[3] is None
+    for a, b in zip(ours, theirs):
+        if a is not None:
+            assert len(a) == len(b) and (a[0].x, a[0].y) == (b[0].x, b[0].y)
+            assert abs(a[-1].x - b[-1].x) < 0.05 and abs(a[-1].y - b[-1].y) < 0.05
+            assert abs(a[-1].x - 24) < 2 and abs(a[-1].y - 16) < 2
+
+
 @pytest.fixture()
 def node():
     n = EpicNavigationNode(PlannerConfig(epsilon=1e-2, steps_per_update=50), device="cpu")
@@ -207,7 +233,8 @@ def test_world_transforms_and_errors():
 
 def test_config_surface():
     """configs/*.yaml load unchanged; only backend="auto" is accepted; the
-    parts of the verb surface not ported yet refuse loudly."""
+    part of the verb surface not ported yet (cascade solves) refuses
+    loudly."""
     cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
     tp = Planner(cfg, device="cpu")
     assert tp.config.epsilon == 1e-3 and tp.config.steps_per_update == 50
@@ -219,8 +246,8 @@ def test_config_surface():
     with pytest.raises(ValueError):
         EpicConfig.from_dict({"solver": {"backend": "xla"}})
     tp.init(16, 16)
-    with pytest.raises(NotImplementedError):
-        tp.compute_paths_batch([(3.0, 3.0)])
+    # compute_paths_batch is ported: an unrelaxed field gives no path.
+    assert tp.compute_paths_batch([(3.0, 3.0), (-1.0, 3.0)]) == [None, None]
     with pytest.raises(NotImplementedError):
         Planner(PlannerConfig(cascade=True), device="cpu").solve()
     with pytest.raises(ValueError):

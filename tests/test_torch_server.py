@@ -1,6 +1,7 @@
-"""epic_tpu_torch's JSON/TCP server: a verb session over a real socket,
-following tests/test_server.py, on the CPU (plain torch version). Verbs not
-ported yet answer a clean error."""
+"""epic_tpu_torch's JSON/TCP server: verb sessions over a real socket,
+following tests/test_server.py, on the CPU (plain torch version): the 2D
+verbs, compute_paths, and the *_3d family on a volume session that ticks in
+the same loop. The verbs not ported yet (sampling_*) answer a clean error."""
 
 import json
 import os
@@ -125,11 +126,99 @@ def test_malformed_requests_get_clean_errors(server_client):
                                   "compute_path_3d", "sampling_occupancy",
                                   "sampling_compute_path"])
 def test_unported_verbs_answer_a_clean_error(server_client, verb):
+    """The sampling_* verbs are not ported and say so; compute_paths and the
+    3D verbs are ported now and, sent without a session or arguments,
+    answer a clean error of their own."""
     _, client = server_client
-    assert verb in NOT_PORTED
     r = client.call(verb, x=1.0, y=1.0, starts=[[1.0, 1.0]])
-    assert r == {"success": False, "error": f"{verb} is not ported yet"}
+    assert not r["success"]
+    if verb.startswith("sampling_"):
+        assert verb in NOT_PORTED
+        assert r == {"success": False, "error": f"{verb} is not ported yet"}
+    else:
+        assert verb not in NOT_PORTED and "not ported" not in r["error"]
     assert client.call("info")["success"]  # the loop carries on
+
+
+def test_only_the_sampling_verbs_are_not_ported():
+    assert NOT_PORTED == {"sampling_occupancy", "sampling_add_goals", "sampling_remove_goals",
+                          "sampling_set_cells", "sampling_compute_path"}
+
+
+def test_compute_paths_over_socket(server_client):
+    """Batched multi-start paths (tests/test_server.py's compute_paths
+    session): invalid starts give None, the others reach the goal."""
+    _, client = server_client
+    img = maps.open_room(40, 40)
+    assert client.call("occupancy_grid", width=40, height=40, data=_occupancy(img))["success"]
+    assert client.call("add_goals", goals=[[20.0, 20.0]])["success"]
+    _wait_iteration(client, 300)
+    r = client.call("compute_paths", starts=[[5.0, 5.0], [-9.0, 1.0], [30.0, 30.0]],
+                    step_size=0.2, precision=0.4)
+    assert r["success"] and r["paths"][1] is None
+    for idx in (0, 2):
+        p = np.asarray(r["paths"][idx])
+        assert len(p) > 2 and p.shape[1] == 3
+        assert abs(p[-1][0] - 20) < 2.5 and abs(p[-1][1] - 20) < 2.5
+
+
+def test_volume_session_3d_verbs(server_client):
+    """The *_3d verbs drive an independent volume session that relaxes in
+    the same anytime loop as the 2D planner (tests/test_server.py's 3D
+    session), plus compute_paths_3d."""
+    server, client = server_client
+    r = client.call("get_cell_3d", x=1, y=1, z=1)
+    assert not r["success"] and "occupancy_volume" in r["error"]
+
+    d, h, w = 12, 16, 20
+    vol = np.zeros((d, h, w), dtype=np.int8)  # all free (occupancy 0)
+    assert client.call("occupancy_volume", depth=d, height=h, width=w,
+                       data=vol.reshape(-1).tolist(), resolution=1.0,
+                       origin=[0.0, 0.0, 0.0])["success"]
+    assert server.volume_planner.device == server.node.planner.device
+    assert client.call("add_goals_3d", goals=[[10.0, 8.0, 6.0]])["success"]
+    assert client.call("get_cell_3d", x=10, y=8, z=6) == {"success": True, "value": 0.0}
+    # Duplicate voxel resolves last-wins (obstacle then goal -> goal).
+    assert client.call("set_cells_3d", v=[3, 3, 3, 3, 3, 3], types=[1, 0])["success"]
+    assert client.call("get_cell_3d", x=3, y=3, z=3)["value"] == 0.0
+
+    deadline = time.time() + 30
+    info = {}
+    while time.time() < deadline:
+        info = client.call("info")
+        if info.get("volume", {}).get("iteration", 0) >= 200:
+            break
+        time.sleep(0.05)
+    assert info["volume"]["shape"] == [d, h, w] and info["volume"]["iteration"] >= 200
+    assert info["volume"]["paused"] is False and "delta" in info["volume"]
+
+    r = client.call("compute_path_3d", x=3.0, y=12.0, z=9.0, step_size=0.2, precision=0.4)
+    assert r["success"]
+    end = r["path"][-1]
+    assert len(r["path"][0]) == 5  # x, y, z, yaw, pitch
+    assert abs(end[0] - 10) < 2 and abs(end[1] - 8) < 2 and abs(end[2] - 6) < 2
+    r = client.call("compute_paths_3d", starts=[[3.0, 12.0, 9.0], [-1.0, 2.0, 2.0],
+                                                [16.0, 3.0, 2.0]],
+                    step_size=0.2, precision=0.4)
+    assert r["success"] and r["paths"][1] is None
+    for idx in (0, 2):
+        end = r["paths"][idx][-1]
+        assert len(end) == 5
+        assert abs(end[0] - 10) < 2 and abs(end[1] - 8) < 2 and abs(end[2] - 6) < 2
+
+    # Pause only the 3D session; the 2D planner is untouched.
+    assert client.call("set_status_3d", paused=True)["success"]
+    it0 = client.call("info")["volume"]["iteration"]
+    time.sleep(0.3)
+    assert client.call("info")["volume"]["iteration"] == it0
+    # While paused: removing the goal frees the voxel, reset clears stale potentials.
+    assert client.call("remove_goals_3d", goals=[[10.0, 8.0, 6.0]])["success"]
+    assert client.call("reset_free_cells_3d")["success"]
+    assert client.call("get_cell_3d", x=10, y=8, z=6)["value"] == pytest.approx(-1e6)
+    assert client.call("info")["volume"]["iteration"] == 0
+    assert client.call("set_status_3d", paused=False)["success"]
+    r = client.call("get_cell_3d", x=99, y=1, z=1)
+    assert not r["success"]
 
 
 def test_partial_line_framing(server_client):
