@@ -44,7 +44,28 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 the plain version must not;
   9. size3d   — a 256^3 volume (67 MB of u, beyond the 50 MB L2): a 100-sweep
                 tick and a solve capped at 2000 sweeps, kernel against plain,
-                same bits, with both times.
+                same bits, with both times;
+ 10. batch    — batched scenarios at full width: 4096 lanes of 128^2, built as
+                tools/probe.py's batched-solve builds them (numpy
+                default_rng(1), 10% obstacle cells, the shell locked, one goal
+                a lane; eps 1e-2, stagger 100). A 100-sweep chunk from an even
+                and an odd iteration, kernel against plain; a solve capped at
+                1000 sweeps through the one-launch, the host-driven and the
+                plain route; all the same bits. A solve capped at 2000, as the
+                probe's: every lane converged under the protocol. Four lanes
+                re-solved solo with core.solve: the same bits;
+ 11. batch_goals — the device-built goal batches: one
+                maps.random_obstacles(128, 128, density=0.12, seed=5) base map
+                and one goal a lane drawn from its free cells by
+                default_rng(5) (tools/probe.py's batched-goals).
+                make_goal_batch equals batch_from_goal_sets on 64 lanes; then
+                the main path, counts zeroed just before and read just after:
+                solve_batch_goals on 4096 lanes (one launch of the solve
+                kernel) and the host-driven solve of the same batch (chunk
+                kernel launches), capped at 8000 sweeps, bit-equal, every
+                lane converged; both batch kernels must have run and the
+                plain versions must not. Two lanes re-solved solo: the same
+                bits.
 
 Each phase prints one JSON line and raises on failure. Then come the kernels'
 JSON line, the nvidia-smi line, and last ``{"ok": true, "device": ...}``.
@@ -79,11 +100,18 @@ SIZE_SIDE = 4096          # 67 MB of u: beyond the 50 MB L2, all 132 SMs busy
 VOLUME = (30, 256, 256)   # 1.97M cells, 7.9 MB of u: the VMEM-resident regime's full width
 VOLUME_CAP = 3000         # the capped kernel-vs-plain solve
 SIZE3D = (256, 256, 256)  # 67 MB of u: beyond L2
+BATCH = (4096, 128)       # lanes x side: 67M cells, 268 MB of u, 5x the L2 (BASELINE config 3)
+BATCH_EPS = 1e-2          # tools/probe.py's batched-solve and batched-goals
+BATCH_CAP = 1000          # the capped three-route solve
+BATCH_SOLVE_CAP = 2000    # tools/probe.py batched-solve's cap
+GOALS_CAP = 8000          # tools/probe.py batched-goals' cap (a long tail of late lanes)
 SOURCES = {
     "epic_sweep2d_chunk": "epic_tpu_torch/csrc/sweep2d.cu",
     "epic_sweep2d_solve": "epic_tpu_torch/csrc/sweep2d.cu",
     "epic_sweep3d_chunk": "epic_tpu_torch/csrc/sweep3d.cu",
     "epic_sweep3d_solve": "epic_tpu_torch/csrc/sweep3d.cu",
+    "epic_batched2d_chunk": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_batched2d_solve": "epic_tpu_torch/csrc/batched2d.cu",
 }
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
@@ -91,6 +119,10 @@ REPLACES = {
     # K7; ticks via sweep3d_chunk_flat (:110 -> :125), solves via _solve_padded (:261)
     "epic_sweep3d_chunk": "epic_tpu/solver/pallas_sweep3d.py:88",
     "epic_sweep3d_solve": "epic_tpu/solver/pallas_sweep3d.py:88",
+    # K12 via sweep_chunk_blocks (:86 -> :99); K13 via _sweep_chunk_gated (:238 -> :249),
+    # driven by _solve_collage_device (:275)
+    "epic_batched2d_chunk": "epic_tpu/solver/pallas_batched.py:65",
+    "epic_batched2d_solve": "epic_tpu/solver/pallas_batched.py:214",
 }
 
 
@@ -136,9 +168,10 @@ def copy_state(state):
 
 
 def zero_counts() -> None:
-    from epic_tpu_torch.solver import core, hopper_sweep, hopper_sweep3d
+    from epic_tpu_torch.solver import batched, core, hopper_batched, hopper_sweep, hopper_sweep3d
 
-    for d in (hopper_sweep.launches, hopper_sweep3d.launches, core.calls):
+    for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
+              core.calls, batched.calls):
         for k in d:
             d[k] = 0
 
@@ -664,6 +697,178 @@ def phase_size3d(dev) -> dict:
     return out
 
 
+def batch_arrays(lanes: int, side: int, seed: int):
+    """tools/probe.py:546-556: -1e6 everywhere, 10% obstacle cells, the shell
+    locked, one goal cell a lane."""
+    rng = np.random.default_rng(seed)
+    u = np.full((lanes, side, side), -1e6, np.float32)
+    locked = rng.random((lanes, side, side)) < 0.1
+    locked[:, 0], locked[:, -1] = True, True
+    locked[:, :, 0], locked[:, :, -1] = True, True
+    gy = rng.integers(1, side - 1, lanes)
+    gx = rng.integers(1, side - 1, lanes)
+    u[np.arange(lanes), gy, gx] = 0.0
+    locked[np.arange(lanes), gy, gx] = True
+    return u, locked
+
+
+def compare_batch(a, b, what: str) -> float:
+    """Two batch solves' (u, iterations, deltas, converged): the same bits."""
+    require(torch.equal(a[1], b[1]), f"{what}: iterations differ")
+    require(torch.equal(a[3], b[3]), f"{what}: converged differs")
+    require(bool(torch.isfinite(a[0]).all()), f"{what}: non-finite values in u")
+    err = max(max_abs(a[0], b[0]), max_abs(a[2], b[2]))
+    require(err == 0.0, f"{what}: differ by {err}")
+    return err
+
+
+def solo_lanes(dev, u0, locked, out, lanes, cap: int, what: str) -> list:
+    """Re-solve ``lanes`` of a batch alone with core.solve on the card; each
+    must give the batch lane's bits (u, iteration, delta)."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch.solver import core
+
+    for lane in lanes:
+        solo = core.solve(T.make_state(u0[lane], locked[lane], BATCH_EPS, device=dev), STAGGER, cap)
+        require(int(solo.iteration) == int(out[1][lane]),
+                f"{what} lane {lane}: {int(out[1][lane])} iterations, solo {int(solo.iteration)}")
+        require(torch.equal(solo.u, out[0][lane]) and torch.equal(solo.delta, out[2][lane]),
+                f"{what} lane {lane}: the batch lane differs from its solo solve")
+    return [int(v) for v in lanes]
+
+
+def phase_batch(dev) -> dict:
+    from epic_tpu_torch.solver import batched, hopper_batched
+
+    lanes, side = BATCH
+    t0 = time.perf_counter()
+    u_np, l_np = batch_arrays(lanes, side, seed=1)
+    u0, locked = batched.batch_from_numpy(u_np, l_np, device=dev)
+    del u_np, l_np
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    res, chunk_errs, chunk_ms, chunk_plain_ms = {}, [], {}, {}
+    for it0 in (0, 1):
+        ku = u0.clone()
+        chunk_ms[it0] = event_ms(lambda: res.__setitem__(
+            "k", hopper_batched.update_n_batch(ku, locked, it0, 100)))
+        chunk_plain_ms[it0] = event_ms(lambda: res.__setitem__(
+            "p", batched.update_n_batch(u0, locked, it0, 100)))
+        err = max(max_abs(res["k"][0], res["p"][0]), max_abs(res["k"][1], res["p"][1]))
+        require(bool(torch.isfinite(res["k"][0]).all()), "batch chunk: non-finite values")
+        require(err == 0.0, f"batch 100-sweep chunk from iteration {it0}: kernel and plain differ by {err}")
+        chunk_errs.append(err)
+    ku = res["k"][0]
+    chunk_ms10 = event_ms(lambda: hopper_batched.update_n_batch(ku, locked, 0, 100), reps=10)
+    # A solve's tail: one lane active, the others skipped (flag reads and the barrier).
+    one = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    one[0] = True
+    one_lane_ms = event_ms(lambda: hopper_batched.update_n_batch(ku, locked, 0, 100, one), reps=10)
+
+    # The probe's solve: every lane must converge under the protocol.
+    x = u0.clone()
+    full_ms = event_ms(lambda: res.__setitem__("full", hopper_batched.solve_batch_device(
+        x, locked, BATCH_EPS, STAGGER, BATCH_SOLVE_CAP)))
+    full = res["full"]
+    iters = full[1].cpu().numpy()
+    require(bool(full[3].all()), f"batch solve: {int((~full[3]).sum())} lanes did not converge "
+            f"within {BATCH_SOLVE_CAP} sweeps")
+    require(bool((iters >= side).all() and (iters % STAGGER == 1).all()),
+            f"batch solve: iterations {iters.min()}..{iters.max()} not >= {side} and 1 mod {STAGGER}")
+
+    # The capped solve through three routes; the cap is raised until some lane retires.
+    cap = max(BATCH_CAP, int(iters.min()))
+    routes, route_ms = {}, {}
+    for name, fn in (("device", hopper_batched.solve_batch_device),
+                     ("host", hopper_batched.solve_batch), ("plain", batched.solve_batch)):
+        x = u0.clone()
+        route_ms[name] = event_ms(lambda: routes.__setitem__(
+            name, fn(x, locked, BATCH_EPS, STAGGER, cap)))
+    solve_err = max(compare_batch(routes["device"], routes["plain"], f"batch solve capped at {cap}"),
+                    compare_batch(routes["host"], routes["plain"], f"batch host-driven solve capped at {cap}"))
+    retired = int(routes["device"][3].sum())
+    require(retired > 0, f"no lane retired before the cap of {cap}")
+
+    pick = [0, lanes - 1, *np.random.default_rng(1).choice(np.arange(1, lanes - 1), 2, replace=False)]
+    solo = solo_lanes(dev, u0, locked, full, pick, BATCH_SOLVE_CAP, "batch")
+    cells = (side - 2) ** 2 / 2
+    emit(phase="batch", lanes=lanes, shape=[side, side], obstacle_density=0.1, eps=BATCH_EPS,
+         stagger=STAGGER, setup_s=setup_s, chunk_sweeps=100, chunk_max_abs_err=max(chunk_errs),
+         chunk_kernel_ms=chunk_ms[0], chunk_kernel_ms_odd=chunk_ms[1],
+         chunk_kernel_ms_mean10=chunk_ms10, chunk_plain_ms=chunk_plain_ms[0],
+         chunk_plain_ms_odd=chunk_plain_ms[1], chunk_kernel_ms_one_lane_mean10=one_lane_ms,
+         cell_updates_per_s_chunk=lanes * cells * 100 / (chunk_ms10 / 1e3),
+         capped_cap=cap, capped_retired=retired, capped_max_abs_err=solve_err,
+         capped_device_ms=route_ms["device"], capped_host_ms=route_ms["host"],
+         capped_plain_ms=route_ms["plain"],
+         solve_cap=BATCH_SOLVE_CAP, solve_kernel_ms=full_ms, solves_per_s=lanes / (full_ms / 1e3),
+         mean_iterations=float(iters.mean()), max_iterations=int(iters.max()),
+         min_iterations=int(iters.min()),
+         cell_updates_per_s_solve=float(iters.sum()) * cells / (full_ms / 1e3),
+         solo_lanes=solo)
+    return {"chunk_err": max(chunk_errs), "chunk_ms": chunk_ms10, "chunk_plain_ms": chunk_plain_ms[0],
+            "solve_err": solve_err, "solve_ms": route_ms["device"], "solve_plain_ms": route_ms["plain"]}
+
+
+def phase_batch_goals(dev) -> dict:
+    from epic_tpu_torch import maps
+    from epic_tpu_torch.solver import batched, core, hopper_batched
+
+    lanes, side = BATCH
+    img = maps.random_obstacles(side, side, density=0.12, seed=5)
+    rng = np.random.default_rng(5)
+    free_y, free_x = np.nonzero(img != 0)
+    picks = rng.choice(len(free_y), size=lanes, replace=True)
+    goal_xy = np.stack([free_x[picks], free_y[picks]], axis=-1)[:, None, :]
+    base_u = np.full(img.shape, np.float32(-1e6))
+    base_locked = img == 0
+
+    # tools/probe.py:646-654: the device builder equals the host builder.
+    gate = 64
+    gu, gl = hopper_batched.make_goal_batch(base_u, base_locked, goal_xy[:gate], device=dev)
+    hu, hl = batched.batch_from_goal_sets(img, [[tuple(g[0])] for g in goal_xy[:gate]], device=dev)
+    require(torch.equal(gu, hu) and torch.equal(gl, hl),
+            "make_goal_batch differs from batch_from_goal_sets")
+
+    zero_counts()
+    res = {}
+    build_ms = event_ms(lambda: res.__setitem__("b", hopper_batched.make_goal_batch(
+        base_u, base_locked, goal_xy, device=dev)))
+    u0, locked = res["b"]
+    u0 = u0.clone()    # kept for the solo checks
+    goals_ms = event_ms(lambda: res.__setitem__("g", hopper_batched.solve_batch_goals(
+        base_u, base_locked, goal_xy, None, BATCH_EPS, STAGGER, GOALS_CAP, device=dev)))
+    x = u0.clone()
+    host_ms = event_ms(lambda: res.__setitem__("h", hopper_batched.solve_batch(
+        x, locked, BATCH_EPS, STAGGER, GOALS_CAP)))
+    err = compare_batch(res["g"], res["h"], "goal batch: one-launch vs host-driven solve")
+    launches = dict(hopper_batched.launches)
+    plain = {**{f"batched.{k}": v for k, v in batched.calls.items()},
+             **{f"core.{k}": v for k, v in core.calls.items()}}
+    require(all(v > 0 for v in launches.values()), f"a batch kernel never ran on the main path: {launches}")
+    require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
+
+    out = res["g"]
+    iters = out[1].cpu().numpy()
+    require(bool(out[3].all()), f"goal batch: {int((~out[3]).sum())} lanes did not converge "
+            f"within {GOALS_CAP} sweeps")
+    require(bool((iters >= side).all() and (iters % STAGGER == 1).all()),
+            f"goal batch: iterations {iters.min()}..{iters.max()} not >= {side} and 1 mod {STAGGER}")
+    before = core.calls["solve"]
+    pick = np.random.default_rng(5).choice(lanes, 2, replace=False)
+    solo = solo_lanes(dev, u0, locked, out, pick, GOALS_CAP, "goal batch")
+    emit(phase="batch_goals", lanes=lanes, shape=[side, side], density=0.12, eps=BATCH_EPS,
+         stagger=STAGGER, cap=GOALS_CAP, gate_lanes=gate, build_ms=build_ms,
+         solve_batch_goals_ms=goals_ms, solves_per_s=lanes / (goals_ms / 1e3),
+         host_driven_ms=host_ms, host_vs_device_max_abs_err=err,
+         mean_iterations=float(iters.mean()), max_iterations=int(iters.max()),
+         min_iterations=int(iters.min()),
+         cell_updates_per_s=float(iters.sum()) * (side - 2) ** 2 / 2 / (goals_ms / 1e3),
+         launches=launches, plain_calls=plain, solo_lanes=solo,
+         solo_core_solves=core.calls["solve"] - before)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -681,17 +886,23 @@ def main() -> None:
     phase_golden3d(dev)
     launches.update(phase_session3d(dev, session, maze, v["volume"]))
     z3 = phase_size3d(dev)
+    b = phase_batch(dev)
+    launches.update(phase_batch_goals(dev))
     errs = {
         "epic_sweep2d_chunk": max(m["tick_err"], z["tick_err"]),
         "epic_sweep2d_solve": max(m["solve_err"], z["solve_err"]),
         "epic_sweep3d_chunk": max(v["tick_max_abs_err"], z3["tick_max_abs_err"]),
         "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
+        "epic_batched2d_chunk": b["chunk_err"],
+        "epic_batched2d_solve": b["solve_err"],
     }
-    times = {   # the main paths' shapes: maze 482^2 and the 30 x 256 x 256 volume
+    times = {   # the main paths' shapes: maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2
         "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"]),
         "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"]),
         "epic_sweep3d_chunk": (v["tick_kernel_ms"], v["tick_plain_ms"]),
         "epic_sweep3d_solve": (v["solve_kernel_ms"], v["solve_plain_ms"]),
+        "epic_batched2d_chunk": (b["chunk_ms"], b["chunk_plain_ms"]),
+        "epic_batched2d_solve": (b["solve_ms"], b["solve_plain_ms"]),
     }
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],
@@ -701,7 +912,8 @@ def main() -> None:
     print(built["smi"], flush=True)
     # One card drove every phase.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

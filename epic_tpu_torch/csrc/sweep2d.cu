@@ -18,7 +18,7 @@
 // sweeps, so K sweeps (or a whole solve) are one launch and a tick never
 // waits for the host.
 //
-// Numerics. lse4 keeps the pinned op order of
+// Numerics. lse4 (sweep_common.cuh) keeps the pinned op order of
 // epic_tpu_torch/solver/_sweep_body.py: max tree over ((N,S),(W,E)), a
 // left-associated sum of expf, logf, minus float32(log 4). Built without
 // --use_fast_math, expf/logf are the accurate functions PyTorch's CUDA
@@ -50,13 +50,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kLog4 = 1.38629436f;  // float32(log(4.0))
-
-__device__ __forceinline__ float lse4(float n, float s, float w, float e) {
-  const float m = fmaxf(fmaxf(n, s), fmaxf(w, e));
-  const float sum = ((expf(n - m) + expf(s - m)) + expf(w - m)) + expf(e - m);
-  return (m + logf(sum)) - kLog4;
-}
 
 // One sweep over the class (y + x) % 2 != t % 2 of the interior. Blocks
 // stride over the rows; the threads of a block stride over the row's cells of

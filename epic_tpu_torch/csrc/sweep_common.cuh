@@ -1,11 +1,24 @@
-// Pieces shared by the 2D and 3D red-black kernels (sweep2d.cu, sweep3d.cu):
-// the block-wide delta reduction and the size of a cooperative grid.
+// Pieces shared by the red-black kernels (sweep2d.cu, sweep3d.cu,
+// batched2d.cu): the 2D stencil, the block-wide delta reduction and the size
+// of a cooperative grid.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float kLog4 = 1.38629436f;  // float32(log(4.0))
+
+// The 2D update in the pinned op order of epic_tpu_torch/solver/_sweep_body.py
+// (harmonic_cpu.cpp:59-70): a max tree over ((N,S),(W,E)), a left-associated
+// sum of expf, logf, minus float32(log 4). Used by the single-grid and the
+// batched 2D kernels, so both give the plain version's bits.
+__device__ __forceinline__ float lse4(float n, float s, float w, float e) {
+  const float m = fmaxf(fmaxf(n, s), fmaxf(w, e));
+  const float sum = ((expf(n - m) + expf(s - m)) + expf(w - m)) + expf(e - m);
+  return (m + logf(sum)) - kLog4;
+}
 
 // Block-wide max of v, then one atomicMax on the float bits at acc. The
 // value is |u1 - u0| >= 0, so its bits order like unsigned ints, and max is

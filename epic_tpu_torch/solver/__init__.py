@@ -1,12 +1,13 @@
 """The port's solvers: the plain torch version (``core``) and the CUDA
 kernels behind it (``hopper_sweep`` in 2D, ``hopper_sweep3d`` in 3D), with
-the library-level entries."""
+the library-level entries; batched scenario solves over ``[B, H, W]`` lanes
+in plain torch (``batched``) and on their CUDA kernels (``hopper_batched``)."""
 
-from . import core, hopper_sweep, hopper_sweep3d
+from . import batched, core, hopper_batched, hopper_sweep, hopper_sweep3d
 from .. import constants as _C
 
-__all__ = ["core", "hopper_sweep", "hopper_sweep3d", "solve_grid", "update_grid",
-           "solve_volume", "update_volume"]
+__all__ = ["batched", "core", "hopper_batched", "hopper_sweep", "hopper_sweep3d",
+           "solve_grid", "update_grid", "solve_volume", "update_volume"]
 
 
 def _check_rank(state) -> None:

@@ -1,0 +1,215 @@
+"""Batched scenario solves on the CUDA kernels.
+
+The counterpart of ``epic_tpu.solver.pallas_batched``: ``update_n_batch``
+launches ``epic_batched2d_chunk`` (for ``_block_kernel``), the host-driven
+``solve_batch`` drives it through the lockstep protocol, and
+``solve_batch_device`` runs the whole protocol in one launch of
+``epic_batched2d_solve`` (for ``_block_kernel_gated`` and
+``_solve_collage_device``), all from ``csrc/batched2d.cu``.
+``make_goal_batch`` and ``solve_batch_goals`` build B lanes on the device
+from one base map and index arrays.
+
+The batch is the contiguous ``[B, H, W]`` tensor, not the TPU's collage of
+VMEM-sized blocks; any height works. A batch on the CPU goes to the plain
+version in :mod:`.batched`; a batch on a CUDA device goes to the kernels or
+raises.
+
+In place: on CUDA the kernels relax ``u`` in place and the returned ``u``
+is the same tensor; keep only what a call returns. The solves return
+``(u, iterations int32[B], deltas float32[B], converged bool[B])`` as device
+tensors; ``solve_batch_device`` does not wait for the card.
+
+``launches`` counts each kernel's launches; nothing else changes it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import constants as C
+from . import _build, batched
+from .hopper_sweep import _stream
+
+launches = {"epic_batched2d_chunk": 0, "epic_batched2d_solve": 0}
+
+
+def _check_cuda_batch(u: torch.Tensor, locked: torch.Tensor) -> None:
+    """What the kernels take: a contiguous float32 ``u [B, H, W]`` and a bool
+    ``locked`` of its shape, on one CUDA device."""
+    if u.device.type != "cuda":
+        raise ValueError(f"expected a CUDA tensor, got one on {u.device}")
+    if u.ndim != 3:
+        raise ValueError(f"a batch is [B, H, W]; got a tensor of rank {u.ndim}")
+    if u.dtype != torch.float32 or locked.dtype != torch.bool:
+        raise TypeError(f"need float32 u and bool locked, got {u.dtype} and {locked.dtype}")
+    if locked.shape != u.shape:
+        raise ValueError(f"locked shape {tuple(locked.shape)} != u shape {tuple(u.shape)}")
+    if not (u.is_contiguous() and locked.is_contiguous()):
+        raise ValueError("u and locked must be contiguous")
+    if locked.device != u.device:
+        raise ValueError(f"locked on {locked.device}, u on {u.device}")
+
+
+def _lane_flags(active: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A bool ``[B]`` on u's device, as the uint8 flags the kernel reads."""
+    if active.dtype != torch.bool or active.shape != u.shape[:1]:
+        raise TypeError(f"active must be bool [{u.shape[0]}], got {active.dtype} "
+                        f"{tuple(active.shape)}")
+    if active.device != u.device:
+        raise ValueError(f"active on {active.device}, u on {u.device}")
+    return active.to(torch.uint8).contiguous()
+
+
+def _iteration(iteration, device: torch.device) -> torch.Tensor:
+    """The start iteration as the 0-d int32 device tensor the kernel reads
+    (an int is filled in on the device: no copy from the host, no sync)."""
+    if not isinstance(iteration, torch.Tensor):
+        return torch.full((), int(iteration), dtype=torch.int32, device=device)
+    if iteration.dtype != torch.int32 or iteration.ndim != 0:
+        raise TypeError(f"iteration must be a 0-d int32 tensor, got {iteration.dtype} "
+                        f"of shape {tuple(iteration.shape)}")
+    if iteration.device != device:
+        raise ValueError(f"iteration on {iteration.device}, u on {device}")
+    return iteration
+
+
+def _launch_chunk(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: int,
+                  active: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``epic_batched2d_chunk`` on a checked batch."""
+    dev = u.device
+    it = _iteration(iteration, dev)
+    flags = None if active is None else _lane_flags(active, u)
+    delta = torch.zeros(u.shape[0], dtype=torch.float32, device=dev)
+    err = _build.load().epic_batched2d_chunk(
+        u.data_ptr(), locked.data_ptr(), *u.shape, it.data_ptr(), num_steps,
+        None if flags is None else flags.data_ptr(), delta.data_ptr(), _stream(dev), dev.index)
+    _build.check(err, "epic_batched2d_chunk")
+    launches["epic_batched2d_chunk"] += 1
+    return u, delta
+
+
+def update_n_batch(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: int,
+                   active: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``num_steps`` sweeps of every lane from ``iteration`` (an int or a 0-d
+    int32 tensor on u's device), per-lane delta of sweep 0; lanes where the
+    optional bool ``active [B]`` is False are left untouched with delta 0.
+    The counterpart of ``sweep_chunk_batch``, with one delta a lane (the
+    TPU's one a collage block is an artifact of the collage). Returns
+    ``(u, delta [B])``."""
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    if u.device.type == "cpu":
+        return batched.update_n_batch(u, locked, iteration, num_steps, active)
+    _check_cuda_batch(u, locked)
+    return _launch_chunk(u, locked, iteration, num_steps, active)
+
+
+def solve_batch(u: torch.Tensor, locked: torch.Tensor, epsilon=C.DEFAULT_EPSILON,
+                stagger: int = C.DEFAULT_STAGGER, max_iterations: int = 1_000_000):
+    """The host-driven lockstep solve (``pallas_batched.solve_batch``,
+    :567-638): per cycle one checked chunk launch over the active lanes and
+    one launch of ``stagger - 1`` sweeps over those still active; retired
+    lanes are masked by the kernel's active flags. The host reads the
+    verdicts once a cycle, once an exit is possible. ``epsilon`` is a scalar
+    or one value a lane."""
+    if stagger < 1:
+        raise ValueError(f"stagger must be >= 1, got {stagger}")
+    if u.device.type == "cpu":
+        return batched.solve_batch(u, locked, epsilon, stagger, max_iterations)
+    _check_cuda_batch(u, locked)
+    return batched.lockstep(u, locked, epsilon, stagger, max_iterations, _launch_chunk)
+
+
+def solve_batch_device(u: torch.Tensor, locked: torch.Tensor, epsilon=C.DEFAULT_EPSILON,
+                       stagger: int = C.DEFAULT_STAGGER, max_iterations: int = 1_000_000):
+    """The whole lockstep protocol in one launch (``pallas_batched.
+    solve_batch_device``, :362-417): checks, per-lane retirement and the
+    exit decision run on the card, and the host reads nothing. Same results
+    as :func:`solve_batch`, bit for bit."""
+    if stagger < 1:
+        raise ValueError(f"stagger must be >= 1, got {stagger}")
+    if u.device.type == "cpu":
+        return batched.solve_batch(u, locked, epsilon, stagger, max_iterations)
+    _check_cuda_batch(u, locked)
+    b, h, w = u.shape
+    dev = u.device
+    eps = batched.epsilon_lanes(epsilon, b, dev)
+    acc = torch.zeros(2 * b, dtype=torch.int32, device=dev)
+    count = torch.zeros(2, dtype=torch.int32, device=dev)
+    retired = torch.zeros(b, dtype=torch.uint8, device=dev)
+    iters = torch.zeros(b, dtype=torch.int32, device=dev)
+    deltas = eps + 1.0
+    err = _build.load().epic_batched2d_solve(
+        u.data_ptr(), locked.data_ptr(), b, h, w, eps.data_ptr(), max(h, w),
+        min(max_iterations, 2**31 - 1 - stagger), stagger, acc.data_ptr(), count.data_ptr(),
+        retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), _stream(dev), dev.index)
+    _build.check(err, "epic_batched2d_solve")
+    launches["epic_batched2d_solve"] += 1
+    return u, iters, deltas, retired.bool()
+
+
+def _coords(xy, device: torch.device) -> torch.Tensor:
+    xy = torch.as_tensor(xy, device=device).long()
+    if xy.ndim != 3 or xy.shape[-1] != 2:
+        raise ValueError(f"coordinates must be [B, G, 2] (x, y) pairs, got {tuple(xy.shape)}")
+    return xy
+
+
+def make_goal_batch(base_u, base_locked, goal_xy, obstacle_xy=None, *,
+                    device: torch.device | str):
+    """B lanes that share one base grid, each with its own goal cells and
+    optional extra obstacle cells, built on ``device`` (``pallas_batched.
+    make_goal_batch`` over ``_goal_batch_arrays``, :444-525): one ``H x W``
+    map and index arrays cross to the card instead of B grids.
+
+    ``goal_xy`` is int ``[B, G, 2]`` of ``(x, y)`` cells, ragged sets padded
+    with ``(-1, -1)``; ``obstacle_xy`` an optional ``[B, K, 2]``. Every lane's
+    ring outside ``1..H-2 x 1..W-2`` is locked. Obstacles (u = -1e6, locked)
+    are scattered before goals (u = 0, locked), so a goal wins a collision; a
+    negative coordinate or one beyond ``H x W`` is dropped. Unlike
+    :func:`.batched.batch_from_goal_sets`, a goal on a base obstacle becomes a
+    goal. Returns contiguous ``(u float32[B, H, W], locked bool[B, H, W])``."""
+    device = torch.device(device)
+    base_u = torch.as_tensor(base_u, dtype=torch.float32, device=device)
+    base_locked = torch.as_tensor(base_locked, device=device).bool()
+    if base_u.ndim != 2 or base_locked.shape != base_u.shape:
+        raise ValueError(f"need one 2D base map, got u {tuple(base_u.shape)} and "
+                         f"locked {tuple(base_locked.shape)}")
+    h, w = base_u.shape
+    goals = _coords(goal_xy, device)
+    b = goals.shape[0]
+    ring = torch.ones((h, w), dtype=torch.bool, device=device)
+    ring[1:-1, 1:-1] = False
+    n = b * h * w
+    # One spare cell past the batch takes every dropped coordinate (the JAX
+    # builder's out-of-bounds sentinel), so no mask is read on the host.
+    u = torch.empty(n + 1, dtype=torch.float32, device=device)
+    locked = torch.empty(n + 1, dtype=torch.bool, device=device)
+    u[:n].view(b, h, w).copy_(base_u.expand(b, h, w))
+    locked[:n].view(b, h, w).copy_((base_locked | ring).expand(b, h, w))
+
+    def scatter(xy: torch.Tensor, value: float) -> None:
+        if xy.shape[0] != b:
+            raise ValueError(f"{xy.shape[0]} lanes of coordinates for {b} lanes of goals")
+        x, y = xy[..., 0], xy[..., 1]
+        lane = torch.arange(b, device=device).view(b, 1)
+        ok = (x >= 0) & (y >= 0) & (x < w) & (y < h)
+        flat = torch.where(ok, (lane * h + y) * w + x, n).reshape(-1)
+        u.index_fill_(0, flat, value)
+        locked.index_fill_(0, flat, True)
+
+    if obstacle_xy is not None:
+        scatter(_coords(obstacle_xy, device), float(C.LOG_SPACE_OBSTACLE))
+    scatter(goals, float(C.LOG_SPACE_GOAL))
+    return u[:n].view(b, h, w), locked[:n].view(b, h, w)
+
+
+def solve_batch_goals(base_u, base_locked, goal_xy, obstacle_xy=None,
+                      epsilon=C.DEFAULT_EPSILON, stagger: int = C.DEFAULT_STAGGER,
+                      max_iterations: int = 1_000_000, *, device: torch.device | str):
+    """Solve B distinct-goal lanes on one shared base grid:
+    :func:`make_goal_batch`, then :func:`solve_batch_device` (one launch on
+    the card; the plain version on the CPU). Returns ``(u, iterations,
+    deltas, converged)``."""
+    u, locked = make_goal_batch(base_u, base_locked, goal_xy, obstacle_xy, device=device)
+    return solve_batch_device(u, locked, epsilon, stagger, max_iterations)

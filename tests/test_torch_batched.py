@@ -1,0 +1,400 @@
+"""epic_tpu_torch's batched scenario solves against epic_tpu: the plain
+``solver.batched`` against ``epic_tpu.solver.batched`` (XLA, vmap over
+lanes), and ``solver.hopper_batched`` (which on a CPU tensor runs the plain
+version) against ``epic_tpu.solver.pallas_batched``, whose two kernels
+(``_block_kernel``, ``_block_kernel_gated``) run in interpret mode as the
+JAX package's own CPU tests run them. The collage is compared lane by lane
+through ``pallas_batched.unstack``.
+
+Tolerances are those of tests/test_batched.py and tests/test_pallas_batched.py:
+fields rtol=2e-6 with atol=1e-4 (chunks) or atol=1e-3 (solves); iteration
+counts equal; deltas rtol=1e-5 with atol=1e-6 within the port, and atol=1e-5
+across the two packages, as in tests/test_torch_solver.py: torch's and XLA's
+CPU exp differ by one ulp on some inputs, and a delta carries a cell's ulp
+whole (3.8e-6 near u = -30). On the card the CUDA kernels must give the plain
+version's bits exactly: tests/test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import epic_tpu
+from epic_tpu import maps
+from epic_tpu.solver import batched as jbatched
+from epic_tpu.solver import pallas_batched
+import epic_tpu_torch.solver as TS
+from epic_tpu_torch import grid as TG
+from epic_tpu_torch.solver import batched, core, hopper_batched
+
+CHUNK = dict(rtol=2e-6, atol=1e-4)
+SOLVE = dict(rtol=2e-6, atol=1e-3)
+DELTA = dict(rtol=1e-5, atol=1e-6)      # within the port
+DELTA_X = dict(rtol=1e-5, atol=1e-5)    # the port against epic_tpu
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several worker processes at once
+    (see tests/test_torch_solver.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _goal_batch(h, w, goal_sets, density=0.15, seed=7):
+    """The same goal-set batch from both packages, as numpy arrays."""
+    img = maps.random_obstacles(h, w, density=density, seed=seed)
+    u, locked = jbatched.batch_from_goal_sets(img, goal_sets)
+    return img, np.asarray(u), np.asarray(locked)
+
+
+def _port(u, locked):
+    return batched.batch_from_numpy(u, locked, device="cpu")
+
+
+def _goal_xy(goal_sets):
+    g = max(len(s) for s in goal_sets)
+    out = np.full((len(goal_sets), g, 2), -1, np.int32)
+    for i, s in enumerate(goal_sets):
+        for j, (x, y) in enumerate(s):
+            out[i, j] = (x, y)
+    return out
+
+
+def _assert_solves_match(ours, theirs, field=SOLVE):
+    u, it, dl, cv = (np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x) for x in ours)
+    u_j, it_j, dl_j, cv_j = (np.asarray(x) for x in theirs)
+    np.testing.assert_array_equal(it, it_j)
+    np.testing.assert_array_equal(cv, cv_j)
+    np.testing.assert_allclose(dl, dl_j, **DELTA_X)
+    np.testing.assert_allclose(u, u_j, **field)
+    assert it.dtype == np.int32 and dl.dtype == np.float32 and cv.dtype == np.bool_
+
+
+def _assert_lanes_match_solo(u_in, locked_in, out, eps, stagger, field=SOLVE):
+    """Each lane against the port's own solo core.solve."""
+    u_out, iters, deltas, conv = out
+    for lane in range(u_in.shape[0]):
+        solo = core.solve(TG.make_state(u_in[lane], locked_in[lane], eps, device="cpu"), stagger)
+        assert int(iters[lane]) == int(solo.iteration), lane
+        assert bool(conv[lane]) == bool(solo.converged), lane
+        np.testing.assert_allclose(u_out[lane].numpy(), solo.u.numpy(), **field)
+        np.testing.assert_allclose(float(deltas[lane]), float(solo.delta), **DELTA)
+
+
+@pytest.mark.parametrize("t0", [0, 7])
+@pytest.mark.parametrize("shape,goal_sets", [
+    ((16, 20), [[(4, 4)], [(15, 10)]]),
+    ((24, 32), [[(5, 5)], [(25, 18)], [(5, 5), (25, 18)]]),
+])
+def test_update_n_batch_matches_jax(shape, goal_sets, t0):
+    """An 8-sweep chunk from an even and an odd start iteration, through the
+    plain version, its roll formulation and the kernel wrapper, against
+    epic_tpu's vmapped chunk. (epic_tpu's rolled twin, update_n_batch_rolled,
+    raises AttributeError on every call: it reads core._LOG2N_2D, which
+    moved to _sweep_body.LOG2N_2D. The port's is held to the vmapped one.)"""
+    _, u, locked = _goal_batch(*shape, goal_sets, density=0.1, seed=2)
+    ref_u, ref_d = jbatched.update_n_batch(jnp.asarray(u), jnp.asarray(locked), jnp.int32(t0), 8)
+    tu, tl = _port(u, locked)
+    out_u, out_d = batched.update_n_batch(tu, tl, t0, 8)
+    rolled_u, rolled_d = batched.update_n_batch_rolled(tu, batched._frozen_batch(tl), t0, 8)
+    hop_u, hop_d = hopper_batched.update_n_batch(tu.clone(), tl, torch.tensor(t0, dtype=torch.int32), 8)
+    np.testing.assert_allclose(out_u.numpy(), np.asarray(ref_u), **CHUNK)
+    np.testing.assert_allclose(out_d.numpy(), np.asarray(ref_d), **DELTA_X)
+    np.testing.assert_array_equal(batched._frozen_batch(tl).numpy(),
+                                  np.asarray(jbatched._frozen_batch(jnp.asarray(locked))))
+    # Within the port the three routes run the same ops.
+    np.testing.assert_array_equal(rolled_u.numpy(), out_u.numpy())
+    np.testing.assert_array_equal(rolled_d.numpy(), out_d.numpy())
+    np.testing.assert_array_equal(hop_u.numpy(), out_u.numpy())
+    np.testing.assert_array_equal(hop_d.numpy(), out_d.numpy())
+    assert out_d.shape == (len(goal_sets),)
+    np.testing.assert_array_equal(tu.numpy(), u)   # the plain version leaves its input intact
+
+
+@pytest.mark.parametrize("t0", [0, 1])
+def test_batch_sweep_is_the_2d_sweep_in_every_lane(t0):
+    """A [B, H, W] batch is B 2D grids, not a volume: one sweep updates the
+    (y + x) % 2 != t % 2 class of each lane, equal to core.sweep lane by
+    lane; core.sweep on the same tensor (rank 3) would update another class."""
+    rng = np.random.default_rng(t0)
+    locked = rng.random((3, 9, 12)) < 0.2
+    u = np.where(locked, -1e6, rng.uniform(-30, -1, locked.shape)).astype(np.float32)
+    tu, tl = _port(u, locked)
+    out, delta = batched.update_n_batch(tu, tl, t0, 1)
+    for lane in range(3):
+        solo, d = core.sweep(tu[lane], tl[lane], t0)
+        np.testing.assert_allclose(out[lane].numpy(), solo.numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(float(delta[lane]), float(d), **DELTA)
+        yy, xx = np.nonzero(out[lane].numpy() != u[lane])
+        assert len(yy) and np.all((yy + xx) % 2 != t0 % 2)
+    vol, _ = core.sweep(tu, tl, t0)
+    assert not np.array_equal(vol.numpy(), out.numpy())
+
+
+def test_solve_batch_matches_jax_and_solo():
+    """tests/test_batched.py's four lanes: the plain lockstep solve against
+    epic_tpu's, and each lane against a solo solve."""
+    goal_sets = [[(5, 5)], [(25, 18)], [(5, 5), (25, 18)], [(16, 12)]]
+    _, u, locked = _goal_batch(24, 32, goal_sets)
+    theirs = jbatched.solve_batch(jnp.asarray(u), jnp.asarray(locked), epsilon=1e-2, stagger=10)
+    ours = batched.solve_batch(*_port(u, locked), epsilon=1e-2, stagger=10)
+    assert bool(ours[3].all())
+    _assert_solves_match(ours, theirs)
+    _assert_lanes_match_solo(u, locked, ours, 1e-2, 10)
+
+
+def test_early_retiring_lane_stays_flat():
+    """A lane without goals retires at its first check past max(H, W) and
+    its field stays exactly -1e6; the other lane keeps relaxing."""
+    base = maps.open_room(24, 24)
+    base[base == 255] = 128
+    u, locked = jbatched.batch_from_goal_sets(base, [[], [(12, 12)]])
+    u, locked = np.asarray(u), np.asarray(locked)
+    theirs = jbatched.solve_batch(jnp.asarray(u), jnp.asarray(locked), epsilon=1e-3, stagger=10)
+    ours = batched.solve_batch(*_port(u, locked), epsilon=1e-3, stagger=10)
+    _assert_solves_match(ours, theirs)
+    iters = ours[1].numpy()
+    assert bool(ours[3].all()) and iters[0] < iters[1]
+    assert np.all(ours[0][0, 1:-1, 1:-1].numpy() == np.float32(-1e6))
+
+
+def test_per_lane_epsilon():
+    """epsilon as one value a lane, as epic_tpu's solve_batch takes it."""
+    goal_sets = [[(5, 5)], [(25, 18)], [(5, 5), (25, 18)], [(16, 12)]]
+    _, u, locked = _goal_batch(24, 32, goal_sets)
+    eps = np.array([1e-2, 1e-3, 5e-2, 2e-3], np.float32)
+    theirs = jbatched.solve_batch(jnp.asarray(u), jnp.asarray(locked), epsilon=jnp.asarray(eps),
+                                  stagger=10)
+    ours = batched.solve_batch(*_port(u, locked), epsilon=torch.from_numpy(eps), stagger=10)
+    _assert_solves_match(ours, theirs)
+    assert len(set(ours[1].tolist())) > 1
+
+
+@pytest.mark.parametrize("stagger,cap", [(1, 400), (10, 95), (100, 1_000_000)])
+def test_solve_batch_protocol_edges(stagger, cap):
+    """Stagger 1, a cap that is not a whole number of cycles (a cycle once
+    begun runs to its end), and the default stagger."""
+    goal_sets = [[(4, 4)], [(15, 10)], []]
+    _, u, locked = _goal_batch(16, 20, goal_sets, density=0.1, seed=2)
+    theirs = jbatched.solve_batch(jnp.asarray(u), jnp.asarray(locked), epsilon=1e-2,
+                                  stagger=stagger, max_iterations=cap)
+    ours = hopper_batched.solve_batch(*_port(u, locked), 1e-2, stagger, cap)
+    _assert_solves_match(ours, theirs)
+    device = hopper_batched.solve_batch_device(*_port(u, locked), 1e-2, stagger, cap)
+    for a, b in zip(ours, device):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_odd_height_batch():
+    """Any height works in the port (the TPU collage needs an even one)."""
+    goal_sets = [[(5, 5)], [(20, 14)]]
+    _, u, locked = _goal_batch(23, 27, goal_sets)
+    with pytest.raises(ValueError):
+        pallas_batched.pad_batch(u, locked)
+    theirs = jbatched.solve_batch(jnp.asarray(u), jnp.asarray(locked), epsilon=1e-2, stagger=10)
+    ours = hopper_batched.solve_batch_device(*_port(u, locked), 1e-2, 10)
+    assert bool(ours[3].all())
+    _assert_solves_match(ours, theirs)
+
+
+def test_chunk_matches_k12():
+    """hopper_batched.update_n_batch against sweep_chunk_batch (K12 in
+    interpret mode), lane by lane through unstack. The per-lane delta equals
+    the maximum over each collage block's lanes."""
+    _, u, locked = _goal_batch(24, 32, [[(5, 5)], [(25, 18)], [(5, 5), (25, 18)]])
+    u_c, frozen, meta = pallas_batched.pad_batch(u, locked)
+    out_c, block_delta = pallas_batched.sweep_chunk_batch(u_c, frozen, jnp.int32(0), 8, meta,
+                                                          interpret=True)
+    ours_u, ours_d = hopper_batched.update_n_batch(*_port(u, locked), 0, 8)
+    np.testing.assert_allclose(ours_u.numpy(), pallas_batched.unstack(out_c, meta), **CHUNK)
+    per_group = meta["gpr"] * meta["gpc"]
+    for blk, d in enumerate(np.asarray(block_delta)):
+        lanes = ours_d[blk * per_group:(blk + 1) * per_group]
+        np.testing.assert_allclose(float(lanes.max()), float(d), **DELTA_X)
+
+
+@pytest.mark.parametrize("stagger", [11, 64])
+def test_solves_match_pallas(stagger):
+    """The host-driven and the one-launch solve against pallas_batched's
+    (K12 and K13 in interpret mode), and each lane against a solo solve."""
+    goal_sets = [[(5, 5)], [(25, 18)], [(5, 5), (25, 18)]]
+    _, u, locked = _goal_batch(24, 32, goal_sets)
+    host = hopper_batched.solve_batch(*_port(u, locked), 1e-2, stagger)
+    device = hopper_batched.solve_batch_device(*_port(u, locked), 1e-2, stagger)
+    _assert_solves_match(host, pallas_batched.solve_batch(
+        u, locked, epsilon=1e-2, stagger=stagger, interpret=True))
+    _assert_solves_match(device, pallas_batched.solve_batch_device(
+        u, locked, epsilon=1e-2, stagger=stagger, interpret=True))
+    for a, b in zip(host, device):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert bool(device[3].all())
+    _assert_lanes_match_solo(u, locked, device, 1e-2, stagger, field=CHUNK)
+
+
+def test_uneven_retirement_matches_pallas():
+    """tests/test_pallas_batched.py:128-145: lanes of very different
+    difficulty retire at different iterations, and early retirees stay
+    frozen while the others relax."""
+    base = maps.open_room(24, 24)
+    goal_sets = [[(12, 12)], [(2, 2)], [(12, 12), (2, 2), (20, 20)]]
+    u, locked = jbatched.batch_from_goal_sets(base, goal_sets)
+    u, locked = np.asarray(u), np.asarray(locked)
+    ours = hopper_batched.solve_batch_device(*_port(u, locked), 1e-2, 7)
+    theirs = pallas_batched.solve_batch_device(u, locked, epsilon=1e-2, stagger=7, interpret=True)
+    _assert_solves_match(ours, theirs, field=CHUNK)
+    assert len(set(ours[1].tolist())) == 3
+    _assert_lanes_match_solo(u, locked, ours, 1e-2, 7, field=CHUNK)
+
+
+def _base(h=24, w=32, seed=7):
+    img = maps.random_obstacles(h, w, density=0.15, seed=seed)
+    return img, np.full(img.shape, np.float32(-1e6)), img == 0
+
+
+def _jax_goal_batch(base_u, base_locked, goal_xy, obstacle_xy=None):
+    u_c, f_c, meta = pallas_batched.make_goal_batch(base_u, base_locked, goal_xy, obstacle_xy)
+    return (pallas_batched.unstack(u_c, meta),
+            pallas_batched.unstack(jnp.asarray(np.asarray(f_c), jnp.float32), meta) != 0)
+
+
+def test_make_goal_batch_matches_jax():
+    """Obstacle deltas apply, a goal wins a collision, -1 padding is
+    dropped, not wrapped; the lanes equal epic_tpu's, bit for bit."""
+    _, base_u, base_locked = _base()
+    goal_xy = _goal_xy([[(5, 5)], [(5, 5)]])
+    obstacle_xy = np.array([[[10, 10], [-1, -1]], [[5, 5], [11, 10]]], np.int32)
+    u, locked = hopper_batched.make_goal_batch(base_u, base_locked, goal_xy, obstacle_xy,
+                                               device="cpu")
+    ref_u, ref_locked = _jax_goal_batch(base_u, base_locked, goal_xy, obstacle_xy)
+    np.testing.assert_array_equal(u.numpy(), ref_u)
+    np.testing.assert_array_equal(locked.numpy(), ref_locked)
+    assert u.is_contiguous() and locked.is_contiguous() and locked.dtype == torch.bool
+    assert u[0, 10, 10] == -1e6 and locked[0, 10, 10] and u[0, 5, 5] == 0.0
+    assert u[1, 5, 5] == 0.0 and locked[1, 5, 5] and u[1, 10, 11] == -1e6
+    assert not locked[0, -2, -2]    # the far corner's interior neighbour: untouched
+    ring = np.ones(base_u.shape, bool)
+    ring[1:-1, 1:-1] = False
+    assert locked.numpy()[:, ring].all()
+
+
+def test_out_of_logical_range_coords_dropped():
+    _, base_u, base_locked = _base()
+    h, w = base_u.shape
+    goal_xy = _goal_xy([[(5, 5)], [(6, 6)]])
+    bad = np.array([[[w, 1], [w + 1, 2]], [[1, h], [3, h + 1]]], np.int32)
+    u, locked = hopper_batched.make_goal_batch(base_u, base_locked, goal_xy, bad, device="cpu")
+    ref_u, ref_locked = hopper_batched.make_goal_batch(
+        base_u, base_locked, goal_xy, np.full_like(bad, -1), device="cpu")
+    np.testing.assert_array_equal(u.numpy(), ref_u.numpy())
+    np.testing.assert_array_equal(locked.numpy(), ref_locked.numpy())
+    j_u, j_locked = _jax_goal_batch(base_u, base_locked, goal_xy, bad)
+    np.testing.assert_array_equal(u.numpy(), j_u)
+    np.testing.assert_array_equal(locked.numpy(), j_locked)
+
+
+def test_goal_on_an_obstacle_differs_between_the_builders():
+    """batch_from_goal_sets skips a goal on an obstacle; make_goal_batch
+    makes it a goal. Both packages keep both rules."""
+    img = maps.open_room(16, 16)
+    img[8, 8] = 0
+    goal_sets = [[(8, 8), (4, 4)]]
+    u, locked = batched.batch_from_goal_sets(img, goal_sets, device="cpu")
+    ju, jl = jbatched.batch_from_goal_sets(img, goal_sets)
+    np.testing.assert_array_equal(u.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(locked.numpy(), np.asarray(jl))
+    assert u[0, 8, 8] == -1e6 and u[0, 4, 4] == 0.0
+
+    base_u = np.full(img.shape, np.float32(-1e6))
+    gu, gl = hopper_batched.make_goal_batch(base_u, img == 0, _goal_xy(goal_sets), device="cpu")
+    ref_u, ref_l = _jax_goal_batch(base_u, img == 0, _goal_xy(goal_sets))
+    np.testing.assert_array_equal(gu.numpy(), ref_u)
+    np.testing.assert_array_equal(gl.numpy(), ref_l)
+    assert gu[0, 8, 8] == 0.0 and gu[0, 4, 4] == 0.0
+
+
+def test_make_goal_batch_equals_batch_from_goal_sets():
+    """The device builder equals the host builder on free-cell goals (the
+    gate of tools/probe.py's batched-goals, :646-654)."""
+    img, base_u, base_locked = _base(32, 32, seed=5)
+    rng = np.random.default_rng(5)
+    free_y, free_x = np.nonzero(img != 0)
+    picks = rng.choice(len(free_y), size=16, replace=True)
+    goal_xy = np.stack([free_x[picks], free_y[picks]], axis=-1)[:, None, :]
+    u, locked = hopper_batched.make_goal_batch(base_u, base_locked, goal_xy, device="cpu")
+    hu, hl = batched.batch_from_goal_sets(img, [[tuple(g[0])] for g in goal_xy], device="cpu")
+    assert torch.equal(u, hu) and torch.equal(locked, hl)
+
+
+def test_solve_batch_goals_matches_pallas():
+    img = maps.random_obstacles(24, 32, density=0.1, seed=3)
+    goal_sets = [[(5, 5)], [(25, 18)], [(5, 5), (25, 18)], [(10, 12)]]
+    base_u = np.full(img.shape, np.float32(-1e6))
+    ours = hopper_batched.solve_batch_goals(base_u, img == 0, _goal_xy(goal_sets), None,
+                                            1e-2, 10, device="cpu")
+    theirs = pallas_batched.solve_batch_goals(base_u, img == 0, _goal_xy(goal_sets),
+                                              epsilon=1e-2, stagger=10)
+    assert bool(ours[3].all())
+    _assert_solves_match(ours, theirs)
+    u, locked = batched.batch_from_goal_sets(img, goal_sets, device="cpu")
+    same = hopper_batched.solve_batch_device(u, locked, 1e-2, 10)
+    for a, b in zip(ours, same):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_cpu_tensors_go_to_the_plain_version():
+    """On the CPU the kernel wrappers run solver.batched (counted there) and
+    launch nothing; the solver package exports both modules."""
+    _, u, locked = _goal_batch(16, 20, [[(4, 4)], [(15, 10)]], density=0.1, seed=2)
+    calls, launches = dict(batched.calls), dict(hopper_batched.launches)
+    tu, tl = _port(u, locked)
+    hopper_batched.update_n_batch(tu, tl, 0, 3)
+    hopper_batched.solve_batch(tu, tl, 1e-2, 10)
+    hopper_batched.solve_batch_device(tu, tl, 1e-2, 10)
+    assert batched.calls["update_n_batch"] == calls["update_n_batch"] + 1
+    assert batched.calls["solve_batch"] == calls["solve_batch"] + 2
+    assert hopper_batched.launches == launches
+    assert TS.batched is batched and TS.hopper_batched is hopper_batched
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_batched._check_cuda_batch(tu, tl)
+
+
+def test_batch_inputs_are_checked():
+    u = np.zeros((2, 5, 6), np.float32)
+    locked = np.zeros((2, 5, 6), bool)
+    tu, tl = batched.batch_from_numpy(u, locked, device="cpu")
+    assert tu.dtype == torch.float32 and tl.dtype == torch.bool and tu.is_contiguous()
+    for bad_u, bad_l, exc in ((u.astype(np.float64), locked, TypeError),
+                              (u, locked.astype(np.uint8), TypeError),
+                              (u[0], locked[0], ValueError),
+                              (u, locked[:, :4], ValueError)):
+        with pytest.raises(exc):
+            batched.batch_from_numpy(bad_u, bad_l, device="cpu")
+    for eps in (0.0, [1e-2, -1.0]):
+        with pytest.raises(ValueError):
+            batched.solve_batch(tu, tl, epsilon=eps)
+    with pytest.raises(ValueError):
+        batched.solve_batch(tu, tl, epsilon=[1e-2, 1e-2, 1e-2])
+    for fn in (batched.update_n_batch, hopper_batched.update_n_batch):
+        with pytest.raises(ValueError):
+            fn(tu, tl, 0, 0)
+    for fn in (batched.solve_batch, hopper_batched.solve_batch, hopper_batched.solve_batch_device):
+        with pytest.raises(ValueError):
+            fn(tu, tl, 1e-2, 0)
+    with pytest.raises(ValueError):
+        hopper_batched.make_goal_batch(u[0], locked[0], np.zeros((2, 2), np.int32), device="cpu")
+
+
+def test_solo_lane_through_epic_tpu_core():
+    """Lane 0 of a batch solve against epic_tpu's own solo core.solve."""
+    goal_sets = [[(5, 5)], [(25, 18)]]
+    _, u, locked = _goal_batch(24, 32, goal_sets)
+    ours = batched.solve_batch(*_port(u, locked), epsilon=1e-2, stagger=10)
+    st = epic_tpu.make_state(u[0], locked[0], epsilon=1e-2)
+    from epic_tpu.solver import core as jcore
+    solo = jcore.solve(st, stagger=10)
+    assert int(ours[1][0]) == int(solo.iteration)
+    np.testing.assert_allclose(ours[0][0].numpy(), np.asarray(solo.u), **SOLVE)

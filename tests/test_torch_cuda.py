@@ -1,8 +1,9 @@
 """The CUDA kernels of epic_tpu_torch against their plain torch version, on
 the card: the 2D kernels (csrc/sweep2d.cu), the 3D kernels
-(csrc/sweep3d.cu), the planners that drive them, and the batched walkers
-on the card against the same walkers on the CPU. Every test here needs a
-CUDA card and skips without one.
+(csrc/sweep3d.cu), the batched scenario kernels (csrc/batched2d.cu), the
+planners that drive them, and the batched walkers on the card against the
+same walkers on the CPU. Every test here needs a CUDA card and skips
+without one.
 
 This file imports neither JAX nor epic_tpu, so it runs on a host that has
 only torch. tests/conftest.py imports jax, so run it there without it:
@@ -27,7 +28,8 @@ from epic_tpu_torch import maps
 import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
-from epic_tpu_torch.solver import batched_path3d, core, hopper_sweep, hopper_sweep3d
+from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
+                                   hopper_sweep3d)
 
 pytestmark = pytest.mark.cuda
 
@@ -274,3 +276,139 @@ def test_3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="hopper_sweep3d"):
         hopper_sweep.update_n(st, 1)
     assert hopper_sweep3d.launches == launches and core.calls == calls
+
+
+def _batch(lanes, h, w, density, seed, dev, goalless=()):
+    """[B, H, W] lanes as tools/probe.py builds them (-1e6 everywhere, seeded
+    obstacle cells, the ring locked, one goal cell a lane); the lanes in
+    ``goalless`` keep no goal, so they retire at their first check past
+    max(H, W)."""
+    rng = np.random.default_rng(seed)
+    u = np.full((lanes, h, w), -1e6, np.float32)
+    locked = rng.random((lanes, h, w)) < density
+    locked[:, 0], locked[:, -1] = True, True
+    locked[:, :, 0], locked[:, :, -1] = True, True
+    gy = rng.integers(1, max(h - 1, 2), lanes)
+    gx = rng.integers(1, max(w - 1, 2), lanes)
+    for lane in range(lanes):
+        if lane not in goalless:
+            u[lane, gy[lane], gx[lane]] = 0.0
+            locked[lane, gy[lane], gx[lane]] = True
+    return batched.batch_from_numpy(u, locked, device=dev)
+
+
+def _assert_same_solve(k, p):
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# (lanes, H, W, obstacle density, seed): odd H and W, a lane wider than a
+# warp's two strides, and lanes with a one-cell interior.
+BATCHES = [(6, 24, 32, 0.1, 0), (5, 23, 27, 0.15, 1), (3, 9, 131, 0.05, 2), (4, 3, 3, 0.0, 3)]
+
+
+@pytest.mark.parametrize("t0", [0, 1])
+@pytest.mark.parametrize("shape", BATCHES, ids=lambda s: "x".join(map(str, s[:3])))
+def test_batch_chunk_kernel_gives_the_plain_versions_bits(dev, shape, t0):
+    """K12's counterpart: u and the per-lane sweep-0 deltas, with and without
+    per-lane active flags (inactive lanes untouched, delta 0)."""
+    u, locked = _batch(*shape, dev)
+    active = torch.arange(u.shape[0], device=dev) % 3 != 1
+    for num_steps in (1, 2, 50):
+        for gate in (None, active):
+            before = hopper_batched.launches["epic_batched2d_chunk"]
+            it = torch.tensor(t0, dtype=torch.int32, device=dev) if num_steps == 2 else t0
+            k = hopper_batched.update_n_batch(u.clone(), locked, it, num_steps, gate)
+            p = batched.update_n_batch(u, locked, t0, num_steps, gate)
+            _assert_same_solve(k, p)
+            assert hopper_batched.launches["epic_batched2d_chunk"] == before + 1
+            if gate is not None:
+                assert torch.equal(k[0][~gate], u[~gate]) and bool((k[1][~gate] == 0).all())
+
+
+@pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000),
+                                         (100, 250), (10, 95)])
+@pytest.mark.parametrize("shape", BATCHES[:3], ids=lambda s: "x".join(map(str, s[:3])))
+def test_batch_solve_kernels_give_the_plain_versions_bits(dev, shape, stagger, cap):
+    """K13's counterpart (one launch) and the host-driven lockstep over K12's:
+    the plain version's bits in u, iterations, deltas and converged, with a
+    goalless lane that retires long before the others, and capped solves."""
+    u, locked = _batch(*shape, dev, goalless=(0,))
+    before = dict(hopper_batched.launches)
+    plain = batched.solve_batch(u, locked, 1e-2, stagger, cap)
+    one = hopper_batched.solve_batch_device(u.clone(), locked, 1e-2, stagger, cap)
+    host = hopper_batched.solve_batch(u.clone(), locked, 1e-2, stagger, cap)
+    _assert_same_solve(one, plain)
+    _assert_same_solve(host, plain)
+    assert hopper_batched.launches["epic_batched2d_solve"] == before["epic_batched2d_solve"] + 1
+    assert hopper_batched.launches["epic_batched2d_chunk"] > before["epic_batched2d_chunk"]
+    iters = one[1].cpu().numpy()
+    if cap == 1_000_000:
+        assert bool(one[3].all()) and np.all(iters % stagger == 1 % stagger)
+        assert iters[0] == iters.min()           # the goalless lane retires first
+        assert stagger == 100 or iters[0] < iters.max()
+        assert bool((one[0][0] == u[0]).all())   # and never moved
+
+
+def test_batch_solve_per_lane_epsilon_and_solo_lanes(dev):
+    """Epsilon as one value a lane; every lane equals a solo core.solve of
+    it on the card, bit for bit."""
+    u, locked = _batch(4, 24, 32, 0.1, 4, dev)
+    eps = torch.tensor([1e-2, 1e-3, 5e-2, 2e-3], device=dev)
+    one = hopper_batched.solve_batch_device(u.clone(), locked, eps, 10)
+    _assert_same_solve(hopper_batched.solve_batch(u.clone(), locked, eps, 10), one)
+    _assert_same_solve(batched.solve_batch(u, locked, eps, 10), one)
+    assert len(set(one[1].tolist())) > 1
+    for lane in range(4):
+        solo = core.solve(TG.make_state(u[lane], locked[lane], float(eps[lane]), device=dev), 10)
+        assert int(solo.iteration) == int(one[1][lane])
+        assert torch.equal(solo.u, one[0][lane]) and torch.equal(solo.delta, one[2][lane])
+
+
+def test_make_goal_batch_on_the_card(dev):
+    """The device builder gives the CPU's bits; solve_batch_goals is one
+    launch of the solve kernel and equals the plain solve of that batch."""
+    img = maps.random_obstacles(24, 32, density=0.12, seed=5)
+    base_u = np.full(img.shape, np.float32(-1e6))
+    goal_xy = np.array([[[5, 5], [-1, -1]], [[20, 14], [3, 30]], [[9, 9], [33, 2]]], np.int32)
+    obstacle_xy = np.array([[[6, 6]], [[-1, -1]], [[9, 9]]], np.int32)
+    on_card = hopper_batched.make_goal_batch(base_u, img == 0, goal_xy, obstacle_xy, device=dev)
+    on_cpu = hopper_batched.make_goal_batch(base_u, img == 0, goal_xy, obstacle_xy, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.is_contiguous() and torch.equal(a.cpu(), b)
+    before = dict(hopper_batched.launches)
+    out = hopper_batched.solve_batch_goals(base_u, img == 0, goal_xy, obstacle_xy, 1e-2, 10,
+                                           device=dev)
+    assert hopper_batched.launches["epic_batched2d_solve"] == before["epic_batched2d_solve"] + 1
+    _assert_same_solve(out, batched.solve_batch(*on_card, 1e-2, 10))
+    assert bool(out[3].all())
+
+
+def test_batch_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Checked before any launch; nothing falls back to the plain version."""
+    u, locked = _batch(3, 8, 10, 0.1, 0, dev)
+    launches, calls = dict(hopper_batched.launches), dict(batched.calls)
+    bad = [
+        (TypeError, u.double(), locked),
+        (TypeError, u, locked.to(torch.uint8)),
+        (ValueError, u[0], locked[0]),                               # rank 2
+        (ValueError, u.transpose(1, 2), locked.transpose(1, 2)),     # not contiguous
+        (ValueError, u, locked.cpu()),
+        (ValueError, u, locked[:, :, :5].contiguous()),
+    ]
+    for exc, bu, bl in bad:
+        for call in (lambda a, b: hopper_batched.update_n_batch(a, b, 0, 3),
+                     lambda a, b: hopper_batched.solve_batch(a, b),
+                     lambda a, b: hopper_batched.solve_batch_device(a, b)):
+            with pytest.raises(exc):
+                call(bu, bl)
+    for exc, kw in ((TypeError, dict(active=torch.ones(3, dtype=torch.uint8, device=dev))),
+                    (TypeError, dict(active=torch.ones(2, dtype=torch.bool, device=dev))),
+                    (ValueError, dict(active=torch.ones(3, dtype=torch.bool))),
+                    (TypeError, dict(iteration=torch.tensor(0, device=dev))),
+                    (ValueError, dict(iteration=torch.tensor(0, dtype=torch.int32)))):
+        args = {"iteration": 0, "active": None, **kw}
+        with pytest.raises(exc):
+            hopper_batched.update_n_batch(u, locked, args["iteration"], 3, args["active"])
+    assert hopper_batched.launches == launches and batched.calls == calls
