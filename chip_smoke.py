@@ -22,9 +22,11 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 must reach the goal). The kernels' launch counts are zeroed
                 just before and read just after; each 2D kernel must have
                 run and the plain version must not;
-  5. size     — a 4096 x 4096 random-obstacle planner: a 100-sweep tick and a
-                solve capped at 2000 iterations, kernel against plain, same
-                bits, with both times;
+  5. size     — a 4096 x 4096 random-obstacle grid: a 100-sweep tick and a
+                solve capped at 2000 iterations through the in-place kernels
+                called directly (comparable with earlier runs), and through
+                a planner, which sends a grid beyond the L2 to the tile
+                kernels; kernel against plain, same bits, with the times;
   6. volume   — the 3D kernels against the plain version on a 30 x 256 x 256
                 volume (numpy default_rng(0), 10% obstacle voxels, the shell
                 locked, one goal voxel, as tests/test_pallas3d.py builds
@@ -65,10 +67,43 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 kernel launches), capped at 8000 sweeps, bit-equal, every
                 lane converged; both batch kernels must have run and the
                 plain versions must not. Two lanes re-solved solo: the same
-                bits.
+                bits;
+ 12. biggrid  — an 8192 x 8192 maps.random_obstacles grid (seed 0) with
+                configs/maze.yaml's settings: 268 MB of u and 67 MB of
+                locked, beyond the L2. The main path, counts zeroed just
+                before and read just after: Planner.update(50) then (100)
+                from an even and an odd start iteration, Planner.solve capped
+                at 2000, and solver.solve_grid in segments of 500; the tile
+                kernels must have run, the in-place 2D kernels and the plain
+                versions must not. Then each against plain: the ticks against
+                core.update_n and the solve against core.solve, same bits;
+                the segments against the one-launch solve, same bits. The
+                tile tick's and K1's mean of 10 on the same state; the chunk
+                and cycle entries alone against the plain tile version
+                (solver/tiled.py), same bits;
+ 13. wide     — a ragged 2000 x 33,333 strip (random_obstacles, seed 0): the
+                same main path and count rule, a 100-sweep tick from an even
+                and an odd iteration and a solve capped at 1000, against
+                core, same bits;
+ 14. tile_small — maze 482^2: the chunk entry with u1 against one and 16
+                plain sweeps (what epic_tpu's test-only check kernel
+                computes), and an uncapped tile solve called directly
+                against phase 2's in-place solve: the same 49,301 iterations
+                and the same bits.
 
 Each phase prints one JSON line and raises on failure. Then come the kernels'
-JSON line, the nvidia-smi line, and last ``{"ok": true, "device": ...}``.
+JSON line (each entry with its time, its plain version's, its bound and its
+launches on the main path), the nvidia-smi line, and last
+``{"ok": true, "device": ...}``.
+
+Bounds. ``bound_ms`` is the larger of two times for the same work as
+``ms``: its bytes (u and locked read once, u written once: 9 B a cell) over
+3.35 TB/s, and its operations (17 float32 operations an lse4 update and 25
+an lse6 update, an expf or logf counted as one, which makes the bound
+loose; the updates counted from this run's unlocked interior cells and
+sweeps) over 67 TFLOP/s: the H100 SXM's published peaks. No single
+PyTorch call computes a red-black logsumexp sweep, so ``library_ms`` is
+null.
 Times are CUDA-event times on the card the script ran on, unless a name
 says ``_s`` (host clock around work that ends in a synchronize).
 """
@@ -105,6 +140,16 @@ BATCH_EPS = 1e-2          # tools/probe.py's batched-solve and batched-goals
 BATCH_CAP = 1000          # the capped three-route solve
 BATCH_SOLVE_CAP = 2000    # tools/probe.py batched-solve's cap
 GOALS_CAP = 8000          # tools/probe.py batched-goals' cap (a long tail of late lanes)
+BIG_SIDE = 8192           # 268 MB of u + 67 MB of locked: 6.7x the L2
+BIG_CAP = 2000
+WIDE = (2000, 33_333)     # 66.7M cells, a ragged strip: the wide-grid regime
+WIDE_CAP = 1000
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# float32 operations of one update: lse4 = 3 max, 4 sub, 4 expf, 3 add, logf,
+# add, sub; lse6 = 5 max, 6 sub, 6 expf, 5 add, logf, add, sub.
+OPS_LSE4, OPS_LSE6 = 17, 25
+BYTES_PER_CELL = 9           # u read, locked read, u written
 SOURCES = {
     "epic_sweep2d_chunk": "epic_tpu_torch/csrc/sweep2d.cu",
     "epic_sweep2d_solve": "epic_tpu_torch/csrc/sweep2d.cu",
@@ -112,6 +157,9 @@ SOURCES = {
     "epic_sweep3d_solve": "epic_tpu_torch/csrc/sweep3d.cu",
     "epic_batched2d_chunk": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_batched2d_solve": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_tile2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
+    "epic_tile2d_cycle": "epic_tpu_torch/csrc/tile2d.cu",
+    "epic_tile2d_solve": "epic_tpu_torch/csrc/tile2d.cu",
 }
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
@@ -123,6 +171,20 @@ REPLACES = {
     # driven by _solve_collage_device (:275)
     "epic_batched2d_chunk": "epic_tpu/solver/pallas_batched.py:65",
     "epic_batched2d_solve": "epic_tpu/solver/pallas_batched.py:214",
+    # K3 (and T2 :100), K5, and with u1 T1
+    "epic_tile2d_chunk": ["epic_tpu/solver/pallas_biggrid.py:199",
+                          "epic_tpu/solver/pallas_tiled2d.py:120",
+                          "epic_tpu/solver/pallas_biggrid.py:100",
+                          "epic_tpu/solver/pallas_sweep.py:109"],
+    # K4, K6
+    "epic_tile2d_cycle": ["epic_tpu/solver/pallas_cycle.py:59",
+                          "epic_tpu/solver/pallas_cycle.py:355"],
+    # the loops of _solve_banded (pallas_biggrid.py:482) and _solve_tiled
+    # (pallas_tiled2d.py:430) over K4/K6 with the check fold, and K3/K5
+    "epic_tile2d_solve": ["epic_tpu/solver/pallas_cycle.py:59",
+                          "epic_tpu/solver/pallas_cycle.py:355",
+                          "epic_tpu/solver/pallas_biggrid.py:199",
+                          "epic_tpu/solver/pallas_tiled2d.py:120"],
 }
 
 
@@ -168,12 +230,63 @@ def copy_state(state):
 
 
 def zero_counts() -> None:
-    from epic_tpu_torch.solver import batched, core, hopper_batched, hopper_sweep, hopper_sweep3d
+    from epic_tpu_torch.solver import (batched, core, hopper_batched, hopper_sweep,
+                                       hopper_sweep3d, hopper_tile2d, tiled)
 
     for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
-              core.calls, batched.calls):
+              hopper_tile2d.launches, core.calls, batched.calls, tiled.calls):
         for k in d:
             d[k] = 0
+
+
+def at_iteration(state, t0: int):
+    """A copy of ``state`` whose iteration is ``t0``."""
+    return dataclasses.replace(state, u=state.u.clone(),
+                               iteration=torch.tensor(t0, dtype=torch.int32, device=state.u.device))
+
+
+def class_counts(locked: torch.Tensor, lanes: bool = False) -> torch.Tensor:
+    """Unlocked interior cells whose coordinates sum to an even and to an odd
+    number: ``[2]`` for a grid or a volume, ``[2, B]`` for a ``[B, H, W]``
+    batch (``lanes``, lane coordinates); int64 on the host."""
+    grid_dims = 2 if lanes else locked.ndim
+    lead = locked.ndim - grid_dims
+    inner = locked[(slice(None),) * lead + (slice(1, -1),) * grid_dims]
+    total = torch.zeros(inner.shape[lead:], dtype=torch.int64, device=locked.device)
+    for axis, n in enumerate(total.shape):
+        view = [1] * grid_dims
+        view[axis] = n
+        total = total + torch.arange(1, n + 1, device=locked.device).view(view)
+    odd = (total % 2).bool()
+    free = ~inner
+    dims = tuple(range(lead, inner.ndim))
+    return torch.stack([(free & ~odd).sum(dim=dims), (free & odd).sum(dim=dims)]).cpu()
+
+
+def updates(locked: torch.Tensor, t0: int, sweeps, lse6: bool = False,
+            lanes: bool = False) -> int:
+    """Cell updates of ``sweeps`` sweeps from iteration ``t0`` (``sweeps`` an
+    int, or one a lane): a 2D sweep ``t`` updates the class ``!= t % 2``, a
+    3D sweep the class ``== t % 2``."""
+    even, odd = class_counts(locked, lanes)
+    sweeps = torch.as_tensor(sweeps, dtype=torch.int64)
+    at_even_t = (sweeps + 1 - t0 % 2) // 2
+    at_odd_t = sweeps - at_even_t
+    if lse6:
+        return int((at_even_t * even + at_odd_t * odd).sum())
+    return int((at_even_t * odd + at_odd_t * even).sum())
+
+
+def bound(locked: torch.Tensor, t0: int, sweeps, lse6: bool = False,
+          lanes: bool = False) -> dict:
+    """The least time for ``sweeps`` sweeps from ``t0`` on the cells of
+    ``locked`` (arguments of :func:`updates`): their bytes over the HBM rate
+    or their operations over the float32 rate, whichever is larger."""
+    n_updates = updates(locked, t0, sweeps, lse6, lanes)
+    t_bytes = locked.numel() * BYTES_PER_CELL / PEAK_BYTES_PER_S
+    t_ops = n_updates * (OPS_LSE6 if lse6 else OPS_LSE4) / PEAK_FP32_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_build() -> dict:
@@ -221,13 +334,16 @@ def phase_maze(dev, maze) -> dict:
     solve_p_ms = event_ms(lambda: out.__setitem__(
         "p", core.solve(T.from_occupancy_image(maze["img"], EPS, device=dev), STAGGER)))
     solve_err = compare(out["k"], out["p"], "maze full solve")
+    locked_t = out["k"].locked
+    bounds = {"tick": bound(locked_t, 0, 50), "solve": bound(locked_t, 0, int(out["k"].iteration))}
     emit(phase="maze", shape=list(maze["img"].shape), tick_sweeps=50,
          tick_max_abs_err=max(errs), tick_kernel_ms=tick_k_ms, tick_plain_ms=tick_p_ms,
          solve_iterations=int(out["k"].iteration), solve_delta=float(out["k"].delta),
-         solve_max_abs_err=solve_err, solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms)
+         solve_max_abs_err=solve_err, solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms,
+         bounds=bounds)
     return {"tick_err": max(errs), "tick_ms": tick_k_ms, "tick_plain_ms": tick_p_ms,
             "solve_err": solve_err, "solve_ms": solve_k_ms, "solve_plain_ms": solve_p_ms,
-            "maze_solved": out["k"]}
+            "maze_solved": out["k"], "tick_bound": bounds["tick"], "solve_bound": bounds["solve"]}
 
 
 def check_golden(name: str, g, solved, u300) -> dict:
@@ -419,6 +535,8 @@ def phase_session(dev, maze) -> dict:
 
 
 def phase_size(dev) -> dict:
+    """4096^2: K1/K2 called directly, as in earlier runs, and the planner,
+    which sends this grid (beyond the L2) to the tile kernels."""
     import epic_tpu_torch as T
     from epic_tpu_torch import maps
     from epic_tpu_torch.config import EpicConfig
@@ -427,29 +545,230 @@ def phase_size(dev) -> dict:
     side = SIZE_SIDE
     cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
     img = maps.random_obstacles(side, side, seed=0)
+    base = T.from_occupancy_image(img, cfg.solver.epsilon, device=dev)
+
+    res = {"k": copy_state(base)}
+    tick_p_ms = event_ms(lambda: res.__setitem__("p", core.update_n(base, 100)))
+    tick_k_ms = event_ms(lambda: res.__setitem__("k", hopper_sweep.update_n(res["k"], 100)))
+    tick_err = compare(res["k"], res["p"], f"{side}^2 100-sweep tick (sweep2d)")
     planner = T.Planner(cfg, device=dev)
-    planner.state = T.from_occupancy_image(img, cfg.solver.epsilon, device=dev)
-    plain = copy_state(planner.state)
+    planner.state = copy_state(base)
+    tick_t_ms = event_ms(lambda: planner.update(100))
+    tile_tick_err = compare(planner.state, res["p"], f"{side}^2 100-sweep tick (tile2d)")
 
-    res = {}
-    tick_k_ms = event_ms(lambda: planner.update(100))
-    tick_p_ms = event_ms(lambda: res.__setitem__("p", core.update_n(plain, 100)))
-    tick_err = compare(planner.state, res["p"], f"{side}^2 100-sweep tick")
-    plain = res["p"]
-    solve_k_ms = event_ms(lambda: planner.solve(max_iterations=2000))
-    solve_p_ms = event_ms(lambda: res.__setitem__("p", core.solve(plain, STAGGER, 2000)))
-    solve_err = compare(planner.state, res["p"], f"{side}^2 solve capped at 2000")
-    solve_iterations = int(planner.state.iteration)
+    ticked = res["p"]
+    solve_p_ms = event_ms(lambda: res.__setitem__("ps", core.solve(ticked, STAGGER, 2000)))
+    solve_k_ms = event_ms(lambda: res.__setitem__(
+        "ks", hopper_sweep.solve(copy_state(ticked), STAGGER, 2000)))
+    solve_err = compare(res["ks"], res["ps"], f"{side}^2 solve capped at 2000 (sweep2d)")
+    solve_t_ms = event_ms(lambda: planner.solve(max_iterations=2000))
+    tile_solve_err = compare(planner.state, res["ps"], f"{side}^2 solve capped at 2000 (tile2d)")
+    solve_iterations = int(res["ks"].iteration)
 
-    k_state = {"s": planner.state}
+    k_state = {"s": res["ks"]}
     reps_k_ms = event_ms(lambda: k_state.__setitem__(
         "s", hopper_sweep.update_n(k_state["s"], 100)), reps=10)
+    reps_t_ms = event_ms(lambda: planner.update(100), reps=10)
     emit(phase="size", shape=[side, side], tick_sweeps=100, tick_max_abs_err=tick_err,
          tick_kernel_ms=tick_k_ms, tick_kernel_ms_mean10=reps_k_ms, tick_plain_ms=tick_p_ms,
          solve_iterations=solve_iterations, solve_max_abs_err=solve_err,
          solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms,
-         cell_updates_per_s_kernel=(side - 2) ** 2 / 2 * 100 / (reps_k_ms / 1e3))
-    return {"tick_err": tick_err, "solve_err": solve_err}
+         cell_updates_per_s_kernel=(side - 2) ** 2 / 2 * 100 / (reps_k_ms / 1e3),
+         tile_tick_ms=tick_t_ms, tile_tick_ms_mean10=reps_t_ms, tile_tick_max_abs_err=tile_tick_err,
+         tile_solve_ms=solve_t_ms, tile_solve_max_abs_err=tile_solve_err,
+         cell_updates_per_s_tile=(side - 2) ** 2 / 2 * 100 / (reps_t_ms / 1e3),
+         bounds={"tick": bound(base.locked, 0, 100),
+                 "solve": bound(base.locked, 0, solve_iterations)})
+    return {"tick_err": tick_err, "solve_err": solve_err,
+            "tile_err": max(tile_tick_err, tile_solve_err)}
+
+
+def counted_main_path(what: str, drive) -> dict:
+    """Run ``drive()`` with every count zeroed just before and read just
+    after: the tile kernels must have run, the in-place 2D kernels and the
+    plain versions must not. Returns the tile kernels' launches."""
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
+
+    zero_counts()
+    drive()
+    torch.cuda.synchronize()
+    launches = dict(hopper_tile2d.launches)
+    others = {**hopper_sweep.launches, **{f"core.{k}": v for k, v in core.calls.items()},
+              **{f"tiled.{k}": v for k, v in tiled.calls.items()}}
+    require(all(v > 0 for v in launches.values()), f"{what}: a tile kernel never ran: {launches}")
+    require(all(v == 0 for v in others.values()),
+            f"{what}: another kernel or the plain version ran on the main path: {others}")
+    return launches
+
+
+def phase_biggrid(dev) -> dict:
+    import epic_tpu_torch as T
+    from epic_tpu_torch import maps, solver
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
+
+    side = BIG_SIDE
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    k = cfg.solver.tile_depth
+    t0 = time.perf_counter()
+    base = T.from_occupancy_image(maps.random_obstacles(side, side, seed=0), cfg.solver.epsilon,
+                                  device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    require(hopper_tile2d.use_tiles((side, side), dev), f"{side}^2 is not routed to the tiles")
+    starts = {t: at_iteration(base, t) for t in (0, 1)}
+
+    # The plain references, before the counted window.
+    plain, res = {}, {}
+    for t in (0, 1):
+        plain[t, 50] = core.update_n(starts[t], 50)
+        plain[t, 150] = core.update_n(plain[t, 50], 100)
+    tick_p_ms = event_ms(lambda: core.update_n(starts[0], 100))
+    solve_p_ms = event_ms(lambda: res.__setitem__("ps", core.solve(base, STAGGER, BIG_CAP)))
+
+    planner = T.Planner(cfg, device=dev)
+    got, times = {}, {}
+
+    def drive():
+        for t in (0, 1):
+            planner.state = copy_state(starts[t])
+            planner.update(50)
+            got[t, 50] = copy_state(planner.state)
+            planner.update(100)
+            got[t, 150] = copy_state(planner.state)
+        planner.state = copy_state(base)
+        times["solve"] = event_ms(lambda: planner.solve(max_iterations=BIG_CAP))
+        res["ks"] = planner.state
+        times["segments"] = event_ms(lambda: res.__setitem__("seg", solver.solve_grid(
+            copy_state(base), STAGGER, BIG_CAP, segment_iterations=500, chunk_depth=k)))
+        planner.state = copy_state(starts[0])
+        times["tick10"] = event_ms(lambda: planner.update(100), reps=10)
+
+    launches = counted_main_path(f"{side}^2", drive)
+    errs = [compare(got[key], plain[key], f"{side}^2 tick to iteration {key[0] + key[1]}")
+            for key in sorted(plain)]
+    solve_err = compare(res["ks"], res["ps"], f"{side}^2 solve capped at {BIG_CAP}")
+    seg_err = compare(res["seg"], res["ks"], f"{side}^2 segmented solve vs one launch")
+
+    k1 = copy_state(starts[0])
+    k1_ms10 = event_ms(lambda: hopper_sweep.update_n(k1, 100), reps=10)
+
+    # The chunk and cycle entries alone, against the plain tile version.
+    src, locked = base.u, base.locked
+    chunk_ms = event_ms(lambda: res.__setitem__("c", hopper_tile2d.sweep_chunk(src, locked, 0, k, k=k)),
+                        reps=10)
+    chunk_p_ms = event_ms(lambda: res.__setitem__("pc", tiled.sweep_chunk(
+        src, locked, 0, k, k=k, tile=hopper_tile2d.TILE)))
+    chunk_err = max(max_abs(res["c"][0], res["pc"][0]), max_abs(res["c"][1], res["pc"][1]))
+    require(chunk_err == 0.0, f"{side}^2 chunk entry vs plain: {chunk_err}")
+    a, b = src.clone(), torch.empty_like(src)
+    cycle_ms = event_ms(lambda: hopper_tile2d.sweep_cycle(a, b, locked, 0, 4, 50, k=k), reps=10)
+    res["y"] = hopper_tile2d.sweep_cycle(src.clone(), torch.empty_like(src), locked, 0, 4, 50, k=k)
+    cycle_p_ms = event_ms(lambda: res.__setitem__("py", tiled.sweep_cycle(
+        src, src, locked, 0, 4, 50, k=k, tile=hopper_tile2d.TILE)))
+    cycle_err = max(max_abs(res["y"][0], res["py"][0]), max_abs(res["y"][2], res["py"][2]))
+    require(cycle_err == 0.0, f"{side}^2 cycle entry vs plain: {cycle_err}")
+    iters = int(res["ks"].iteration)
+    bounds = {"tick": bound(locked, 0, 100), "solve": bound(locked, 0, iters),
+              "chunk": bound(locked, 0, k), "cycle": bound(locked, 0, 50)}
+    emit(phase="biggrid", shape=[side, side], setup_s=setup_s, tile=list(hopper_tile2d.TILE), k=k,
+         launches=launches, tick_max_abs_err=max(errs),
+         tile_tick_ms_mean10=times["tick10"], sweep2d_tick_ms_mean10=k1_ms10,
+         tick_plain_ms=tick_p_ms, solve_cap=BIG_CAP, solve_iterations=iters,
+         solve_converged=bool(res["ks"].converged), solve_max_abs_err=solve_err,
+         solve_kernel_ms=times["solve"], solve_plain_ms=solve_p_ms,
+         segments_ms=times["segments"], segments_max_abs_err=seg_err,
+         chunk_sweeps=k, chunk_kernel_ms_mean10=chunk_ms, chunk_plain_ms=chunk_p_ms,
+         cycle_sweeps=50, cycle_chunks=4, cycle_kernel_ms_mean10=cycle_ms,
+         cycle_plain_ms=cycle_p_ms,
+         cell_updates_per_s_tile=(side - 2) ** 2 / 2 * 100 / (times["tick10"] / 1e3),
+         cell_updates_per_s_sweep2d=(side - 2) ** 2 / 2 * 100 / (k1_ms10 / 1e3), bounds=bounds)
+    return {"launches": launches, "err": max(errs + [solve_err, seg_err, chunk_err, cycle_err]),
+            "chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
+            "cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
+            "solve": (times["solve"], solve_p_ms, bounds["solve"])}
+
+
+def phase_wide(dev) -> dict:
+    import epic_tpu_torch as T
+    from epic_tpu_torch import maps
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d
+
+    h, w = WIDE
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    base = T.from_occupancy_image(maps.random_obstacles(h, w, seed=0), cfg.solver.epsilon,
+                                  device=dev)
+    require(hopper_tile2d.use_tiles((h, w), dev), f"{h}x{w} is not routed to the tiles")
+    starts = {t: at_iteration(base, t) for t in (0, 1)}
+    plain, res, got, times = {}, {}, {}, {}
+    for t in (0, 1):
+        plain[t] = core.update_n(starts[t], 100)
+    solve_p_ms = event_ms(lambda: res.__setitem__("ps", core.solve(base, STAGGER, WIDE_CAP)))
+    planner = T.Planner(cfg, device=dev)
+
+    def drive():
+        for t in (0, 1):
+            planner.state = copy_state(starts[t])
+            times[t] = event_ms(lambda: planner.update(100))
+            got[t] = copy_state(planner.state)
+        planner.state = copy_state(base)
+        times["solve"] = event_ms(lambda: planner.solve(max_iterations=WIDE_CAP))
+
+    launches = counted_main_path(f"{h}x{w}", drive)
+    errs = [compare(got[t], plain[t], f"{h}x{w} 100-sweep tick from iteration {t}") for t in (0, 1)]
+    solve_err = compare(planner.state, res["ps"], f"{h}x{w} solve capped at {WIDE_CAP}")
+    k1 = copy_state(starts[0])
+    k1_ms10 = event_ms(lambda: hopper_sweep.update_n(k1, 100), reps=10)
+    t_state = copy_state(starts[0])
+    t_ms10 = event_ms(lambda: hopper_tile2d.update_n(t_state, 100, cfg.solver.tile_depth), reps=10)
+    emit(phase="wide", shape=[h, w], launches=launches, tick_max_abs_err=max(errs),
+         tile_tick_ms=[times[0], times[1]], tile_tick_ms_mean10=t_ms10,
+         sweep2d_tick_ms_mean10=k1_ms10, solve_cap=WIDE_CAP,
+         solve_iterations=int(planner.state.iteration), solve_max_abs_err=solve_err,
+         solve_kernel_ms=times["solve"], solve_plain_ms=solve_p_ms,
+         cell_updates_per_s_tile=(h - 2) * (w - 2) / 2 * 100 / (t_ms10 / 1e3),
+         bounds={"tick": bound(base.locked, 0, 100),
+                 "solve": bound(base.locked, 0, int(planner.state.iteration))})
+    return {"launches": launches, "err": max(errs + [solve_err])}
+
+
+def phase_tile_small(dev, maze, maze_solved) -> dict:
+    """The chunk entry with u1 on the maze field, and the converged exit path
+    of the one-launch tile solve against K2's."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch.solver import core, hopper_tile2d, tiled
+
+    k = hopper_tile2d.DEFAULT_DEPTH
+    locked = T.from_occupancy_image(maze["img"], EPS, device="cpu").locked.numpy()
+    errs = []
+    for t0 in (300, 301):
+        arrays = dict(u=maze["ref_u300"], locked=locked, iteration=np.int32(t0),
+                      delta=np.float32(1.0), converged=np.bool_(False), epsilon=np.float32(EPS))
+        st = T.state_from_numpy(arrays, device=dev)
+        dst, delta, u1 = hopper_tile2d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k, u1=True)
+        p_dst, p_delta, p_u1 = tiled.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
+                                                 tile=hopper_tile2d.TILE, u1=True)
+        full, one = core.update_n(st, k), core.update_n(st, 1)
+        errs.append(max(max_abs(dst, full.u), max_abs(u1, one.u), max_abs(delta, full.delta),
+                        max_abs(dst, p_dst), max_abs(u1, p_u1), max_abs(delta, p_delta)))
+        require(errs[-1] == 0.0, f"maze chunk with u1 from iteration {t0}: differs by {errs[-1]}")
+    chunk_ms = event_ms(lambda: hopper_tile2d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
+                                                          u1=True), reps=10)
+    chunk_p_ms = event_ms(lambda: tiled.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
+                                                    tile=hopper_tile2d.TILE, u1=True))
+    res = {}
+    solve_ms = event_ms(lambda: res.__setitem__("s", hopper_tile2d.solve(
+        T.from_occupancy_image(maze["img"], EPS, device=dev), STAGGER)))
+    solve_err = compare(res["s"], maze_solved, "maze tile solve vs the in-place solve")
+    iters = int(res["s"].iteration)
+    emit(phase="tile_small", shape=list(maze["img"].shape), chunk_sweeps=k,
+         chunk_u1_max_abs_err=max(errs), chunk_u1_kernel_ms_mean10=chunk_ms,
+         chunk_u1_plain_ms=chunk_p_ms, solve_iterations=iters,
+         solve_converged=bool(res["s"].converged), solve_max_abs_err=solve_err,
+         solve_kernel_ms=solve_ms,
+         bounds={"chunk": bound(st.locked, 301, k), "solve": bound(st.locked, 0, iters)})
+    return {"err": max(errs + [solve_err])}
 
 
 def volume_arrays(shape, density: float = 0.1, seed: int = 0):
@@ -493,11 +812,14 @@ def kernel_vs_plain_3d(dev, u, locked, tick_sweeps: int, cap: int, what: str) ->
     solve_k_ms = event_ms(lambda: res.__setitem__("k", hopper_sweep3d.solve(k, STAGGER, cap)))
     solve_p_ms = event_ms(lambda: res.__setitem__("p", core.solve(p, STAGGER, cap)))
     solve_err = compare(res["k"], res["p"], f"{what} solve capped at {cap}")
+    lt = torch.from_numpy(locked)
+    bounds = {"tick": bound(lt, 0, tick_sweeps, lse6=True),
+              "solve": bound(lt, 0, int(res["k"].iteration), lse6=True)}
     return dict(tick_sweeps=tick_sweeps, tick_max_abs_err=max(errs), tick_kernel_ms=tick_k_ms,
                 tick_kernel_ms_mean10=tick_k_ms10, tick_plain_ms=tick_p_ms,
                 solve_cap=cap, solve_iterations=int(res["k"].iteration),
                 solve_converged=bool(res["k"].converged), solve_max_abs_err=solve_err,
-                solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms)
+                solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms, bounds=bounds)
 
 
 def phase_volume(dev) -> dict:
@@ -792,6 +1114,10 @@ def phase_batch(dev) -> dict:
     pick = [0, lanes - 1, *np.random.default_rng(1).choice(np.arange(1, lanes - 1), 2, replace=False)]
     solo = solo_lanes(dev, u0, locked, full, pick, BATCH_SOLVE_CAP, "batch")
     cells = (side - 2) ** 2 / 2
+    bounds = {"chunk": bound(locked, 0, 100, lanes=True),
+              "chunk_one_lane": bound(locked[0], 0, 100),
+              "capped_solve": bound(locked, 0, routes["device"][1].cpu(), lanes=True),
+              "solve": bound(locked, 0, full[1].cpu(), lanes=True)}
     emit(phase="batch", lanes=lanes, shape=[side, side], obstacle_density=0.1, eps=BATCH_EPS,
          stagger=STAGGER, setup_s=setup_s, chunk_sweeps=100, chunk_max_abs_err=max(chunk_errs),
          chunk_kernel_ms=chunk_ms[0], chunk_kernel_ms_odd=chunk_ms[1],
@@ -805,9 +1131,10 @@ def phase_batch(dev) -> dict:
          mean_iterations=float(iters.mean()), max_iterations=int(iters.max()),
          min_iterations=int(iters.min()),
          cell_updates_per_s_solve=float(iters.sum()) * cells / (full_ms / 1e3),
-         solo_lanes=solo)
+         solo_lanes=solo, bounds=bounds)
     return {"chunk_err": max(chunk_errs), "chunk_ms": chunk_ms10, "chunk_plain_ms": chunk_plain_ms[0],
-            "solve_err": solve_err, "solve_ms": route_ms["device"], "solve_plain_ms": route_ms["plain"]}
+            "solve_err": solve_err, "solve_ms": route_ms["device"], "solve_plain_ms": route_ms["plain"],
+            "chunk_bound": bounds["chunk"], "solve_bound": bounds["capped_solve"]}
 
 
 def phase_batch_goals(dev) -> dict:
@@ -865,7 +1192,8 @@ def phase_batch_goals(dev) -> dict:
          min_iterations=int(iters.min()),
          cell_updates_per_s=float(iters.sum()) * (side - 2) ** 2 / 2 / (goals_ms / 1e3),
          launches=launches, plain_calls=plain, solo_lanes=solo,
-         solo_core_solves=core.calls["solve"] - before)
+         solo_core_solves=core.calls["solve"] - before,
+         bounds={"solve": bound(locked, 0, out[1].cpu(), lanes=True)})
     return launches
 
 
@@ -888,6 +1216,12 @@ def main() -> None:
     z3 = phase_size3d(dev)
     b = phase_batch(dev)
     launches.update(phase_batch_goals(dev))
+    big = phase_biggrid(dev)
+    wide = phase_wide(dev)
+    small = phase_tile_small(dev, maze, m["maze_solved"])
+    for name in big["launches"]:
+        launches[name] = big["launches"][name] + wide["launches"][name]
+    tile_err = max(z["tile_err"], big["err"], wide["err"], small["err"])
     errs = {
         "epic_sweep2d_chunk": max(m["tick_err"], z["tick_err"]),
         "epic_sweep2d_solve": max(m["solve_err"], z["solve_err"]),
@@ -895,25 +1229,34 @@ def main() -> None:
         "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
         "epic_batched2d_chunk": b["chunk_err"],
         "epic_batched2d_solve": b["solve_err"],
+        "epic_tile2d_chunk": tile_err,
+        "epic_tile2d_cycle": tile_err,
+        "epic_tile2d_solve": tile_err,
     }
-    times = {   # the main paths' shapes: maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2
-        "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"]),
-        "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"]),
-        "epic_sweep3d_chunk": (v["tick_kernel_ms"], v["tick_plain_ms"]),
-        "epic_sweep3d_solve": (v["solve_kernel_ms"], v["solve_plain_ms"]),
-        "epic_batched2d_chunk": (b["chunk_ms"], b["chunk_plain_ms"]),
-        "epic_batched2d_solve": (b["solve_ms"], b["solve_plain_ms"]),
+    # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
+    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2.
+    times = {
+        "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"], m["tick_bound"]),
+        "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
+        "epic_sweep3d_chunk": (v["tick_kernel_ms"], v["tick_plain_ms"], v["bounds"]["tick"]),
+        "epic_sweep3d_solve": (v["solve_kernel_ms"], v["solve_plain_ms"], v["bounds"]["solve"]),
+        "epic_batched2d_chunk": (b["chunk_ms"], b["chunk_plain_ms"], b["chunk_bound"]),
+        "epic_batched2d_solve": (b["solve_ms"], b["solve_plain_ms"], b["solve_bound"]),
+        "epic_tile2d_chunk": big["chunk"],
+        "epic_tile2d_cycle": big["cycle"],
+        "epic_tile2d_solve": big["solve"],
     }
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],
-                    plain_ms=times[name][1])
+                    plain_ms=times[name][1], bound_ms=times[name][2]["bound_ms"],
+                    bound_by=times[name][2]["bound_by"], library_ms=None)
                for name in SOURCES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(built["smi"], flush=True)
-    # One card drove every phase.
+    # Every phase ran on the one card `dev`: the run drove one card, however
+    # many the host has.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -7,9 +7,11 @@ kernel selection/tiling, mesh shape, and service endpoints. PlannerConfig
 (epic_tpu_torch.planner) embeds SolverConfig semantics for the anytime node.
 
 A copy of ``epic_tpu.config``, so that ``configs/*.yaml`` loads unchanged.
-The kernel-selection fields (``backend``, ``kernel``, ``tile_*``) are kept
-for that reason only: the port has one kernel family and takes only
-``backend="auto"`` (see :func:`check_backend`).
+The kernel-selection fields ``backend``, ``kernel`` and ``tile_band`` are
+kept for that reason only: the port chooses its kernels by device and grid
+size, takes only ``backend="auto"`` (see :func:`check_backend`) and no TPU
+band height. ``tile_depth`` is the port's own: the halo depth K of its tile
+kernels.
 """
 
 from __future__ import annotations
@@ -21,7 +23,15 @@ from . import constants as C
 
 @dataclasses.dataclass
 class SolverConfig:
-    """Numerics + kernel selection."""
+    """Numerics + kernel selection.
+
+    ``tile_depth`` is K of the port's temporally blocked tile kernels
+    (``csrc/tile2d.cu``, for 2D grids beyond the card's L2): the sweeps a
+    tile runs per trip to memory, and the depth of its halo. It must be at
+    least 1; whether a tile and its halo fit a block's shared memory is the
+    card's to say, and the kernels' wrapper checks it before each launch
+    (``solver.hopper_tile2d.check_depth``). ``tile_band`` must stay None: it
+    names a TPU band height, which the port has no use for."""
 
     epsilon: float = C.DEFAULT_EPSILON_NODE
     stagger: int = C.DEFAULT_STAGGER
@@ -34,11 +44,12 @@ class SolverConfig:
     # saved logsumexps, docs/BENCH_NOTES.md — and was retired in round 3
     # with pallas_packed; "masked" is the only value).
     kernel: str = "masked"           # "masked"
-    # Big-grid (beyond-VMEM) kernel parameters (solver.pallas_biggrid):
-    # tile_depth is the temporal-blocking K (sweeps per HBM round trip;
-    # K=16 measured best, docs/BENCH_NOTES.md); tile_band overrides the
-    # auto row-band height (None = choose_layout picks from the VMEM
-    # budget). Consumed by Planner's big-grid update path.
+    # tile_band: epic_tpu's row-band height for its beyond-VMEM kernels
+    # (pallas_biggrid). The port's tiles are not row bands, so only None
+    # is accepted. tile_depth: the temporal-blocking K of the port's tile
+    # kernels (solver.hopper_tile2d): sweeps per trip to memory and the
+    # halo's depth, for 2D grids beyond the card's L2. Consumed by the
+    # Planner's ticks and solves on that route.
     tile_band: int | None = None
     tile_depth: int = 16
     # Opt-in coarse-to-fine warm start for blocking solves (solver.cascade
@@ -47,6 +58,13 @@ class SolverConfig:
 
     def __post_init__(self):
         check_backend(self.backend)
+        if self.tile_band is not None:
+            raise ValueError(
+                f"tile_band={self.tile_band} names a TPU band height, which "
+                "epic_tpu_torch does not use (its tile shape is fixed by "
+                "measurement on the card); leave it None")
+        if self.tile_depth < 1:
+            raise ValueError(f"tile_depth must be >= 1, got {self.tile_depth}")
 
 
 def check_backend(backend: str) -> None:

@@ -178,7 +178,8 @@ batch_solve_kernel(float* u, const uint8_t* locked, int B, int H, int W, const f
 // what the card holds at once.
 cudaError_t batch_blocks(const void* kernel, int device, int B, int H, int* blocks) {
   const long long units = static_cast<long long>(B) * (H - 2);
-  return grid_blocks(kernel, kThreadsB, device, (units + kWarpsB - 1) / kWarpsB, blocks);
+  return grid_blocks(kernel, kThreadsB, device, (units + kWarpsB - 1) / kWarpsB, blocks,
+                     0);
 }
 
 }  // namespace

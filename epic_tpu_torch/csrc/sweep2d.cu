@@ -143,7 +143,8 @@ int epic_sweep2d_chunk(void* u, const void* locked, int H, int W, const void* it
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = grid_blocks(reinterpret_cast<const void*>(chunk_kernel), kThreads, device, H - 2, &blocks);
+  err = grid_blocks(reinterpret_cast<const void*>(chunk_kernel), kThreads, device, H - 2, &blocks,
+                    0);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);
@@ -163,7 +164,8 @@ int epic_sweep2d_solve(void* u, const void* locked, int H, int W, const void* ep
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = grid_blocks(reinterpret_cast<const void*>(solve_kernel), kThreads, device, H - 2, &blocks);
+  err = grid_blocks(reinterpret_cast<const void*>(solve_kernel), kThreads, device, H - 2, &blocks,
+                    0);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);

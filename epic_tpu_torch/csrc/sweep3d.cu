@@ -172,7 +172,7 @@ int epic_sweep3d_chunk(void* u, const void* locked, int D, int H, int W, const v
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = grid_blocks(reinterpret_cast<const void*>(chunk3d_kernel), kThreads3d, device,
-                    interior_rows(D, H, W), &blocks);
+                    interior_rows(D, H, W), &blocks, 0);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);
@@ -193,7 +193,7 @@ int epic_sweep3d_solve(void* u, const void* locked, int D, int H, int W, const v
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = grid_blocks(reinterpret_cast<const void*>(solve3d_kernel), kThreads3d, device,
-                    interior_rows(D, H, W), &blocks);
+                    interior_rows(D, H, W), &blocks, 0);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);

@@ -40,14 +40,15 @@ __device__ void block_max_atomic(float v, unsigned int* acc) {
 
 // Blocks for a cooperative launch: one per unit of work (`rows`, at least
 // one), at most what the card holds at once (a larger cooperative grid is
-// refused at launch).
+// refused at launch). `smem_bytes` is the launch's dynamic shared memory,
+// which bounds how many blocks share an SM.
 inline cudaError_t grid_blocks(const void* kernel, int threads, int device, long long rows,
-                               int* blocks) {
+                               int* blocks, size_t smem_bytes) {
   int sms = 0;
   int per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes);
   if (err != cudaSuccess) return err;
   const long long cap = static_cast<long long>(sms) * per_sm;
   const long long want = rows > 0 ? rows : 1;

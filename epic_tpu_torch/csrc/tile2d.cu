@@ -1,0 +1,377 @@
+// Temporally blocked red-black relaxation of a 2D grid on NVIDIA Hopper
+// (sm_90a): grids beyond the 50 MB L2, and wide grids.
+//
+// Replaces four TPU kernels, and two test-only ones, which all compute one
+// function (K sweeps of the grid, the delta of sweep 0, optionally the state
+// u1 after sweep 0) and differ only in how they stage data through VMEM:
+//   epic_tile2d_chunk <- epic_tpu/solver/pallas_biggrid.py:199
+//                        _band_kernel_dma_impl (K3; row bands, K-row halos)
+//                        and :100 _band_kernel (T2, pre-gathered bands),
+//                        pallas_tiled2d.py:120 _tile_kernel_impl (K5; row x
+//                        column slabs), and with u1 pallas_sweep.py:109
+//                        _multisweep_check_kernel (T1)
+//   epic_tile2d_cycle <- pallas_cycle.py:59 _cycle_kernel_impl (K4) and :355
+//                        _cycle_kernel_tiled_impl (K6): N chunks in one
+//                        launch, ping-pong between two buffers
+//   epic_tile2d_solve <- the while loops of pallas_biggrid.py:482
+//                        _solve_banded and pallas_tiled2d.py:430 _solve_tiled
+//                        over K3-K6 with the check folded into chunk 0: the
+//                        whole stagger protocol in one launch
+// The plain torch version is epic_tpu_torch/solver/tiled.py.
+//
+// Design. A full-width band never fits shared memory here (8192 columns x 48
+// rows x 5 B is 1.9 MB), so one layout answers both TPU layouts: a block owns
+// a kTH x kTW centre of the unpadded H x W grid (the last row and column of
+// tiles ragged), loads (kTH+2K) x (kTW+2K) cells of u (float) and of a frozen
+// byte (locked, the grid's ring, or outside the grid, where u is
+// LOG_SPACE_OBSTACLE) into dynamic shared memory, and runs up to K sweeps
+// there in place (a class reads only the other class; __syncthreads between
+// sweeps). Sweep s updates a cell only inside the trapezoid of
+// pallas_biggrid.py:251-255 (local row and column in (s, ext-1-s)), of the
+// class (y + x) % 2 != (t0 + s) % 2 in global coordinates; after K sweeps the
+// centre is exact and is written to dst, never to src, whose halo the
+// neighbouring blocks read. So chunks ping-pong between two buffers, and
+// grid-wide barriers (cooperative_groups::this_grid().sync()) separate the
+// chunks of a cycle or a solve.
+//
+// Delta. max |u1 - u0| over the block's centre cells that lie in the grid,
+// never over fill cells (ROADMAP R7), reduced with block_max_atomic
+// (sweep_common.cuh): deterministic, since max is exact in any order.
+//
+// Numerics. lse4 from sweep_common.cuh, no --use_fast_math: the kernels give
+// the plain version's (and solver/core.py's) bits.
+//
+// Memory. The source is read with __ldcg (L2, not L1): in a cycle or a
+// solve the previous chunk's blocks wrote it during the same launch.
+//
+// Bound on this card. A chunk of K sweeps moves each cell through HBM about
+// once (the halo reads (1 + 2K/kTH)(1 + 2K/kTW) of the grid, 5 B a cell, plus
+// 4 B written), so beyond L2 the kernels are no longer bound by HBM bytes,
+// as K1 is, but by the lse4 arithmetic in shared memory (two expf and logf
+// calls' worth of accurate libm code a cell) and by the halo recompute
+// (the trapezoid's mean area over the centre's). Simple first: one thread
+// per cell of a class, an integer division by a run-time width per cell,
+// 2-way bank conflicts on the stride-2 class; tuning is later work.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sweep_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr float kObstacle = -1e6f;  // constants.LOG_SPACE_OBSTACLE
+
+// The centre a block owns and the threads of a block: the fastest of the
+// shapes measured at 4096^2 and 8192^2 on an H100 (PERF.md).
+// solver/hopper_tile2d.py's TILE holds the same centre.
+constexpr int kTH = 64;
+constexpr int kTW = 128;
+constexpr int kThreads = 512;
+
+// The grid, the tiling and the chunk depth bound of one launch.
+struct Tiling {
+  const uint8_t* locked;
+  int H, W;       // the unpadded grid
+  int K;          // halo depth: the most sweeps a chunk may run
+  int nx;         // tiles across
+  int n_tiles;
+};
+
+// The block's dynamic shared memory holds u of the extended tile, then its
+// frozen bytes.
+__device__ __forceinline__ uint8_t* frozen_of(float* smem, const Tiling& g) {
+  return reinterpret_cast<uint8_t*>(smem + (kTH + 2 * g.K) * (kTW + 2 * g.K));
+}
+
+// The centre's cells that lie in the grid (ch x cw of it), from shared
+// memory to out.
+__device__ __forceinline__ void write_centre(const float* us, float* out, const Tiling& g,
+                                             int gy0, int gx0, int ch, int cw) {
+  const int EC = kTW + 2 * g.K;
+  for (int i = threadIdx.x; i < kTH * kTW; i += kThreads) {
+    const int r = i / kTW;
+    const int c = i % kTW;
+    if (r < ch && c < cw)
+      out[static_cast<size_t>(gy0 + r) * g.W + gx0 + c] = us[(g.K + r) * EC + g.K + c];
+  }
+}
+
+// One chunk of `ns` (1..K) sweeps from iteration t0 on tile `tile`: load the
+// halo-extended tile, sweep, write the centre to dst (and after sweep 0 to
+// u1, when given), max-accumulate sweep 0's delta into delta_acc (when
+// given). Every thread of the block calls it; us/fs are the block's dynamic
+// shared memory.
+__device__ void tile_chunk(const float* src, float* dst, float* u1, const Tiling& g, int tile,
+                           int t0, int ns, unsigned int* delta_acc, float* us, uint8_t* fs) {
+  const int ER = kTH + 2 * g.K;
+  const int EC = kTW + 2 * g.K;
+  const int ty = tile / g.nx;
+  const int tx = tile - ty * g.nx;
+  const int gy0 = ty * kTH;              // global row of the centre's first row
+  const int gx0 = tx * kTW;
+  const int y0 = gy0 - g.K;              // global row of local row 0
+  const int x0 = gx0 - g.K;
+  const int ch = min(kTH, g.H - gy0);    // centre rows and columns in the grid
+  const int cw = min(kTW, g.W - gx0);
+
+  for (int i = threadIdx.x; i < ER * EC; i += kThreads) {
+    const int lr = i / EC;
+    const int y = y0 + lr;
+    const int x = x0 + (i - lr * EC);
+    float v = kObstacle;
+    uint8_t f = 1;
+    if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
+      const size_t idx = static_cast<size_t>(y) * g.W + x;
+      v = __ldcg(src + idx);
+      f = (g.locked[idx] != 0) | (y == 0) | (y == g.H - 1) | (x == 0) | (x == g.W - 1);
+    }
+    us[i] = v;
+    fs[i] = f;
+  }
+  __syncthreads();
+
+  // (y + x) & 1 of local (0, 0); the -2K of y0 + x0 is even.
+  const int par = (gy0 + gx0) & 1;
+  float local = 0.0f;
+  for (int s = 0; s < ns; ++s) {
+    const int want = ((t0 + s) & 1) ^ 1;  // the class updated: (y + x) & 1 == want
+    const int r0 = s + 1;                 // the trapezoid: rows r0..ER-2-s,
+    const int c0 = s + 1;                 // columns c0..c1
+    const int c1 = EC - 2 - s;
+    const int half = (c1 - c0 + 2) / 2;   // cells of one class in a row, at most
+    const int units = (ER - 2 - 2 * s) * half;
+    for (int i = threadIdx.x; i < units; i += kThreads) {
+      const int row = i / half;
+      const int lr = r0 + row;
+      const int lc = c0 + ((par + lr + c0 + want) & 1) + 2 * (i - row * half);
+      if (lc > c1) continue;
+      const int li = lr * EC + lc;
+      if (fs[li]) continue;
+      const float v = lse4(us[li - EC], us[li + EC], us[li - 1], us[li + 1]);
+      if (s == 0 && lr >= g.K && lr < g.K + ch && lc >= g.K && lc < g.K + cw)
+        local = fmaxf(local, fabsf(v - us[li]));
+      us[li] = v;
+    }
+    __syncthreads();
+    if (s == 0 && u1 != nullptr) {
+      write_centre(us, u1, g, gy0, gx0, ch, cw);
+      __syncthreads();
+    }
+  }
+  if (delta_acc != nullptr) block_max_atomic<kThreads>(local, delta_acc);
+  write_centre(us, dst, g, gy0, gx0, ch, cw);
+  __syncthreads();  // the next tile reuses us/fs
+}
+
+// The chunk's sweeps spread over a chunk count, earlier chunks one deeper
+// (solver/tiled.py spread).
+__device__ __forceinline__ int spread_at(int total, int n_chunks, int c) {
+  return total / n_chunks + (c < total % n_chunks ? 1 : 0);
+}
+
+// All tiles of one chunk, strided over the blocks.
+__device__ void all_tiles(const float* src, float* dst, float* u1, const Tiling& g, int t0,
+                          int ns, unsigned int* delta_acc, float* us, uint8_t* fs) {
+  for (int tile = blockIdx.x; tile < g.n_tiles; tile += gridDim.x)
+    tile_chunk(src, dst, u1, g, tile, t0, ns, delta_acc, us, fs);
+}
+
+// K3/K5 (and T1/T2): one chunk from iteration *it + t_off; a block a tile.
+__global__ void __launch_bounds__(kThreads)
+tile_chunk_kernel(const float* src, float* dst, float* u1, Tiling g, const int* it, int t_off,
+                  int ns, unsigned int* delta_bits) {
+  extern __shared__ float smem[];
+  tile_chunk(src, dst, u1, g, blockIdx.x, *it + t_off, ns, delta_bits, smem, frozen_of(smem, g));
+}
+
+// K4/K6: `total` sweeps from *it + t_off spread over n_chunks chunks; chunk
+// c reads a when c is even and b otherwise and writes the other, its
+// sweep-0 delta into deltas[c] (zeroed by the caller). An even count ends in
+// a.
+__global__ void __launch_bounds__(kThreads)
+tile_cycle_kernel(float* a, float* b, Tiling g, const int* it, int t_off, int total,
+                  int n_chunks, unsigned int* deltas) {
+  extern __shared__ float smem[];
+  uint8_t* fs = frozen_of(smem, g);
+  cg::grid_group grid = cg::this_grid();
+  int t = *it + t_off;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int ns = spread_at(total, n_chunks, c);
+    if (c > 0) grid.sync();
+    all_tiles((c & 1) ? b : a, (c & 1) ? a : b, nullptr, g, t, ns, deltas + c, smem, fs);
+    t += ns;
+  }
+}
+
+// The stagger protocol of solver/core.py, resumable: from the iteration,
+// delta and verdict in it_io/delta_io/done_io, run cycles while not done and
+// it < bound. A cycle is the checked chunk of depth min(K, stagger) from
+// cur to oth, writing u1 too; a barrier; one decision that every thread
+// reads (exit with u1 once delta < eps and it + 1 >= m_max); else the
+// remaining stagger - depth sweeps as further chunks, a barrier after each.
+// acc holds two zeroed slots that the checks alternate between; the next
+// check's slot is cleared after this check's barrier, and at least one
+// barrier (a rest chunk's, or the extra one when there is none) separates
+// the clear from the next check's atomics. The state ends in u: the last
+// step copies it there when it is in twin or u1.
+__global__ void __launch_bounds__(kThreads)
+tile_solve_kernel(float* u, float* twin, float* u1, Tiling g, const float* eps_ptr, int m_max,
+                  int bound, int stagger, unsigned int* acc, int* it_io, float* delta_io,
+                  int* done_io) {
+  extern __shared__ float smem[];
+  uint8_t* fs = frozen_of(smem, g);
+  cg::grid_group grid = cg::this_grid();
+  const float eps = *eps_ptr;
+  int it = *it_io;
+  float delta = *delta_io;
+  bool done = *done_io != 0;
+  const int depth = min(g.K, stagger);
+  const int rest = stagger - depth;
+  const int n_rest = (rest + g.K - 1) / g.K;
+  float* cur = u;
+  float* oth = twin;
+  int slot = 0;
+  while (!done && it < bound) {
+    all_tiles(cur, oth, u1, g, it, depth, acc + slot, smem, fs);
+    grid.sync();
+    delta = __uint_as_float(__ldcg(acc + slot));
+    if (grid.thread_rank() == 0) acc[slot ^ 1] = 0u;
+    slot ^= 1;
+    done = delta < eps && it + 1 >= m_max;
+    if (done) {
+      it += 1;
+      cur = u1;
+      break;
+    }
+    float* tmp = cur;
+    cur = oth;
+    oth = tmp;
+    int t = it + depth;
+    for (int r = 0; r < n_rest; ++r) {
+      const int ns = spread_at(rest, n_rest, r);
+      all_tiles(cur, oth, nullptr, g, t, ns, nullptr, smem, fs);
+      grid.sync();
+      tmp = cur;
+      cur = oth;
+      oth = tmp;
+      t += ns;
+    }
+    if (n_rest == 0) grid.sync();
+    it += stagger;
+  }
+  if (cur != u) {
+    const size_t n = static_cast<size_t>(g.H) * g.W;
+    for (size_t i = grid.thread_rank(); i < n; i += grid.size()) u[i] = __ldcg(cur + i);
+  }
+  if (grid.thread_rank() == 0) {
+    *it_io = it;
+    *delta_io = delta;
+    *done_io = done ? 1 : 0;
+  }
+}
+
+size_t smem_bytes(const Tiling& g) {
+  return static_cast<size_t>(kTH + 2 * g.K) * (kTW + 2 * g.K) * (sizeof(float) + 1);
+}
+
+Tiling make_tiling(const void* locked, int H, int W, int K) {
+  Tiling g;
+  g.locked = static_cast<const uint8_t*>(locked);
+  g.H = H;
+  g.W = W;
+  g.K = K;
+  g.nx = (W + kTW - 1) / kTW;
+  g.n_tiles = ((H + kTH - 1) / kTH) * g.nx;
+  return g;
+}
+
+// Allow the launch's dynamic shared memory (above 48 KB this must precede
+// both the occupancy query and the launch).
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// A cooperative launch of `kernel` with `args`: as many blocks as tiles, at
+// most what the card holds at once with this much shared memory.
+cudaError_t launch_cooperative(const void* kernel, const Tiling& g, void** args, int device,
+                               cudaStream_t stream) {
+  const size_t smem = smem_bytes(g);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = grid_blocks(kernel, kThreads, device, g.n_tiles, &blocks, smem);
+  if (err != cudaSuccess) return err;
+  if (blocks < 1) return cudaErrorInvalidConfiguration;  // the tile does not fit an SM
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches on `stream` (PyTorch's current stream, as a pointer),
+// does not synchronise, allocates nothing, and returns the cudaError_t of the
+// launch (0 on success). u, twin, u1, src and dst are f32[H, W] and locked
+// u8[H, W], contiguous; src and dst are distinct. K is the halo depth
+// (SolverConfig.tile_depth).
+
+// One chunk of ns (1..K) sweeps from iteration *it + t_off, src -> dst; with
+// u1 non-null, the state after sweep 0 goes there too; sweep 0's delta is
+// max-accumulated into delta (zeroed by the caller).
+int epic_tile2d_chunk(const void* src, void* dst, void* u1, const void* locked, int H, int W,
+                      const void* it, int t_off, int ns, void* delta, int K, void* stream,
+                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Tiling g = make_tiling(locked, H, W, K);
+  const size_t smem = smem_bytes(g);
+  err = allow_smem(reinterpret_cast<const void*>(tile_chunk_kernel), smem);
+  if (err != cudaSuccess) return err;
+  tile_chunk_kernel<<<g.n_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), static_cast<float*>(u1), g,
+      static_cast<const int*>(it), t_off, ns, static_cast<unsigned int*>(delta));
+  return cudaGetLastError();
+}
+
+// `total` sweeps from *it + t_off spread over n_chunks ping-pong chunks
+// (a -> b -> a ...), none deeper than K; deltas[c] gets chunk c's sweep-0
+// delta (zeroed by the caller). The state ends in a when n_chunks is even.
+int epic_tile2d_cycle(void* a, void* b, const void* locked, int H, int W, const void* it,
+                      int t_off, int total, int n_chunks, void* deltas, int K, void* stream,
+                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Tiling g = make_tiling(locked, H, W, K);
+  const int* it_i = static_cast<const int*>(it);
+  unsigned int* d_u = static_cast<unsigned int*>(deltas);
+  void* args[] = {&a, &b, &g, &it_i, &t_off, &total, &n_chunks, &d_u};
+  return launch_cooperative(reinterpret_cast<const void*>(tile_cycle_kernel), g, args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The solve protocol in one launch, resumed from (*it_io, *delta_io,
+// *done_io) and run while not done and the iteration is below `bound`; the
+// final state is in u and the three scalars are written back. twin and u1
+// are scratch grids; acc two zeroed uint32 slots.
+int epic_tile2d_solve(void* u, void* twin, void* u1, const void* locked, int H, int W,
+                      const void* eps, int m_max, int bound, int stagger, void* acc,
+                      void* it_io, void* delta_io, void* done_io, int K, void* stream,
+                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Tiling g = make_tiling(locked, H, W, K);
+  const float* eps_f = static_cast<const float*>(eps);
+  void* args[] = {&u, &twin, &u1, &g, &eps_f, &m_max, &bound, &stagger,
+                  &acc, &it_io, &delta_io, &done_io};
+  return launch_cooperative(reinterpret_cast<const void*>(tile_solve_kernel), g, args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

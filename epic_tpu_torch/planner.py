@@ -2,9 +2,13 @@
 
 The counterpart of ``epic_tpu.planner`` (2D). The state is one ``GridState``
 on the planner's device; edits are scatters into fresh tensors; ``update()``
-is one launch of the CUDA chunk kernel on the card (the plain torch version
-on the CPU), which relaxes ``u`` in place — so there is no padded-buffer
-cache to keep: the kernels take the grid as it is.
+is one launch of a CUDA kernel on the card (the plain torch version on the
+CPU), which relaxes ``u`` in place — so there is no padded-buffer cache to
+keep: the kernels take the grid as it is. ``solver.update_grid`` and
+``solve_grid`` choose them (``epic_tpu``'s ``Planner._kernel_module``): the
+in-place sweep kernels while the grid fits the card's L2, the temporally
+blocked tile kernels beyond it (their ping-pong twin is scratch of
+``solver.hopper_tile2d``).
 
 Key semantic carried over (SURVEY §3.2): the planner NEVER stops relaxing —
 edits perturb ``u``/``locked`` and relaxation resumes from the current state.
@@ -27,7 +31,8 @@ from . import grid as G
 from .config import EpicConfig, SolverConfig, check_backend
 from .errors import EpicError, InvalidLocationError
 from .path import compute_path
-from .solver import batched_path, hopper_sweep
+from . import solver
+from .solver import batched_path
 
 logger = logging.getLogger("epic_tpu_torch.planner")
 
@@ -79,7 +84,9 @@ class Planner:
       (main loop)    -> update(num_steps)
 
     ``device`` places the grid: a CUDA device runs the kernels of
-    ``csrc/sweep2d.cu``, the CPU the plain torch version.
+    ``csrc/sweep2d.cu``, or of ``csrc/tile2d.cu`` for a grid beyond the
+    card's L2 (halo depth ``SolverConfig.tile_depth``); the CPU the plain
+    torch version.
     """
 
     def __init__(self, config: "PlannerConfig | EpicConfig | None" = None, *,
@@ -156,7 +163,7 @@ class Planner:
         n = num_steps if num_steps is not None else self.config.steps_per_update
         if n < 1:
             return
-        self.state = hopper_sweep.update_n(self.state, n)
+        self.state = solver.update_grid(self.state, n, self.solver_config.tile_depth)
 
     def solve(self, max_iterations: int | None = None) -> None:
         """Blocking solve-to-convergence (harmonic_complete semantics), as
@@ -168,9 +175,8 @@ class Planner:
                 "cascade solves (epic_tpu.solver.cascade) are not ported to "
                 "epic_tpu_torch yet")
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
-        self.state = hopper_sweep.solve(self._require_state(),
-                                        stagger=self.config.stagger,
-                                        max_iterations=cap)
+        self.state = solver.solve_grid(self._require_state(), self.config.stagger, cap,
+                                       chunk_depth=self.solver_config.tile_depth)
 
     # -- service verbs -----------------------------------------------------
 

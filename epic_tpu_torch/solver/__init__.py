@@ -1,13 +1,16 @@
 """The port's solvers: the plain torch version (``core``) and the CUDA
-kernels behind it (``hopper_sweep`` in 2D, ``hopper_sweep3d`` in 3D), with
-the library-level entries; batched scenario solves over ``[B, H, W]`` lanes
-in plain torch (``batched``) and on their CUDA kernels (``hopper_batched``)."""
+kernels behind it (``hopper_sweep`` in 2D, ``hopper_tile2d`` for 2D grids
+beyond the card's L2, ``hopper_sweep3d`` in 3D), with the library-level
+entries; the tile family's plain version (``tiled``); batched scenario
+solves over ``[B, H, W]`` lanes in plain torch (``batched``) and on their
+CUDA kernels (``hopper_batched``)."""
 
-from . import batched, core, hopper_batched, hopper_sweep, hopper_sweep3d
+from . import batched, core, hopper_batched, hopper_sweep, hopper_sweep3d, hopper_tile2d, tiled
 from .. import constants as _C
 
 __all__ = ["batched", "core", "hopper_batched", "hopper_sweep", "hopper_sweep3d",
-           "solve_grid", "update_grid", "solve_volume", "update_volume"]
+           "hopper_tile2d", "tiled", "solve_grid", "update_grid", "solve_volume",
+           "update_volume"]
 
 
 def _check_rank(state) -> None:
@@ -17,26 +20,43 @@ def _check_rank(state) -> None:
             f"a {state.u.ndim}D grid on the card waits for the N-d slice of the port")
 
 
-def solve_grid(state, stagger=None, max_iterations: int = 1_000_000):
+def _tiles(state) -> bool:
+    return state.u.ndim == 2 and hopper_tile2d.use_tiles(state.u.shape, state.u.device)
+
+
+def solve_grid(state, stagger=None, max_iterations: int = 1_000_000,
+               segment_iterations: int | None = None,
+               chunk_depth: int = hopper_tile2d.DEFAULT_DEPTH):
     """Solve to convergence on whatever device holds ``state`` — the
     counterpart of ``epic_tpu.solver.solve_grid``: the plain version for a
-    tensor on the CPU (any rank), the CUDA kernels for a 2D grid or (through
-    :func:`solve_volume`) a 3D volume on the card; another rank on the card
-    raises NotImplementedError. Protocol identical on every route
-    (harmonic_complete_cpu)."""
+    tensor on the CPU (any rank); on the card, for a 2D grid, the tile
+    kernels (``hopper_tile2d``, halo depth ``chunk_depth``) when it exceeds
+    the L2 and the in-place kernels (``hopper_sweep``) otherwise; a 3D
+    volume through :func:`solve_volume`; another rank on the card raises
+    NotImplementedError. ``segment_iterations`` runs the tile route's solve
+    as segments (``solve_segments``); the other routes' solve is one launch
+    and ignores it, as ``epic_tpu``'s VMEM route does. Protocol identical on
+    every route (harmonic_complete_cpu)."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
     if state.u.ndim == 3:
         return solve_volume(state, stagger, max_iterations)
     _check_rank(state)
+    if _tiles(state):
+        if segment_iterations is not None:
+            return hopper_tile2d.solve_segments(state, stagger, max_iterations,
+                                                segment_iterations, chunk_depth)
+        return hopper_tile2d.solve(state, stagger, max_iterations, chunk_depth)
     return hopper_sweep.solve(state, stagger, max_iterations)
 
 
-def update_grid(state, num_steps: int):
+def update_grid(state, num_steps: int, chunk_depth: int = hopper_tile2d.DEFAULT_DEPTH):
     """The anytime stepper on whatever device holds ``state``; routes as
     :func:`solve_grid`."""
     if state.u.ndim == 3:
         return update_volume(state, num_steps)
     _check_rank(state)
+    if _tiles(state):
+        return hopper_tile2d.update_n(state, num_steps, chunk_depth)
     return hopper_sweep.update_n(state, num_steps)
 
 

@@ -1,7 +1,8 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-The sources in ``csrc/`` (``sweep2d.cu``, ``sweep3d.cu``, ``batched2d.cu`` and
-the header they share) have a plain C interface and include no PyTorch header. ``nvcc``
+The sources in ``csrc/`` (``sweep2d.cu``, ``sweep3d.cu``, ``batched2d.cu``,
+``tile2d.cu`` and the header they share) have a plain C interface and include
+no PyTorch header. ``nvcc``
 compiles each ``.cu`` file to an object, all at once in parallel, and links
 them into one shared library under ``build/epic_tpu_torch/`` beside the
 package, named by a hash of every source and the flags (an edited source is
@@ -23,7 +24,7 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "sweep2d.cu", CSRC / "sweep3d.cu", CSRC / "batched2d.cu")
+SOURCES = (CSRC / "sweep2d.cu", CSRC / "sweep3d.cu", CSRC / "batched2d.cu", CSRC / "tile2d.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "epic_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 COMPILE_FLAGS = (
@@ -107,9 +108,13 @@ def load() -> ctypes.CDLL:
         lib.epic_sweep3d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i]
         lib.epic_batched2d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, p, i]
         lib.epic_batched2d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, p, i]
+        lib.epic_tile2d_chunk.argtypes = [p, p, p, p, i, i, p, i, i, p, i, p, i]
+        lib.epic_tile2d_cycle.argtypes = [p, p, p, i, i, p, i, i, i, p, i, p, i]
+        lib.epic_tile2d_solve.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, p, p, i, p, i]
         for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
                    lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve,
-                   lib.epic_batched2d_chunk, lib.epic_batched2d_solve):
+                   lib.epic_batched2d_chunk, lib.epic_batched2d_solve,
+                   lib.epic_tile2d_chunk, lib.epic_tile2d_cycle, lib.epic_tile2d_solve):
             fn.restype = i
         lib.epic_cuda_error_string.argtypes = [i]
         lib.epic_cuda_error_string.restype = ctypes.c_char_p

@@ -28,7 +28,7 @@ import torch
 
 from .. import constants as C
 from . import _build, batched
-from .hopper_sweep import _stream
+from .hopper_sweep import _iteration, _stream
 
 launches = {"epic_batched2d_chunk": 0, "epic_batched2d_solve": 0}
 
@@ -58,19 +58,6 @@ def _lane_flags(active: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if active.device != u.device:
         raise ValueError(f"active on {active.device}, u on {u.device}")
     return active.to(torch.uint8).contiguous()
-
-
-def _iteration(iteration, device: torch.device) -> torch.Tensor:
-    """The start iteration as the 0-d int32 device tensor the kernel reads
-    (an int is filled in on the device: no copy from the host, no sync)."""
-    if not isinstance(iteration, torch.Tensor):
-        return torch.full((), int(iteration), dtype=torch.int32, device=device)
-    if iteration.dtype != torch.int32 or iteration.ndim != 0:
-        raise TypeError(f"iteration must be a 0-d int32 tensor, got {iteration.dtype} "
-                        f"of shape {tuple(iteration.shape)}")
-    if iteration.device != device:
-        raise ValueError(f"iteration on {iteration.device}, u on {device}")
-    return iteration
 
 
 def _launch_chunk(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: int,

@@ -57,6 +57,19 @@ def _check_cuda_state(state: GridState, ndim: int = 2) -> None:
             raise ValueError(f"state tensors on {t.device} and {u.device}")
 
 
+def _iteration(iteration, device: torch.device) -> torch.Tensor:
+    """The start iteration as the 0-d int32 device tensor the kernel reads
+    (an int is filled in on the device: no copy from the host, no sync)."""
+    if not isinstance(iteration, torch.Tensor):
+        return torch.full((), int(iteration), dtype=torch.int32, device=device)
+    if iteration.dtype != torch.int32 or iteration.ndim != 0:
+        raise TypeError(f"iteration must be a 0-d int32 tensor, got {iteration.dtype} "
+                        f"of shape {tuple(iteration.shape)}")
+    if iteration.device != device:
+        raise ValueError(f"iteration on {iteration.device}, u on {device}")
+    return iteration
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -1,9 +1,9 @@
 """The CUDA kernels of epic_tpu_torch against their plain torch version, on
-the card: the 2D kernels (csrc/sweep2d.cu), the 3D kernels
-(csrc/sweep3d.cu), the batched scenario kernels (csrc/batched2d.cu), the
-planners that drive them, and the batched walkers on the card against the
-same walkers on the CPU. Every test here needs a CUDA card and skips
-without one.
+the card: the 2D kernels (csrc/sweep2d.cu), the 2D tile kernels for grids
+beyond the L2 (csrc/tile2d.cu), the 3D kernels (csrc/sweep3d.cu), the
+batched scenario kernels (csrc/batched2d.cu), the planners that drive them,
+and the batched walkers on the card against the same walkers on the CPU.
+Every test here needs a CUDA card and skips without one.
 
 This file imports neither JAX nor epic_tpu, so it runs on a host that has
 only torch. tests/conftest.py imports jax, so run it there without it:
@@ -29,7 +29,7 @@ import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
-                                   hopper_sweep3d)
+                                   hopper_sweep3d, hopper_tile2d, tiled)
 
 pytestmark = pytest.mark.cuda
 
@@ -412,3 +412,158 @@ def test_batch_wrappers_refuse_what_the_kernels_do_not_take(dev):
         with pytest.raises(exc):
             hopper_batched.update_n_batch(u, locked, args["iteration"], 3, args["active"])
     assert hopper_batched.launches == launches and batched.calls == calls
+
+
+def _grid(h, w, dev, seed=3, eps=1e-2, t0=0):
+    """A seeded random-obstacle grid at iteration ``t0``."""
+    st = TG.from_occupancy_image(maps.random_obstacles(h, w, density=0.12, seed=seed), eps,
+                                 device=dev)
+    return dataclasses.replace(st, iteration=torch.tensor(t0, dtype=torch.int32, device=dev))
+
+
+# (H, W) over the kernels' 64 x 128 tiles: ragged edges over 3 x 3 tiles, a
+# grid smaller than one tile, a grid within one tile's halo, and a tall
+# ragged column of tiles.
+TILE_GRIDS = [(150, 300), (37, 91), (20, 30), (200, 45)]
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
+@pytest.mark.parametrize("grid", TILE_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_tile_chunk_kernel_gives_the_plain_versions_bits(dev, grid, k):
+    """K3/K5 (and T1 with u1): one chunk at depths 1, about k/2 and k, from an
+    even and an odd iteration, against the plain tile version and core."""
+    h, w = grid
+    for t0 in (0, 1):
+        st = _grid(h, w, dev, t0=t0)
+        for ns in sorted({1, k // 2 + 1, k}):
+            for u1 in (False, True):
+                before = hopper_tile2d.launches["epic_tile2d_chunk"]
+                src = st.u.clone()
+                dst, delta, first = hopper_tile2d.sweep_chunk(src, st.locked, st.iteration, ns,
+                                                              k=k, u1=u1)
+                p_dst, p_delta, p_first = tiled.sweep_chunk(st.u, st.locked, st.iteration, ns,
+                                                            k=k, tile=hopper_tile2d.TILE, u1=u1)
+                torch.cuda.synchronize()
+                assert hopper_tile2d.launches["epic_tile2d_chunk"] == before + 1
+                assert torch.equal(src, st.u)                      # the source is untouched
+                assert torch.equal(dst, p_dst) and torch.equal(delta, p_delta)
+                assert torch.equal(dst, core.update_n(st, ns).u)
+                if u1:
+                    assert torch.equal(first, p_first)
+                    assert torch.equal(first, core.update_n(st, 1).u)
+
+
+@pytest.mark.parametrize("n_chunks,num_sweeps", [(1, 5), (2, 32), (3, 40), (4, 61), (5, 5)])
+def test_tile_cycle_kernel_gives_the_plain_versions_bits(dev, n_chunks, num_sweeps):
+    """K4/K6: odd and even chunk counts in one launch, per-chunk deltas; the
+    state ends in a for an even count and in b for an odd one."""
+    for h, w in TILE_GRIDS[:3]:
+        st = _grid(h, w, dev, seed=5, t0=7)
+        a, b = st.u.clone(), torch.full_like(st.u, -1e6)
+        before = hopper_tile2d.launches["epic_tile2d_cycle"]
+        ka, kb, kd = hopper_tile2d.sweep_cycle(a, b, st.locked, st.iteration, n_chunks,
+                                               num_sweeps, k=16)
+        pa, pb, pd = tiled.sweep_cycle(st.u, st.u, st.locked, st.iteration, n_chunks,
+                                       num_sweeps, k=16, tile=hopper_tile2d.TILE)
+        torch.cuda.synchronize()
+        assert hopper_tile2d.launches["epic_tile2d_cycle"] == before + 1
+        assert ka is a and kb is b
+        assert torch.equal(kd, pd) and kd.shape == (n_chunks,)
+        final = ka if n_chunks % 2 == 0 else kb
+        assert torch.equal(final, pa if n_chunks % 2 == 0 else pb)
+        assert torch.equal(final, core.update_n(st, num_sweeps).u)
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
+@pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000),
+                                         (13, 1_000_000), (100, 250), (10, 95)])
+def test_tile_solve_kernel_gives_the_plain_versions_bits(dev, stagger, cap, k):
+    """The one-launch protocol: converged and capped solves on ragged grids
+    (3 x 3 ragged tiles, and a grid smaller than one tile), core's bits;
+    the segmented solve gives the same."""
+    for h, w in TILE_GRIDS[:2]:
+        st = _grid(h, w, dev, seed=7, t0=5)
+        before = dict(hopper_tile2d.launches)
+        kern = hopper_tile2d.solve(dataclasses.replace(st, u=st.u.clone()), stagger, cap, k)
+        seg = hopper_tile2d.solve_segments(dataclasses.replace(st, u=st.u.clone()), stagger,
+                                           cap, 37, k)
+        plain = core.solve(st, stagger, cap)
+        _assert_same(kern, plain)
+        _assert_same(seg, plain)
+        assert hopper_tile2d.launches["epic_tile2d_solve"] > before["epic_tile2d_solve"] + 1
+        if cap == 1_000_000:
+            assert bool(kern.converged) and int(kern.iteration) % stagger == 1 % stagger
+
+
+def test_tile_update_n_runs_cycle_and_remainder_chunk(dev):
+    """A tick of an even chunk count is one cycle launch; an odd count adds
+    the remainder chunk, copied back into the caller's u."""
+    st = _grid(150, 300, dev, seed=9, t0=3)
+    for n, cycles, chunks in ((50, 1, 0), (100, 1, 1), (1, 0, 1), (16, 0, 1), (33, 1, 1)):
+        before = dict(hopper_tile2d.launches)
+        k = hopper_tile2d.update_n(dataclasses.replace(st, u=st.u.clone()), n)
+        _assert_same(k, core.update_n(st, n))
+        assert hopper_tile2d.launches["epic_tile2d_cycle"] == before["epic_tile2d_cycle"] + cycles
+        assert hopper_tile2d.launches["epic_tile2d_chunk"] == before["epic_tile2d_chunk"] + chunks
+
+
+def test_planner_beyond_l2_runs_the_tile_kernels(dev):
+    """A Planner whose grid is past the routing crossover (three quarters of
+    the card's L2) ticks and solves on the tile kernels, and gives core's
+    bits; a small grid stays on sweep2d."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    side = int((0.75 * l2 / 5) ** 0.5) + 64
+    assert hopper_tile2d.use_tiles((side, side), dev)
+    assert not hopper_tile2d.use_tiles((512, 512), dev)
+    tp = Planner(PlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+    tp.state = TG.from_occupancy_image(maps.random_obstacles(side, side, seed=2), 1e-2,
+                                       device=dev)
+    replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
+    u = tp.state.u
+    launches, sweep, calls = dict(hopper_tile2d.launches), dict(hopper_sweep.launches), \
+        dict(core.calls)
+    tp.update()
+    tp.update(100)
+    tp.solve(max_iterations=300)
+    assert hopper_tile2d.launches["epic_tile2d_cycle"] == launches["epic_tile2d_cycle"] + 2
+    assert hopper_tile2d.launches["epic_tile2d_chunk"] == launches["epic_tile2d_chunk"] + 1
+    assert hopper_tile2d.launches["epic_tile2d_solve"] == launches["epic_tile2d_solve"] + 1
+    assert hopper_sweep.launches == sweep and core.calls == calls
+    replay = core.update_n(core.update_n(replay, 25), 100)
+    _assert_same(tp.state, core.solve(replay, 100, 300))
+    assert tp.state.u is u                 # relaxed in place, like every wrapper
+
+
+def test_tile_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Checked before any launch; nothing falls back to the plain version."""
+    st = _grid(40, 70, dev)
+    u, locked = st.u, st.locked
+    launches, calls = dict(hopper_tile2d.launches), dict(tiled.calls)
+    with pytest.raises(ValueError, match="distinct"):
+        hopper_tile2d.sweep_chunk(u, locked, 0, 3, out=u)
+    with pytest.raises(ValueError, match="distinct"):
+        hopper_tile2d.sweep_cycle(u, u, locked, 0, 2)
+    bad = [
+        (TypeError, u.double(), locked),
+        (TypeError, u, locked.to(torch.uint8)),
+        (ValueError, u.t(), locked.t()),                          # not contiguous
+        (ValueError, u, locked.cpu()),
+        (ValueError, u[None], locked[None]),                      # rank 3
+    ]
+    for exc, bu, bl in bad:
+        with pytest.raises(exc):
+            hopper_tile2d.sweep_chunk(bu, bl, 0, 3)
+        with pytest.raises(exc):
+            hopper_tile2d.sweep_cycle(bu, torch.empty_like(bu), bl, 0, 2)
+    with pytest.raises(ValueError):
+        hopper_tile2d.sweep_chunk(u, locked, 0, 3, out=torch.empty_like(u).cpu())
+    with pytest.raises(ValueError):
+        hopper_tile2d.sweep_chunk(u, locked, 0, 17)                # deeper than k
+    with pytest.raises(ValueError, match="shared memory"):
+        hopper_tile2d.update_n(st, 5, k=100)
+    for exc, fields in ((TypeError, dict(u=st.u.double())), (ValueError, dict(locked=locked.cpu())),
+                        (TypeError, dict(iteration=st.iteration.long()))):
+        for call in (lambda s: hopper_tile2d.update_n(s, 3), lambda s: hopper_tile2d.solve(s)):
+            with pytest.raises(exc):
+                call(dataclasses.replace(st, **fields))
+    assert hopper_tile2d.launches == launches and tiled.calls == calls
