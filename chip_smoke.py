@@ -89,7 +89,34 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 plain sweeps (what epic_tpu's test-only check kernel
                 computes), and an uncapped tile solve called directly
                 against phase 2's in-place solve: the same 49,301 iterations
-                and the same bits.
+                and the same bits;
+ 15. biggrid3d — phase 9's 256^3 volume (84 MB of u and locked, beyond the
+                L2). The main path, counts zeroed just before and read just
+                after: VolumePlanner.update(50) then (100) from an even and
+                an odd start iteration and an uncapped VolumePlanner.solve;
+                the 3D family the routing rule picks
+                (hopper_tile3d.use_tiles) must have run, the other and the
+                plain versions must not. The ticks against core.update_n and
+                the solve against core.solve and K7's one-launch solve
+                (1,301 iterations), same bits. Then the tile route through
+                hopper_tile3d's own entries (update_n, solve), counted the
+                same way, against the same references; the chunk and cycle
+                entries alone against the plain tile version
+                (solver/tiled3d.py) and core, same bits; the tile tick's and
+                K7's mean of 10 on the same state;
+ 16. wide3d   — a 32 x 2048 x 2048 volume, a building floor 102.4 m square
+                and 1.6 m high at 5 cm (537 MB of u), built as phase 6's: the
+                same main path and count rule with 100-sweep ticks from both
+                parities, a solve capped at 500 and solve_volume in segments
+                of 200; then the tile route (update_n of 100 sweeps from
+                both parities and of 50, solve, solve_segments) counted the
+                same way; all against core, the segments against the
+                one-launch solve, same bits;
+ 17. tile3d_small — phase 6's 30 x 256 x 256 volume: the chunk entry with u1
+                against one and K plain sweeps (what epic_tpu's test-only
+                band kernel and the slab kernel's check variant compute),
+                and an uncapped tile solve against phase 6's K7 solve: the
+                same 1,101 iterations and the same bits.
 
 Each phase prints one JSON line and raises on failure. Then come the kernels'
 JSON line (each entry with its time, its plain version's, its bound and its
@@ -135,6 +162,9 @@ SIZE_SIDE = 4096          # 67 MB of u: beyond the 50 MB L2, all 132 SMs busy
 VOLUME = (30, 256, 256)   # 1.97M cells, 7.9 MB of u: the VMEM-resident regime's full width
 VOLUME_CAP = 3000         # the capped kernel-vs-plain solve
 SIZE3D = (256, 256, 256)  # 67 MB of u: beyond L2
+WIDE3D = (32, 2048, 2048)  # a building floor at 5 cm: 537 MB of u, 10x the L2
+WIDE3D_CAP = 500
+WIDE3D_SEGMENT = 200
 BATCH = (4096, 128)       # lanes x side: 67M cells, 268 MB of u, 5x the L2 (BASELINE config 3)
 BATCH_EPS = 1e-2          # tools/probe.py's batched-solve and batched-goals
 BATCH_CAP = 1000          # the capped three-route solve
@@ -160,6 +190,9 @@ SOURCES = {
     "epic_tile2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_tile2d_cycle": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_tile2d_solve": "epic_tpu_torch/csrc/tile2d.cu",
+    "epic_tile3d_chunk": "epic_tpu_torch/csrc/tile3d.cu",
+    "epic_tile3d_cycle": "epic_tpu_torch/csrc/tile3d.cu",
+    "epic_tile3d_solve": "epic_tpu_torch/csrc/tile3d.cu",
 }
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
@@ -185,6 +218,20 @@ REPLACES = {
                           "epic_tpu/solver/pallas_cycle.py:355",
                           "epic_tpu/solver/pallas_biggrid.py:199",
                           "epic_tpu/solver/pallas_tiled2d.py:120"],
+    # K8 (and T3 :115), K10, and with u1 K10's check variant
+    "epic_tile3d_chunk": ["epic_tpu/solver/pallas_biggrid3d.py:221",
+                          "epic_tpu/solver/pallas_tiled3d.py:121",
+                          "epic_tpu/solver/pallas_biggrid3d.py:115",
+                          "epic_tpu/solver/pallas_tiled3d.py:225"],
+    # K9, K11
+    "epic_tile3d_cycle": ["epic_tpu/solver/pallas_cycle.py:657",
+                          "epic_tpu/solver/pallas_cycle.py:869"],
+    # the loops of _solve_banded (pallas_biggrid3d.py:460) and _solve_tiled3d
+    # (pallas_tiled3d.py:451) over K9/K11 with K8/K10's check chunks
+    "epic_tile3d_solve": ["epic_tpu/solver/pallas_cycle.py:657",
+                          "epic_tpu/solver/pallas_cycle.py:869",
+                          "epic_tpu/solver/pallas_biggrid3d.py:221",
+                          "epic_tpu/solver/pallas_tiled3d.py:121"],
 }
 
 
@@ -231,10 +278,12 @@ def copy_state(state):
 
 def zero_counts() -> None:
     from epic_tpu_torch.solver import (batched, core, hopper_batched, hopper_sweep,
-                                       hopper_sweep3d, hopper_tile2d, tiled)
+                                       hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled,
+                                       tiled3d)
 
     for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
-              hopper_tile2d.launches, core.calls, batched.calls, tiled.calls):
+              hopper_tile2d.launches, hopper_tile3d.launches, core.calls, batched.calls,
+              tiled.calls, tiled3d.calls):
         for k in d:
             d[k] = 0
 
@@ -771,6 +820,245 @@ def phase_tile_small(dev, maze, maze_solved) -> dict:
     return {"err": max(errs + [solve_err])}
 
 
+def counted_3d(what: str, drive, tiles: bool) -> dict:
+    """Run ``drive()`` with every count zeroed just before and read just
+    after: the 3D family ``tiles`` names (the tile kernels, else K7) must
+    have run, the other family and the plain versions must not. Returns the
+    launches of the family that ran."""
+    from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d, tiled3d
+
+    zero_counts()
+    drive()
+    torch.cuda.synchronize()
+    ran, other = ((hopper_tile3d.launches, hopper_sweep3d.launches) if tiles
+                  else (hopper_sweep3d.launches, hopper_tile3d.launches))
+    ran = dict(ran)
+    others = {**other, **{f"core.{k}": v for k, v in core.calls.items()},
+              **{f"tiled3d.{k}": v for k, v in tiled3d.calls.items()}}
+    require(all(v > 0 for v in ran.values()), f"{what}: a kernel never ran: {ran}")
+    require(all(v == 0 for v in others.values()),
+            f"{what}: another kernel or the plain version ran: {others}")
+    return ran
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def phase_biggrid3d(dev) -> dict:
+    """256^3 through the VolumePlanner (the routed main path) and through
+    the tile route's own entries, against core, K7 and the plain tile
+    version."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d, tiled3d
+
+    u, locked = volume_arrays(SIZE3D)
+    base = volume_state(dev, u, locked)
+    starts = {t: volume_state(dev, u, locked, t) for t in (0, 1)}
+    lt = torch.from_numpy(locked)
+    del u
+    tiles = hopper_tile3d.use_tiles(SIZE3D, dev)
+    k, tile = hopper_tile3d.DEFAULT_DEPTH, hopper_tile3d.TILE
+
+    # The references, before the counted windows.
+    plain, res, times = {}, {}, {}
+    for t in (0, 1):
+        plain[t, 50] = core.update_n(starts[t], 50)
+        plain[t, 150] = core.update_n(plain[t, 50], 100)
+    tick_p_ms = event_ms(lambda: core.update_n(starts[0], 100))
+    solve_p_ms = event_ms(lambda: res.__setitem__("ps", core.solve(base, STAGGER)))
+    k7_solve_ms = event_ms(lambda: res.__setitem__("k7", hopper_sweep3d.solve(copy_state(base),
+                                                                              STAGGER)))
+    compare(res["k7"], res["ps"], "256^3 K7 solve vs plain")
+
+    planner = T.VolumePlanner(T.VolumePlannerConfig(epsilon=EPS, stagger=STAGGER), device=dev)
+    got = {}
+
+    def drive_planner():
+        for t in (0, 1):
+            planner.state = copy_state(starts[t])
+            planner.update(50)
+            got[t, 50] = copy_state(planner.state)
+            planner.update(100)
+            got[t, 150] = copy_state(planner.state)
+        planner.state = copy_state(base)
+        times["planner_solve"] = event_ms(planner.solve)
+        res["planner"] = planner.state
+
+    main = counted_3d("256^3 VolumePlanner", drive_planner, tiles)
+    errs = [compare(got[key], plain[key], f"256^3 VolumePlanner tick to iteration {sum(key)}")
+            for key in sorted(plain)]
+    errs.append(compare(res["planner"], res["ps"], "256^3 VolumePlanner solve vs plain"))
+    errs.append(compare(res["planner"], res["k7"], "256^3 VolumePlanner solve vs K7"))
+    require(bool(res["planner"].converged), "256^3 VolumePlanner solve did not converge")
+
+    tgot = {}
+
+    def drive_tiles():
+        for t in (0, 1):
+            st = hopper_tile3d.update_n(copy_state(starts[t]), 50, k)
+            tgot[t, 50] = copy_state(st)
+            tgot[t, 150] = hopper_tile3d.update_n(st, 100, k)
+        times["tile_solve"] = event_ms(lambda: res.__setitem__(
+            "ts", hopper_tile3d.solve(copy_state(base), STAGGER, k=k)))
+
+    tile_launches = counted_3d("256^3 tile route", drive_tiles, True)
+    errs += [compare(tgot[key], plain[key], f"256^3 tile tick to iteration {sum(key)}")
+             for key in sorted(plain)]
+    errs.append(compare(res["ts"], res["ps"], "256^3 tile solve vs plain"))
+    iters = int(res["ts"].iteration)
+
+    k7s, tls = copy_state(starts[0]), copy_state(starts[0])
+    k7_ms10 = event_ms(lambda: hopper_sweep3d.update_n(k7s, 100), reps=10)
+    tile_ms10 = event_ms(lambda: hopper_tile3d.update_n(tls, 100, k), reps=10)
+
+    # The chunk and cycle entries alone, against the plain tile version and core.
+    src, lk = base.u, base.locked
+    chunk_ms = event_ms(lambda: res.__setitem__("c", hopper_tile3d.sweep_chunk(src, lk, 0, k, k=k)),
+                        reps=10)
+    chunk_p_ms = event_ms(lambda: res.__setitem__("pc", tiled3d.sweep_chunk(src, lk, 0, k, k=k,
+                                                                            tile=tile)))
+    ref = core.update_n(base, k)
+    chunk_err = max(max_abs(res["c"][0], res["pc"][0]), max_abs(res["c"][1], res["pc"][1]),
+                    max_abs(res["c"][0], ref.u), max_abs(res["c"][1], ref.delta))
+    require(chunk_err == 0.0, f"256^3 chunk entry vs plain: {chunk_err}")
+    cycle_sweeps, cycle_chunks = 4 * k, 4
+    a, b = src.clone(), torch.empty_like(src)
+    cycle_ms = event_ms(lambda: hopper_tile3d.sweep_cycle(a, b, lk, 0, cycle_chunks, cycle_sweeps,
+                                                          k=k), reps=10)
+    res["y"] = hopper_tile3d.sweep_cycle(src.clone(), torch.empty_like(src), lk, 0, cycle_chunks,
+                                         cycle_sweeps, k=k)
+    cycle_p_ms = event_ms(lambda: res.__setitem__("py", tiled3d.sweep_cycle(
+        src, src, lk, 0, cycle_chunks, cycle_sweeps, k=k, tile=tile)))
+    cycle_err = max(max_abs(res["y"][0], res["py"][0]), max_abs(res["y"][2], res["py"][2]),
+                    max_abs(res["y"][0], core.update_n(base, cycle_sweeps).u))
+    require(cycle_err == 0.0, f"256^3 cycle entry vs plain: {cycle_err}")
+    bounds = {"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True),
+              "chunk": bound(lt, 0, k, lse6=True), "cycle": bound(lt, 0, cycle_sweeps, lse6=True)}
+    emit(phase="biggrid3d", shape=list(SIZE3D), tile=list(tile), k=k, routed_to_tiles=tiles,
+         launches=main, tile_route_launches=tile_launches, tick_max_abs_err=max(errs),
+         tile_tick_ms_mean10=tile_ms10, sweep3d_tick_ms_mean10=k7_ms10,
+         tick_plain_ms=tick_p_ms, solve_iterations=iters, solve_converged=bool(res["ts"].converged),
+         planner_solve_ms=times["planner_solve"], tile_solve_ms=times["tile_solve"],
+         sweep3d_solve_ms=k7_solve_ms, solve_plain_ms=solve_p_ms,
+         chunk_sweeps=k, chunk_kernel_ms_mean10=chunk_ms, chunk_plain_ms=chunk_p_ms,
+         cycle_sweeps=cycle_sweeps, cycle_chunks=cycle_chunks, cycle_kernel_ms_mean10=cycle_ms,
+         cycle_plain_ms=cycle_p_ms, bounds=bounds)
+    return {"main": main, "tiles": tiles, "tile_launches": tile_launches,
+            "err": max(errs + [chunk_err, cycle_err]),
+            "chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
+            "cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
+            "solve": (times["tile_solve"], solve_p_ms, bounds["solve"])}
+
+
+def phase_wide3d(dev) -> dict:
+    import epic_tpu_torch as T
+    from epic_tpu_torch import solver
+    from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d
+
+    t0 = time.perf_counter()
+    u, locked = volume_arrays(WIDE3D)
+    base = volume_state(dev, u, locked)
+    lt = torch.from_numpy(locked)
+    del u, locked
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tiles = hopper_tile3d.use_tiles(WIDE3D, dev)
+    k = hopper_tile3d.DEFAULT_DEPTH
+    starts = {t: at_iteration(base, t) for t in (0, 1)}
+    plain, res, got, times = {}, {}, {}, {}
+    for t in (0, 1):
+        plain[t] = core.update_n(starts[t], 100)
+    plain[50] = core.update_n(starts[0], 50)
+    solve_p_ms = event_ms(lambda: res.__setitem__("ps", core.solve(base, STAGGER, WIDE3D_CAP)))
+    planner = T.VolumePlanner(T.VolumePlannerConfig(epsilon=EPS, stagger=STAGGER), device=dev)
+
+    def drive():
+        for t in (0, 1):
+            planner.state = copy_state(starts[t])
+            times[t] = event_ms(lambda: planner.update(100))
+            got[t] = copy_state(planner.state)
+        planner.state = copy_state(base)
+        times["solve"] = event_ms(lambda: planner.solve(max_iterations=WIDE3D_CAP))
+        times["segments"] = event_ms(lambda: res.__setitem__("seg", solver.solve_volume(
+            copy_state(base), STAGGER, WIDE3D_CAP, segment_iterations=WIDE3D_SEGMENT)))
+
+    what = "32x2048x2048"
+    main = counted_3d(f"{what} VolumePlanner", drive, tiles)
+    errs = [compare(got[t], plain[t], f"{what} 100-sweep tick from iteration {t}") for t in (0, 1)]
+    errs.append(compare(planner.state, res["ps"], f"{what} solve capped at {WIDE3D_CAP}"))
+    errs.append(compare(res["seg"], planner.state, f"{what} solve_volume segments vs one launch"))
+
+    def drive_tiles():
+        for t in (0, 1):
+            times["tile", t] = event_ms(lambda: got.__setitem__(
+                ("tile", t), hopper_tile3d.update_n(copy_state(starts[t]), 100, k)))
+        # An odd chunk count: the remainder chunk.
+        got["tile", 50] = hopper_tile3d.update_n(copy_state(starts[0]), 50, k)
+        times["tile_solve"] = event_ms(lambda: res.__setitem__("ts", hopper_tile3d.solve(
+            copy_state(base), STAGGER, WIDE3D_CAP, k)))
+        times["tile_segments"] = event_ms(lambda: res.__setitem__("tseg", hopper_tile3d.solve_segments(
+            copy_state(base), STAGGER, WIDE3D_CAP, WIDE3D_SEGMENT, k)))
+
+    tile_launches = counted_3d(f"{what} tile route", drive_tiles, True)
+    errs += [compare(got["tile", t], plain[t], f"{what} tile tick from iteration {t}")
+             for t in (0, 1, 50)]
+    errs.append(compare(res["ts"], res["ps"], f"{what} tile solve capped at {WIDE3D_CAP}"))
+    errs.append(compare(res["tseg"], res["ts"], f"{what} tile segments vs one launch"))
+    k7s, tls = copy_state(starts[0]), copy_state(starts[0])
+    k7_ms5 = event_ms(lambda: hopper_sweep3d.update_n(k7s, 100), reps=5)
+    tile_ms5 = event_ms(lambda: hopper_tile3d.update_n(tls, 100, k), reps=5)
+    iters = int(res["ts"].iteration)
+    emit(phase="wide3d", shape=list(WIDE3D), setup_s=setup_s, routed_to_tiles=tiles, k=k,
+         launches=main, tile_route_launches=tile_launches, max_abs_err=max(errs),
+         planner_tick_ms=[times[0], times[1]], planner_solve_ms=times["solve"],
+         solve_volume_segments_ms=times["segments"],
+         tile_tick_ms=[times["tile", 0], times["tile", 1]], tile_solve_ms=times["tile_solve"],
+         tile_segments_ms=times["tile_segments"], tile_tick_ms_mean5=tile_ms5,
+         sweep3d_tick_ms_mean5=k7_ms5, solve_cap=WIDE3D_CAP, segment_iterations=WIDE3D_SEGMENT,
+         solve_iterations=iters, solve_plain_ms=solve_p_ms,
+         bounds={"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True)})
+    return {"main": main, "tiles": tiles, "tile_launches": tile_launches, "err": max(errs)}
+
+
+def phase_tile3d_small(dev, volume, solved) -> dict:
+    """The chunk entry with u1 on phase 6's volume, and the converged exit
+    of the one-launch tile solve against K7's."""
+    from epic_tpu_torch.solver import core, hopper_tile3d, tiled3d
+
+    u, locked = volume
+    k = hopper_tile3d.DEFAULT_DEPTH
+    errs = []
+    for t0 in (0, 1):
+        st = volume_state(dev, u, locked, t0)
+        dst, delta, u1 = hopper_tile3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k, u1=True)
+        p_dst, p_delta, p_u1 = tiled3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
+                                                   tile=hopper_tile3d.TILE, u1=True)
+        full, one = core.update_n(st, k), core.update_n(st, 1)
+        errs.append(max(max_abs(dst, full.u), max_abs(u1, one.u), max_abs(delta, full.delta),
+                        max_abs(dst, p_dst), max_abs(u1, p_u1), max_abs(delta, p_delta)))
+        require(errs[-1] == 0.0, f"30x256x256 chunk with u1 from iteration {t0}: "
+                f"differs by {errs[-1]}")
+    chunk_ms = event_ms(lambda: hopper_tile3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
+                                                          u1=True), reps=10)
+    chunk_p_ms = event_ms(lambda: tiled3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
+                                                      tile=hopper_tile3d.TILE, u1=True))
+    res = {}
+    solve_ms = event_ms(lambda: res.__setitem__("s", hopper_tile3d.solve(
+        volume_state(dev, u, locked), STAGGER)))
+    solve_err = compare(res["s"], solved, "30x256x256 tile solve vs the in-place solve")
+    iters = int(res["s"].iteration)
+    lt = torch.from_numpy(locked)
+    emit(phase="tile3d_small", shape=list(u.shape), chunk_sweeps=k,
+         chunk_u1_max_abs_err=max(errs), chunk_u1_kernel_ms_mean10=chunk_ms,
+         chunk_u1_plain_ms=chunk_p_ms, solve_iterations=iters,
+         solve_converged=bool(res["s"].converged), solve_max_abs_err=solve_err,
+         solve_kernel_ms=solve_ms,
+         bounds={"chunk": bound(lt, 1, k, lse6=True), "solve": bound(lt, 0, iters, lse6=True)})
+    return {"err": max(errs + [solve_err])}
+
+
 def volume_arrays(shape, density: float = 0.1, seed: int = 0):
     """u, locked of a boundary-locked volume with seeded obstacle voxels and
     one goal voxel at the centre (tests/test_pallas3d.py:15-29)."""
@@ -1219,9 +1507,15 @@ def main() -> None:
     big = phase_biggrid(dev)
     wide = phase_wide(dev)
     small = phase_tile_small(dev, maze, m["maze_solved"])
+    big3 = phase_biggrid3d(dev)
+    wide3 = phase_wide3d(dev)
+    small3 = phase_tile3d_small(dev, v["volume"], v["solved"])
     for name in big["launches"]:
         launches[name] = big["launches"][name] + wide["launches"][name]
+    for counts in (big3["main"], big3["tile_launches"], wide3["main"], wide3["tile_launches"]):
+        add_counts(launches, counts)
     tile_err = max(z["tile_err"], big["err"], wide["err"], small["err"])
+    tile3d_err = max(big3["err"], wide3["err"], small3["err"])
     errs = {
         "epic_sweep2d_chunk": max(m["tick_err"], z["tick_err"]),
         "epic_sweep2d_solve": max(m["solve_err"], z["solve_err"]),
@@ -1232,9 +1526,12 @@ def main() -> None:
         "epic_tile2d_chunk": tile_err,
         "epic_tile2d_cycle": tile_err,
         "epic_tile2d_solve": tile_err,
+        "epic_tile3d_chunk": tile3d_err,
+        "epic_tile3d_cycle": tile3d_err,
+        "epic_tile3d_solve": tile3d_err,
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
-    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2.
+    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3.
     times = {
         "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"], m["tick_bound"]),
         "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
@@ -1245,6 +1542,9 @@ def main() -> None:
         "epic_tile2d_chunk": big["chunk"],
         "epic_tile2d_cycle": big["cycle"],
         "epic_tile2d_solve": big["solve"],
+        "epic_tile3d_chunk": big3["chunk"],
+        "epic_tile3d_cycle": big3["cycle"],
+        "epic_tile3d_solve": big3["solve"],
     }
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],

@@ -23,7 +23,7 @@
 // (the reference's x1-even offset negation, harmonic_cpu.cpp:96-99; pinned
 // by tests/goldens/fuzz3d_seed0.npz).
 //
-// Numerics. lse6 keeps the pinned op order of
+// Numerics. lse6 (sweep_common.cuh) keeps the pinned op order of
 // epic_tpu_torch/solver/_sweep_body.py: neighbours (z-, z+, y-, y+, x-, x+),
 // a left-to-right fmaxf chain, a left-associated sum of expf, logf, minus
 // float32(log 6). Built without --use_fast_math, so the kernels and the plain
@@ -40,10 +40,10 @@
 // a sweep.
 //
 // Volumes beyond 2M cells went to four more TPU kernels (K8-K11:
-// pallas_biggrid3d, pallas_tiled3d, pallas_cycle's 3D cycles). Here this
-// kernel takes them as they are; their TPU layouts are answered later by a
-// temporally-blocked tile kernel (K sweeps of a tile plus halo in shared
-// memory), together with the 2D K3-K6.
+// pallas_biggrid3d, pallas_tiled3d, pallas_cycle's 3D cycles). Their port is
+// the temporally blocked tile family of tile3d.cu; solver.update_volume and
+// solve_volume send a volume there past the crossover that
+// epic_tpu_torch/tile_probe.py measures, and keep it here below it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -56,23 +56,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads3d = 128;
-constexpr float kLog6 = 1.79175949f;  // float32(log(6.0))
-
-__device__ __forceinline__ float lse6(float zm, float zp, float ym, float yp, float xm,
-                                      float xp) {
-  float m = fmaxf(zm, zp);
-  m = fmaxf(m, ym);
-  m = fmaxf(m, yp);
-  m = fmaxf(m, xm);
-  m = fmaxf(m, xp);
-  float s = expf(zm - m);
-  s = s + expf(zp - m);
-  s = s + expf(ym - m);
-  s = s + expf(yp - m);
-  s = s + expf(xm - m);
-  s = s + expf(xp - m);
-  return (m + logf(s)) - kLog6;
-}
 
 // Interior (z, y) rows of a D x H x W volume; 0 when it has no interior.
 __host__ __device__ __forceinline__ long long interior_rows(int D, int H, int W) {

@@ -167,12 +167,6 @@ __device__ void tile_chunk(const float* src, float* dst, float* u1, const Tiling
   __syncthreads();  // the next tile reuses us/fs
 }
 
-// The chunk's sweeps spread over a chunk count, earlier chunks one deeper
-// (solver/tiled.py spread).
-__device__ __forceinline__ int spread_at(int total, int n_chunks, int c) {
-  return total / n_chunks + (c < total % n_chunks ? 1 : 0);
-}
-
 // All tiles of one chunk, strided over the blocks.
 __device__ void all_tiles(const float* src, float* dst, float* u1, const Tiling& g, int t0,
                           int ns, unsigned int* delta_acc, float* us, uint8_t* fs) {
@@ -289,29 +283,6 @@ Tiling make_tiling(const void* locked, int H, int W, int K) {
   return g;
 }
 
-// Allow the launch's dynamic shared memory (above 48 KB this must precede
-// both the occupancy query and the launch).
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// A cooperative launch of `kernel` with `args`: as many blocks as tiles, at
-// most what the card holds at once with this much shared memory.
-cudaError_t launch_cooperative(const void* kernel, const Tiling& g, void** args, int device,
-                               cudaStream_t stream) {
-  const size_t smem = smem_bytes(g);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = grid_blocks(kernel, kThreads, device, g.n_tiles, &blocks, smem);
-  if (err != cudaSuccess) return err;
-  if (blocks < 1) return cudaErrorInvalidConfiguration;  // the tile does not fit an SM
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -352,8 +323,8 @@ int epic_tile2d_cycle(void* a, void* b, const void* locked, int H, int W, const 
   const int* it_i = static_cast<const int*>(it);
   unsigned int* d_u = static_cast<unsigned int*>(deltas);
   void* args[] = {&a, &b, &g, &it_i, &t_off, &total, &n_chunks, &d_u};
-  return launch_cooperative(reinterpret_cast<const void*>(tile_cycle_kernel), g, args, device,
-                            static_cast<cudaStream_t>(stream));
+  return launch_cooperative(reinterpret_cast<const void*>(tile_cycle_kernel), kThreads, g.n_tiles,
+                            smem_bytes(g), args, device, static_cast<cudaStream_t>(stream));
 }
 
 // The solve protocol in one launch, resumed from (*it_io, *delta_io,
@@ -370,8 +341,8 @@ int epic_tile2d_solve(void* u, void* twin, void* u1, const void* locked, int H, 
   const float* eps_f = static_cast<const float*>(eps);
   void* args[] = {&u, &twin, &u1, &g, &eps_f, &m_max, &bound, &stagger,
                   &acc, &it_io, &delta_io, &done_io};
-  return launch_cooperative(reinterpret_cast<const void*>(tile_solve_kernel), g, args, device,
-                            static_cast<cudaStream_t>(stream));
+  return launch_cooperative(reinterpret_cast<const void*>(tile_solve_kernel), kThreads, g.n_tiles,
+                            smem_bytes(g), args, device, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -2,10 +2,12 @@
 
 The counterpart of ``epic_tpu.planner3d``: the 2D planner's verb surface
 (:class:`epic_tpu_torch.planner.Planner`) one dimension up, over a
-``GridState`` volume on the planner's device. ``update()`` is one launch of
-the 3D chunk kernel on the card (``csrc/sweep3d.cu``, through
-:mod:`epic_tpu_torch.solver.hopper_sweep3d`; the plain torch version on the
-CPU), which relaxes ``u`` in place — so there is no padded-buffer cache.
+``GridState`` volume on the planner's device. ``update()`` and ``solve()`` go
+through :func:`epic_tpu_torch.solver.update_volume` and ``solve_volume``:
+on the card the in-place kernels of ``csrc/sweep3d.cu``, or past the
+measured crossover beyond the L2 the tile kernels of ``csrc/tile3d.cu``;
+the plain torch version on the CPU. Either relaxes ``u`` in place, so there
+is no padded-buffer cache.
 Paths come from the trilinear walker (:mod:`epic_tpu_torch.path3d`, on the
 host) or, many at once, from :mod:`epic_tpu_torch.solver.batched_path3d` on
 the planner's device.
@@ -29,7 +31,8 @@ from . import grid as G
 from .config import check_backend
 from .errors import EpicError, InvalidLocationError
 from .path3d import compute_path
-from .solver import batched_path3d, hopper_sweep3d
+from . import solver
+from .solver import batched_path3d
 
 logger = logging.getLogger("epic_tpu_torch.planner3d")
 
@@ -83,7 +86,8 @@ class VolumePlanner:
       (main loop)    -> update(num_steps)
 
     ``device`` places the volume: a CUDA device runs the kernels of
-    ``csrc/sweep3d.cu``, the CPU the plain torch version.
+    ``csrc/sweep3d.cu`` or, for a volume past the crossover, of
+    ``csrc/tile3d.cu``; the CPU the plain torch version.
     """
 
     def __init__(self, config: VolumePlannerConfig | None = None, *,
@@ -153,15 +157,14 @@ class VolumePlanner:
         n = num_steps if num_steps is not None else self.config.steps_per_update
         if n < 1:
             return
-        self.state = hopper_sweep3d.update_n(self.state, n)
+        self.state = solver.update_volume(self.state, n)
 
     def solve(self, max_iterations: int | None = None) -> None:
         """Blocking solve-to-convergence (harmonic_complete semantics).
         ``max_iterations`` caps the solve; a capped solve leaves
         ``state.converged`` False and can be resumed by calling again."""
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
-        self.state = hopper_sweep3d.solve(self._require_state(), stagger=self.config.stagger,
-                                          max_iterations=cap)
+        self.state = solver.solve_volume(self._require_state(), self.config.stagger, cap)
 
     # -- service verbs -----------------------------------------------------
 

@@ -1,16 +1,18 @@
 """The port's solvers: the plain torch version (``core``) and the CUDA
 kernels behind it (``hopper_sweep`` in 2D, ``hopper_tile2d`` for 2D grids
-beyond the card's L2, ``hopper_sweep3d`` in 3D), with the library-level
-entries; the tile family's plain version (``tiled``); batched scenario
-solves over ``[B, H, W]`` lanes in plain torch (``batched``) and on their
-CUDA kernels (``hopper_batched``)."""
+beyond the card's L2, ``hopper_sweep3d`` in 3D, ``hopper_tile3d`` for
+volumes beyond it), with the library-level entries; the tile families'
+plain versions (``tiled``, ``tiled3d``); batched scenario solves over
+``[B, H, W]`` lanes in plain torch (``batched``) and on their CUDA kernels
+(``hopper_batched``)."""
 
-from . import batched, core, hopper_batched, hopper_sweep, hopper_sweep3d, hopper_tile2d, tiled
+from . import (batched, core, hopper_batched, hopper_sweep, hopper_sweep3d, hopper_tile2d,
+               hopper_tile3d, tiled, tiled3d)
 from .. import constants as _C
 
 __all__ = ["batched", "core", "hopper_batched", "hopper_sweep", "hopper_sweep3d",
-           "hopper_tile2d", "tiled", "solve_grid", "update_grid", "solve_volume",
-           "update_volume"]
+           "hopper_tile2d", "hopper_tile3d", "tiled", "tiled3d", "solve_grid", "update_grid",
+           "solve_volume", "update_volume"]
 
 
 def _check_rank(state) -> None:
@@ -25,48 +27,66 @@ def _tiles(state) -> bool:
 
 
 def solve_grid(state, stagger=None, max_iterations: int = 1_000_000,
-               segment_iterations: int | None = None,
-               chunk_depth: int = hopper_tile2d.DEFAULT_DEPTH):
+               segment_iterations: int | None = None, chunk_depth: int | None = None):
     """Solve to convergence on whatever device holds ``state`` — the
     counterpart of ``epic_tpu.solver.solve_grid``: the plain version for a
     tensor on the CPU (any rank); on the card, for a 2D grid, the tile
-    kernels (``hopper_tile2d``, halo depth ``chunk_depth``) when it exceeds
-    the L2 and the in-place kernels (``hopper_sweep``) otherwise; a 3D
-    volume through :func:`solve_volume`; another rank on the card raises
+    kernels (``hopper_tile2d``, halo depth ``chunk_depth``, by default its
+    ``DEFAULT_DEPTH``) when it exceeds the L2 and the in-place kernels
+    (``hopper_sweep``) otherwise; a 3D volume, with both keywords, through
+    :func:`solve_volume`; another rank on the card raises
     NotImplementedError. ``segment_iterations`` runs the tile route's solve
     as segments (``solve_segments``); the other routes' solve is one launch
     and ignores it, as ``epic_tpu``'s VMEM route does. Protocol identical on
     every route (harmonic_complete_cpu)."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
     if state.u.ndim == 3:
-        return solve_volume(state, stagger, max_iterations)
+        return solve_volume(state, stagger, max_iterations, segment_iterations, chunk_depth)
     _check_rank(state)
     if _tiles(state):
+        k = hopper_tile2d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
         if segment_iterations is not None:
             return hopper_tile2d.solve_segments(state, stagger, max_iterations,
-                                                segment_iterations, chunk_depth)
-        return hopper_tile2d.solve(state, stagger, max_iterations, chunk_depth)
+                                                segment_iterations, k)
+        return hopper_tile2d.solve(state, stagger, max_iterations, k)
     return hopper_sweep.solve(state, stagger, max_iterations)
 
 
-def update_grid(state, num_steps: int, chunk_depth: int = hopper_tile2d.DEFAULT_DEPTH):
+def update_grid(state, num_steps: int, chunk_depth: int | None = None):
     """The anytime stepper on whatever device holds ``state``; routes as
     :func:`solve_grid`."""
     if state.u.ndim == 3:
-        return update_volume(state, num_steps)
+        return update_volume(state, num_steps, chunk_depth)
     _check_rank(state)
     if _tiles(state):
-        return hopper_tile2d.update_n(state, num_steps, chunk_depth)
+        k = hopper_tile2d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
+        return hopper_tile2d.update_n(state, num_steps, k)
     return hopper_sweep.update_n(state, num_steps)
 
 
-def solve_volume(state, stagger=None, max_iterations: int = 1_000_000):
-    """3D solve: the CUDA kernel for a volume on the card, the plain version
-    for one on the CPU (``epic_tpu.solver.solve_volume``'s counterpart)."""
+def solve_volume(state, stagger=None, max_iterations: int = 1_000_000,
+                 segment_iterations: int | None = None, chunk_depth: int | None = None):
+    """3D solve (``epic_tpu.solver.solve_volume``'s counterpart): the plain
+    version for a volume on the CPU; on the card the tile kernels
+    (``hopper_tile3d``, halo depth ``chunk_depth``, by default its
+    ``DEFAULT_DEPTH``) past the measured crossover
+    (``hopper_tile3d.use_tiles``) and the in-place kernels
+    (``hopper_sweep3d``) below it. ``segment_iterations`` runs the tile
+    route's solve as segments; the in-place route's solve is one launch and
+    ignores it, as ``epic_tpu``'s VMEM route does."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
+    if hopper_tile3d.use_tiles(state.u.shape, state.u.device):
+        k = hopper_tile3d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
+        if segment_iterations is not None:
+            return hopper_tile3d.solve_segments(state, stagger, max_iterations,
+                                                segment_iterations, k)
+        return hopper_tile3d.solve(state, stagger, max_iterations, k)
     return hopper_sweep3d.solve(state, stagger, max_iterations)
 
 
-def update_volume(state, num_steps: int):
+def update_volume(state, num_steps: int, chunk_depth: int | None = None):
     """The 3D anytime stepper; routes as :func:`solve_volume`."""
+    if hopper_tile3d.use_tiles(state.u.shape, state.u.device):
+        k = hopper_tile3d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
+        return hopper_tile3d.update_n(state, num_steps, k)
     return hopper_sweep3d.update_n(state, num_steps)

@@ -1,8 +1,8 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
 The sources in ``csrc/`` (``sweep2d.cu``, ``sweep3d.cu``, ``batched2d.cu``,
-``tile2d.cu`` and the header they share) have a plain C interface and include
-no PyTorch header. ``nvcc``
+``tile2d.cu``, ``tile3d.cu`` and the header they share) have a plain C
+interface and include no PyTorch header. ``nvcc``
 compiles each ``.cu`` file to an object, all at once in parallel, and links
 them into one shared library under ``build/epic_tpu_torch/`` beside the
 package, named by a hash of every source and the flags (an edited source is
@@ -24,7 +24,8 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "sweep2d.cu", CSRC / "sweep3d.cu", CSRC / "batched2d.cu", CSRC / "tile2d.cu")
+SOURCES = tuple(CSRC / f for f in ("sweep2d.cu", "sweep3d.cu", "batched2d.cu", "tile2d.cu",
+                                    "tile3d.cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "epic_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 COMPILE_FLAGS = (
@@ -96,6 +97,16 @@ def build() -> pathlib.Path:
     return out
 
 
+def set_tile3d_types(lib: ctypes.CDLL) -> None:
+    """The argument and result types of ``csrc/tile3d.cu``'s entries in ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.epic_tile3d_chunk.argtypes = [p, p, p, p, i, i, i, p, i, i, p, i, p, i]
+    lib.epic_tile3d_cycle.argtypes = [p, p, p, i, i, i, p, i, i, i, p, i, p, i]
+    lib.epic_tile3d_solve.argtypes = [p, p, p, p, i, i, i, p, i, i, i, p, p, p, p, i, p, i]
+    for fn in (lib.epic_tile3d_chunk, lib.epic_tile3d_cycle, lib.epic_tile3d_solve):
+        fn.restype = i
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call and loaded once per process."""
     global _lib
@@ -111,6 +122,7 @@ def load() -> ctypes.CDLL:
         lib.epic_tile2d_chunk.argtypes = [p, p, p, p, i, i, p, i, i, p, i, p, i]
         lib.epic_tile2d_cycle.argtypes = [p, p, p, i, i, p, i, i, i, p, i, p, i]
         lib.epic_tile2d_solve.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, p, p, i, p, i]
+        set_tile3d_types(lib)
         for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
                    lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve,
                    lib.epic_batched2d_chunk, lib.epic_batched2d_solve,

@@ -28,8 +28,10 @@ TW + 2k]`` batch and swept together. The CPU tests use these functions, and
 ``chip_smoke.py`` holds the kernels against them on the card; the card's
 main path never comes here.
 
-The chunk schedule of the wrapper (``hopper_tile2d``) lives here too, so the
-plain and the kernel routes sweep the same chunks.
+The chunk schedules of the wrappers (``hopper_tile2d``, ``hopper_tile3d``)
+live here too, so the plain and the kernel routes sweep the same chunks, and
+so do the runners over a chunk function (``cycle``, ``tick``,
+``protocol_solve``) that ``tiled3d`` shares.
 """
 
 from __future__ import annotations
@@ -168,6 +170,42 @@ def sweep_cycle(a: torch.Tensor, b: torch.Tensor, locked: torch.Tensor, iteratio
     ``deltas[c]`` chunk ``c``'s first-sweep delta; the state ends in ``a'``
     when ``n_chunks`` is even, in ``b'`` otherwise (``pallas_cycle.
     sweep_cycle``'s contract)."""
+    return cycle(sweep_chunk, a, b, locked, iteration, n_chunks, num_sweeps, k=k, tile=tile)
+
+
+def update_n(state: GridState, num_steps: int, *, k: int, tile) -> GridState:
+    """``num_steps`` sweeps in the wrapper's chunk schedule
+    (:func:`tick_schedule`), delta from the first; equals
+    ``core.update_n`` bit for bit."""
+    calls["update_n"] += 1
+    return tick(sweep_chunk, state, num_steps, k=k, tile=tile)
+
+
+def solve(state: GridState, stagger: int = C.DEFAULT_STAGGER, max_iterations: int = 1_000_000,
+          *, k: int, tile) -> GridState:
+    """Relax to convergence with ``core.solve``'s protocol, a stagger cycle
+    at a time in the kernels' chunks; equals ``core.solve`` bit for bit."""
+    calls["solve"] += 1
+    return protocol_solve(sweep_chunk, state, stagger, max_iterations, k=k, tile=tile)
+
+
+def solve_segments(state: GridState, stagger: int = C.DEFAULT_STAGGER,
+                   max_iterations: int = 1_000_000, segment_iterations: int = 5_000, *,
+                   k: int, tile) -> GridState:
+    """:func:`solve` as a sequence of segments (``pallas_biggrid.
+    solve_segments``): each resumes the protocol where the last stopped, at
+    :func:`segment_bounds`; bit-identical to one solve."""
+    calls["solve"] += 1
+    return protocol_solve(sweep_chunk, state, stagger, max_iterations, segment_iterations, k=k,
+                          tile=tile)
+
+
+# -- the schedules over a chunk function, shared with tiled3d -----------------------------
+
+def cycle(chunk, a, b, locked, iteration, n_chunks: int, num_sweeps: int | None, *, k: int,
+          tile):
+    """:func:`sweep_cycle` over ``chunk`` (this module's or
+    :func:`.tiled3d.sweep_chunk`)."""
     if n_chunks < 1:
         raise ValueError(f"a cycle runs at least one chunk, got {n_chunks}")
     if num_sweeps is None:
@@ -179,28 +217,24 @@ def sweep_cycle(a: torch.Tensor, b: torch.Tensor, locked: torch.Tensor, iteratio
     deltas = []
     t = iteration
     for c, ns in enumerate(per):
-        bufs[1 - c % 2], d, _ = sweep_chunk(bufs[c % 2], locked, t, ns, k=k, tile=tile)
+        bufs[1 - c % 2], d, _ = chunk(bufs[c % 2], locked, t, ns, k=k, tile=tile)
         deltas.append(d)
         t = t + ns
     return bufs[0], bufs[1], torch.stack(deltas)
 
 
-def update_n(state: GridState, num_steps: int, *, k: int, tile) -> GridState:
-    """``num_steps`` sweeps in the wrapper's chunk schedule
-    (:func:`tick_schedule`), delta from the first; equals
-    ``core.update_n`` bit for bit."""
+def tick(chunk, state: GridState, num_steps: int, *, k: int, tile) -> GridState:
+    """:func:`update_n` over ``chunk``."""
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
-    calls["update_n"] += 1
     cycle_sweeps, n_chunks, tail = tick_schedule(num_steps, k)
     u, delta = state.u, None
     if n_chunks:
-        u, _, deltas = sweep_cycle(u, u, state.locked, state.iteration, n_chunks, cycle_sweeps,
-                                   k=k, tile=tile)
+        u, _, deltas = cycle(chunk, u, u, state.locked, state.iteration, n_chunks, cycle_sweeps,
+                             k=k, tile=tile)
         delta = deltas[0]
     if tail:
-        u, d, _ = sweep_chunk(u, state.locked, state.iteration + cycle_sweeps, tail, k=k,
-                              tile=tile)
+        u, d, _ = chunk(u, state.locked, state.iteration + cycle_sweeps, tail, k=k, tile=tile)
         delta = d if delta is None else delta
     return dataclasses.replace(
         state, u=u, iteration=state.iteration + num_steps, delta=delta,
@@ -208,43 +242,46 @@ def update_n(state: GridState, num_steps: int, *, k: int, tile) -> GridState:
         else torch.zeros((), dtype=torch.bool, device=u.device))
 
 
-def _protocol(u, locked, epsilon, stagger: int, bound: int, it: int, delta, done: bool, *,
-              k: int, tile):
+def _protocol(chunk, u, locked, epsilon, stagger: int, bound: int, it: int, delta, done: bool,
+              *, k: int, tile):
     """Stagger cycles from iteration ``it`` while not ``done`` and ``it <
     bound``: the checked chunk (with u1), the exit decision, the rest of
-    the cycle. The loop of ``epic_tile2d_solve``, resumable."""
+    the cycle. The loop of ``epic_tile2d_solve``/``epic_tile3d_solve``,
+    resumable."""
     m_max = max(u.shape)
     depth, rest = solve_schedule(stagger, k)
     while not done and it < bound:
-        dst, delta, first = sweep_chunk(u, locked, it, depth, k=k, tile=tile, u1=True)
+        dst, delta, first = chunk(u, locked, it, depth, k=k, tile=tile, u1=True)
         if it + 1 >= m_max and bool(delta < epsilon):
             u, it, done = first, it + 1, True
             break
         u, t = dst, it + depth
         for ns in rest:
-            u, _, _ = sweep_chunk(u, locked, t, ns, k=k, tile=tile)
+            u, _, _ = chunk(u, locked, t, ns, k=k, tile=tile)
             t += ns
         it += stagger
     return u, it, delta, done
 
 
-def _solved(state: GridState, u, it: int, delta, done: bool) -> GridState:
+def protocol_solve(chunk, state: GridState, stagger: int, max_iterations: int,
+                   segment_iterations: int | None = None, *, k: int, tile) -> GridState:
+    """``core.solve``'s protocol over ``chunk``: :func:`solve`, or with
+    ``segment_iterations`` :func:`solve_segments`, each segment resuming
+    the protocol where the last stopped, at :func:`segment_bounds`."""
+    if stagger < 1:
+        raise ValueError(f"stagger must be >= 1, got {stagger}")
+    bounds = ([max_iterations] if segment_iterations is None
+              else segment_bounds(stagger, max_iterations, segment_iterations))
+    u, it, delta, done = state.u, 0, state.epsilon + 1.0, False
+    for bound in bounds:
+        u, it, delta, done = _protocol(chunk, u, state.locked, state.epsilon, stagger, bound, it,
+                                       delta, done, k=k, tile=tile)
+        if done:
+            break
     dev = u.device
     return dataclasses.replace(
         state, u=u, iteration=torch.tensor(it, dtype=torch.int32, device=dev), delta=delta,
         converged=torch.tensor(done, dtype=torch.bool, device=dev))
-
-
-def solve(state: GridState, stagger: int = C.DEFAULT_STAGGER, max_iterations: int = 1_000_000,
-          *, k: int, tile) -> GridState:
-    """Relax to convergence with ``core.solve``'s protocol, a stagger cycle
-    at a time in the kernels' chunks; equals ``core.solve`` bit for bit."""
-    if stagger < 1:
-        raise ValueError(f"stagger must be >= 1, got {stagger}")
-    calls["solve"] += 1
-    out = _protocol(state.u, state.locked, state.epsilon, stagger, max_iterations, 0,
-                    state.epsilon + 1.0, False, k=k, tile=tile)
-    return _solved(state, *out)
 
 
 def segment_bounds(stagger: int, max_iterations: int, segment_iterations: int) -> list[int]:
@@ -255,21 +292,3 @@ def segment_bounds(stagger: int, max_iterations: int, segment_iterations: int) -
         raise ValueError(f"segment_iterations must be >= 1, got {segment_iterations}")
     step = -(-segment_iterations // stagger) * stagger
     return list(range(step, max_iterations, step)) + [max_iterations]
-
-
-def solve_segments(state: GridState, stagger: int = C.DEFAULT_STAGGER,
-                   max_iterations: int = 1_000_000, segment_iterations: int = 5_000, *,
-                   k: int, tile) -> GridState:
-    """:func:`solve` as a sequence of segments (``pallas_biggrid.
-    solve_segments``): each resumes the protocol where the last stopped, at
-    :func:`segment_bounds`; bit-identical to one solve."""
-    if stagger < 1:
-        raise ValueError(f"stagger must be >= 1, got {stagger}")
-    calls["solve"] += 1
-    u, it, delta, done = state.u, 0, state.epsilon + 1.0, False
-    for bound in segment_bounds(stagger, max_iterations, segment_iterations):
-        u, it, delta, done = _protocol(u, state.locked, state.epsilon, stagger, bound, it,
-                                       delta, done, k=k, tile=tile)
-        if done:
-            break
-    return _solved(state, u, it, delta, done)

@@ -1,8 +1,9 @@
 """The CUDA kernels of epic_tpu_torch against their plain torch version, on
 the card: the 2D kernels (csrc/sweep2d.cu), the 2D tile kernels for grids
-beyond the L2 (csrc/tile2d.cu), the 3D kernels (csrc/sweep3d.cu), the
-batched scenario kernels (csrc/batched2d.cu), the planners that drive them,
-and the batched walkers on the card against the same walkers on the CPU.
+beyond the L2 (csrc/tile2d.cu), the 3D kernels (csrc/sweep3d.cu), the 3D
+tile kernels for volumes beyond it (csrc/tile3d.cu), the batched scenario
+kernels (csrc/batched2d.cu), the planners that drive them, and the batched
+walkers on the card against the same walkers on the CPU.
 Every test here needs a CUDA card and skips without one.
 
 This file imports neither JAX nor epic_tpu, so it runs on a host that has
@@ -29,7 +30,7 @@ import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
-                                   hopper_sweep3d, hopper_tile2d, tiled)
+                                   hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled, tiled3d)
 
 pytestmark = pytest.mark.cuda
 
@@ -567,3 +568,182 @@ def test_tile_wrappers_refuse_what_the_kernels_do_not_take(dev):
             with pytest.raises(exc):
                 call(dataclasses.replace(st, **fields))
     assert hopper_tile2d.launches == launches and tiled.calls == calls
+
+
+# Volumes over the kernels' 8 x 16 x 64 tiles (hopper_tile3d.TILE): ragged on
+# every axis over several tiles, a volume smaller than one tile, one within a
+# tile's halo, and a deep ragged column of tiles.
+TILE_VOLUMES = [(20, 37, 150), (5, 6, 7), (9, 18, 70), (19, 20, 40)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", TILE_VOLUMES, ids=lambda s: "x".join(map(str, s)))
+def test_tile3d_chunk_kernel_gives_the_plain_versions_bits(dev, shape, k):
+    """K8/K10 (T3, and with u1 the K10 check): one chunk at depths 1 and k,
+    from an even and an odd iteration, against the plain tile version and
+    core."""
+    for t0 in (0, 1):
+        st = _volume(shape, 0.1, 3, dev, t0)
+        for ns in sorted({1, k}):
+            for u1 in (False, True):
+                before = hopper_tile3d.launches["epic_tile3d_chunk"]
+                src = st.u.clone()
+                dst, delta, first = hopper_tile3d.sweep_chunk(src, st.locked, st.iteration, ns,
+                                                              k=k, u1=u1)
+                p_dst, p_delta, p_first = tiled3d.sweep_chunk(
+                    st.u, st.locked, st.iteration, ns, k=k, tile=hopper_tile3d.TILE, u1=u1)
+                torch.cuda.synchronize()
+                assert hopper_tile3d.launches["epic_tile3d_chunk"] == before + 1
+                assert torch.equal(src, st.u)                      # the source is untouched
+                assert torch.equal(dst, p_dst) and torch.equal(delta, p_delta)
+                assert torch.equal(dst, core.update_n(st, ns).u)
+                assert torch.equal(delta, core.update_n(st, ns).delta)
+                if u1:
+                    assert torch.equal(first, p_first)
+                    assert torch.equal(first, core.update_n(st, 1).u)
+
+
+@pytest.mark.parametrize("n_chunks,num_sweeps", [(1, 2), (2, 4), (3, 5), (3, 6), (4, 7)])
+def test_tile3d_cycle_kernel_gives_the_plain_versions_bits(dev, n_chunks, num_sweeps):
+    """K9/K11: odd and even chunk counts in one launch, per-chunk deltas; the
+    state ends in a for an even count and in b for an odd one."""
+    for shape in TILE_VOLUMES[:3]:
+        st = _volume(shape, 0.1, 5, dev, t0=7)
+        a, b = st.u.clone(), torch.full_like(st.u, -1e6)
+        before = hopper_tile3d.launches["epic_tile3d_cycle"]
+        ka, kb, kd = hopper_tile3d.sweep_cycle(a, b, st.locked, st.iteration, n_chunks,
+                                               num_sweeps, k=2)
+        pa, pb, pd = tiled3d.sweep_cycle(st.u, st.u, st.locked, st.iteration, n_chunks,
+                                         num_sweeps, k=2, tile=hopper_tile3d.TILE)
+        torch.cuda.synchronize()
+        assert hopper_tile3d.launches["epic_tile3d_cycle"] == before + 1
+        assert ka is a and kb is b
+        assert torch.equal(kd, pd) and kd.shape == (n_chunks,)
+        final = ka if n_chunks % 2 == 0 else kb
+        assert torch.equal(final, pa if n_chunks % 2 == 0 else pb)
+        assert torch.equal(final, core.update_n(st, num_sweeps).u)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000),
+                                         (100, 250), (10, 95)])
+def test_tile3d_solve_kernel_gives_the_plain_versions_bits(dev, stagger, cap, k):
+    """The one-launch protocol: converged and capped solves on ragged
+    volumes (several ragged tiles, and a volume smaller than one tile),
+    core's bits; the segmented solve, resumed at stagger-aligned bounds,
+    gives the same."""
+    for shape in TILE_VOLUMES[:2]:
+        st = _volume(shape, 0.1, 7, dev, t0=5)
+        before = dict(hopper_tile3d.launches)
+        kern = hopper_tile3d.solve(dataclasses.replace(st, u=st.u.clone()), stagger, cap, k)
+        seg = hopper_tile3d.solve_segments(dataclasses.replace(st, u=st.u.clone()), stagger,
+                                           cap, 37, k)
+        plain = core.solve(st, stagger, cap)
+        _assert_same(kern, plain)
+        _assert_same(seg, plain)
+        _assert_same(tiled3d.solve_segments(st, stagger, cap, 37, k=k, tile=hopper_tile3d.TILE),
+                     plain)
+        assert hopper_tile3d.launches["epic_tile3d_solve"] > before["epic_tile3d_solve"] + 1
+        if cap == 1_000_000:
+            assert bool(kern.converged) and int(kern.iteration) % stagger == 1 % stagger
+
+
+def test_tile3d_update_n_runs_cycle_and_remainder_chunk(dev):
+    """A tick of an even chunk count is one cycle launch; an odd count adds
+    the remainder chunk, copied back into the caller's u. The twin is
+    scratch kept across calls for the last shape; u1 only a solve takes."""
+    st = _volume(TILE_VOLUMES[0], 0.1, 9, dev, t0=3)
+    k = hopper_tile3d.DEFAULT_DEPTH
+    scratch = hopper_tile3d._kernels.scratch
+    scratch.clear()
+    twin = None
+    for n in (1, 2, 3, 5, 50, 100, 33):
+        before = dict(hopper_tile3d.launches)
+        out = hopper_tile3d.update_n(dataclasses.replace(st, u=st.u.clone()), n)
+        _assert_same(out, core.update_n(st, n))
+        _, n_chunks, tail = tiled3d.tick_schedule(n, k)
+        assert hopper_tile3d.launches["epic_tile3d_cycle"] == \
+            before["epic_tile3d_cycle"] + (n_chunks > 0)
+        assert hopper_tile3d.launches["epic_tile3d_chunk"] == \
+            before["epic_tile3d_chunk"] + (tail > 0)
+        twin = scratch["twin"] if twin is None else twin
+        assert scratch["twin"] is twin and "u1" not in scratch
+    hopper_tile3d.solve(dataclasses.replace(st, u=st.u.clone()), 10, 40)
+    assert scratch["twin"] is twin and "u1" in scratch
+    hopper_tile3d.update_n(_volume(TILE_VOLUMES[1], 0.1, 9, dev), 3)
+    assert scratch["twin"].shape == TILE_VOLUMES[1]
+
+
+def test_router_sends_volumes_past_the_crossover_to_the_tiles(dev, monkeypatch):
+    """With a crossover set, a VolumePlanner whose volume is past it ticks
+    and solves on the tile kernels and gives core's bits, and a small volume
+    stays on sweep3d; without one (CROSSOVER_L2 None, the measured state on
+    an H100) the big volume stays on sweep3d too. Nothing else runs."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    side = int((1.5 * l2 / 5) ** (1 / 3)) + 4
+    assert hopper_tile3d.CROSSOVER_L2 is None
+    assert not hopper_tile3d.use_tiles((side, side, side), dev)
+    cases = [((side, side, side), False, None), ((side, side, side), True, 1.5),
+             ((12, 20, 28), False, 1.5)]
+    for shape, tiles, crossover in cases:
+        monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", crossover)
+        assert hopper_tile3d.use_tiles(shape, dev) == tiles
+        tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+        tp.state = _volume(shape, 0.1, 2, dev)
+        replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
+        u = tp.state.u
+        t3, s3, calls = dict(hopper_tile3d.launches), dict(hopper_sweep3d.launches), \
+            dict(core.calls)
+        tp.update()
+        tp.update(100)
+        tp.solve(max_iterations=300)
+        moved = {n: hopper_tile3d.launches[n] - t3[n] for n in t3}
+        moved_k7 = {n: hopper_sweep3d.launches[n] - s3[n] for n in s3}
+        if tiles:
+            assert moved["epic_tile3d_cycle"] >= 2 and moved["epic_tile3d_solve"] == 1
+            assert not any(moved_k7.values())
+        else:
+            assert moved_k7 == {"epic_sweep3d_chunk": 2, "epic_sweep3d_solve": 1}
+            assert not any(moved.values())
+        assert core.calls == calls
+        replay = core.update_n(core.update_n(replay, 25), 100)
+        _assert_same(tp.state, core.solve(replay, 100, 300))
+        assert tp.state.u is u                 # relaxed in place, like every wrapper
+
+
+def test_tile3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Checked before any launch; nothing falls back to the plain version."""
+    st = _volume((9, 18, 70), 0.1, 1, dev)
+    u, locked = st.u, st.locked
+    launches, calls = dict(hopper_tile3d.launches), dict(tiled3d.calls)
+    with pytest.raises(ValueError, match="distinct"):
+        hopper_tile3d.sweep_chunk(u, locked, 0, 2, out=u)
+    with pytest.raises(ValueError, match="distinct"):
+        hopper_tile3d.sweep_cycle(u, u, locked, 0, 2)
+    bad = [
+        (TypeError, u.double(), locked),
+        (TypeError, u, locked.to(torch.uint8)),
+        (ValueError, u.transpose(0, 2), locked.transpose(0, 2)),     # not contiguous
+        (ValueError, u, locked.cpu()),
+        (ValueError, u[0], locked[0]),                               # rank 2
+    ]
+    for exc, bu, bl in bad:
+        with pytest.raises(exc):
+            hopper_tile3d.sweep_chunk(bu, bl, 0, 2)
+        with pytest.raises(exc):
+            hopper_tile3d.sweep_cycle(bu, torch.empty_like(bu), bl, 0, 2)
+    with pytest.raises(ValueError):
+        hopper_tile3d.sweep_chunk(u, locked, 0, 2, out=torch.empty_like(u).cpu())
+    with pytest.raises(ValueError):
+        hopper_tile3d.sweep_chunk(u, locked, 0, hopper_tile3d.DEFAULT_DEPTH + 1)  # > k
+    for call in (lambda: hopper_tile3d.update_n(st, 5, k=8),
+                 lambda: hopper_tile3d.solve(st, 10, 100, k=8),
+                 lambda: hopper_tile3d.sweep_chunk(u, locked, 0, 8, k=8)):
+        with pytest.raises(ValueError, match="shared memory"):     # too deep for a block
+            call()
+    for exc, fields in ((TypeError, dict(u=st.u.double())), (ValueError, dict(locked=locked.cpu())),
+                        (TypeError, dict(iteration=st.iteration.long()))):
+        for call in (lambda s: hopper_tile3d.update_n(s, 3), lambda s: hopper_tile3d.solve(s)):
+            with pytest.raises(exc):
+                call(dataclasses.replace(st, **fields))
+    assert hopper_tile3d.launches == launches and tiled3d.calls == calls

@@ -1,0 +1,347 @@
+"""The port's temporally blocked 3D tile family against epic_tpu: the plain
+version (epic_tpu_torch/solver/tiled3d.py) against the port's own core bit
+for bit, and against the TPU kernels it stands in for (pallas_biggrid3d's
+plane-band chunks K8 and T3, pallas_tiled3d's slabs K10 and its check
+variant, pallas_cycle's 3D cycles K9 and K11, and both modules' update_n /
+solve / solve_segments), run in interpret mode as the JAX package's own CPU
+tests run them, with the layouts forced small through ``pad_state(...,
+band=, k=, yt=, wt=)``; ``unpad`` only reads those layouts.
+
+Tolerances: within the package, the same bits. Across packages fields
+rtol=2e-6, atol=1e-5 and deltas rtol=1e-5, atol=1e-5 (torch's and XLA's CPU
+exp differ by an ulp on some inputs, tests/test_torch_solver.py), and equal
+iteration counts. On the card the kernels must give the plain version's
+bits: tests/test_torch_cuda.py.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import epic_tpu
+from epic_tpu.solver import pallas_biggrid3d, pallas_cycle, pallas_tiled3d
+import epic_tpu_torch.solver as TS
+from epic_tpu_torch import grid as TG
+from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
+from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d, tiled3d
+
+FIELD = dict(rtol=2e-6, atol=1e-5)
+DELTA = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several worker processes at once
+    (see tests/test_torch_solver.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _arrays(shape, density=0.12, seed=0):
+    """A boundary-locked volume with seeded obstacle voxels and one goal
+    voxel at the centre (tests/test_pallas_tiled3d.py's _volume)."""
+    d, h, w = shape
+    rng = np.random.default_rng(seed)
+    u = np.full(shape, -1e6, dtype=np.float32)
+    locked = np.zeros(shape, dtype=bool)
+    locked[0], locked[-1] = True, True
+    locked[:, 0], locked[:, -1] = True, True
+    locked[:, :, 0], locked[:, :, -1] = True, True
+    if density:
+        locked |= rng.random(shape) < density
+    u[d // 2, h // 2, w // 2] = 0.0
+    locked[d // 2, h // 2, w // 2] = True
+    return u, locked
+
+
+def _states(shape, density=0.12, seed=0, eps=1e-2, t0=0):
+    """The same seeded volume as an epic_tpu and an epic_tpu_torch state."""
+    u, locked = _arrays(shape, density, seed)
+    j = dataclasses.replace(epic_tpu.grid.make_state(u, locked, epsilon=eps),
+                            iteration=jnp.int32(t0))
+    t = dataclasses.replace(TG.make_state(u, locked, eps, device="cpu"),
+                            iteration=torch.tensor(t0, dtype=torch.int32))
+    return j, t
+
+
+def _torch_state(shape, density=0.12, seed=0, eps=1e-2, t0=0):
+    return _states(shape, density, seed, eps, t0)[1]
+
+
+def _close(ours, theirs, tol=FIELD):
+    np.testing.assert_allclose(np.asarray(ours), np.asarray(theirs), **tol)
+
+
+def _same(a, b):
+    assert torch.equal(a.u, b.u) and torch.equal(a.delta, b.delta)
+    assert int(a.iteration) == int(b.iteration)
+    assert bool(a.converged) == bool(b.converged)
+
+
+# -- the plain version against the port's core, bit for bit ---------------------------
+
+# (shape, tile): ragged on every axis, tiles thinner than K, a volume smaller
+# than one tile, one-voxel tiles, the kernels' tile.
+VOLUMES = [((10, 20, 37), (4, 8, 16)), ((7, 9, 21), (2, 3, 5)), ((5, 6, 7), (8, 16, 64)),
+           ((3, 3, 3), (1, 1, 1)), ((9, 18, 70), hopper_tile3d.TILE)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("vol", VOLUMES, ids=lambda v: "x".join(map(str, v[0])) + "-"
+                         + "x".join(map(str, v[1])))
+def test_chunk_equals_core_bit_for_bit(vol, k):
+    shape, tile = vol
+    for t0 in (0, 1):
+        st = _torch_state(shape, t0=t0)
+        for ns in sorted({1, min(3, k), k}):
+            dst, delta, u1 = tiled3d.sweep_chunk(st.u, st.locked, st.iteration, ns, k=k,
+                                                 tile=tile, u1=True)
+            ref = core.update_n(st, ns)
+            assert torch.equal(dst, ref.u) and torch.equal(delta, ref.delta)
+            assert torch.equal(u1, core.update_n(st, 1).u)
+
+
+@pytest.mark.parametrize("n_chunks,num_sweeps", [(1, 3), (2, 5), (3, 6), (3, 9)])
+def test_cycle_equals_core_per_chunk(n_chunks, num_sweeps):
+    """Cycles of 1-3 chunks: the state in a for an even count and in b for
+    an odd one, and each chunk's delta core's delta of its first sweep."""
+    st = _torch_state((10, 20, 37), seed=4, t0=5)
+    a, b, deltas = tiled3d.sweep_cycle(st.u, st.u, st.locked, st.iteration, n_chunks,
+                                       num_sweeps, k=3, tile=(4, 8, 16))
+    assert torch.equal(a if n_chunks % 2 == 0 else b, core.update_n(st, num_sweeps).u)
+    ref, t = st, 0
+    for c, ns in enumerate(tiled3d.spread(num_sweeps, n_chunks)):
+        ref = core.update_n(ref, ns)
+        assert torch.equal(deltas[c], ref.delta)
+    with pytest.raises(ValueError):
+        tiled3d.sweep_cycle(st.u, st.u, st.locked, 0, 2, 7, k=3, tile=(4, 8, 16))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 37, 50])
+def test_update_n_equals_core(n):
+    """Every tick schedule (one chunk, a cycle, a cycle plus a remainder)."""
+    st = _torch_state((10, 20, 37), t0=3)
+    ref = core.update_n(st, n)
+    for k, tile in ((2, (4, 8, 16)), (3, hopper_tile3d.TILE), (6, (2, 3, 5))):
+        _same(tiled3d.update_n(st, n, k=k, tile=tile), ref)
+        cycle_sweeps, n_chunks, tail = tiled3d.tick_schedule(n, k)
+        assert cycle_sweeps + tail == n and n_chunks % 2 == 0
+
+
+@pytest.mark.parametrize("stagger,cap", [(1, 1_000_000), (7, 1_000_000), (100, 1_000_000),
+                                         (7, 60), (100, 250), (10, 95), (7, 0)])
+def test_solve_and_segments_equal_core(stagger, cap):
+    st = _torch_state((8, 12, 20), density=0.05, seed=11, eps=1e-1)
+    ref = core.solve(st, stagger, cap)
+    for k, tile in ((2, (4, 8, 16)), (5, (3, 5, 7))):
+        _same(tiled3d.solve(st, stagger, cap, k=k, tile=tile), ref)
+        _same(tiled3d.solve_segments(st, stagger, cap, 37, k=k, tile=tile), ref)
+
+
+# -- against epic_tpu's kernels in interpret mode ------------------------------------
+
+def _banded(j, band, k):
+    return pallas_biggrid3d.pad_state(j, band=band, k=k)
+
+
+def _read_banded(g, u_pad):
+    return pallas_biggrid3d.unpad(dataclasses.replace(g, u=u_pad))
+
+
+def _read_tiled(g, u_pad):
+    return pallas_tiled3d.unpad(dataclasses.replace(g, u=u_pad))
+
+
+@pytest.mark.parametrize("shape,band,k", [((13, 9, 140), 4, 3), ((16, 8, 30), 2, 2)])
+def test_chunk_matches_banded_chunks(shape, band, k):
+    """K8 (sweep_chunk_dma) and T3 (sweep_chunk_bands), chained full and
+    shallow chunks, against the port's chunk."""
+    j, t = _states(shape, seed=5)
+    g = _banded(j, band, k)
+    frozen_ext = pallas_biggrid3d.stack_frozen(g.frozen, g.hp, band, k)
+    u_dma, u_bands, u = g.u, g.u, t.u
+    it = 0
+    for depth in (k, 1):
+        u_dma, d_dma = pallas_biggrid3d.sweep_chunk_dma(u_dma, g.frozen, jnp.int32(it), depth,
+                                                        band, k, g.hp, True)
+        u_bands, d_bands = pallas_biggrid3d.sweep_chunk_bands(
+            u_bands, frozen_ext, jnp.int32(it), depth, band, k, g.hp, True)
+        dst, delta, _ = tiled3d.sweep_chunk(u, t.locked, it, depth, k=k, tile=(4, 4, 64))
+        _close(dst, _read_banded(g, u_dma))
+        _close(dst, _read_banded(g, u_bands))
+        _close(float(delta), float(d_dma), DELTA)
+        _close(float(delta), float(d_bands), DELTA)
+        u, it = dst, it + depth
+
+
+def test_chunk_matches_tiled_slab_chunks():
+    """K10 (sweep_chunk_tiled3d) and its check variant's centres and u1."""
+    shape, band, k, yt, wt = (8, 18, 140), 4, 2, 16, 128
+    j, t = _states(shape, seed=3)
+    g = pallas_tiled3d.pad_state(j, band=band, k=k, yt=yt, wt=wt)
+    u_pad, u = g.u, t.u
+    d, h, w = shape
+    it = 1
+    for depth in (k, 1):
+        out_uk, out_u1, d_check = pallas_tiled3d.sweep_chunk_tiled3d_check(
+            u_pad, g.frozen, jnp.int32(it), depth, band, k, yt, wt, g.hp2, True)
+        u_pad, d_pad = pallas_tiled3d.sweep_chunk_tiled3d(u_pad, g.frozen, jnp.int32(it), depth,
+                                                          band, k, yt, wt, g.hp2, True)
+        dst, delta, u1 = tiled3d.sweep_chunk(u, t.locked, it, depth, k=k, tile=(3, 7, 32),
+                                             u1=True)
+        _close(dst, _read_tiled(g, u_pad))
+        _close(dst, out_uk[:d, :h, :w])
+        _close(u1, out_u1[:d, :h, :w])
+        _close(float(delta), float(d_pad), DELTA)
+        assert float(d_pad) == float(d_check)
+        u, it = dst, it + depth
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 3])
+def test_cycle_matches_banded_cycles(n_chunks):
+    """K9: sweep_cycle3d (odd and even chains, per-chunk deltas)."""
+    shape, band, k = (24, 10, 20), 4, 2
+    j, t = _states(shape, seed=5)
+    g = _banded(j, band, k)
+    a, b, deltas = pallas_cycle.sweep_cycle3d(g.u, jnp.copy(g.u), g.frozen, jnp.int32(0),
+                                              n_chunks, k, band, g.hp, True)
+    pa, pb, pd = tiled3d.sweep_cycle(t.u, t.u, t.locked, 0, n_chunks, k=k, tile=(8, 4, 8))
+    final, theirs = (pb, b) if n_chunks % 2 else (pa, a)
+    _close(final, _read_banded(g, theirs))
+    _close(pd.numpy(), np.asarray(deltas), DELTA)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 3])
+def test_cycle_matches_tiled_cycles(n_chunks):
+    """K11: sweep_cycle_tiled3d (odd and even chains, per-chunk deltas)."""
+    shape, band, k, yt, wt = (10, 20, 150), 2, 2, 8, 128
+    j, t = _states(shape, seed=11)
+    g = pallas_tiled3d.pad_state(j, band=band, k=k, yt=yt, wt=wt)
+    a, b, deltas = pallas_cycle.sweep_cycle_tiled3d(g.u, jnp.copy(g.u), g.frozen, jnp.int32(0),
+                                                    n_chunks, k, band, yt, wt, g.hp2, True)
+    pa, pb, pd = tiled3d.sweep_cycle(t.u, t.u, t.locked, 0, n_chunks, k=k,
+                                     tile=hopper_tile3d.TILE)
+    final, theirs = (pb, b) if n_chunks % 2 else (pa, a)
+    _close(final, _read_tiled(g, theirs))
+    _close(pd.numpy(), np.asarray(deltas), DELTA)
+
+
+@pytest.mark.parametrize("module,shape", [(pallas_biggrid3d, (20, 12, 24)),
+                                          (pallas_tiled3d, (6, 26, 140))],
+                         ids=["biggrid3d", "tiled3d"])
+def test_update_n_matches_epic_tpu(module, shape):
+    j, t = _states(shape, density=0.05, seed=13, t0=4)
+    theirs = module.update_n(j, 11, chunk_depth=4)
+    ours = hopper_tile3d.update_n(t, 11)          # a CPU state: the plain version
+    _close(ours.u, theirs.u)
+    _close(float(ours.delta), float(theirs.delta), DELTA)
+    assert int(ours.iteration) == int(theirs.iteration) == 15
+
+
+@pytest.mark.parametrize("module,shape,stagger", [(pallas_biggrid3d, (14, 10, 18), 7),
+                                                  (pallas_tiled3d, (6, 26, 140), 10),
+                                                  (pallas_tiled3d, (6, 26, 140), 1)],
+                         ids=["biggrid3d-7", "tiled3d-10", "tiled3d-1"])
+def test_solve_matches_epic_tpu(module, shape, stagger):
+    """The protocol through both TPU solve loops: _solve_banded's 1-sweep
+    check and _solve_tiled3d's check folded into a chunk."""
+    j, t = _states(shape, density=0.05, seed=9, eps=1e-1)
+    theirs = module.solve(j, stagger=stagger)
+    ours = hopper_tile3d.solve(t, stagger)
+    assert int(ours.iteration) == int(theirs.iteration)
+    assert int(ours.iteration) % stagger == 1 % stagger
+    assert bool(ours.converged) and bool(theirs.converged)
+    _close(ours.u, theirs.u)
+    _close(float(ours.delta), float(theirs.delta), DELTA)
+
+
+@pytest.mark.parametrize("module", [pallas_biggrid3d, pallas_tiled3d],
+                         ids=["biggrid3d", "tiled3d"])
+def test_solve_segments_match_epic_tpu(module):
+    """The port's segments are its own one solve, bit for bit, and stop at
+    epic_tpu's iteration, converged or capped mid-segment."""
+    for eps, cap in ((1e-2, 1_000_000), (1e-8, 85)):
+        j, t = _states((5, 26, 140), density=0.08, seed=3, eps=eps)
+        theirs = module.solve_segments(j, stagger=10, max_iterations=cap, segment_iterations=37)
+        seg = hopper_tile3d.solve_segments(t, 10, cap, 37)
+        one = hopper_tile3d.solve(t, 10, cap)
+        _same(seg, one)
+        assert int(seg.iteration) == int(theirs.iteration)
+        assert bool(seg.converged) == bool(theirs.converged) == (cap > 100)
+        _close(seg.u, theirs.u)
+
+
+# -- routing ---------------------------------------------------------------------------
+
+def test_use_tiles_is_a_rule_on_bytes_and_l2(monkeypatch):
+    """Tiles past CROSSOVER_L2 L2s of u and locked (5 B a voxel); none while
+    it is None, as it is since the tiles won at no size measured on an
+    H100."""
+    l2 = 50 * 2**20
+    assert hopper_tile3d.CROSSOVER_L2 is None
+    for shape in ((256, 256, 256), (320, 320, 320), (32, 2048, 2048), (1000, 1000, 1000)):
+        assert not hopper_tile3d.past_crossover(shape, l2)
+    monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", 1.5)
+    voxels = int(hopper_tile3d.CROSSOVER_L2 * l2 // 5)
+    assert not hopper_tile3d.past_crossover((1, 1, voxels), l2)
+    assert hopper_tile3d.past_crossover((1, 1, voxels + 1), l2)
+    assert not hopper_tile3d.past_crossover((30, 256, 256), l2)
+    assert hopper_tile3d.past_crossover((32, 2048, 2048), l2)
+    assert not hopper_tile3d.past_crossover((32, 2048, 2048), 1000 * l2)
+    # A volume on the CPU never goes to the tiles, whatever its size.
+    assert not hopper_tile3d.use_tiles((32, 2048, 2048), "cpu")
+    assert not hopper_tile3d.use_tiles((8192, 8192), "cuda")      # not a volume
+
+
+def test_depth_is_checked_against_shared_memory():
+    h100 = 232_448                                  # an H100 block's opt-in shared memory
+    td, th, tw = hopper_tile3d.TILE
+    assert hopper_tile3d.smem_bytes(2) == (td + 4) * (th + 4) * (tw + 4) * 5
+    hopper_tile3d.check_depth(hopper_tile3d.DEFAULT_DEPTH, h100)
+    with pytest.raises(ValueError, match="shared memory"):
+        hopper_tile3d.check_depth(16, h100)
+    with pytest.raises(ValueError, match=">= 1"):
+        hopper_tile3d.check_depth(0, h100)
+
+
+def test_volume_entries_on_the_cpu_run_core():
+    """solve_volume/update_volume (and solve_grid/update_grid for rank 3)
+    on the CPU run core, whatever chunk_depth or segment_iterations say,
+    and launch nothing."""
+    st = _torch_state((10, 20, 37), seed=2, t0=3)
+    tick, ref = core.update_n(st, 9), core.solve(st, 10, 95)
+    before = (dict(core.calls), dict(tiled3d.calls), dict(hopper_tile3d.launches),
+              dict(hopper_sweep3d.launches))
+    _same(TS.update_volume(st, 9, chunk_depth=3), tick)
+    _same(TS.update_grid(st, 9, 3), tick)
+    _same(TS.solve_volume(st, 10, 95, segment_iterations=37, chunk_depth=3), ref)
+    _same(TS.solve_grid(st, 10, 95, segment_iterations=37), ref)
+    assert core.calls["update_n"] == before[0]["update_n"] + 2
+    assert core.calls["solve"] == before[0]["solve"] + 2
+    assert (tiled3d.calls, hopper_tile3d.launches, hopper_sweep3d.launches) == before[1:]
+
+
+def test_volume_planner_on_the_cpu_runs_core():
+    """Routing is by device: on the CPU a VolumePlanner ticks and solves with
+    core and launches nothing."""
+    rng = np.random.default_rng(4)
+    occ = np.where(rng.random((12, 20, 28)) < 0.05, 100, 0).astype(np.int8)
+    occ[6, 10, 14] = 0
+    before = (dict(core.calls), dict(tiled3d.calls), dict(hopper_tile3d.launches),
+              dict(hopper_sweep3d.launches))
+    tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device="cpu")
+    tp.update_occupancy(occ)
+    assert tp.add_goals([(14.0, 10.0, 6.0)])
+    ref = tp.state
+    tp.update()
+    tp.solve()
+    assert core.calls["update_n"] == before[0]["update_n"] + 1
+    assert core.calls["solve"] == before[0]["solve"] + 1
+    assert (tiled3d.calls, hopper_tile3d.launches, hopper_sweep3d.launches) == before[1:]
+    _same(tp.state, core.solve(core.update_n(ref, 25)))
+    assert bool(tp.state.converged)
