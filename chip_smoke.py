@@ -116,7 +116,37 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 against one and K plain sweeps (what epic_tpu's test-only
                 band kernel and the slab kernel's check variant compute),
                 and an uncapped tile solve against phase 6's K7 solve: the
-                same 1,101 iterations and the same bits.
+                same 1,101 iterations and the same bits;
+ 18. mesh_session — the 2D mesh path: a server on localhost whose node holds
+                a MeshPlanner on a 2 x 4 virtual mesh of the card (eight
+                shards of 241 x 121 of the maze map, configs/maze.yaml),
+                driven over the socket with phase 4's verbs (info, ticks, a
+                cell edit, a blocking solve, get_cell, compute_path from the
+                golden starts, whose paths must reach the goal). Counts
+                zeroed just before and read just after: the shard entry must
+                have run; the plain versions and the single-device 2D
+                kernels must not. Then a single-device Planner replays the
+                same verbs at the same ticks: the solved and the final field
+                and iterations must be the same bits;
+ 19. mesh16k  — BASELINE.md's 16k x 16k multi-host grid: a 16384^2
+                maps.random_obstacles grid (seed 0, configs/maze.yaml) on a
+                2 x 4 virtual mesh of the card (eight shards of 8192 x 4096,
+                far beyond the L2; epic_tpu's auto route sends such shards
+                to its resident kernels K16/K17, still to port, so this
+                holds the K14/K15 entry at that shape), ingested from
+                numpy through MeshPlanner.init/update_occupancy. Counted
+                main path (counts
+                zeroed just before, read just after; the shard entry must
+                run, the plain versions and the single-device kernels must
+                not): MeshPlanner.update(50) then (100) from an even and an
+                odd start iteration and MeshPlanner.solve capped at 2,000,
+                each the same bits and iterations as solver.update_grid /
+                solve_grid on the whole grid on the card (the tile route).
+                The entry alone on one shard's extended block: 16 sweeps
+                with and without u1 and a 5-sweep remainder, against the
+                plain per-shard version, the same bits. The mesh tick's mean
+                of 5 against the tile tick's, and the exchange's share of a
+                tick (CUDA events around the halo copies).
 
 Each phase prints one JSON line and raises on failure. Then come the kernels'
 JSON line (each entry with its time, its plain version's, its bound and its
@@ -162,6 +192,9 @@ SIZE_SIDE = 4096          # 67 MB of u: beyond the 50 MB L2, all 132 SMs busy
 VOLUME = (30, 256, 256)   # 1.97M cells, 7.9 MB of u: the VMEM-resident regime's full width
 VOLUME_CAP = 3000         # the capped kernel-vs-plain solve
 SIZE3D = (256, 256, 256)  # 67 MB of u: beyond L2
+MESH = (2, 4)             # the virtual mesh of phases 18-19: eight shards on the one card
+MESH_SIDE = 16384         # BASELINE.md:42, the 16k x 16k multi-host grid: 1.07 GB of u
+MESH_CAP = 2000
 WIDE3D = (32, 2048, 2048)  # a building floor at 5 cm: 537 MB of u, 10x the L2
 WIDE3D_CAP = 500
 WIDE3D_SEGMENT = 200
@@ -193,6 +226,7 @@ SOURCES = {
     "epic_tile3d_chunk": "epic_tpu_torch/csrc/tile3d.cu",
     "epic_tile3d_cycle": "epic_tpu_torch/csrc/tile3d.cu",
     "epic_tile3d_solve": "epic_tpu_torch/csrc/tile3d.cu",
+    "epic_shard2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
 }
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
@@ -232,6 +266,9 @@ REPLACES = {
                           "epic_tpu/solver/pallas_cycle.py:869",
                           "epic_tpu/solver/pallas_biggrid3d.py:221",
                           "epic_tpu/solver/pallas_tiled3d.py:121"],
+    # K14 (the whole extended shard in VMEM) and K15 (its DMA row bands)
+    "epic_shard2d_chunk": ["epic_tpu/parallel/sharded.py:89",
+                           "epic_tpu/parallel/sharded.py:152"],
 }
 
 
@@ -277,13 +314,14 @@ def copy_state(state):
 
 
 def zero_counts() -> None:
+    from epic_tpu_torch.parallel import hopper_shard2d
     from epic_tpu_torch.solver import (batched, core, hopper_batched, hopper_sweep,
                                        hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled,
                                        tiled3d)
 
     for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
-              hopper_tile2d.launches, hopper_tile3d.launches, core.calls, batched.calls,
-              tiled.calls, tiled3d.calls):
+              hopper_tile2d.launches, hopper_tile3d.launches, hopper_shard2d.launches,
+              core.calls, batched.calls, tiled.calls, tiled3d.calls, hopper_shard2d.calls):
         for k in d:
             d[k] = 0
 
@@ -1485,6 +1523,279 @@ def phase_batch_goals(dev) -> dict:
     return launches
 
 
+def counted_mesh(what: str, drive) -> dict:
+    """Run ``drive()`` with every count zeroed just before and read just
+    after: the shard entry must have run; the plain versions and the
+    single-device 2D kernels must not. Returns the shard entry's launches."""
+    from epic_tpu_torch.parallel import hopper_shard2d
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
+
+    zero_counts()
+    drive()
+    torch.cuda.synchronize()
+    launches = dict(hopper_shard2d.launches)
+    others = {**hopper_sweep.launches, **hopper_tile2d.launches,
+              **{f"core.{k}": v for k, v in core.calls.items()},
+              **{f"tiled.{k}": v for k, v in tiled.calls.items()},
+              **{f"hopper_shard2d.{k}": v for k, v in hopper_shard2d.calls.items()}}
+    require(all(v > 0 for v in launches.values()), f"{what}: the shard entry never ran: {launches}")
+    require(all(v == 0 for v in others.values()),
+            f"{what}: a plain version or a single-device kernel ran: {others}")
+    return launches
+
+
+def same_field(a, b, what: str) -> float:
+    """Two GridStates: the same bits in u and delta, equal iterations."""
+    err = max(max_abs(a.u, b.u), max_abs(a.delta, b.delta))
+    require(int(a.iteration) == int(b.iteration),
+            f"{what}: iteration {int(a.iteration)} != {int(b.iteration)}")
+    require(bool(torch.isfinite(a.u).all()), f"{what}: non-finite values in u")
+    require(err == 0.0, f"{what}: differ by {err}")
+    return err
+
+
+def phase_mesh_session(dev, maze) -> dict:
+    """Phase 4's session on a MeshPlanner over a 2 x 4 virtual mesh, then a
+    single-device Planner replaying the same verbs at the same ticks."""
+    from epic_tpu_torch import grid as G
+    from epic_tpu_torch import path
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.parallel import make_mesh
+    from epic_tpu_torch.planner_mesh import MeshPlanner
+    from epic_tpu_torch.services.navigation_node import EpicNavigationNodeRviz
+    from epic_tpu_torch.services.server import EpicClient, EpicServiceServer, ingest_map
+
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    steps = cfg.service.steps_per_update
+    img = maze["img"]
+    mesh = make_mesh(MESH, devices=[dev] * (MESH[0] * MESH[1]))
+    planner = MeshPlanner(cfg, mesh=mesh)
+    node = EpicNavigationNodeRviz(cfg, update_rate=cfg.service.update_rate_hz, planner=planner)
+    ingest_map(node, img)
+    require(planner.device == dev, f"the mesh planner lives on {planner.device}")
+    server = EpicServiceServer(node, "127.0.0.1", 0)
+    client = EpicClient(port=server.port, timeout=60.0)
+    s = LoopbackSession(server, client)
+    edits, out = [], {}     # (ticks before, xy, types) of each edit
+
+    def drive():
+        r, at = s.call("info")
+        require(r["success"] and r["shape"] == list(img.shape) and r["iteration"] == steps * at,
+                f"info: {r} after {at} ticks")
+        t0 = time.perf_counter()
+        s.spin(10)
+        torch.cuda.synchronize()
+        out["ten_ticks_s"] = time.perf_counter() - t0
+        r, at = s.call("info")
+        require(r["iteration"] == steps * at, f"info iteration {r['iteration']} after {at} ticks")
+        ys, xs = np.nonzero((img != 0) & (img != 255))
+        ex, ey = int(xs[len(xs) // 2]), int(ys[len(ys) // 2])
+        r, at = s.call("set_cells", v=[ex, ey], types=[1])
+        require(r["success"], f"set_cells: {r}")
+        edits.append((at, [(ex, ey)], [1]))
+        r, _ = s.call("get_cell", x=ex, y=ey)
+        require(r["success"] and r["value"] == -1e6, f"get_cell on the new obstacle: {r}")
+        s.spin(10)
+        r, at = s.call("set_cells", v=[ex, ey], types=[2])
+        require(r["success"], f"set_cells: {r}")
+        edits.append((at, [(ex, ey)], [2]))
+        out["solve_at"] = s.ticks
+        t0 = time.perf_counter()
+        planner.solve(max_iterations=cfg.solver.max_iterations)
+        torch.cuda.synchronize()
+        out["solve_s"] = time.perf_counter() - t0
+        out["solved"] = planner.state
+        require(bool(out["solved"].converged), "mesh session solve did not converge")
+        gy, gx = np.argwhere(img == 255)[0]
+        r, _ = s.call("get_cell", x=int(gx), y=int(gy))
+        require(r["success"] and r["value"] == 0.0, f"get_cell on a goal: {r}")
+        r, _ = s.call("get_cell", x=ex, y=ey)
+        require(r["success"] and -1e6 < r["value"] < 0.0, f"get_cell on the freed cell: {r}")
+        out["lengths"], out["path_s"] = [], []
+        for x, y in golden_goal_starts(maze):
+            t0 = time.perf_counter()
+            r, _ = s.call("compute_path", x=x, y=y, step_size=0.2, precision=0.4)
+            out["path_s"].append(time.perf_counter() - t0)
+            require(r["success"], f"compute_path from ({x}, {y}): {r}")
+            pts = np.asarray(r["path"], dtype=np.float32)[:, :2]
+            st = planner.state
+            require(path.path_reaches_goal(G.host_u(st), G.host_locked(st), pts),
+                    f"mesh path from ({x}, {y}) ends at {pts[-1].tolist()}, not in a goal")
+            out["lengths"].append(len(pts))
+        r, _ = s.call("info")
+        require(r["success"] and r["iteration"] >= int(out["solved"].iteration), f"info: {r}")
+
+    try:
+        launches = counted_mesh("mesh session", drive)
+    finally:
+        client.close()
+        server.close()
+    final = planner.state
+
+    # The same verbs at the same ticks on one device (K1/K2).
+    ref = EpicNavigationNodeRviz(cfg, update_rate=cfg.service.update_rate_hz, device=dev)
+    ingest_map(ref, img)
+    done = 0
+    for at, xy, types in edits:
+        for _ in range(at - done):
+            ref.update()
+        done = at
+        ref.planner.set_cells(xy, types)
+    for _ in range(out["solve_at"] - done):
+        ref.update()
+    ref.planner.solve(max_iterations=cfg.solver.max_iterations)
+    err = same_field(out["solved"], ref.planner.state, "mesh session solve vs the Planner")
+    for _ in range(s.ticks - out["solve_at"]):
+        ref.update()
+    err = max(err, same_field(final, ref.planner.state, "mesh session's final field vs the Planner"))
+    emit(phase="mesh_session", config="configs/maze.yaml", mesh=list(MESH),
+         shard=[planner._sh.h_loc, planner._sh.w_loc], ticks=s.ticks, sweeps_per_tick=steps,
+         ten_ticks_s=out["ten_ticks_s"], solve_iterations=int(out["solved"].iteration),
+         solve_s=out["solve_s"], paths=len(out["lengths"]), path_points=out["lengths"],
+         compute_path_s=out["path_s"], max_abs_err_vs_planner=err, launches=launches)
+    return {"launches": launches, "err": err}
+
+
+def shard_bound(frozen_view: torch.Tensor, par0: int, t0: int, sweeps: int, k: int,
+                u1: bool = False) -> dict:
+    """The least time for one shard's chunk: its bytes (the extended block's
+    u and frozen bytes read, the centre written, twice with u1) over the HBM
+    rate, or its updates (the centre's unfrozen cells of each sweep's class)
+    over the float32 rate, whichever is larger."""
+    he, we = frozen_view.shape
+    centre = frozen_view[k:he - k, k:we - k]
+    h, w = centre.shape
+    r = torch.arange(h, device=centre.device)
+    c = torch.arange(w, device=centre.device)
+    odd = ((par0 + r[:, None] + c[None, :]) % 2).bool()
+    free = ~centre
+    n_even, n_odd = int((free & ~odd).sum()), int((free & odd).sum())
+    at_even_t = (sweeps + 1 - t0 % 2) // 2
+    n_updates = at_even_t * n_odd + (sweeps - at_even_t) * n_even
+    t_bytes = (he * we * 5 + h * w * 4 * (2 if u1 else 1)) / PEAK_BYTES_PER_S
+    t_ops = n_updates * OPS_LSE4 / PEAK_FP32_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_mesh16k(dev) -> dict:
+    import epic_tpu_torch as T  # noqa: F401
+    from epic_tpu_torch import maps, solver
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.parallel import hopper_shard2d, make_mesh, sharded
+    from epic_tpu_torch.planner_mesh import MeshPlanner
+
+    side = MESH_SIDE
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    k_tile = cfg.solver.tile_depth
+    t0 = time.perf_counter()
+    img = maps.random_obstacles(side, side, seed=0)
+    occ = np.where(img == 0, 100, 0).astype(np.int8)
+    gy, gx = (int(v) for v in np.argwhere(img == 255)[0])
+    map_s = time.perf_counter() - t0
+    del img
+    t0 = time.perf_counter()
+    mesh = make_mesh(MESH, devices=[dev] * (MESH[0] * MESH[1]))
+    planner = MeshPlanner(cfg, mesh=mesh)
+    planner.init(side, side)
+    planner.update_occupancy(occ)
+    require(planner.add_goals([(float(gx), float(gy))]), "the goal was refused")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    del occ
+    base = planner.state              # gathered: fresh tensors on the card
+    require(solver.hopper_tile2d.use_tiles((side, side), dev), f"{side}^2 is not routed to the tiles")
+    starts = {t: at_iteration(base, t) for t in (0, 1)}
+
+    # The single-device references (the tile route), before the counted window.
+    ref, times = {}, {}
+    for t in (0, 1):
+        ref[t, 50] = solver.update_grid(copy_state(starts[t]), 50, k_tile)
+        ref[t, 150] = solver.update_grid(copy_state(ref[t, 50]), 100, k_tile)
+    times["tile_solve"] = event_ms(lambda: ref.__setitem__(
+        "solve", solver.solve_grid(copy_state(base), STAGGER, MESH_CAP, chunk_depth=k_tile)))
+    tile_state = copy_state(starts[0])
+    times["tile_tick5"] = event_ms(lambda: solver.update_grid(tile_state, 100, k_tile), reps=5)
+    del tile_state
+
+    got, exchange = {}, []
+    exchange_copies = sharded._exchange
+
+    def timed_exchange(sh, blocks, k):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        exchange_copies(sh, blocks, k)
+        b.record()
+        exchange.append((a, b))
+
+    def drive():
+        for t in (0, 1):
+            planner.state = starts[t]
+            planner.update(50)
+            got[t, 50] = planner.state
+            planner.update(100)
+            got[t, 150] = planner.state
+        planner.state = base
+        times["mesh_solve"] = event_ms(lambda: planner.solve(max_iterations=MESH_CAP))
+        got["solve"] = planner.state
+        planner.state = starts[0]
+        planner.update(100)      # warm: the frozen halos exchanged once
+        sharded._exchange = timed_exchange
+        try:
+            times["mesh_tick5"] = event_ms(lambda: planner.update(100), reps=5)
+        finally:
+            sharded._exchange = exchange_copies
+
+    launches = counted_mesh(f"{side}^2 mesh", drive)
+    exchange_ms = sum(a.elapsed_time(b) for a, b in exchange) / 5
+    errs = [same_field(got[key], ref[key], f"{side}^2 mesh tick to iteration {sum(key)}")
+            for key in sorted(k for k in ref if k != "solve")]
+    errs.append(same_field(got["solve"], ref["solve"], f"{side}^2 mesh solve capped at {MESH_CAP}"))
+    require(bool(got["solve"].converged) == bool(ref["solve"].converged), "solve verdicts differ")
+
+    # The entry alone on shard (0, 1)'s extended block, after an exchange.
+    sh = planner._sh
+    k = H = sh.halo          # the main path's exchange depth
+    sharded._exchange(sh, sh.u_blocks, k)
+    ij = (0, 1)
+    view = (slice(H - k, H + sh.h_loc + k), slice(H - k, H + sh.w_loc + k))
+    src, frozen = sh.u_blocks[ij][view], sh.frozen_blocks[ij][view]
+    dst_b, u1_b = torch.empty_like(sh.u_blocks[ij]), torch.empty_like(sh.u_blocks[ij])
+    dst, u1 = dst_b[view], u1_b[view]
+    par0, it0 = sh.par0(ij), int(sh.iteration)
+    centre = (slice(k, k + sh.h_loc), slice(k, k + sh.w_loc))
+    entry_errs = []
+    for ns, with_u1 in ((k, False), (k, True), (5, True)):
+        d = hopper_shard2d.chunk(src, dst, frozen, k=k, par0=par0, iteration=it0, ns=ns,
+                                 u1=u1 if with_u1 else None, want_delta=True)
+        p_u, p_d, p_u1 = hopper_shard2d.sweep_k_local(src, frozen, par0, it0, ns, u1=True)
+        e = max(max_abs(dst[centre], p_u[centre]), max_abs(d, p_d))
+        if with_u1:
+            e = max(e, max_abs(u1[centre], p_u1[centre]))
+        require(e == 0.0, f"the shard entry ({ns} sweeps, u1={with_u1}) differs from plain by {e}")
+        entry_errs.append(e)
+    entry_ms = event_ms(lambda: hopper_shard2d.chunk(src, dst, frozen, k=k, par0=par0,
+                                                     iteration=it0, ns=k, want_delta=True), reps=10)
+    plain_ms = event_ms(lambda: hopper_shard2d.sweep_k_local(src, frozen, par0, it0, k))
+    entry_bound = shard_bound(frozen, par0, it0, k, k)
+    locked = base.locked
+    emit(phase="mesh16k", shape=[side, side], mesh=list(MESH), shard=[sh.h_loc, sh.w_loc],
+         chunk_depth=k, map_s=map_s, ingest_s=ingest_s, launches=launches,
+         max_abs_err=max(errs), mesh_tick_ms_mean5=times["mesh_tick5"],
+         tile_tick_ms_mean5=times["tile_tick5"], exchange_ms_per_tick=exchange_ms,
+         exchange_share=exchange_ms / times["mesh_tick5"],
+         mesh_solve_ms=times["mesh_solve"], tile_solve_ms=times["tile_solve"],
+         solve_cap=MESH_CAP, solve_iterations=int(got["solve"].iteration),
+         entry_sweeps=k, entry_ms_mean10=entry_ms, entry_plain_ms=plain_ms,
+         entry_max_abs_err=max(entry_errs),
+         cell_updates_per_s_mesh=(side - 2) ** 2 / 2 * 100 / (times["mesh_tick5"] / 1e3),
+         bounds={"tick": bound(locked, 0, 100), "solve": bound(locked, 0, MESH_CAP),
+                 "entry": entry_bound},
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return {"launches": launches, "err": max(errs + entry_errs),
+            "entry": (entry_ms, plain_ms, entry_bound)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -1510,6 +1821,10 @@ def main() -> None:
     big3 = phase_biggrid3d(dev)
     wide3 = phase_wide3d(dev)
     small3 = phase_tile3d_small(dev, v["volume"], v["solved"])
+    mesh_s = phase_mesh_session(dev, maze)
+    mesh16 = phase_mesh16k(dev)
+    add_counts(launches, mesh_s["launches"])
+    add_counts(launches, mesh16["launches"])
     for name in big["launches"]:
         launches[name] = big["launches"][name] + wide["launches"][name]
     for counts in (big3["main"], big3["tile_launches"], wide3["main"], wide3["tile_launches"]):
@@ -1529,9 +1844,11 @@ def main() -> None:
         "epic_tile3d_chunk": tile3d_err,
         "epic_tile3d_cycle": tile3d_err,
         "epic_tile3d_solve": tile3d_err,
+        "epic_shard2d_chunk": max(mesh_s["err"], mesh16["err"]),
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
-    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3.
+    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3, and
+    # one 8192 x 4096 shard of the 16384^2 mesh.
     times = {
         "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"], m["tick_bound"]),
         "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
@@ -1545,6 +1862,7 @@ def main() -> None:
         "epic_tile3d_chunk": big3["chunk"],
         "epic_tile3d_cycle": big3["cycle"],
         "epic_tile3d_solve": big3["solve"],
+        "epic_shard2d_chunk": mesh16["entry"],
     }
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],

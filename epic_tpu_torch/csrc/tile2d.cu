@@ -17,7 +17,14 @@
 //                        _solve_banded and pallas_tiled2d.py:430 _solve_tiled
 //                        over K3-K6 with the check folded into chunk 0: the
 //                        whole stagger protocol in one launch
-// The plain torch version is epic_tpu_torch/solver/tiled.py.
+// The plain torch version is epic_tpu_torch/solver/tiled.py. The same tile
+// pass also runs one shard's chunk of the 2D mesh solver:
+//   epic_shard2d_chunk <- epic_tpu/parallel/sharded.py:89 _sweep_k_local_kernel
+//                         (K14; the whole extended block in VMEM) and :152
+//                         _band_shard_kernel (K15; DMA row bands for shards
+//                         beyond VMEM), which compute one function
+// with the plain version sweep_k_local in
+// epic_tpu_torch/parallel/hopper_shard2d.py.
 //
 // Design. A full-width band never fits shared memory here (8192 columns x 48
 // rows x 5 B is 1.9 MB), so one layout answers both TPU layouts: a block owns
@@ -37,6 +44,25 @@
 // Delta. max |u1 - u0| over the block's centre cells that lie in the grid,
 // never over fill cells (ROADMAP R7), reduced with block_max_atomic
 // (sweep_common.cuh): deterministic, since max is exact in any order.
+//
+// The shard. After the halo exchange a shard's buffer holds its h x w centre
+// with a K-deep halo from the neighbouring shards (frozen, and never written,
+// outside the mesh). For the view of that he x we = (h + 2K) x (w + 2K)
+// block (a row pitch, for u and its frozen bytes alike), sweep s of a chunk
+// updates a cell (R, C) only inside the block's trapezoid, s+1 <= R < he-1-s
+// and s+1 <= C < we-1-s (sharded.py:105; K15's static edge guards give the
+// same cells, :225), only if its frozen byte is 0 (locked, the grid's ring,
+// mesh padding and out-of-mesh halo), and only of the 2D class
+// (par0 + R + C) % 2 != (t0 + s) % 2, par0 the parity of the block's global
+// origin (sharded.py:94-101). So the tile pass differs from the grid's in
+// three points: the frozen bytes come from the input, the parity from the
+// block's origin, and the block's trapezoid bounds the tile's. The delta is
+// sweep 0's over every cell it updates anywhere in the block
+// (sharded.py:109-110): halo cells repeat the neighbours' arithmetic, so the
+// max over the shards equals core's delta. One launch a shard a chunk, a
+// tile a block. The TPU's constraints (depth a multiple of 4, 128-lane
+// widths, sharded.py:474-481) do not apply: any K that fits shared memory,
+// any shard extent.
 //
 // Numerics. lse4 from sweep_common.cuh, no --use_fast_math: the kernels give
 // the plain version's (and solver/core.py's) bits.
@@ -83,67 +109,53 @@ struct Tiling {
 
 // The block's dynamic shared memory holds u of the extended tile, then its
 // frozen bytes.
-__device__ __forceinline__ uint8_t* frozen_of(float* smem, const Tiling& g) {
-  return reinterpret_cast<uint8_t*>(smem + (kTH + 2 * g.K) * (kTW + 2 * g.K));
+__device__ __forceinline__ uint8_t* frozen_of(float* smem, int K) {
+  return reinterpret_cast<uint8_t*>(smem + (kTH + 2 * K) * (kTW + 2 * K));
 }
 
-// The centre's cells that lie in the grid (ch x cw of it), from shared
-// memory to out.
-__device__ __forceinline__ void write_centre(const float* us, float* out, const Tiling& g,
-                                             int gy0, int gx0, int ch, int cw) {
-  const int EC = kTW + 2 * g.K;
+// The centre (ch x cw of it), from shared memory to out (tile.at gives a
+// centre cell's address).
+template <class Tile>
+__device__ __forceinline__ void write_centre(const float* us, float* out, const Tile& tile) {
+  const int EC = kTW + 2 * tile.K;
   for (int i = threadIdx.x; i < kTH * kTW; i += kThreads) {
     const int r = i / kTW;
     const int c = i % kTW;
-    if (r < ch && c < cw)
-      out[static_cast<size_t>(gy0 + r) * g.W + gx0 + c] = us[(g.K + r) * EC + g.K + c];
+    if (r < tile.ch && c < tile.cw) *tile.at(out, r, c) = us[(tile.K + r) * EC + tile.K + c];
   }
 }
 
-// One chunk of `ns` (1..K) sweeps from iteration t0 on tile `tile`: load the
-// halo-extended tile, sweep, write the centre to dst (and after sweep 0 to
-// u1, when given), max-accumulate sweep 0's delta into delta_acc (when
-// given). Every thread of the block calls it; us/fs are the block's dynamic
-// shared memory.
-__device__ void tile_chunk(const float* src, float* dst, float* u1, const Tiling& g, int tile,
-                           int t0, int ns, unsigned int* delta_acc, float* us, uint8_t* fs) {
-  const int ER = kTH + 2 * g.K;
-  const int EC = kTW + 2 * g.K;
-  const int ty = tile / g.nx;
-  const int tx = tile - ty * g.nx;
-  const int gy0 = ty * kTH;              // global row of the centre's first row
-  const int gx0 = tx * kTW;
-  const int y0 = gy0 - g.K;              // global row of local row 0
-  const int x0 = gx0 - g.K;
-  const int ch = min(kTH, g.H - gy0);    // centre rows and columns in the grid
-  const int cw = min(kTW, g.W - gx0);
-
+// One chunk of `ns` (1..K) sweeps from iteration t0 on one tile, in the
+// tile's local coordinates (local (0, 0) is the first cell of its K-deep
+// halo): load the halo-extended tile, sweep it under the trapezoid that
+// tile.last_row/last_col bound, write the centre to dst (and after sweep 0
+// to u1, when given), max-accumulate sweep 0's delta over the cells that
+// tile.in_delta admits into delta_acc (when given). Every thread of the
+// block calls it; us/fs are the block's dynamic shared memory. The Tile
+// type is a compile-time choice, so each caller's pass holds only its own
+// state in registers: the solve kernel sits at its limit of 64.
+template <class Tile>
+__device__ __forceinline__ void tile_pass(const Tile& tile, float* dst, float* u1, int t0,
+                                          int ns, unsigned int* delta_acc, float* us,
+                                          uint8_t* fs) {
+  const int ER = kTH + 2 * tile.K;
+  const int EC = kTW + 2 * tile.K;
   for (int i = threadIdx.x; i < ER * EC; i += kThreads) {
     const int lr = i / EC;
-    const int y = y0 + lr;
-    const int x = x0 + (i - lr * EC);
-    float v = kObstacle;
-    uint8_t f = 1;
-    if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
-      const size_t idx = static_cast<size_t>(y) * g.W + x;
-      v = __ldcg(src + idx);
-      f = (g.locked[idx] != 0) | (y == 0) | (y == g.H - 1) | (x == 0) | (x == g.W - 1);
-    }
-    us[i] = v;
-    fs[i] = f;
+    tile.load(lr, i - lr * EC, us[i], fs[i]);
   }
   __syncthreads();
 
-  // (y + x) & 1 of local (0, 0); the -2K of y0 + x0 is even.
-  const int par = (gy0 + gx0) & 1;
+  const int par = tile.par();  // (row + column) & 1 of local (0, 0) in global coordinates
   float local = 0.0f;
   for (int s = 0; s < ns; ++s) {
-    const int want = ((t0 + s) & 1) ^ 1;  // the class updated: (y + x) & 1 == want
-    const int r0 = s + 1;                 // the trapezoid: rows r0..ER-2-s,
-    const int c0 = s + 1;                 // columns c0..c1
-    const int c1 = EC - 2 - s;
+    const int want = ((t0 + s) & 1) ^ 1;  // the class updated: (par + lr + lc) & 1 == want
+    const int r0 = s + 1;                 // the trapezoid: rows r0..r1, columns c0..c1
+    const int c0 = s + 1;                 // (never empty: the centre has a cell and s < K)
+    const int r1 = tile.last_row(s);
+    const int c1 = tile.last_col(s);
     const int half = (c1 - c0 + 2) / 2;   // cells of one class in a row, at most
-    const int units = (ER - 2 - 2 * s) * half;
+    const int units = (r1 - r0 + 1) * half;
     for (int i = threadIdx.x; i < units; i += kThreads) {
       const int row = i / half;
       const int lr = r0 + row;
@@ -152,19 +164,60 @@ __device__ void tile_chunk(const float* src, float* dst, float* u1, const Tiling
       const int li = lr * EC + lc;
       if (fs[li]) continue;
       const float v = lse4(us[li - EC], us[li + EC], us[li - 1], us[li + 1]);
-      if (s == 0 && lr >= g.K && lr < g.K + ch && lc >= g.K && lc < g.K + cw)
-        local = fmaxf(local, fabsf(v - us[li]));
+      if (s == 0 && tile.in_delta(lr, lc)) local = fmaxf(local, fabsf(v - us[li]));
       us[li] = v;
     }
     __syncthreads();
     if (s == 0 && u1 != nullptr) {
-      write_centre(us, u1, g, gy0, gx0, ch, cw);
+      write_centre(us, u1, tile);
       __syncthreads();
     }
   }
   if (delta_acc != nullptr) block_max_atomic<kThreads>(local, delta_acc);
-  write_centre(us, dst, g, gy0, gx0, ch, cw);
+  write_centre(us, dst, tile);
   __syncthreads();  // the next tile reuses us/fs
+}
+
+// A tile of the unpadded H x W grid whose centre starts at (gy0, gx0):
+// frozen cells are locked or on the grid's ring; beyond the grid
+// LOG_SPACE_OBSTACLE, frozen; the trapezoid is the tile's own; the delta
+// covers the centre's cells in the grid.
+struct GridTile {
+  const float* src;
+  const uint8_t* locked;
+  int H, W, K, gy0, gx0, ch, cw;
+  __device__ __forceinline__ void load(int lr, int lc, float& v, uint8_t& f) const {
+    const int y = gy0 - K + lr;
+    const int x = gx0 - K + lc;
+    v = kObstacle;
+    f = 1;
+    if (y >= 0 && y < H && x >= 0 && x < W) {
+      const size_t idx = static_cast<size_t>(y) * W + x;
+      v = __ldcg(src + idx);
+      f = (locked[idx] != 0) | (y == 0) | (y == H - 1) | (x == 0) | (x == W - 1);
+    }
+  }
+  __device__ __forceinline__ int par() const { return (gy0 + gx0) & 1; }  // -2K is even
+  __device__ __forceinline__ int last_row(int s) const { return kTH + 2 * K - 2 - s; }
+  __device__ __forceinline__ int last_col(int s) const { return kTW + 2 * K - 2 - s; }
+  __device__ __forceinline__ bool in_delta(int lr, int lc) const {
+    return lr >= K && lr < K + ch && lc >= K && lc < K + cw;
+  }
+  __device__ __forceinline__ float* at(float* out, int r, int c) const {
+    return out + static_cast<size_t>(gy0 + r) * W + gx0 + c;
+  }
+};
+
+// One chunk of `ns` (1..K) sweeps from iteration t0 on tile `tile` of the
+// grid, src -> dst (and u1).
+__device__ void tile_chunk(const float* src, float* dst, float* u1, const Tiling& g, int tile,
+                           int t0, int ns, unsigned int* delta_acc, float* us, uint8_t* fs) {
+  const int ty = tile / g.nx;
+  const int gy0 = ty * kTH;
+  const int gx0 = (tile - ty * g.nx) * kTW;
+  const GridTile t{src, g.locked, g.H, g.W, g.K, gy0, gx0, min(kTH, g.H - gy0),
+                   min(kTW, g.W - gx0)};
+  tile_pass(t, dst, u1, t0, ns, delta_acc, us, fs);
 }
 
 // All tiles of one chunk, strided over the blocks.
@@ -179,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
 tile_chunk_kernel(const float* src, float* dst, float* u1, Tiling g, const int* it, int t_off,
                   int ns, unsigned int* delta_bits) {
   extern __shared__ float smem[];
-  tile_chunk(src, dst, u1, g, blockIdx.x, *it + t_off, ns, delta_bits, smem, frozen_of(smem, g));
+  tile_chunk(src, dst, u1, g, blockIdx.x, *it + t_off, ns, delta_bits, smem, frozen_of(smem, g.K));
 }
 
 // K4/K6: `total` sweeps from *it + t_off spread over n_chunks chunks; chunk
@@ -190,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
 tile_cycle_kernel(float* a, float* b, Tiling g, const int* it, int t_off, int total,
                   int n_chunks, unsigned int* deltas) {
   extern __shared__ float smem[];
-  uint8_t* fs = frozen_of(smem, g);
+  uint8_t* fs = frozen_of(smem, g.K);
   cg::grid_group grid = cg::this_grid();
   int t = *it + t_off;
   for (int c = 0; c < n_chunks; ++c) {
@@ -217,7 +270,7 @@ tile_solve_kernel(float* u, float* twin, float* u1, Tiling g, const float* eps_p
                   int bound, int stagger, unsigned int* acc, int* it_io, float* delta_io,
                   int* done_io) {
   extern __shared__ float smem[];
-  uint8_t* fs = frozen_of(smem, g);
+  uint8_t* fs = frozen_of(smem, g.K);
   cg::grid_group grid = cg::this_grid();
   const float eps = *eps_ptr;
   int it = *it_io;
@@ -268,8 +321,69 @@ tile_solve_kernel(float* u, float* twin, float* u1, Tiling g, const float* eps_p
   }
 }
 
-size_t smem_bytes(const Tiling& g) {
-  return static_cast<size_t>(kTH + 2 * g.K) * (kTW + 2 * g.K) * (sizeof(float) + 1);
+// A tile of one shard's K-extended block: a view of he x we cells with row
+// pitch ld (elements) for u and the frozen bytes alike, the tile's local
+// (0, 0) at the view's (r0, c0); beyond the view LOG_SPACE_OBSTACLE, frozen.
+// The block's trapezoid bounds the tile's (its lower ends are the tile's);
+// the tiles' halos are the block's, so their sweep-0 trapezoids cover the
+// whole block, and the delta covers every cell they update.
+struct ShardTile {
+  const float* src;
+  const uint8_t* frozen;
+  long long ld;
+  int he, we, K, par0, r0, c0, ch, cw;
+  __device__ __forceinline__ void load(int lr, int lc, float& v, uint8_t& f) const {
+    const int R = r0 + lr;
+    const int C = c0 + lc;
+    v = kObstacle;
+    f = 1;
+    if (R < he && C < we) {
+      const long long idx = static_cast<long long>(R) * ld + C;
+      v = __ldcg(src + idx);
+      f = frozen[idx] != 0;
+    }
+  }
+  __device__ __forceinline__ int par() const { return (par0 + r0 + c0) & 1; }
+  __device__ __forceinline__ int last_row(int s) const {
+    return min(kTH + 2 * K, he - r0) - 2 - s;
+  }
+  __device__ __forceinline__ int last_col(int s) const {
+    return min(kTW + 2 * K, we - c0) - 2 - s;
+  }
+  __device__ __forceinline__ bool in_delta(int, int) const { return true; }
+  __device__ __forceinline__ float* at(float* out, int r, int c) const {
+    return out + static_cast<long long>(r0 + K + r) * ld + c0 + K + c;
+  }
+};
+
+// One shard's chunk of the 2D mesh solver.
+struct Shard {
+  const float* src;
+  float* dst;
+  float* u1;
+  const uint8_t* frozen;
+  long long ld;   // row pitch of u and frozen, in elements
+  int he, we;     // the extended block
+  int K;          // its halo depth
+  int par0;       // (global row + global column) & 1 of the block's (0, 0)
+  int nx;         // tiles across
+};
+
+// K14/K15: one chunk of ns (1..K) sweeps from iteration *it + t_off on a
+// shard's block, a tile a block.
+__global__ void __launch_bounds__(kThreads)
+shard_chunk_kernel(Shard g, const int* it, int t_off, int ns, unsigned int* delta_bits) {
+  extern __shared__ float smem[];
+  const int ty = blockIdx.x / g.nx;
+  const int r0 = ty * kTH;
+  const int c0 = (blockIdx.x - ty * g.nx) * kTW;
+  const ShardTile t{g.src, g.frozen, g.ld, g.he, g.we, g.K, g.par0, r0, c0,
+                    min(kTH, g.he - 2 * g.K - r0), min(kTW, g.we - 2 * g.K - c0)};
+  tile_pass(t, g.dst, g.u1, *it + t_off, ns, delta_bits, smem, frozen_of(smem, g.K));
+}
+
+size_t smem_bytes(int K) {
+  return static_cast<size_t>(kTH + 2 * K) * (kTW + 2 * K) * (sizeof(float) + 1);
 }
 
 Tiling make_tiling(const void* locked, int H, int W, int K) {
@@ -302,7 +416,7 @@ int epic_tile2d_chunk(const void* src, void* dst, void* u1, const void* locked, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Tiling g = make_tiling(locked, H, W, K);
-  const size_t smem = smem_bytes(g);
+  const size_t smem = smem_bytes(g.K);
   err = allow_smem(reinterpret_cast<const void*>(tile_chunk_kernel), smem);
   if (err != cudaSuccess) return err;
   tile_chunk_kernel<<<g.n_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -324,7 +438,7 @@ int epic_tile2d_cycle(void* a, void* b, const void* locked, int H, int W, const 
   unsigned int* d_u = static_cast<unsigned int*>(deltas);
   void* args[] = {&a, &b, &g, &it_i, &t_off, &total, &n_chunks, &d_u};
   return launch_cooperative(reinterpret_cast<const void*>(tile_cycle_kernel), kThreads, g.n_tiles,
-                            smem_bytes(g), args, device, static_cast<cudaStream_t>(stream));
+                            smem_bytes(g.K), args, device, static_cast<cudaStream_t>(stream));
 }
 
 // The solve protocol in one launch, resumed from (*it_io, *delta_io,
@@ -342,7 +456,39 @@ int epic_tile2d_solve(void* u, void* twin, void* u1, const void* locked, int H, 
   void* args[] = {&u, &twin, &u1, &g, &eps_f, &m_max, &bound, &stagger,
                   &acc, &it_io, &delta_io, &done_io};
   return launch_cooperative(reinterpret_cast<const void*>(tile_solve_kernel), kThreads, g.n_tiles,
-                            smem_bytes(g), args, device, static_cast<cudaStream_t>(stream));
+                            smem_bytes(g.K), args, device, static_cast<cudaStream_t>(stream));
+}
+
+// One chunk of ns (1..K) sweeps from iteration *it + t_off on one shard's
+// K-extended block: src, dst and u1 (u1 may be null) are views of he x we
+// f32 cells with row pitch ld (elements), frozen a u8 view of the same shape
+// and pitch; src is read, dst's centre (rows and columns K .. end-K) written,
+// and with u1 the centre after sweep 0 too. par0 is (row0 + col0) & 1 of the
+// view's (0, 0) in global coordinates. With delta non-null, sweep 0's delta
+// over the whole block is max-accumulated into it (zeroed by the caller).
+int epic_shard2d_chunk(const void* src, void* dst, void* u1, const void* frozen, long long ld,
+                       int he, int we, int K, int par0, const void* it, int t_off, int ns,
+                       void* delta, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Shard g;
+  g.src = static_cast<const float*>(src);
+  g.dst = static_cast<float*>(dst);
+  g.u1 = static_cast<float*>(u1);
+  g.frozen = static_cast<const uint8_t*>(frozen);
+  g.ld = ld;
+  g.he = he;
+  g.we = we;
+  g.K = K;
+  g.par0 = par0 & 1;
+  g.nx = (we - 2 * K + kTW - 1) / kTW;
+  const int ny = (he - 2 * K + kTH - 1) / kTH;
+  const size_t smem = smem_bytes(K);
+  err = allow_smem(reinterpret_cast<const void*>(shard_chunk_kernel), smem);
+  if (err != cudaSuccess) return err;
+  shard_chunk_kernel<<<ny * g.nx, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      g, static_cast<const int*>(it), t_off, ns, static_cast<unsigned int*>(delta));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

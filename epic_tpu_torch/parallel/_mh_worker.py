@@ -1,0 +1,76 @@
+"""A worker for mesh solves across processes (gloo on the CPU).
+
+Started once per process; the processes join one group through
+:func:`epic_tpu_torch.parallel.multihost.initialize` and build one mesh of
+``num_processes x local_devices`` CPU shards, each process owning its
+``local_devices`` of them. They run a sharded solve (or a 137-sweep tick)
+of the same seeded grid, and process 0 writes the gathered result to
+``--out`` as an .npz (``u``, ``iteration``, ``delta``, ``converged``,
+``process_count``).
+
+    python -m epic_tpu_torch.parallel._mh_worker --coordinator localhost:PORT \\
+        --num-processes 2 --process-id K --local-devices 4 --out result.npz \\
+        [--mode solve|update] [--size 48]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .. import constants as C
+from .. import grid as G
+from . import make_mesh, multihost, sharded
+
+
+def worker_state(size: int = 48) -> G.GridState:
+    """The seeded grid every process builds: ``size`` square, 15% obstacle
+    cells (numpy default_rng(7)), the ring walled, one goal at the centre,
+    epsilon 1e-3."""
+    n = size
+    rng = np.random.default_rng(7)
+    obstacle = np.zeros((n, n), dtype=bool)
+    obstacle[rng.random((n, n)) < 0.15] = True
+    goal = np.zeros((n, n), dtype=bool)
+    goal[n // 2, n // 2] = True
+    obstacle[n // 2, n // 2] = False
+    obstacle[0, :] = obstacle[-1, :] = True
+    obstacle[:, 0] = obstacle[:, -1] = True
+    u = np.where(goal, C.LOG_SPACE_GOAL, C.LOG_SPACE_FREE).astype(np.float32)
+    return G.make_state(u, goal | obstacle, epsilon=1e-3, device="cpu")
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--coordinator", required=True, help="host:port of process 0")
+    ap.add_argument("--num-processes", type=int, required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    ap.add_argument("--local-devices", type=int, default=4)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--mode", default="solve", choices=["solve", "update"])
+    ap.add_argument("--size", type=int, default=48)
+    args = ap.parse_args(argv)
+
+    torch.set_num_threads(1)
+    multihost.initialize(args.coordinator, args.num_processes, args.process_id, backend="gloo")
+    assert multihost.world() == (args.num_processes, args.process_id)
+    mesh = make_mesh(devices=[torch.device("cpu")] * args.local_devices)
+    assert mesh.devices.size == args.num_processes * args.local_devices
+    state = worker_state(args.size)
+    if args.mode == "solve":
+        out = sharded.solve(state, mesh)
+    else:
+        out = sharded.update_n(state, 137, mesh)
+    if args.process_id == 0:
+        np.savez(args.out, u=out.u.numpy(), iteration=int(out.iteration),
+                 delta=float(out.delta), converged=bool(out.converged),
+                 process_count=multihost.world()[0])
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,666 @@
+"""The 2D grid on a device mesh: shards, K-deep halo exchange, per-shard chunks.
+
+The counterpart of ``epic_tpu.parallel.sharded``. The grid is padded to a
+multiple of the mesh (padding takes the obstacle value and is frozen) and
+cut into ``h_loc x w_loc`` shards over a 2D ``("my", "mx")`` mesh. Each
+shard lives on its device as a K-extended block (its centre with a halo of
+``halo`` cells on every side) plus a twin of the same layout, with a frozen
+mask of that layout (``locked | ring | padding``; halo cells outside the
+mesh frozen). A chunk of ``ns <= K`` sweeps:
+
+1. exchanges the K-deep halos of the blocks in place, in two phases: rows
+   (the neighbours' K edge rows of the centre), then columns of the
+   row-extended blocks, so the corners arrive through the second phase
+   (``sharded.py:58-78``);
+2. runs the per-shard chunk on each block (``hopper_shard2d.chunk``: the
+   CUDA entry on a card, the plain version on the CPU), which reads the
+   block and writes the twin's centre; then the two swap.
+
+The first chunk of a call carries the staggered check's delta, the max over
+the shards (on the mesh's first device; across processes an
+``all_reduce(MAX)``). The frozen mask's halos are exchanged once per edit,
+not per chunk. Depth: ``min(chunk_depth, h_loc, w_loc)``, and on a card no
+deeper than the kernel's shared memory takes (``hopper_shard2d.max_depth``);
+trajectories do not depend on it (the trapezoid makes each chunk exactly
+``ns`` global sweeps), so neither do results.
+
+Solves are a host loop of stagger cycles with ``core.solve``'s protocol:
+the checked chunk (depth ``min(K, stagger)``) also writes u1, the state
+after its first sweep; the host reads the delta once an exit is possible
+(``iteration + 1 >= max(H, W)``, the unpadded grid's) and keeps u1 on exit;
+else the rest of the cycle follows.
+
+The route follows the mesh's device: the CUDA entry on a card, the plain
+version on the CPU. ``kernel`` takes the reference's names only to refuse
+the ones that would say otherwise: "auto" runs anywhere,
+"pallas"/"pallas_banded" (the CUDA entry) only on a card, "xla" and the
+"*_interpret" names (the plain version) only on the CPU. "resident" waits
+for the resident layout (ROADMAP §1 item 3.2, K16/K17) and raises; so does
+``segment_iterations``.
+
+In place, like the rest of the port: the resident verbs
+(``update_n_resident``, ``solve_resident``, ``set_cells_resident``, ...)
+change the ``ShardedGrid`` they are given and return it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .. import constants as C
+from .. import grid as G
+from ..grid import GridState
+from . import hopper_shard2d, multihost
+
+# Sweeps per halo exchange (epic_tpu's DEFAULT_CHUNK_DEPTH).
+DEFAULT_CHUNK_DEPTH = 16
+# The fill of halo cells outside the mesh (and of fresh scratch blocks): the
+# obstacle value, frozen. No updated cell reads it: the grid's frozen ring
+# stands between.
+FILL = float(C.LOG_SPACE_OBSTACLE)
+
+_CARD_NAMES = ("pallas", "pallas_banded")
+_CPU_NAMES = ("xla", "pallas_interpret", "pallas_banded_interpret")
+_NOT_PORTED = ("the resident shard layout (epic_tpu.parallel.resident, resident_tiled: K16 and "
+               "K17) is not ported yet: ROADMAP §1 item 3.2")
+
+
+class Mesh:
+    """A 2D ``("my", "mx")`` grid of shards: ``devices[i, j]`` holds shard
+    (i, j) and ``ranks[i, j]`` is the process that owns it. ``shape`` is
+    ``{"my": .., "mx": ..}``. ``local`` lists this process's shards in
+    row-major order; ``first_device`` is the first one's device, where the
+    mesh's scalars and gathered arrays live."""
+
+    axis_names = ("my", "mx")
+
+    def __init__(self, devices: np.ndarray, ranks: np.ndarray, rank: int = 0):
+        if devices.ndim != 2 or ranks.shape != devices.shape:
+            raise ValueError(f"need 2D devices and ranks of one shape, got {devices.shape} "
+                             f"and {ranks.shape}")
+        types = {d.type for d in devices.flat}
+        if len(types) != 1:
+            raise ValueError(f"a mesh lies on one device type, got {sorted(types)}")
+        self.devices = devices
+        self.ranks = ranks
+        self.rank = rank
+        self.shape = {"my": devices.shape[0], "mx": devices.shape[1]}
+        self.device_type = types.pop()
+        self.local = [(i, j) for i in range(devices.shape[0]) for j in range(devices.shape[1])
+                      if ranks[i, j] == rank]
+        if not self.local:
+            raise ValueError(f"process {rank} owns no shard of this mesh")
+        self.multi_process = bool((ranks != rank).any())
+
+    @property
+    def first_device(self) -> torch.device:
+        return self.devices[self.local[0]]
+
+    def _key(self):
+        return (self.devices.shape, tuple(map(str, self.devices.flat)),
+                tuple(self.ranks.flat), self.rank)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and self._key() == other._key()
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape['my']}x{self.shape['mx']}, {self.device_type}, "
+                f"local={len(self.local)})")
+
+
+def make_mesh(shape: tuple[int, int] | None = None, devices=None) -> Mesh:
+    """A 2D ("my", "mx") mesh; by default near-square. ``devices`` are this
+    process's devices (a device may repeat: ``[cuda0] * 8`` is a virtual
+    mesh of 8 shards on one card); by default every visible CUDA device, and
+    without one this raises: a mesh on the CPU takes
+    ``devices=[torch.device("cpu")] * n``. Across processes
+    (:mod:`.multihost`) the mesh spans every process's devices, each
+    process owning a contiguous block of shards in row-major order."""
+    if devices is None:
+        n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_cuda == 0:
+            raise RuntimeError("make_mesh: no CUDA device is visible; a mesh on the CPU takes "
+                               "devices=[torch.device('cpu')] * n")
+        devices = [torch.device("cuda", i) for i in range(n_cuda)]
+    local = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        local.append(d)
+    if not local:
+        raise ValueError("make_mesh needs at least one device")
+    world, rank = multihost.world()
+    n = world * len(local)
+    if shape is None:
+        my = int(np.floor(np.sqrt(n)))
+        while n % my:
+            my -= 1
+        shape = (my, n // my)
+    if shape[0] * shape[1] != n:
+        raise ValueError(f"a {shape[0]}x{shape[1]} mesh needs {shape[0] * shape[1]} shards; "
+                         f"{world} process(es) give {n}")
+    # Shards of other processes are recorded with this process's layout.
+    devs = np.empty(n, dtype=object)
+    for q in range(n):
+        devs[q] = local[q % len(local)]
+    ranks = np.arange(n) // len(local)
+    return Mesh(devs.reshape(shape), ranks.reshape(shape), rank)
+
+
+# ---------------------------------------------------------------------------
+# Layout
+# ---------------------------------------------------------------------------
+
+
+def padded_shape(shape: tuple[int, int], mesh: Mesh) -> tuple[int, int]:
+    h, w = shape
+    nmy, nmx = mesh.shape["my"], mesh.shape["mx"]
+    return (-(-h // nmy) * nmy, -(-w // nmx) * nmx)
+
+
+def _frozen_mask(state: GridState) -> torch.Tensor:
+    """Cells no sweep updates: locked, and the grid's boundary ring."""
+    frozen = state.locked.clone()
+    frozen[0, :] = True
+    frozen[-1, :] = True
+    frozen[:, 0] = True
+    frozen[:, -1] = True
+    return frozen
+
+
+def _pad_for_mesh(state: GridState, mesh: Mesh):
+    """u and the frozen mask padded to a multiple of the mesh (padding: the
+    obstacle value, frozen), on the state's device."""
+    h, w = state.u.shape
+    hp, wp = padded_shape((h, w), mesh)
+    u = torch.full((hp, wp), FILL, dtype=torch.float32, device=state.u.device)
+    u[:h, :w] = state.u
+    frozen = torch.ones((hp, wp), dtype=torch.bool, device=state.u.device)
+    frozen[:h, :w] = _frozen_mask(state)
+    return u, frozen
+
+
+class ShardedGrid:
+    """A grid resident on a mesh: per local shard (i, j), ``u_blocks``,
+    ``twin_blocks`` (and, once a solve asks, ``u1_blocks``) are f32 blocks
+    of ``(h_loc + 2 halo) x (w_loc + 2 halo)`` cells, the centre at
+    ``[halo:halo + h_loc, halo:halo + w_loc]``, and ``frozen_blocks`` their
+    bool frozen masks. ``frozen_halo`` is the depth to which the frozen
+    halos are exchanged (0 after an edit). The scalars are 0-d tensors on
+    the mesh's first device. ``u`` and ``frozen`` gather the padded
+    ``[Hp, Wp]`` arrays there."""
+
+    def __init__(self, mesh: Mesh, height: int, width: int, halo: int, u_blocks: dict,
+                 twin_blocks: dict, frozen_blocks: dict, iteration: torch.Tensor,
+                 delta: torch.Tensor, epsilon: torch.Tensor):
+        self.mesh = mesh
+        self.height, self.width = height, width
+        self.halo = halo
+        self.u_blocks, self.twin_blocks, self.frozen_blocks = u_blocks, twin_blocks, frozen_blocks
+        self.u1_blocks: dict | None = None
+        self.frozen_halo = 0
+        self.iteration, self.delta, self.epsilon = iteration, delta, epsilon
+        hp, wp = padded_shape((height, width), mesh)
+        self.h_loc, self.w_loc = hp // mesh.shape["my"], wp // mesh.shape["mx"]
+
+    def par0(self, ij) -> int:
+        """(row + column) & 1 of the shard's extended block origin in global
+        coordinates, for any halo depth (the -2k it adds is even)."""
+        i, j = ij
+        return (i * self.h_loc + j * self.w_loc) & 1
+
+    def centre(self, blocks: dict, ij) -> torch.Tensor:
+        H = self.halo
+        return blocks[ij][H:H + self.h_loc, H:H + self.w_loc]
+
+    @property
+    def u(self) -> torch.Tensor:
+        return _gather(self, self.u_blocks)
+
+    @property
+    def frozen(self) -> torch.Tensor:
+        return _gather(self, self.frozen_blocks)
+
+
+def _blank(mesh: Mesh, shape, fill, dtype) -> dict:
+    return {ij: torch.full(shape, fill, dtype=dtype, device=mesh.devices[ij]) for ij in mesh.local}
+
+
+def shard_state(state: GridState, mesh: Mesh, halo: int | None = None) -> ShardedGrid:
+    """Pad a 2D GridState and place its shards on the mesh once, with a
+    halo of ``halo`` cells (by default ``min(DEFAULT_CHUNK_DEPTH, h_loc,
+    w_loc)``; a deeper chunk later regrows it); later ticks and edits keep
+    the blocks resident."""
+    if state.u.ndim != 2:
+        raise ValueError(f"the 2D mesh takes a 2D grid, got {state.u.ndim}D")
+    h, w = state.u.shape
+    hp, wp = padded_shape((h, w), mesh)
+    h_loc, w_loc = hp // mesh.shape["my"], wp // mesh.shape["mx"]
+    H = min(DEFAULT_CHUNK_DEPTH, h_loc, w_loc) if halo is None else halo
+    if H < 1:
+        raise ValueError(f"the halo must be at least 1 cell, got {H}")
+    u_pad, f_pad = _pad_for_mesh(state, mesh)
+    ext = (h_loc + 2 * H, w_loc + 2 * H)
+    u_blocks = _blank(mesh, ext, FILL, torch.float32)
+    frozen_blocks = _blank(mesh, ext, True, torch.bool)
+    for (i, j) in mesh.local:
+        rows, cols = slice(i * h_loc, (i + 1) * h_loc), slice(j * w_loc, (j + 1) * w_loc)
+        u_blocks[i, j][H:H + h_loc, H:H + w_loc] = u_pad[rows, cols]
+        frozen_blocks[i, j][H:H + h_loc, H:H + w_loc] = f_pad[rows, cols]
+    del u_pad, f_pad
+    first = mesh.first_device
+    return ShardedGrid(
+        mesh, h, w, H, u_blocks, _blank(mesh, ext, FILL, torch.float32), frozen_blocks,
+        iteration=state.iteration.to(device=first, dtype=torch.int32),
+        delta=state.delta.to(device=first, dtype=torch.float32),
+        epsilon=state.epsilon.to(device=first, dtype=torch.float32))
+
+
+def _regrow(sh: ShardedGrid, halo: int) -> None:
+    """Re-lay the blocks with a deeper halo (the centres kept)."""
+    H, h, w = halo, sh.h_loc, sh.w_loc
+    ext = (h + 2 * H, w + 2 * H)
+    u_blocks = _blank(sh.mesh, ext, FILL, torch.float32)
+    frozen_blocks = _blank(sh.mesh, ext, True, torch.bool)
+    for ij in sh.mesh.local:
+        u_blocks[ij][H:H + h, H:H + w] = sh.centre(sh.u_blocks, ij)
+        frozen_blocks[ij][H:H + h, H:H + w] = sh.centre(sh.frozen_blocks, ij)
+    sh.u_blocks, sh.frozen_blocks = u_blocks, frozen_blocks
+    sh.twin_blocks = _blank(sh.mesh, ext, FILL, torch.float32)
+    sh.u1_blocks = None
+    sh.halo = H
+    sh.frozen_halo = 0
+
+
+def _gather(sh: ShardedGrid, blocks: dict) -> torch.Tensor:
+    """The shards' centres as one padded ``[Hp, Wp]`` tensor on the mesh's
+    first device; across processes every process gathers all of them."""
+    mesh = sh.mesh
+    first = mesh.first_device
+    nmy, nmx = mesh.shape["my"], mesh.shape["mx"]
+    if mesh.multi_process:
+        local = torch.stack([sh.centre(blocks, ij).to(first) for ij in mesh.local])
+        dtype = local.dtype
+        if dtype == torch.bool:
+            local = local.to(torch.uint8)
+        parts = [torch.empty_like(local) for _ in range(int(mesh.ranks.max()) + 1)]
+        dist.all_gather(parts, local.contiguous())
+        centres = list(torch.cat(parts).to(dtype))
+    else:
+        centres = [sh.centre(blocks, (i, j)).to(first) for i in range(nmy) for j in range(nmx)]
+    return torch.cat([torch.cat(centres[i * nmx:(i + 1) * nmx], dim=1) for i in range(nmy)])
+
+
+def unshard(sh: ShardedGrid) -> GridState:
+    """Gather back to a GridState on the mesh's first device. The boundary
+    ring comes back locked (the shards fold ``locked | ring`` into one
+    mask; the service plane forces the ring to walls anyway)."""
+    h, w = sh.height, sh.width
+    return GridState(
+        u=sh.u[:h, :w].contiguous(),
+        locked=sh.frozen[:h, :w].contiguous(),
+        iteration=sh.iteration,
+        delta=sh.delta,
+        converged=torch.zeros((), dtype=torch.bool, device=sh.mesh.first_device),
+        epsilon=sh.epsilon,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Halo exchange
+# ---------------------------------------------------------------------------
+
+
+def _transfers(mesh: Mesh, h: int, w: int, H: int, k: int):
+    """The exchange at depth k as two phases of ``(src shard, src index, dst
+    shard, dst index)``: rows (each shard's north and south halo from the
+    neighbours' edge rows of the centre), then columns of the row-extended
+    blocks (west and east halos, the corners included)."""
+    nmy, nmx = mesh.shape["my"], mesh.shape["mx"]
+    cc = slice(H, H + w)
+    rr = slice(H - k, H + h + k)
+    rows, cols = [], []
+    for i in range(nmy):
+        for j in range(nmx):
+            if i > 0:
+                rows.append(((i - 1, j), (slice(H + h - k, H + h), cc), (i, j), (slice(H - k, H), cc)))
+            if i < nmy - 1:
+                rows.append(((i + 1, j), (slice(H, H + k), cc), (i, j), (slice(H + h, H + h + k), cc)))
+            if j > 0:
+                cols.append(((i, j - 1), (rr, slice(H + w - k, H + w)), (i, j), (rr, slice(H - k, H))))
+            if j < nmx - 1:
+                cols.append(((i, j + 1), (rr, slice(H, H + k)), (i, j), (rr, slice(H + w, H + w + k))))
+    return rows, cols
+
+
+def _run_phase(mesh: Mesh, blocks: dict, transfers) -> None:
+    """Copy each transfer; between processes as point-to-point sends, both
+    sides listing the transfers in the same order."""
+    ops, recvs = [], []
+    for tag, (s, s_idx, d, d_idx) in enumerate(transfers):
+        s_here, d_here = mesh.ranks[s] == mesh.rank, mesh.ranks[d] == mesh.rank
+        if s_here and d_here:
+            blocks[d][d_idx].copy_(blocks[s][s_idx])
+        elif s_here:
+            ops.append(dist.P2POp(dist.isend, blocks[s][s_idx].contiguous(), int(mesh.ranks[d]),
+                                  tag=tag))
+        elif d_here:
+            buf = torch.empty_like(blocks[d][d_idx], memory_format=torch.contiguous_format)
+            ops.append(dist.P2POp(dist.irecv, buf, int(mesh.ranks[s]), tag=tag))
+            recvs.append((d, d_idx, buf))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for d, d_idx, buf in recvs:
+        blocks[d][d_idx].copy_(buf)
+
+
+def _exchange(sh: ShardedGrid, blocks: dict, k: int) -> None:
+    """Fill the K-deep halos of ``blocks`` (u or frozen) from the
+    neighbouring shards, in place; halos outside the mesh keep their fill."""
+    for phase in _transfers(sh.mesh, sh.h_loc, sh.w_loc, sh.halo, k):
+        _run_phase(sh.mesh, blocks, phase)
+
+
+def _frozen_halos(sh: ShardedGrid, k: int) -> None:
+    if sh.frozen_halo < k:
+        _exchange(sh, sh.frozen_blocks, k)
+        sh.frozen_halo = k
+
+
+# ---------------------------------------------------------------------------
+# Per-shard chunks
+# ---------------------------------------------------------------------------
+
+
+def check_kernel(kernel: str, mesh: Mesh) -> None:
+    """Refuse a kernel name this mesh does not run: the per-shard route
+    follows the device (the CUDA entry on a card, the plain version on the
+    CPU), and a name only confirms it."""
+    if kernel in ("resident", "resident_interpret"):
+        raise NotImplementedError(f"kernel={kernel!r}: {_NOT_PORTED}")
+    on_card = mesh.device_type == "cuda"
+    if kernel in _CARD_NAMES and not on_card:
+        raise ValueError(f"kernel={kernel!r} runs the CUDA entry; this mesh lies on "
+                         f"{mesh.device_type} (use 'auto')")
+    if kernel in _CPU_NAMES and on_card:
+        raise ValueError(f"kernel={kernel!r} names the plain version; this mesh lies on "
+                         "cuda (use 'auto')")
+    if kernel != "auto" and kernel not in _CARD_NAMES + _CPU_NAMES:
+        raise ValueError(f"unknown sharded kernel {kernel!r}")
+
+
+def _depth(mesh: Mesh, h_loc: int, w_loc: int, chunk_depth: int) -> int:
+    """The exchange depth: ``min(chunk_depth, h_loc, w_loc)``, and on a card
+    no deeper than the kernel takes."""
+    if chunk_depth < 1:
+        raise ValueError(f"chunk_depth must be >= 1, got {chunk_depth}")
+    k = min(chunk_depth, h_loc, w_loc)
+    if mesh.device_type == "cuda":
+        k = min(k, hopper_shard2d.max_depth(mesh.first_device))
+    return k
+
+
+def _on_devices(sh: ShardedGrid, t: torch.Tensor) -> dict:
+    return {dev: t.to(dev) for dev in {sh.mesh.devices[ij] for ij in sh.mesh.local}}
+
+
+def _pmax(mesh: Mesh, deltas: list) -> torch.Tensor:
+    """The max of the shards' deltas, on the mesh's first device (across
+    processes all-reduced)."""
+    first = mesh.first_device
+    d = torch.stack([x.to(first) for x in deltas]).amax()
+    if mesh.multi_process:
+        d = d.reshape(1)
+        dist.all_reduce(d, op=dist.ReduceOp.MAX)
+        d = d[0]
+    return d
+
+
+def _chunk(sh: ShardedGrid, k: int, its: dict, t_off: int, ns: int, *, delta: bool = False,
+           u1: bool = False):
+    """One exchange and ``ns`` sweeps on every local shard from iteration
+    ``its[device] + t_off``: the blocks' centres go to the twins (and after
+    sweep 0 to the u1 blocks), then blocks and twins swap. Returns the pmax
+    of sweep 0's delta when ``delta``."""
+    _exchange(sh, sh.u_blocks, k)
+    H = sh.halo
+    view = (slice(H - k, H + sh.h_loc + k), slice(H - k, H + sh.w_loc + k))
+    deltas = []
+    for ij in sh.mesh.local:
+        deltas.append(hopper_shard2d.chunk(
+            sh.u_blocks[ij][view], sh.twin_blocks[ij][view], sh.frozen_blocks[ij][view], k=k,
+            par0=sh.par0(ij), iteration=its[sh.mesh.devices[ij]], ns=ns, t_off=t_off,
+            u1=sh.u1_blocks[ij][view] if u1 else None, want_delta=delta))
+    sh.u_blocks, sh.twin_blocks = sh.twin_blocks, sh.u_blocks
+    return _pmax(sh.mesh, deltas) if delta else None
+
+
+def _prepare(sh: ShardedGrid, chunk_depth: int, kernel: str) -> int:
+    """The depth of a call; regrow the halo and exchange the frozen halos as
+    needed."""
+    check_kernel(kernel, sh.mesh)
+    k = _depth(sh.mesh, sh.h_loc, sh.w_loc, chunk_depth)
+    if k > sh.halo:
+        _regrow(sh, k)
+    _frozen_halos(sh, k)
+    return k
+
+
+def _update_n_sharded(sh: ShardedGrid, num_steps: int, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
+                      kernel: str = "auto") -> torch.Tensor:
+    """``num_steps`` sweeps from ``sh.iteration`` as ceil(num_steps / K)
+    exchange rounds (the first ``min(K, num_steps)`` deep, then full chunks,
+    then the remainder); returns the first sweep's delta (pmax)."""
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    k = _prepare(sh, chunk_depth, kernel)
+    its = _on_devices(sh, sh.iteration)
+    d1 = min(k, num_steps)
+    delta = _chunk(sh, k, its, 0, d1, delta=True)
+    t = d1
+    while t < num_steps:
+        ns = min(k, num_steps - t)
+        _chunk(sh, k, its, t, ns)
+        t += ns
+    return delta
+
+
+def _check_mesh(sh: ShardedGrid, mesh: Mesh | None) -> None:
+    if mesh is not None and mesh != sh.mesh:
+        raise ValueError(f"the grid lives on {sh.mesh}, not {mesh}")
+
+
+# ---------------------------------------------------------------------------
+# The resident verbs
+# ---------------------------------------------------------------------------
+
+
+def update_n_resident(sh: ShardedGrid, num_steps: int, mesh: Mesh | None = None,
+                      chunk_depth: int = DEFAULT_CHUNK_DEPTH, kernel: str = "auto") -> ShardedGrid:
+    """Anytime chunk on a mesh-resident grid, in place: no re-pad, no
+    re-upload; returns ``sh``, relaxed, its iteration advanced and its delta
+    the first sweep's."""
+    _check_mesh(sh, mesh)
+    delta = _update_n_sharded(sh, num_steps, chunk_depth, kernel)
+    sh.iteration = sh.iteration + num_steps
+    sh.delta = delta
+    return sh
+
+
+def solve_resident(sh: ShardedGrid, mesh: Mesh | None = None, stagger: int = C.DEFAULT_STAGGER,
+                   max_iterations: int = 1_000_000, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
+                   kernel: str = "auto", segment_iterations: int | None = None):
+    """Solve to convergence on the resident blocks, in place, with the
+    protocol of ``core.solve`` (iteration reset to 0, a check every
+    ``stagger`` sweeps, exit only right after a passing check with
+    ``iteration >= max(H, W)``, the post-check-sweep state kept). Returns
+    ``(sh, converged)``."""
+    _check_mesh(sh, mesh)
+    if segment_iterations is not None:
+        raise NotImplementedError(f"segment_iterations needs the resident layout: {_NOT_PORTED}")
+    if stagger < 1:
+        raise ValueError(f"stagger must be >= 1, got {stagger}")
+    k = _prepare(sh, chunk_depth, kernel)
+    if sh.u1_blocks is None:
+        sh.u1_blocks = _blank(sh.mesh, sh.u_blocks[sh.mesh.local[0]].shape, FILL, torch.float32)
+    first = sh.mesh.first_device
+    zero = _on_devices(sh, torch.zeros((), dtype=torch.int32, device=first))
+    m_max = max(sh.height, sh.width)
+    depth = min(k, stagger)
+    it, delta, done = 0, sh.epsilon + 1.0, False
+    while not done and it < max_iterations:
+        delta = _chunk(sh, k, zero, it, depth, delta=True, u1=True)
+        if it + 1 >= m_max and bool(delta < sh.epsilon):
+            sh.u_blocks, sh.u1_blocks = sh.u1_blocks, sh.u_blocks
+            it, done = it + 1, True
+            break
+        t = it + depth
+        while t < it + stagger:
+            ns = min(k, it + stagger - t)
+            _chunk(sh, k, zero, t, ns)
+            t += ns
+        it += stagger
+    sh.iteration = torch.tensor(it, dtype=torch.int32, device=first)
+    sh.delta = delta
+    return sh, torch.tensor(done, dtype=torch.bool, device=first)
+
+
+def set_cells_resident(sh: ShardedGrid, xy, types) -> ShardedGrid:
+    """SetCells on the resident blocks, in place (``grid.set_cells``'s
+    preprocessing: invalid entries skipped, duplicates last-wins): each
+    owning shard takes its writes, nothing is re-laid-out. Values on the
+    boundary ring are written, but ring cells stay frozen: no sweep updates
+    them (the reference loops x = 1..m-2, harmonic_cpu.cpp:46-51), and an
+    unfrozen ring cell would read out-of-mesh fill."""
+    xy, u_vals, locked_vals = G.sanitize_cell_edits(xy, types, sh.width, sh.height)
+    if xy.shape[0] == 0:
+        return sh
+    xs, ys = xy[:, 0], xy[:, 1]
+    on_ring = (xs == 0) | (xs == sh.width - 1) | (ys == 0) | (ys == sh.height - 1)
+    f_vals = locked_vals | on_ring
+    si, sj = ys // sh.h_loc, xs // sh.w_loc
+    H = sh.halo
+    for (i, j) in sh.mesh.local:
+        m = (si == i) & (sj == j)
+        if not m.any():
+            continue
+        dev = sh.mesh.devices[i, j]
+        idx = (torch.as_tensor(H + ys[m] - i * sh.h_loc, device=dev),
+               torch.as_tensor(H + xs[m] - j * sh.w_loc, device=dev))
+        sh.u_blocks[i, j][idx] = torch.as_tensor(u_vals[m], device=dev)
+        sh.frozen_blocks[i, j][idx] = torch.as_tensor(f_vals[m], device=dev)
+    sh.frozen_halo = 0
+    return sh
+
+
+def reset_free_cells_resident(sh: ShardedGrid) -> ShardedGrid:
+    """srvResetFreeCells on the resident blocks, in place, as
+    ``grid.reset_free_cells``: every unfrozen cell back to the FREE value,
+    the iteration to 0, the delta to ``epsilon + 1``."""
+    for ij in sh.mesh.local:
+        sh.centre(sh.u_blocks, ij).masked_fill_(~sh.centre(sh.frozen_blocks, ij),
+                                                float(C.LOG_SPACE_FREE))
+    sh.iteration = torch.zeros((), dtype=torch.int32, device=sh.mesh.first_device)
+    sh.delta = sh.epsilon + 1.0
+    return sh
+
+
+def occupancy_resident(sh: ShardedGrid, data: np.ndarray) -> bool:
+    """An occupancy grid (``Planner.update_occupancy``'s rule) applied to
+    the resident blocks, in place and on the devices: interior cells whose
+    value is not OCCUPANCY_NO_CHANGE, and that are not goals, become
+    OBSTACLE (value >= OCCUPANCY_OBSTACLE_THRESHOLD) or FREE. Returns
+    whether any cell changed (across processes, anywhere)."""
+    data = np.asarray(data)
+    h, w = sh.height, sh.width
+    if data.shape != (h, w):
+        raise ValueError(f"occupancy of shape {data.shape} for a {h}x{w} grid")
+    H, hl, wl = sh.halo, sh.h_loc, sh.w_loc
+    changed = torch.zeros((), dtype=torch.bool, device=sh.mesh.first_device)
+    for (i, j) in sh.mesh.local:
+        dev = sh.mesh.devices[i, j]
+        block = np.full((hl, wl), C.OCCUPANCY_NO_CHANGE, dtype=np.int16)
+        y0, x0 = i * hl, j * wl
+        y1, x1 = min(y0 + hl, h - 1), min(x0 + wl, w - 1)   # the ring never changes
+        y0c, x0c = max(y0, 1), max(x0, 1)
+        if y1 > y0c and x1 > x0c:
+            block[y0c - y0:y1 - y0, x0c - x0:x1 - x0] = data[y0c:y1, x0c:x1]
+        d = torch.from_numpy(block).to(dev)
+        u, f = sh.centre(sh.u_blocks, (i, j)), sh.centre(sh.frozen_blocks, (i, j))
+        goal = f & (u == float(C.LOG_SPACE_GOAL))
+        change = (d != C.OCCUPANCY_NO_CHANGE) & ~goal
+        obstacle = change & (d >= C.OCCUPANCY_OBSTACLE_THRESHOLD)
+        # OBSTACLE and FREE both hold -1e6; locked for obstacles only.
+        u.masked_fill_(change, float(C.LOG_SPACE_OBSTACLE))
+        f.copy_((f & ~change) | obstacle)
+        changed |= change.any().to(changed.device)
+    sh.frozen_halo = 0
+    if sh.mesh.multi_process:
+        flag = changed.to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        changed = flag[0] > 0
+    return bool(changed)
+
+
+def read_cell(sh: ShardedGrid, x: int, y: int) -> tuple[bool, float] | None:
+    """(frozen, u) of one cell from its shard: a 5-byte read. None when the
+    shard belongs to another process."""
+    i, j = y // sh.h_loc, x // sh.w_loc
+    if sh.mesh.ranks[i, j] != sh.mesh.rank:
+        return None
+    H = sh.halo
+    r, c = H + y - i * sh.h_loc, H + x - j * sh.w_loc
+    return bool(sh.frozen_blocks[i, j][r, c]), float(sh.u_blocks[i, j][r, c])
+
+
+# ---------------------------------------------------------------------------
+# GridState entry points
+# ---------------------------------------------------------------------------
+
+
+def halo_for(shape: tuple[int, int], mesh: Mesh, chunk_depth: int) -> int:
+    """The halo a grid of ``shape`` gets on ``mesh`` for chunks of
+    ``chunk_depth`` sweeps."""
+    hp, wp = padded_shape(shape, mesh)
+    return _depth(mesh, hp // mesh.shape["my"], wp // mesh.shape["mx"], chunk_depth)
+
+
+def _result(state: GridState, sh: ShardedGrid, **fields) -> GridState:
+    """``state`` with the mesh's relaxed field cut back to ``h x w``, all on
+    the mesh's first device."""
+    h, w = state.u.shape
+    first = sh.mesh.first_device
+    return dataclasses.replace(state, u=sh.u[:h, :w].contiguous(), locked=state.locked.to(first),
+                               epsilon=state.epsilon.to(first), **fields)
+
+
+def update_n(state: GridState, num_steps: int, mesh: Mesh,
+             chunk_depth: int = DEFAULT_CHUNK_DEPTH, kernel: str = "auto") -> GridState:
+    """``core.update_n``'s semantics on a mesh: ``num_steps`` sweeps, delta
+    from the first, ``converged`` only for a single sweep. Returns a
+    GridState on the mesh's first device."""
+    check_kernel(kernel, mesh)
+    sh = shard_state(state, mesh, halo_for(tuple(state.u.shape), mesh, chunk_depth))
+    update_n_resident(sh, num_steps, mesh, chunk_depth, kernel)
+    converged = ((sh.delta < sh.epsilon) if num_steps == 1
+                 else torch.zeros((), dtype=torch.bool, device=mesh.first_device))
+    return _result(state, sh, iteration=sh.iteration, delta=sh.delta, converged=converged)
+
+
+def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
+          max_iterations: int = 1_000_000, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
+          kernel: str = "auto", segment_iterations: int | None = None) -> GridState:
+    """``core.solve`` on a mesh (the protocol of :func:`solve_resident`).
+    Returns a GridState on the mesh's first device."""
+    if segment_iterations is not None:
+        raise NotImplementedError(f"segment_iterations needs the resident layout: {_NOT_PORTED}")
+    check_kernel(kernel, mesh)
+    sh = shard_state(state, mesh, halo_for(tuple(state.u.shape), mesh, chunk_depth))
+    sh, converged = solve_resident(sh, mesh, stagger, max_iterations, chunk_depth, kernel)
+    return _result(state, sh, iteration=sh.iteration, delta=sh.delta, converged=converged)

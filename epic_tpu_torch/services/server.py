@@ -23,6 +23,8 @@ verbs are not ported yet; they answer ``{"success": false, "error": "<verb>
 is not ported yet"}``.
 
 Run:   python -m epic_tpu_torch.services.server --port 7171 --map maze.png
+       [--host 0.0.0.0] [--log-json] [--mesh]   (--mesh: the grid sharded
+       over every visible card, planner_mesh.MeshPlanner)
 Client: EpicClient (below) or any JSON-capable peer.
 """
 
@@ -428,15 +430,13 @@ def ingest_map(node: EpicNavigationNodeRviz, img: np.ndarray, meta: MapMeta | No
         )
 
 
-def main(argv: list[str] | None = None) -> None:  # pragma: no cover - CLI
-    from .. import maps
-    from ..config import EpicConfig
-    from ..metrics import configure_logging
-
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The command line of :func:`main`."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default=None,
                     help="YAML session config (configs/*.yaml); explicit CLI "
                          "flags override it")
+    ap.add_argument("--host", default=None)
     ap.add_argument("--port", type=int, default=None)
     ap.add_argument("--map", default=None,
                     help="map_server YAML or PNG map to load at startup")
@@ -445,20 +445,41 @@ def main(argv: list[str] | None = None) -> None:  # pragma: no cover - CLI
     ap.add_argument("--device", default="cuda",
                     help="torch device of the grid: a CUDA device runs the "
                          "kernels, 'cpu' the plain torch version")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", action="store_true",
+                    help="run the node on planner_mesh.MeshPlanner: the grid "
+                         "lives sharded across every visible card (resident "
+                         "ticks, edits and solves); --device is then unused")
+    ap.add_argument("--log-json", action="store_true",
+                    help="emit structured JSON-lines logs")
+    return ap.parse_args(argv)
 
-    configure_logging()
+
+def main(argv: list[str] | None = None) -> None:  # pragma: no cover - CLI
+    from .. import maps
+    from ..config import EpicConfig
+    from ..metrics import configure_logging
+
+    args = parse_args(argv)
+    configure_logging(json_lines=args.log_json)
 
     cfg = EpicConfig.load_yaml(args.config) if args.config else EpicConfig()
     if args.epsilon is not None:
         cfg.solver.epsilon = args.epsilon
+    if args.host is not None:
+        cfg.service.host = args.host
     if args.port is not None:
         cfg.service.port = args.port
     if args.steps_per_update is not None:
         cfg.service.steps_per_update = args.steps_per_update
 
-    node = EpicNavigationNodeRviz(cfg, update_rate=cfg.service.update_rate_hz,
-                                  device=args.device)
+    if args.mesh:
+        from ..planner_mesh import MeshPlanner
+
+        node = EpicNavigationNodeRviz(cfg, update_rate=cfg.service.update_rate_hz,
+                                      planner=MeshPlanner(cfg, mesh=None))
+    else:
+        node = EpicNavigationNodeRviz(cfg, update_rate=cfg.service.update_rate_hz,
+                                      device=args.device)
     map_path = args.map
     if map_path is None and cfg.map is not None:
         map_path = str(cfg.resolve_map_path())

@@ -123,10 +123,13 @@ def load() -> ctypes.CDLL:
         lib.epic_tile2d_cycle.argtypes = [p, p, p, i, i, p, i, i, i, p, i, p, i]
         lib.epic_tile2d_solve.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, p, p, i, p, i]
         set_tile3d_types(lib)
+        lib.epic_shard2d_chunk.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, p, i, i, p,
+                                           p, i]
         for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
                    lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve,
                    lib.epic_batched2d_chunk, lib.epic_batched2d_solve,
-                   lib.epic_tile2d_chunk, lib.epic_tile2d_cycle, lib.epic_tile2d_solve):
+                   lib.epic_tile2d_chunk, lib.epic_tile2d_cycle, lib.epic_tile2d_solve,
+                   lib.epic_shard2d_chunk):
             fn.restype = i
         lib.epic_cuda_error_string.argtypes = [i]
         lib.epic_cuda_error_string.restype = ctypes.c_char_p

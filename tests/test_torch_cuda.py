@@ -2,7 +2,9 @@
 the card: the 2D kernels (csrc/sweep2d.cu), the 2D tile kernels for grids
 beyond the L2 (csrc/tile2d.cu), the 3D kernels (csrc/sweep3d.cu), the 3D
 tile kernels for volumes beyond it (csrc/tile3d.cu), the batched scenario
-kernels (csrc/batched2d.cu), the planners that drive them, and the batched
+kernels (csrc/batched2d.cu), the shard chunk of the 2D mesh (in
+csrc/tile2d.cu) and the mesh solver and MeshPlanner on a virtual mesh of
+eight shards on the one card, the planners that drive them, and the batched
 walkers on the card against the same walkers on the CPU.
 Every test here needs a CUDA card and skips without one.
 
@@ -29,6 +31,8 @@ from epic_tpu_torch import maps
 import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
+from epic_tpu_torch.planner_mesh import MeshPlanner
+from epic_tpu_torch.parallel import hopper_shard2d, make_mesh, sharded
 from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
                                    hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled, tiled3d)
 
@@ -747,3 +751,136 @@ def test_tile3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
             with pytest.raises(exc):
                 call(dataclasses.replace(st, **fields))
     assert hopper_tile3d.launches == launches and tiled3d.calls == calls
+
+
+# -- the 2D mesh: epic_shard2d_chunk in csrc/tile2d.cu ---------------------------------------
+
+# (h, w, k): one shard's centre and halo depth: ragged over several 64 x 128
+# tiles, a non-aligned small shard, a centre smaller than its halo, and the
+# deepest halo the tile takes in an H100's shared memory (k = 60).
+SHARDS = [(150, 300, 16), (37, 91, 8), (5, 9, 7), (70, 140, 60)]
+
+
+def _shard_block(h, w, k, dev, seed):
+    """A random extended block (obstacles, goals, a frozen out-of-mesh edge)
+    inside a buffer with a 3 cells deeper halo: views with a row pitch."""
+    rng = np.random.default_rng(seed)
+    H = k + 3
+    he, we = h + 2 * H, w + 2 * H
+    u = np.where(rng.random((he, we)) < 0.05, 0.0, -rng.random((he, we)) * 40).astype(np.float32)
+    frozen = rng.random((he, we)) < 0.15
+    frozen[:H + 1, :] = True        # a shard on the mesh's top edge
+    u[frozen & (rng.random((he, we)) < 0.5)] = -1e6
+    view = (slice(H - k, H + h + k), slice(H - k, H + w + k))
+    return (torch.from_numpy(u).to(dev), torch.from_numpy(frozen).to(dev), view)
+
+
+@pytest.mark.parametrize("shard", SHARDS, ids=lambda s: f"{s[0]}x{s[1]}-k{s[2]}")
+def test_shard_chunk_kernel_gives_the_plain_versions_bits(dev, shard):
+    """K14/K15: odd and even origins and iterations, ns = 1, < k and = k,
+    u1 on and off, against the plain per-shard version on the same view."""
+    h, w, k = shard
+    for seed, par0 in ((0, 0), (1, 1)):
+        u, frozen, view = _shard_block(h, w, k, dev, seed)
+        for t0 in (0, 3):
+            for ns in sorted({1, k // 2 + 1, k}):
+                for with_u1 in (False, True):
+                    dst, u1 = torch.full_like(u, 5.0), torch.full_like(u, 5.0)
+                    before = hopper_shard2d.launches["epic_shard2d_chunk"]
+                    calls = hopper_shard2d.calls["sweep_k_local"]
+                    src = u.clone()
+                    d = hopper_shard2d.chunk(src[view], dst[view], frozen[view], k=k, par0=par0,
+                                             iteration=t0, ns=ns,
+                                             u1=u1[view] if with_u1 else None, want_delta=True)
+                    torch.cuda.synchronize()
+                    assert hopper_shard2d.launches["epic_shard2d_chunk"] == before + 1
+                    assert hopper_shard2d.calls["sweep_k_local"] == calls
+                    ref, ref_d, ref_u1 = hopper_shard2d.sweep_k_local(
+                        u[view], frozen[view], par0, t0, ns, u1=True)
+                    c = (slice(k, h + k), slice(k, w + k))
+                    assert torch.equal(src, u)
+                    assert torch.equal(dst[view][c], ref[c]) and torch.equal(d, ref_d)
+                    outside = torch.ones_like(dst, dtype=torch.bool)
+                    outside[view[0].start + k:view[0].start + k + h,
+                            view[1].start + k:view[1].start + k + w] = False
+                    assert (dst[outside] == 5.0).all()       # only the centre is written
+                    if with_u1:
+                        assert torch.equal(u1[view][c], ref_u1[c])
+                    else:
+                        assert (u1 == 5.0).all()
+
+
+def test_shard_chunk_refuses_what_the_kernel_does_not_take(dev):
+    u, frozen, view = _shard_block(20, 30, 4, dev, 0)
+    src, dst = u[view], u.clone()[view]
+    launches = dict(hopper_shard2d.launches)
+    kw = dict(k=4, par0=0, iteration=0, ns=2)
+    with pytest.raises(ValueError, match="distinct"):
+        hopper_shard2d.chunk(src, src, frozen[view], **kw)
+    with pytest.raises(TypeError):
+        hopper_shard2d.chunk(src, dst, frozen[view].to(torch.uint8), **kw)
+    with pytest.raises(ValueError, match="pitch"):
+        hopper_shard2d.chunk(src, dst.contiguous(), frozen[view], **kw)
+    with pytest.raises(ValueError, match="1..k"):
+        hopper_shard2d.chunk(src, dst, frozen[view], k=4, par0=0, iteration=0, ns=5)
+    with pytest.raises(ValueError, match="no centre"):
+        hopper_shard2d.chunk(src, dst, frozen[view], k=20, par0=0, iteration=0, ns=2)
+    deep = hopper_shard2d.max_depth(dev) + 1
+    u, frozen, view = _shard_block(2 * deep, 2 * deep, deep, dev, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        hopper_shard2d.chunk(u[view], u.clone()[view], frozen[view], k=deep, par0=0, iteration=0,
+                             ns=1)
+    assert hopper_shard2d.launches == launches
+
+
+@pytest.mark.parametrize("shape,depth", [((2, 4), 16), ((2, 4), 64), ((8, 1), 4), ((1, 1), 16)])
+def test_virtual_mesh_update_and_solve_give_cores_bits(dev, shape, depth):
+    """The mesh solver on P shards of the one card: ticks from both parities
+    and solves (converged, and capped) equal core's; only the CUDA entry
+    runs."""
+    mesh = make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+    before, calls = dict(hopper_shard2d.launches), dict(hopper_shard2d.calls)
+    for t0 in (0, 1):
+        st = _grid(67, 101, dev, t0=t0)
+        for n in (1, 50):
+            _assert_same(sharded.update_n(st, n, mesh, chunk_depth=depth), core.update_n(st, n))
+    st = _grid(67, 101, dev, seed=5, eps=1e-1)
+    for stagger, cap in ((100, 1_000_000), (7, 1_000_000), (10, 95)):
+        out = sharded.solve(st, mesh, stagger, cap, chunk_depth=depth)
+        _assert_same(out, core.solve(st, stagger, cap))
+    assert hopper_shard2d.launches["epic_shard2d_chunk"] > before["epic_shard2d_chunk"]
+    assert hopper_shard2d.calls == calls
+    for kernel in ("xla", "pallas_interpret"):     # the plain version's names
+        with pytest.raises(ValueError, match="plain version"):
+            sharded.update_n(st, 3, mesh, kernel=kernel)
+    with pytest.raises(NotImplementedError, match="K16"):
+        sharded.update_n(st, 3, mesh, kernel="resident")
+
+
+def test_mesh_planner_on_the_card_equals_the_planner(dev):
+    """A MeshPlanner on a 2 x 4 virtual mesh and a Planner on the card run
+    one session to the same bits; the mesh never runs a plain version or a
+    single-device kernel."""
+    img = maps.recursive_maze(96, 160, seed=3)
+    occ = np.where(img == 0, 100, 0).astype(np.int8)
+    gy, gx = [int(v) for v in np.argwhere(img == 255)[0]]
+    cfg = PlannerConfig(epsilon=1e-2, steps_per_update=25)
+    mp = MeshPlanner(cfg, mesh=make_mesh((2, 4), devices=[dev] * 8))
+    sp = Planner(PlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+    for pl in (mp, sp):
+        pl.init(160, 96)
+        pl.update_occupancy(occ)
+        assert pl.add_goals([(float(gx), float(gy))])
+    counts = (dict(hopper_shard2d.launches), dict(hopper_shard2d.calls), dict(core.calls))
+    for pl in (mp, sp):
+        for _ in range(3):
+            pl.update()
+        pl.set_cells([(10, 10)], [C.CELL_TYPE_OBSTACLE])
+        pl.update(13)
+        pl.solve()
+    assert hopper_shard2d.launches["epic_shard2d_chunk"] > counts[0]["epic_shard2d_chunk"]
+    assert hopper_shard2d.calls == counts[1] and core.calls == counts[2]
+    assert mp.get_cell(10, 10) == sp.get_cell(10, 10) == -1e6
+    a, b = mp.state, sp.state
+    assert a.u.device == dev and torch.equal(a.u, b.u)
+    assert int(a.iteration) == int(b.iteration) and bool(a.converged) and bool(b.converged)

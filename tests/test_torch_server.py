@@ -385,3 +385,17 @@ def test_cli_main_subprocess(tmp_path):
     finally:
         proc.kill()
         proc.wait(timeout=10)
+
+
+def test_cli_parses_host_log_json_and_mesh():
+    """The flags epic_tpu's server has: --host, --log-json, --mesh; --mesh
+    on a host without a card raises (no silent CPU mesh)."""
+    from epic_tpu_torch.services.server import main, parse_args
+
+    args = parse_args(["--host", "0.0.0.0", "--log-json", "--mesh", "--port", "7200"])
+    assert (args.host, args.log_json, args.mesh, args.port) == ("0.0.0.0", True, True, 7200)
+    args = parse_args([])
+    assert (args.host, args.log_json, args.mesh, args.device) == (None, False, False, "cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--mesh", "--port", "0"])
