@@ -146,7 +146,33 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 with and without u1 and a 5-sweep remainder, against the
                 plain per-shard version, the same bits. The mesh tick's mean
                 of 5 against the tile tick's, and the exchange's share of a
-                tick (CUDA events around the halo copies).
+                tick (CUDA events around the halo copies);
+ 20. mesh3d   — phase 9's 256^3 volume on a 2 x 4 virtual plane mesh of the
+                card (eight shards of 256 x 128 x 64). Counted main path
+                (counts zeroed just before, read just after; the 3D shard
+                entry must run, K7, the 3D tiles and the plain versions must
+                not): MeshVolumePlanner.update(50) then (100) from an even and
+                an odd start iteration, an uncapped solve, and with
+                kernel="resident" ticks from the odd start and a solve in
+                segments of 500; each the same bits and iterations as the
+                VolumePlanner on the whole volume (K7; 1,301 iterations). The
+                mesh tick's mean of 5 against K7's;
+ 21. mesh3d_z — the same volume on an 8 x 1 x 1 z mesh (shards of 32 whole
+                planes), "auto" and "resident", counted and compared the
+                same way; the entry alone on one z shard's block (halo on z
+                only): 8 sweeps with and without u1 and a 5-sweep remainder,
+                against the plain per-shard version, the same bits; the
+                orientation choose_mesh3d picks for it, and both
+                orientations' tick times (mean of 5);
+ 22. mesh3d_wide — a 64 x 1024 x 1024 volume (tools/probe.py's
+                sharded3d-resident shape, 268 MB of u) on 2 x 4 (shards of
+                64 x 512 x 256): counted MeshVolumePlanner ticks of 100 from
+                both parities and a solve capped at 1,000, against the
+                VolumePlanner. The entry alone on one shard's extended block:
+                a chunk with and without u1 and a 5-sweep remainder, against
+                the plain per-shard version, the same bits. The mesh tick's
+                mean of 5 against K7's (and the z
+                mesh's), and the exchange's share of a tick.
 
 Each phase prints one JSON line and raises on failure. Then come the kernels'
 JSON line (each entry with its time, its plain version's, its bound and its
@@ -195,6 +221,9 @@ SIZE3D = (256, 256, 256)  # 67 MB of u: beyond L2
 MESH = (2, 4)             # the virtual mesh of phases 18-19: eight shards on the one card
 MESH_SIDE = 16384         # BASELINE.md:42, the 16k x 16k multi-host grid: 1.07 GB of u
 MESH_CAP = 2000
+MESH3D_WIDE = (64, 1024, 1024)   # tools/probe.py:1493's sharded3d-resident volume: 268 MB of u
+MESH3D_WIDE_CAP = 1000
+MESH3D_SEGMENT = 500
 WIDE3D = (32, 2048, 2048)  # a building floor at 5 cm: 537 MB of u, 10x the L2
 WIDE3D_CAP = 500
 WIDE3D_SEGMENT = 200
@@ -227,6 +256,7 @@ SOURCES = {
     "epic_tile3d_cycle": "epic_tpu_torch/csrc/tile3d.cu",
     "epic_tile3d_solve": "epic_tpu_torch/csrc/tile3d.cu",
     "epic_shard2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
+    "epic_shard3d_chunk": "epic_tpu_torch/csrc/shard3d.cu",
 }
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
@@ -269,6 +299,12 @@ REPLACES = {
     # K14 (the whole extended shard in VMEM) and K15 (its DMA row bands)
     "epic_shard2d_chunk": ["epic_tpu/parallel/sharded.py:89",
                            "epic_tpu/parallel/sharded.py:152"],
+    # K18 (the whole block in VMEM), K19 (DMA plane bands), K20 (K11's body via
+    # resident3d._chunk_cycle), K21 (the z-resident plane bands)
+    "epic_shard3d_chunk": ["epic_tpu/parallel/sharded3d.py:170",
+                           "epic_tpu/parallel/sharded3d.py:243",
+                           "epic_tpu/parallel/resident3d.py:233",
+                           "epic_tpu/parallel/resident_z.py:166"],
 }
 
 
@@ -314,14 +350,15 @@ def copy_state(state):
 
 
 def zero_counts() -> None:
-    from epic_tpu_torch.parallel import hopper_shard2d
+    from epic_tpu_torch.parallel import hopper_shard2d, hopper_shard3d
     from epic_tpu_torch.solver import (batched, core, hopper_batched, hopper_sweep,
                                        hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled,
                                        tiled3d)
 
     for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
               hopper_tile2d.launches, hopper_tile3d.launches, hopper_shard2d.launches,
-              core.calls, batched.calls, tiled.calls, tiled3d.calls, hopper_shard2d.calls):
+              hopper_shard3d.launches, core.calls, batched.calls, tiled.calls, tiled3d.calls,
+              hopper_shard2d.calls, hopper_shard3d.calls):
         for k in d:
             d[k] = 0
 
@@ -1648,11 +1685,13 @@ def phase_mesh_session(dev, maze) -> dict:
     for _ in range(s.ticks - out["solve_at"]):
         ref.update()
     err = max(err, same_field(final, ref.planner.state, "mesh session's final field vs the Planner"))
+    iters = int(out["solved"].iteration)
     emit(phase="mesh_session", config="configs/maze.yaml", mesh=list(MESH),
          shard=[planner._sh.h_loc, planner._sh.w_loc], ticks=s.ticks, sweeps_per_tick=steps,
-         ten_ticks_s=out["ten_ticks_s"], solve_iterations=int(out["solved"].iteration),
+         ten_ticks_s=out["ten_ticks_s"], solve_iterations=iters,
          solve_s=out["solve_s"], paths=len(out["lengths"]), path_points=out["lengths"],
-         compute_path_s=out["path_s"], max_abs_err_vs_planner=err, launches=launches)
+         compute_path_s=out["path_s"], max_abs_err_vs_planner=err, launches=launches,
+         bounds={"solve": bound(out["solved"].locked, 0, iters)})
     return {"launches": launches, "err": err}
 
 
@@ -1795,6 +1834,307 @@ def phase_mesh16k(dev) -> dict:
     return {"launches": launches, "err": max(errs + entry_errs),
             "entry": (entry_ms, plain_ms, entry_bound)}
 
+def counted_mesh3d(what: str, drive) -> dict:
+    """Run ``drive()`` with every count zeroed just before and read just
+    after: the 3D shard entry must have run; the plain versions, K7 and the
+    3D tiles must not. Returns the shard entry's launches."""
+    from epic_tpu_torch.parallel import hopper_shard3d
+    from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d, tiled3d
+
+    zero_counts()
+    drive()
+    torch.cuda.synchronize()
+    launches = dict(hopper_shard3d.launches)
+    others = {**hopper_sweep3d.launches, **hopper_tile3d.launches,
+              **{f"core.{k}": v for k, v in core.calls.items()},
+              **{f"tiled3d.{k}": v for k, v in tiled3d.calls.items()},
+              **{f"hopper_shard3d.{k}": v for k, v in hopper_shard3d.calls.items()}}
+    require(all(v > 0 for v in launches.values()),
+            f"{what}: the 3D shard entry never ran: {launches}")
+    require(all(v == 0 for v in others.values()),
+            f"{what}: a plain version or a single-device 3D kernel ran: {others}")
+    return launches
+
+
+def same_volume(a, b, what: str) -> float:
+    """Two volume states: the same bits in u and delta, equal iterations and
+    verdicts."""
+    err = same_field(a, b, what)
+    require(bool(a.converged) == bool(b.converged), f"{what}: verdicts differ")
+    return err
+
+
+def volume_refs(dev, base, starts, ticks, cap):
+    """The VolumePlanner's (K7's) results on the whole volume: ``ticks``
+    sweeps chained from each start, and a solve capped at ``cap``."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch import solver
+
+    planner = T.VolumePlanner(T.VolumePlannerConfig(epsilon=EPS, stagger=STAGGER), device=dev)
+    ref = {}
+    for t, st in starts.items():
+        planner.state = copy_state(st)
+        done = 0
+        for n in ticks:
+            planner.update(n)
+            done += n
+            ref[t, done] = copy_state(planner.state)
+    planner.state = copy_state(base)
+    ref["solve_ms"] = event_ms(lambda: planner.solve(max_iterations=cap))
+    ref["solve"] = planner.state
+    k7 = copy_state(starts[0])
+    ref["tick_ms5"] = event_ms(lambda: solver.update_volume(k7, 100), reps=5)
+    return ref
+
+
+def mesh_planner(dev, mesh, kernel: str = "auto"):
+    from epic_tpu_torch.planner_mesh import MeshVolumePlanner, VolumePlannerConfig
+
+    planner = MeshVolumePlanner(VolumePlannerConfig(epsilon=EPS, stagger=STAGGER), mesh=mesh,
+                                kernel=kernel)
+    require(planner.device == dev, f"the mesh volume planner lives on {planner.device}")
+    return planner
+
+
+def mesh_volume_session(dev, mesh, base, starts, ticks, cap, kernel="auto", segments=None):
+    """A MeshVolumePlanner on ``mesh``: ``ticks`` chained from each start,
+    then a solve capped at ``cap`` from ``base``; the gathered states."""
+    planner = mesh_planner(dev, mesh, kernel)
+    got = {"planner": planner}
+    for t, st in starts.items():
+        planner.state = st
+        done = 0
+        for n in ticks:
+            planner.update(n)
+            done += n
+            got[t, done] = planner.state
+    planner.state = base
+    got["solve_ms"] = event_ms(lambda: planner.solve(max_iterations=cap,
+                                                     segment_iterations=segments))
+    got["solve"] = planner.state
+    return got
+
+
+def mesh_tick_ms(planner, start, exchange: list | None = None) -> float:
+    """The mesh planner's 100-sweep tick, mean of 5 (after a warm tick that
+    exchanges the frozen halos); with ``exchange``, CUDA events around each
+    halo exchange are appended to it."""
+    from epic_tpu_torch.parallel import sharded3d
+
+    planner.state = start
+    planner.update(100)
+    if exchange is None:
+        return event_ms(lambda: planner.update(100), reps=5)
+    copies = sharded3d._exchange
+
+    def timed(sv, blocks, k):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        copies(sv, blocks, k)
+        b.record()
+        exchange.append((a, b))
+
+    sharded3d._exchange = timed
+    try:
+        return event_ms(lambda: planner.update(100), reps=5)
+    finally:
+        sharded3d._exchange = copies
+
+
+def compare_session(got, ref, keys, what: str) -> list:
+    errs = [same_volume(got[key], ref[key], f"{what} tick to iteration {sum(key)}")
+            for key in keys]
+    errs.append(same_volume(got["solve"], ref["solve"], f"{what} solve"))
+    return errs
+
+
+def phase_mesh3d(dev) -> dict:
+    """Phase 9's 256^3 volume on a 2 x 4 plane mesh of the card."""
+    from epic_tpu_torch.parallel import make_mesh
+
+    u, locked = volume_arrays(SIZE3D)
+    base = volume_state(dev, u, locked)
+    starts = {t: volume_state(dev, u, locked, t) for t in (0, 1)}
+    lt = torch.from_numpy(locked)
+    del u, locked
+    ref = volume_refs(dev, base, starts, (50, 100), 1_000_000)
+    require(bool(ref["solve"].converged), "256^3 VolumePlanner solve did not converge")
+    mesh = make_mesh(MESH, devices=[dev] * (MESH[0] * MESH[1]))
+    out = {}
+
+    def drive():
+        out["auto"] = mesh_volume_session(dev, mesh, base, starts, (50, 100), 1_000_000)
+        out["resident"] = mesh_volume_session(dev, mesh, base, {1: starts[1]}, (50, 100),
+                                              1_000_000, "resident", MESH3D_SEGMENT)
+        out["tick_ms5"] = mesh_tick_ms(out["auto"]["planner"], starts[0])
+
+    launches = counted_mesh3d("256^3 plane mesh", drive)
+    keys = [(t, n) for t in (0, 1) for n in (50, 150)]
+    errs = compare_session(out["auto"], ref, keys, "256^3 2x4 mesh")
+    errs += compare_session(out["resident"], ref, [(1, 50), (1, 150)], "256^3 2x4 resident mesh")
+    sv = out["auto"]["planner"]._sv
+    iters = int(ref["solve"].iteration)
+    emit(phase="mesh3d", shape=list(SIZE3D), mesh=list(MESH), shard=list(sv.loc),
+         chunk_depth=sv.halo, launches=launches, max_abs_err=max(errs),
+         solve_iterations=iters, mesh_solve_ms=out["auto"]["solve_ms"],
+         resident_segments_solve_ms=out["resident"]["solve_ms"],
+         segment_iterations=MESH3D_SEGMENT, sweep3d_solve_ms=ref["solve_ms"],
+         mesh_tick_ms_mean5=out["tick_ms5"], sweep3d_tick_ms_mean5=ref["tick_ms5"],
+         bounds={"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True)})
+    return {"launches": launches, "err": max(errs), "ref": ref, "base": base, "starts": starts,
+            "plane_tick_ms5": out["tick_ms5"]}
+
+
+def phase_mesh3d_z(dev, m3) -> dict:
+    """The same volume on an 8 x 1 x 1 z mesh, "auto" and "resident", held
+    to phase 20's VolumePlanner results; the orientation choose_mesh3d
+    picks, and both orientations' tick times in this phase."""
+    from epic_tpu_torch.parallel import choose_mesh3d, make_mesh, make_mesh3d
+
+    n = MESH[0] * MESH[1]
+    ref, base, starts = m3["ref"], m3["base"], m3["starts"]
+    zmesh = make_mesh3d((n, 1, 1), devices=[dev] * n)
+    out = {}
+
+    def drive():
+        for kernel in ("auto", "resident"):
+            out[kernel] = mesh_volume_session(dev, zmesh, base, starts, (50, 100), 1_000_000,
+                                              kernel)
+
+    launches = counted_mesh3d("256^3 z mesh", drive)
+    keys = [(t, n_) for t in (0, 1) for n_ in (50, 150)]
+    errs = []
+    for kernel in ("auto", "resident"):
+        errs += compare_session(out[kernel], ref, keys, f"256^3 8x1x1 mesh ({kernel})")
+    picked = choose_mesh3d(SIZE3D, devices=[dev] * n)
+    times = {"z": mesh_tick_ms(out["auto"]["planner"], starts[0]),
+             "plane": mesh_tick_ms(mesh_planner(dev, make_mesh(MESH, devices=[dev] * n)),
+                                   starts[0])}
+    # The entry alone on a z shard's block (halo on z only), after the timed
+    # ticks: 8 sweeps with and without u1, and a 5-sweep remainder chunk.
+    sv = out["auto"]["planner"]._sv
+    k = sv.halo
+    entry_errs, _ = entry_alone(sv, (3, 0, 0), ((k, False), (k, True), (5, True)),
+                                "256^3 z shard")
+    emit(phase="mesh3d_z", shape=list(SIZE3D), mesh=[n, 1, 1],
+         shard=list(out["auto"]["planner"]._sv.loc), launches=launches, max_abs_err=max(errs),
+         mesh_solve_ms=out["auto"]["solve_ms"], resident_solve_ms=out["resident"]["solve_ms"],
+         choose_mesh3d={axis: int(v) for axis, v in picked.shape.items()},
+         z_tick_ms_mean5=times["z"], plane_tick_ms_mean5=times["plane"],
+         plane_tick_ms_mean5_phase20=m3["plane_tick_ms5"], sweep3d_tick_ms_mean5=ref["tick_ms5"],
+         entry_block=list(sv.block_shape(k)), entry_max_abs_err=max(entry_errs))
+    return {"launches": launches, "err": max(errs + entry_errs)}
+
+
+def shard_bound3d(frozen_view: torch.Tensor, halo, par0: int, t0: int, sweeps: int,
+                  u1: bool = False) -> dict:
+    """The least time for one shard's chunk: its bytes (the extended block's
+    u and frozen bytes read, the centre written, twice with u1) over the HBM
+    rate, or its lse6 updates (the centre's unfrozen voxels of each sweep's
+    class) over the float32 rate, whichever is larger."""
+    centre = frozen_view[tuple(slice(h, n - h) for n, h in zip(frozen_view.shape, halo))]
+    z, y, x = (torch.arange(n, device=centre.device) for n in centre.shape)
+    odd = ((par0 + sum(halo) + z[:, None, None] + y[None, :, None] + x[None, None, :]) % 2).bool()
+    free = ~centre
+    n_even, n_odd = int((free & ~odd).sum()), int((free & odd).sum())
+    at_even_t = (sweeps + 1 - t0 % 2) // 2
+    n_updates = at_even_t * n_even + (sweeps - at_even_t) * n_odd
+    t_bytes = (frozen_view.numel() * 5 + centre.numel() * 4 * (2 if u1 else 1)) / PEAK_BYTES_PER_S
+    t_ops = n_updates * OPS_LSE6 / PEAK_FP32_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def entry_alone(sv, idx, runs, what: str):
+    """The 3D shard entry alone on shard ``idx``'s extended block after an
+    exchange, against the plain per-shard version on the same block: one
+    chunk for each ``(sweeps, with_u1)`` of ``runs``, the same bits. Returns
+    the errors and ``(work, src, frozen, halo, par0, iteration)``."""
+    from epic_tpu_torch.parallel import hopper_shard3d, sharded3d
+
+    k = sv.halo
+    sharded3d._exchange(sv, sv.u_blocks, k)
+    view, halo = sv.view(k), sv.halos(k)
+    src, frozen = sv.u_blocks[idx][view].clone(), sv.frozen_blocks[idx][view]
+    work_b, u1_b = torch.empty_like(sv.u_blocks[idx]), torch.empty_like(sv.u_blocks[idx])
+    work, u1 = work_b[view], u1_b[view]
+    par0, it0 = sv.par0(idx, k), int(sv.iteration)
+    centre = tuple(slice(h, n - h) for n, h in zip(src.shape, halo))
+    errs = []
+    for ns, with_u1 in runs:
+        work.copy_(src)
+        d = hopper_shard3d.chunk(work, frozen, halo=halo, par0=par0, iteration=it0, ns=ns,
+                                 u1=u1 if with_u1 else None, want_delta=True)
+        p_u, p_d, p_u1 = hopper_shard3d.sweep_k_local3d(src, frozen, par0, it0, ns, halo=halo,
+                                                        u1=True)
+        e = max(max_abs(work, p_u), max_abs(d, p_d))
+        if with_u1:
+            e = max(e, max_abs(u1[centre], p_u1[centre]))
+        require(e == 0.0, f"{what}: the 3D shard entry ({ns} sweeps, u1={with_u1}) differs "
+                f"from plain by {e}")
+        errs.append(e)
+    return errs, (work, src, frozen, halo, par0, it0)
+
+
+def phase_mesh3d_wide(dev) -> dict:
+    """64 x 1024 x 1024 on 2 x 4: the counted mesh path against the
+    VolumePlanner, and the entry alone against the plain per-shard
+    version."""
+    from epic_tpu_torch.parallel import hopper_shard3d, make_mesh, make_mesh3d
+
+    t0_s = time.perf_counter()
+    u, locked = volume_arrays(MESH3D_WIDE)
+    base = volume_state(dev, u, locked)
+    lt = torch.from_numpy(locked)
+    del u, locked
+    starts = {t: at_iteration(base, t) for t in (0, 1)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0_s
+    ref = volume_refs(dev, base, starts, (100,), MESH3D_WIDE_CAP)
+    n = MESH[0] * MESH[1]
+    mesh = make_mesh(MESH, devices=[dev] * n)
+    out, exchange = {}, []
+
+    def drive():
+        out["auto"] = mesh_volume_session(dev, mesh, base, starts, (100,), MESH3D_WIDE_CAP)
+        out["tick_ms5"] = mesh_tick_ms(out["auto"]["planner"], starts[0], exchange)
+
+    launches = counted_mesh3d("64x1024x1024 plane mesh", drive)
+    errs = compare_session(out["auto"], ref, [(0, 100), (1, 100)], "64x1024x1024 2x4 mesh")
+    exchange_ms = sum(a.elapsed_time(b) for a, b in exchange) / 5
+    z_tick = mesh_tick_ms(mesh_planner(dev, make_mesh3d((n, 1, 1), devices=[dev] * n)),
+                          starts[0])
+
+    # The entry alone on shard (0, 1)'s extended block.
+    sv = out["auto"]["planner"]._sv
+    k = sv.halo
+    entry_errs, (work, src, frozen, halo, par0, it0) = entry_alone(
+        sv, (0, 1), ((k, False), (k, True), (5, True)), "64x1024x1024 shard")
+    work.copy_(src)
+    entry_ms = event_ms(lambda: hopper_shard3d.chunk(work, frozen, halo=halo, par0=par0,
+                                                     iteration=it0, ns=k, want_delta=True),
+                        reps=10)
+    plain_ms = event_ms(lambda: hopper_shard3d.sweep_k_local3d(src, frozen, par0, it0, k,
+                                                               halo=halo))
+    entry_bound = shard_bound3d(frozen, halo, par0, it0, k)
+    iters = int(ref["solve"].iteration)
+    d, h, w = MESH3D_WIDE
+    emit(phase="mesh3d_wide", shape=list(MESH3D_WIDE), mesh=list(MESH), shard=list(sv.loc),
+         chunk_depth=k, setup_s=setup_s, launches=launches, max_abs_err=max(errs),
+         mesh_tick_ms_mean5=out["tick_ms5"], sweep3d_tick_ms_mean5=ref["tick_ms5"],
+         z_mesh_tick_ms_mean5=z_tick, exchange_ms_per_tick=exchange_ms,
+         exchange_share=exchange_ms / out["tick_ms5"], mesh_solve_ms=out["auto"]["solve_ms"],
+         sweep3d_solve_ms=ref["solve_ms"], solve_cap=MESH3D_WIDE_CAP, solve_iterations=iters,
+         entry_sweeps=k, entry_block=list(src.shape), entry_ms_mean10=entry_ms,
+         entry_plain_ms=plain_ms, entry_max_abs_err=max(entry_errs),
+         cell_updates_per_s_mesh=(d - 2) * (h - 2) * (w - 2) / 2 * 100
+         / (out["tick_ms5"] / 1e3),
+         bounds={"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True),
+                 "entry": entry_bound},
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return {"launches": launches, "err": max(errs + entry_errs),
+            "entry": (entry_ms, plain_ms, entry_bound)}
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1823,8 +2163,13 @@ def main() -> None:
     small3 = phase_tile3d_small(dev, v["volume"], v["solved"])
     mesh_s = phase_mesh_session(dev, maze)
     mesh16 = phase_mesh16k(dev)
-    add_counts(launches, mesh_s["launches"])
-    add_counts(launches, mesh16["launches"])
+    m3 = phase_mesh3d(dev)
+    m3z = phase_mesh3d_z(dev, m3)
+    del m3["ref"], m3["base"], m3["starts"]
+    m3w = phase_mesh3d_wide(dev)
+    for counts in (mesh_s["launches"], mesh16["launches"], m3["launches"], m3z["launches"],
+                   m3w["launches"]):
+        add_counts(launches, counts)
     for name in big["launches"]:
         launches[name] = big["launches"][name] + wide["launches"][name]
     for counts in (big3["main"], big3["tile_launches"], wide3["main"], wide3["tile_launches"]):
@@ -1845,10 +2190,12 @@ def main() -> None:
         "epic_tile3d_cycle": tile3d_err,
         "epic_tile3d_solve": tile3d_err,
         "epic_shard2d_chunk": max(mesh_s["err"], mesh16["err"]),
+        "epic_shard3d_chunk": max(m3["err"], m3z["err"], m3w["err"]),
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
-    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3, and
-    # one 8192 x 4096 shard of the 16384^2 mesh.
+    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3, one
+    # 8192 x 4096 shard of the 16384^2 mesh, and one 64 x 512 x 256 shard of
+    # the 64 x 1024 x 1024 mesh.
     times = {
         "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"], m["tick_bound"]),
         "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
@@ -1863,6 +2210,7 @@ def main() -> None:
         "epic_tile3d_cycle": big3["cycle"],
         "epic_tile3d_solve": big3["solve"],
         "epic_shard2d_chunk": mesh16["entry"],
+        "epic_shard3d_chunk": m3w["entry"],
     }
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],

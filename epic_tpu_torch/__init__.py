@@ -4,12 +4,13 @@ Log-space harmonic-function path planning: occupancy-grid ingest,
 red-black relaxation of the harmonic potential, gradient-ascent streamline
 extraction, the anytime planners (2D grids and 3D volumes) with their
 JSON/TCP service verbs, and batched scenario solves (B independent 2D lanes
-in lockstep, ``solver.batched`` / ``solver.hopper_batched``), and the 2D
-grid sharded over a device mesh (``parallel``, ``planner_mesh``). The
-sweeps and solves run as hand-written CUDA kernels (``csrc/*.cu``, built
-with nvcc at first use) on a CUDA tensor, and as plain torch
-(``solver.core``, ``solver.batched``, ``parallel.hopper_shard2d``) on a CPU
-tensor. ``epic_tpu`` (JAX) stays the reference;
+in lockstep, ``solver.batched`` / ``solver.hopper_batched``), and 2D grids
+and 3D volumes sharded over a device mesh (``parallel``, ``planner_mesh``).
+The sweeps and solves run as hand-written CUDA kernels (``csrc/*.cu``,
+built with nvcc at first use) on a CUDA tensor, and as plain torch
+(``solver.core``, ``solver.batched``, ``parallel.hopper_shard2d``,
+``parallel.hopper_shard3d``) on a CPU tensor. ``epic_tpu`` (JAX) stays the
+reference;
 this package imports torch and NumPy, never JAX.
 """
 

@@ -70,17 +70,16 @@ _NOT_PORTED = ("the resident shard layout (epic_tpu.parallel.resident, resident_
 
 
 class Mesh:
-    """A 2D ``("my", "mx")`` grid of shards: ``devices[i, j]`` holds shard
-    (i, j) and ``ranks[i, j]`` is the process that owns it. ``shape`` is
-    ``{"my": .., "mx": ..}``. ``local`` lists this process's shards in
+    """A 2D ``("my", "mx")`` grid of shards, or with a leading ``"mz"`` axis
+    a 3D one (:func:`make_mesh3d`, volumes only): ``devices[idx]`` holds
+    shard ``idx`` and ``ranks[idx]`` is the process that owns it. ``shape``
+    maps ``axis_names`` to extents. ``local`` lists this process's shards in
     row-major order; ``first_device`` is the first one's device, where the
     mesh's scalars and gathered arrays live."""
 
-    axis_names = ("my", "mx")
-
     def __init__(self, devices: np.ndarray, ranks: np.ndarray, rank: int = 0):
-        if devices.ndim != 2 or ranks.shape != devices.shape:
-            raise ValueError(f"need 2D devices and ranks of one shape, got {devices.shape} "
+        if devices.ndim not in (2, 3) or ranks.shape != devices.shape:
+            raise ValueError(f"need 2D or 3D devices and ranks of one shape, got {devices.shape} "
                              f"and {ranks.shape}")
         types = {d.type for d in devices.flat}
         if len(types) != 1:
@@ -88,10 +87,10 @@ class Mesh:
         self.devices = devices
         self.ranks = ranks
         self.rank = rank
-        self.shape = {"my": devices.shape[0], "mx": devices.shape[1]}
+        self.axis_names = ("mz", "my", "mx")[3 - devices.ndim:]
+        self.shape = dict(zip(self.axis_names, devices.shape))
         self.device_type = types.pop()
-        self.local = [(i, j) for i in range(devices.shape[0]) for j in range(devices.shape[1])
-                      if ranks[i, j] == rank]
+        self.local = [idx for idx in np.ndindex(*devices.shape) if ranks[idx] == rank]
         if not self.local:
             raise ValueError(f"process {rank} owns no shard of this mesh")
         self.multi_process = bool((ranks != rank).any())
@@ -108,8 +107,56 @@ class Mesh:
         return isinstance(other, Mesh) and self._key() == other._key()
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape['my']}x{self.shape['mx']}, {self.device_type}, "
+        return (f"Mesh({'x'.join(map(str, self.devices.shape))}, {self.device_type}, "
                 f"local={len(self.local)})")
+
+
+def local_devices(devices=None, what: str = "make_mesh") -> list[torch.device]:
+    """This process's mesh devices: ``devices`` (a device may repeat), by
+    default every visible CUDA device; without one this raises."""
+    if devices is None:
+        n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_cuda == 0:
+            raise RuntimeError(f"{what}: no CUDA device is visible; a mesh on the CPU takes "
+                               "devices=[torch.device('cpu')] * n")
+        devices = [torch.device("cuda", i) for i in range(n_cuda)]
+    local = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        local.append(d)
+    if not local:
+        raise ValueError(f"{what} needs at least one device")
+    return local
+
+
+def near_square(n: int) -> tuple[int, int]:
+    """``(my, mx)`` with ``my * mx == n`` and ``my`` the largest divisor of
+    ``n`` not above its square root."""
+    my = int(np.floor(np.sqrt(n)))
+    while n % my:
+        my -= 1
+    return my, n // my
+
+
+def _global_mesh(shape, devices, default, what: str) -> Mesh:
+    """The mesh of ``shape`` (``default(n)`` when None) over every process's
+    ``devices``; each process owns a contiguous block of shards in
+    row-major order, and shards of other processes are recorded with this
+    process's layout."""
+    local = local_devices(devices, what)
+    world, rank = multihost.world()
+    n = world * len(local)
+    shape = default(n) if shape is None else tuple(shape)
+    if int(np.prod(shape)) != n:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {int(np.prod(shape))} "
+                         f"shards; {world} process(es) give {n}")
+    devs = np.empty(n, dtype=object)
+    for q in range(n):
+        devs[q] = local[q % len(local)]
+    ranks = np.arange(n) // len(local)
+    return Mesh(devs.reshape(shape), ranks.reshape(shape), rank)
 
 
 def make_mesh(shape: tuple[int, int] | None = None, devices=None) -> Mesh:
@@ -120,36 +167,18 @@ def make_mesh(shape: tuple[int, int] | None = None, devices=None) -> Mesh:
     ``devices=[torch.device("cpu")] * n``. Across processes
     (:mod:`.multihost`) the mesh spans every process's devices, each
     process owning a contiguous block of shards in row-major order."""
-    if devices is None:
-        n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if n_cuda == 0:
-            raise RuntimeError("make_mesh: no CUDA device is visible; a mesh on the CPU takes "
-                               "devices=[torch.device('cpu')] * n")
-        devices = [torch.device("cuda", i) for i in range(n_cuda)]
-    local = []
-    for d in devices:
-        d = torch.device(d)
-        if d.type == "cuda" and d.index is None:
-            d = torch.device("cuda", torch.cuda.current_device())
-        local.append(d)
-    if not local:
-        raise ValueError("make_mesh needs at least one device")
-    world, rank = multihost.world()
-    n = world * len(local)
-    if shape is None:
-        my = int(np.floor(np.sqrt(n)))
-        while n % my:
-            my -= 1
-        shape = (my, n // my)
-    if shape[0] * shape[1] != n:
-        raise ValueError(f"a {shape[0]}x{shape[1]} mesh needs {shape[0] * shape[1]} shards; "
-                         f"{world} process(es) give {n}")
-    # Shards of other processes are recorded with this process's layout.
-    devs = np.empty(n, dtype=object)
-    for q in range(n):
-        devs[q] = local[q % len(local)]
-    ranks = np.arange(n) // len(local)
-    return Mesh(devs.reshape(shape), ranks.reshape(shape), rank)
+    if shape is not None and len(shape) != 2:
+        raise ValueError(f"make_mesh takes a 2D shape, got {shape}")
+    return _global_mesh(shape, devices, near_square, "make_mesh")
+
+
+def make_mesh3d(shape: tuple[int, int, int] | None = None, devices=None) -> Mesh:
+    """A 3-axis ("mz", "my", "mx") mesh for volumes whose depth is cut too
+    (``epic_tpu.parallel.sharded3d.make_mesh3d``); by default every shard on
+    z. ``devices`` as in :func:`make_mesh`."""
+    if shape is not None and len(shape) != 3:
+        raise ValueError(f"make_mesh3d takes a 3D shape, got {shape}")
+    return _global_mesh(shape, devices, lambda n: (n, 1, 1), "make_mesh3d")
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +265,8 @@ def shard_state(state: GridState, mesh: Mesh, halo: int | None = None) -> Sharde
     halo of ``halo`` cells (by default ``min(DEFAULT_CHUNK_DEPTH, h_loc,
     w_loc)``; a deeper chunk later regrows it); later ticks and edits keep
     the blocks resident."""
-    if state.u.ndim != 2:
-        raise ValueError(f"the 2D mesh takes a 2D grid, got {state.u.ndim}D")
+    if state.u.ndim != 2 or "mz" in mesh.shape:
+        raise ValueError(f"the 2D mesh takes a 2D grid, got a {state.u.ndim}D state on {mesh}")
     h, w = state.u.shape
     hp, wp = padded_shape((h, w), mesh)
     h_loc, w_loc = hp // mesh.shape["my"], wp // mesh.shape["mx"]

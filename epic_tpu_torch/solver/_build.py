@@ -1,8 +1,8 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
 The sources in ``csrc/`` (``sweep2d.cu``, ``sweep3d.cu``, ``batched2d.cu``,
-``tile2d.cu``, ``tile3d.cu`` and the header they share) have a plain C
-interface and include no PyTorch header. ``nvcc``
+``tile2d.cu``, ``tile3d.cu``, ``shard3d.cu`` and the header they share)
+have a plain C interface and include no PyTorch header. ``nvcc``
 compiles each ``.cu`` file to an object, all at once in parallel, and links
 them into one shared library under ``build/epic_tpu_torch/`` beside the
 package, named by a hash of every source and the flags (an edited source is
@@ -25,7 +25,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = tuple(CSRC / f for f in ("sweep2d.cu", "sweep3d.cu", "batched2d.cu", "tile2d.cu",
-                                    "tile3d.cu"))
+                                    "tile3d.cu", "shard3d.cu"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "epic_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 COMPILE_FLAGS = (
@@ -125,11 +125,13 @@ def load() -> ctypes.CDLL:
         set_tile3d_types(lib)
         lib.epic_shard2d_chunk.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, p, i, i, p,
                                            p, i]
+        lib.epic_shard3d_chunk.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, i,
+                                           i, i, i, i, p, i, i, p, p, i]
         for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
                    lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve,
                    lib.epic_batched2d_chunk, lib.epic_batched2d_solve,
                    lib.epic_tile2d_chunk, lib.epic_tile2d_cycle, lib.epic_tile2d_solve,
-                   lib.epic_shard2d_chunk):
+                   lib.epic_shard2d_chunk, lib.epic_shard3d_chunk):
             fn.restype = i
         lib.epic_cuda_error_string.argtypes = [i]
         lib.epic_cuda_error_string.restype = ctypes.c_char_p

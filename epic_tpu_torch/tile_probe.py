@@ -1,7 +1,7 @@
 """Measure the routing crossovers of the tile kernels on one CUDA card.
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
-[--sides ...] [--volumes ...] [--shapes]``. It prints the card's name and
+[--sides ...] [--volumes ...] [--shapes] [--mesh3d]``. It prints the card's name and
 power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` ticks after one warm-up:
 
@@ -16,7 +16,13 @@ power limit, then one JSON line per measurement, CUDA events, mean of
   centre and block size is built as a copy of that source with its
   constants replaced (under the build directory; the source keeps its one
   shape), and its cycle entry runs a 100-sweep tick at each depth that fits
-  shared memory, on the ``--volumes`` shapes.
+  shared memory, on the ``--volumes`` shapes;
+- ``--mesh3d`` (3D): the mesh orientation. A 100-sweep resident tick
+  (``sharded3d.update_n_resident3d``) of each volume on a virtual z mesh
+  of 8 shards and on a 2 x 4 plane mesh of the card, beside the model
+  costs of :func:`sharded3d.sweep_cost` and the mesh
+  :func:`sharded3d.choose_mesh3d` picks (default volumes:
+  ``MESH_VOLUMES``, or the ``--volumes`` shapes).
 
 Each routing rule's threshold is set where the tile route starts to win.
 States are built on the card from a seed (10% locked cells, the shell
@@ -44,6 +50,10 @@ VOLUMES = ("160", "192", "224", "256", "320", "32x2048x2048")
 SHAPES = ((8, 16, 64, 512), (16, 16, 64, 512), (8, 32, 64, 512), (8, 16, 64, 256),
           (8, 16, 128, 512), (16, 16, 64, 256))
 DEPTHS = (2, 3, 4)
+# --mesh3d's volumes: the two of chip_smoke.py's phases 20-22, and depths of
+# 1024^2, 512^2 and 256^2 planes around the model's switch to the z mesh.
+MESH_VOLUMES = ("256", "64x1024x1024", "128x1024x1024", "256x1024x1024", "384x1024x1024",
+                "512x1024x1024", "128x512x512", "256x512x512", "64x256x256", "128x256x256")
 
 
 def random_state(shape, dev: torch.device, seed: int = 0) -> G.GridState:
@@ -181,6 +191,34 @@ def probe_shapes(dev, reps: int, volumes=VOLUMES, shapes=SHAPES, depths=DEPTHS) 
         del st, ref
 
 
+def probe_mesh3d(dev, reps: int, volumes=MESH_VOLUMES, shards: int = 8) -> None:
+    from .parallel import make_mesh, make_mesh3d, sharded, sharded3d
+
+    devs = [dev] * shards
+    meshes = {"z": make_mesh3d((shards, 1, 1), devices=devs),
+              "plane": make_mesh(sharded.near_square(shards), devices=devs)}
+    for spec in volumes:
+        shape = volume_shape(spec)
+        st = random_state(shape, dev)
+        ms, cost, fields = {}, {}, {}
+        for name, mesh in meshes.items():
+            sv = sharded3d.shard_state3d(st, mesh)
+            sharded3d.update_n_resident3d(sv, 100, mesh)
+            fields[name] = sharded3d.unshard3d(sv).u
+            ms[name] = event_ms(lambda: sharded3d.update_n_resident3d(sv, 100, mesh), reps)
+            cost[name] = sharded3d.sweep_cost(shape, sharded3d._extents(mesh))[1]
+            del sv
+        picked = sharded3d.choose_mesh3d(shape, devices=devs)
+        print(json.dumps(dict(probe="mesh3d", shape=list(shape), shards=shards,
+                              z_tick_ms=ms["z"], plane_tick_ms=ms["plane"],
+                              z_over_plane=ms["z"] / ms["plane"],
+                              model_z_over_plane=cost["z"] / cost["plane"],
+                              choose_mesh3d="z" if "mz" in picked.shape else "plane",
+                              same_bits=bool(torch.equal(fields["z"], fields["plane"])))),
+              flush=True)
+        del st, fields
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -190,6 +228,8 @@ def main() -> None:
                     help="3D volumes to probe, each D (a cube) or DxHxW")
     ap.add_argument("--shapes", action="store_true",
                     help="probe the 3D tile shapes on the --volumes shapes")
+    ap.add_argument("--mesh3d", action="store_true",
+                    help="time the 3D mesh orientations (on the --volumes shapes if given)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tile_probe needs a CUDA card")
@@ -197,7 +237,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     volumes = VOLUMES if not args.volumes else args.volumes
-    if args.shapes:
+    if args.mesh3d:
+        probe_mesh3d(dev, args.reps, args.volumes or MESH_VOLUMES)
+    elif args.shapes:
         probe_shapes(dev, args.reps, volumes)
     elif args.volumes is not None:
         probe_volumes(dev, args.reps, volumes)

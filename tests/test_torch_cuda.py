@@ -4,8 +4,10 @@ beyond the L2 (csrc/tile2d.cu), the 3D kernels (csrc/sweep3d.cu), the 3D
 tile kernels for volumes beyond it (csrc/tile3d.cu), the batched scenario
 kernels (csrc/batched2d.cu), the shard chunk of the 2D mesh (in
 csrc/tile2d.cu) and the mesh solver and MeshPlanner on a virtual mesh of
-eight shards on the one card, the planners that drive them, and the batched
-walkers on the card against the same walkers on the CPU.
+eight shards on the one card, the shard chunk of the 3D mesh
+(csrc/shard3d.cu) and the 3D mesh solver and MeshVolumePlanner on virtual
+meshes of the card, the planners that drive them, and the batched walkers
+on the card against the same walkers on the CPU.
 Every test here needs a CUDA card and skips without one.
 
 This file imports neither JAX nor epic_tpu, so it runs on a host that has
@@ -31,8 +33,9 @@ from epic_tpu_torch import maps
 import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
-from epic_tpu_torch.planner_mesh import MeshPlanner
-from epic_tpu_torch.parallel import hopper_shard2d, make_mesh, sharded
+from epic_tpu_torch.planner_mesh import MeshPlanner, MeshVolumePlanner
+from epic_tpu_torch.parallel import (hopper_shard2d, hopper_shard3d, make_mesh, make_mesh3d,
+                                     sharded, sharded3d)
 from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
                                    hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled, tiled3d)
 
@@ -884,3 +887,153 @@ def test_mesh_planner_on_the_card_equals_the_planner(dev):
     a, b = mp.state, sp.state
     assert a.u.device == dev and torch.equal(a.u, b.u)
     assert int(a.iteration) == int(b.iteration) and bool(a.converged) and bool(b.converged)
+
+
+# -- the 3D mesh: epic_shard3d_chunk in csrc/shard3d.cu -------------------------------------
+
+# (centre, halo): one shard's centre (d, h, w) and the halo of each axis (0
+# where the mesh does not cut it): a plane-mesh shard (z whole), a z-mesh
+# shard (whole planes), a shard of a mixed mesh, and a centre thinner than
+# its halo.
+SHARDS3D = [((20, 30, 45), (0, 4, 4)), ((9, 40, 70), (3, 0, 0)), ((11, 13, 17), (5, 5, 5)),
+            ((2, 3, 5), (6, 6, 6))]
+
+
+def _shard3d_block(centre, halo, dev, seed):
+    """A random extended block (obstacles, goals, a frozen out-of-mesh face,
+    frozen faces on the uncut axes) inside a buffer 2 voxels deeper on each
+    side: a view with a plane and a row pitch."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(n + 2 * h + 4 for n, h in zip(centre, halo))
+    u = np.where(rng.random(shape) < 0.05, 0.0, -rng.random(shape) * 40).astype(np.float32)
+    frozen = rng.random(shape) < 0.15
+    view = tuple(slice(2, s - 2) for s in shape)
+    block = frozen[view]
+    block[:, :halo[1] + 1, :] = True            # a shard on the mesh's y edge
+    for axis, h in enumerate(halo):
+        if h == 0:                              # the volume's shell
+            block[(slice(None),) * axis + (0,)] = True
+            block[(slice(None),) * axis + (-1,)] = True
+    u[frozen & (rng.random(shape) < 0.5)] = -1e6
+    return torch.from_numpy(u).to(dev), torch.from_numpy(frozen).to(dev), view
+
+
+@pytest.mark.parametrize("shard", SHARDS3D, ids=lambda s: "x".join(map(str, s[0] + s[1])))
+def test_shard3d_chunk_kernel_gives_the_plain_versions_bits(dev, shard):
+    """K18-K21: odd and even origins and iterations, ns = 1, < k and = k,
+    u1 on and off, against the plain per-shard version on the same view."""
+    centre, halo = shard
+    k = min(h for h in halo if h)
+    for seed, par0 in ((0, 0), (1, 1)):
+        u, frozen, view = _shard3d_block(centre, halo, dev, seed)
+        c = tuple(slice(h, h + n) for n, h in zip(centre, halo))
+        for t0 in (0, 3):
+            for ns in sorted({1, k // 2 + 1, k}):
+                for with_u1 in (False, True):
+                    work, u1 = u.clone(), torch.full_like(u, 5.0)
+                    before = hopper_shard3d.launches["epic_shard3d_chunk"]
+                    calls = hopper_shard3d.calls["sweep_k_local3d"]
+                    d = hopper_shard3d.chunk(work[view], frozen[view], halo=halo, par0=par0,
+                                             iteration=t0, ns=ns,
+                                             u1=u1[view] if with_u1 else None, want_delta=True)
+                    torch.cuda.synchronize()
+                    assert hopper_shard3d.launches["epic_shard3d_chunk"] == before + 1
+                    assert hopper_shard3d.calls["sweep_k_local3d"] == calls
+                    ref, ref_d, ref_u1 = hopper_shard3d.sweep_k_local3d(
+                        u[view], frozen[view], par0, t0, ns, halo=halo, u1=True)
+                    assert torch.equal(work[view], ref) and torch.equal(d, ref_d)
+                    outside = torch.ones_like(work, dtype=torch.bool)
+                    outside[view] = False
+                    assert torch.equal(work[outside], u[outside])   # only the view is written
+                    if with_u1:
+                        assert torch.equal(u1[view][c], ref_u1[c])
+                        inner = torch.zeros_like(outside)
+                        inner[view] = True
+                        inner[view][c] = False
+                        assert (u1[inner | outside] == 5.0).all()   # only the centre
+                    else:
+                        assert (u1 == 5.0).all()
+
+
+def test_shard3d_chunk_refuses_what_the_kernel_does_not_take(dev):
+    u, frozen, view = _shard3d_block((6, 8, 10), (0, 3, 3), dev, 0)
+    kw = dict(halo=(0, 3, 3), par0=0, iteration=0, ns=2)
+    launches = dict(hopper_shard3d.launches)
+    with pytest.raises(ValueError, match="another buffer"):
+        hopper_shard3d.chunk(u[view], frozen[view], u1=u[view], **kw)
+    with pytest.raises(TypeError):
+        hopper_shard3d.chunk(u[view], frozen[view].to(torch.uint8), **kw)
+    with pytest.raises(ValueError, match="pitch"):
+        hopper_shard3d.chunk(u[view], frozen[view], u1=u.clone()[view].contiguous(), **kw)
+    with pytest.raises(ValueError, match="sweeps"):
+        hopper_shard3d.chunk(u[view], frozen[view], halo=(0, 3, 3), par0=0, iteration=0, ns=4)
+    with pytest.raises(ValueError, match="no centre"):
+        hopper_shard3d.chunk(u[view], frozen[view], halo=(0, 7, 3), par0=0, iteration=0, ns=1)
+    assert hopper_shard3d.launches == launches
+
+
+@pytest.mark.parametrize("shape,depth", [((2, 4), 8), ((8, 1, 1), 8), ((2, 2, 2), 3),
+                                         ((1, 1), 8), ((8, 1), 64)])
+def test_virtual_mesh3d_update_and_solve_give_cores_bits(dev, shape, depth):
+    """The 3D mesh solver on P shards of the one card: ticks from both
+    parities and solves (converged, capped, in segments) equal core's on the
+    generic and the resident routes; only the CUDA entry runs."""
+    n = int(np.prod(shape))
+    mesh = (make_mesh3d if len(shape) == 3 else make_mesh)(shape, devices=[dev] * n)
+    kernels = ("auto",) if shape == (2, 2, 2) else ("auto", "resident")
+    before, calls = dict(hopper_shard3d.launches), dict(hopper_shard3d.calls)
+    for t0 in (0, 1):
+        st = _volume((41, 37, 53), 0.1, 3, dev, t0=t0)
+        for steps in (1, 50):
+            ref = core.update_n(st, steps)
+            for kernel in kernels:
+                _assert_same(sharded3d.update_n(st, steps, mesh, chunk_depth=depth, kernel=kernel),
+                             ref)
+    st = _volume((24, 30, 36), 0.1, 5, dev)
+    st = dataclasses.replace(st, epsilon=torch.tensor(1e-1, device=dev))
+    for stagger, cap, seg in ((100, 1_000_000, None), (7, 1_000_000, 30), (10, 95, None)):
+        ref = core.solve(st, stagger, cap)
+        for kernel in kernels:
+            _assert_same(sharded3d.solve(st, mesh, stagger, cap, kernel=kernel,
+                                         segment_iterations=seg), ref)
+    assert hopper_shard3d.launches["epic_shard3d_chunk"] > before["epic_shard3d_chunk"]
+    assert hopper_shard3d.calls == calls
+    for kernel in ("xla", "pallas_interpret", "resident_interpret"):   # the plain version's names
+        with pytest.raises(ValueError, match="plain version"):
+            sharded3d.update_n(st, 3, mesh, kernel=kernel)
+
+
+def test_mesh_volume_planner_on_the_card_equals_the_volume_planner(dev):
+    """A MeshVolumePlanner on a 2 x 4 virtual mesh and a VolumePlanner on
+    the card run one session to the same bits; the mesh never runs a plain
+    version or a single-device kernel. mesh=None picks a mesh over the card."""
+    shape = (20, 48, 40)
+    occ = np.where(np.random.default_rng(2).random(shape) < 0.1, 100, 0).astype(np.int8)
+    occ[10, 24, 20] = 0
+    cfg = dict(epsilon=1e-2, steps_per_update=25)
+    mp = MeshVolumePlanner(VolumePlannerConfig(**cfg), mesh=make_mesh((2, 4), devices=[dev] * 8))
+    sp = VolumePlanner(VolumePlannerConfig(**cfg), device=dev)
+    for pl in (mp, sp):
+        pl.init(40, 48, 20)
+        pl.update_occupancy(occ)
+        assert pl.add_goals([(20.0, 24.0, 10.0)])
+    for pl in (mp, sp):
+        others = (dict(hopper_shard3d.calls), dict(core.calls), dict(hopper_sweep3d.launches),
+                  dict(hopper_tile3d.launches))
+        launches = hopper_shard3d.launches["epic_shard3d_chunk"]
+        for _ in range(3):
+            pl.update()
+        pl.set_cells([(10, 10, 5)], [C.CELL_TYPE_OBSTACLE])
+        pl.update(13)
+        pl.solve()
+        if pl is mp:
+            assert hopper_shard3d.launches["epic_shard3d_chunk"] > launches
+            assert (dict(hopper_shard3d.calls), dict(core.calls), dict(hopper_sweep3d.launches),
+                    dict(hopper_tile3d.launches)) == others
+    assert mp.get_cell(10, 10, 5) == sp.get_cell(10, 10, 5) == -1e6
+    a, b = mp.state, sp.state
+    assert a.u.device == dev and torch.equal(a.u, b.u)
+    assert int(a.iteration) == int(b.iteration) and bool(a.converged) and bool(b.converged)
+    auto = MeshVolumePlanner(VolumePlannerConfig(**cfg))
+    auto.init(40, 48, 20)
+    assert auto.device == dev and auto.mesh.devices.size == torch.cuda.device_count()

@@ -1,6 +1,8 @@
 """The port's mesh across processes: two processes of 4 CPU shards each, one
 2x4 mesh over torch.distributed (gloo standing in for the network between
-hosts), as tests/test_multihost.py runs epic_tpu's. Halos between the
+hosts), as tests/test_multihost.py runs epic_tpu's; in the 3D modes a
+seeded volume on that plane mesh (``solve3d``) and on an 8 x 1 x 1 z mesh
+through the resident route (``solve_resident_z``). Halos between the
 processes travel by point-to-point sends, the check's delta by an
 all_reduce(MAX), the readback by an all_gather. The result must be the
 port's single-process core: the same bits and iterations, converged.
@@ -20,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from epic_tpu_torch.parallel._mh_worker import worker_state
+from epic_tpu_torch.parallel._mh_worker import worker_state, worker_volume
 from epic_tpu_torch.solver import core
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -32,7 +34,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.parametrize("mode", ["solve", "update"])
+@pytest.mark.parametrize("mode", ["solve", "update", "solve3d", "solve_resident_z"])
 def test_two_process_mesh_equals_core(tmp_path, mode):
     port = _free_port()
     out = tmp_path / "mh.npz"
@@ -57,11 +59,13 @@ def test_two_process_mesh_equals_core(tmp_path, mode):
 
     d = np.load(out)
     assert int(d["process_count"]) == 2
-    state = worker_state()
-    ref = core.solve(state) if mode == "solve" else core.update_n(state, 137)
+    if mode == "update":
+        ref = core.update_n(worker_state(), 137)
+    else:
+        ref = core.solve(worker_state() if mode == "solve" else worker_volume())
     assert int(d["iteration"]) == int(ref.iteration)
     assert bool(d["converged"]) == bool(ref.converged)
-    if mode == "solve":
+    if mode != "update":
         assert bool(d["converged"])
     np.testing.assert_array_equal(d["u"], ref.u.numpy())
     assert np.float32(d["delta"]) == ref.delta.numpy()
