@@ -118,24 +118,25 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 and an uncapped tile solve against phase 6's K7 solve: the
                 same 1,101 iterations and the same bits;
  18. mesh_session — the 2D mesh path: a server on localhost whose node holds
-                a MeshPlanner on a 2 x 4 virtual mesh of the card (eight
-                shards of 241 x 121 of the maze map, configs/maze.yaml),
-                driven over the socket with phase 4's verbs (info, ticks, a
-                cell edit, a blocking solve, get_cell, compute_path from the
-                golden starts, whose paths must reach the goal). Counts
-                zeroed just before and read just after: the shard entry must
-                have run; the plain versions and the single-device 2D
-                kernels must not. Then a single-device Planner replays the
-                same verbs at the same ticks: the solved and the final field
+                a MeshPlanner(kernel="pallas") on a 2 x 4 virtual mesh of
+                the card (eight shards of 241 x 121 of the maze map,
+                configs/maze.yaml), driven over the socket with phase 4's
+                verbs (info, ticks, a cell edit, a blocking solve, get_cell,
+                compute_path from the golden starts, whose paths must reach
+                the goal). Counts zeroed just before and read just after:
+                the shard entry must have run; the resident entries, the
+                plain versions and the single-device 2D kernels must not.
+                Then a single-device Planner replays the same verbs at the
+                same ticks (its solve timed): the solved and the final field
                 and iterations must be the same bits;
  19. mesh16k  — BASELINE.md's 16k x 16k multi-host grid: a 16384^2
                 maps.random_obstacles grid (seed 0, configs/maze.yaml) on a
                 2 x 4 virtual mesh of the card (eight shards of 8192 x 4096,
-                far beyond the L2; epic_tpu's auto route sends such shards
-                to its resident kernels K16/K17, still to port, so this
-                holds the K14/K15 entry at that shape), ingested from
-                numpy through MeshPlanner.init/update_occupancy. Counted
-                main path (counts
+                far beyond the L2) on the per-shard route
+                (MeshPlanner(kernel="pallas"): the K14/K15 entry; epic_tpu's
+                auto route sends such shards to K16/K17, phase 23), ingested
+                from numpy through MeshPlanner.init/update_occupancy.
+                Counted main path (counts
                 zeroed just before, read just after; the shard entry must
                 run, the plain versions and the single-device kernels must
                 not): MeshPlanner.update(50) then (100) from an even and an
@@ -172,11 +173,28 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 a chunk with and without u1 and a 5-sweep remainder, against
                 the plain per-shard version, the same bits. The mesh tick's
                 mean of 5 against K7's (and the z
-                mesh's), and the exchange's share of a tick.
+                mesh's), and the exchange's share of a tick;
+ 23. mesh_resident — the resident route (K16/K17: epic_resident2d_cycle and
+                epic_resident2d_solve in csrc/tile2d.cu, all eight shards in
+                one launch). Phase 18's maze session on
+                MeshPlanner(kernel="resident"), counted (both resident
+                entries must run; the shard entry, the single-device 2D
+                kernels and the plain versions must not) and replayed on the
+                Planner to the same bits; its solve's host-clock time beside
+                K2's and phase 18's. Phase 19's grid on that route, counted
+                the same way: update(50) then (100) from an even and an odd
+                iteration, a solve capped at 2,000 and the same in segments
+                of 500, each the same bits and iterations as the tile route
+                and the K14/K15 route of phase 19; the resident tick's mean
+                of 5 beside theirs, and the route "auto" picks for each
+                shape. The entries alone against their plain versions, the
+                same bits: a 3-chunk cycle with u1 on the 16384^2 mesh, and
+                a solve capped at 1,000 on the maze mesh.
 
-Each phase prints one JSON line and raises on failure. Then come the kernels'
-JSON line (each entry with its time, its plain version's, its bound and its
-launches on the main path), the nvidia-smi line, and last
+Each phase prints one JSON line and raises on failure (phase 23 runs last).
+Then come the kernels' JSON line (each entry with its time, its plain
+version's, its bound and its launches on the main path), the nvidia-smi
+line, and last
 ``{"ok": true, "device": ...}``.
 
 Bounds. ``bound_ms`` is the larger of two times for the same work as
@@ -193,6 +211,7 @@ says ``_s`` (host clock around work that ends in a synchronize).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import pathlib
@@ -221,6 +240,8 @@ SIZE3D = (256, 256, 256)  # 67 MB of u: beyond L2
 MESH = (2, 4)             # the virtual mesh of phases 18-19: eight shards on the one card
 MESH_SIDE = 16384         # BASELINE.md:42, the 16k x 16k multi-host grid: 1.07 GB of u
 MESH_CAP = 2000
+MESH_SEGMENT = 500        # the resident route's solve in segments (phase 23)
+SOLVE_ENTRY_CAP = 1000    # the solve entry alone on the maze mesh, against its plain version
 MESH3D_WIDE = (64, 1024, 1024)   # tools/probe.py:1493's sharded3d-resident volume: 268 MB of u
 MESH3D_WIDE_CAP = 1000
 MESH3D_SEGMENT = 500
@@ -257,6 +278,8 @@ SOURCES = {
     "epic_tile3d_solve": "epic_tpu_torch/csrc/tile3d.cu",
     "epic_shard2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_shard3d_chunk": "epic_tpu_torch/csrc/shard3d.cu",
+    "epic_resident2d_cycle": "epic_tpu_torch/csrc/tile2d.cu",
+    "epic_resident2d_solve": "epic_tpu_torch/csrc/tile2d.cu",
 }
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
@@ -305,6 +328,14 @@ REPLACES = {
                            "epic_tpu/parallel/sharded3d.py:243",
                            "epic_tpu/parallel/resident3d.py:233",
                            "epic_tpu/parallel/resident_z.py:166"],
+    # K16 (the banded guard layout's chunk) and K17 (K6's body via _chunk_cycle
+    # on the tiled guard layout), all of a device's shards in one launch; the
+    # solve entry also carries their solve loops (resident.py:451,
+    # resident_tiled.py:315)
+    "epic_resident2d_cycle": ["epic_tpu/parallel/resident.py:188",
+                              "epic_tpu/parallel/resident_tiled.py:167"],
+    "epic_resident2d_solve": ["epic_tpu/parallel/resident.py:188",
+                              "epic_tpu/parallel/resident_tiled.py:167"],
 }
 
 
@@ -350,15 +381,16 @@ def copy_state(state):
 
 
 def zero_counts() -> None:
-    from epic_tpu_torch.parallel import hopper_shard2d, hopper_shard3d
+    from epic_tpu_torch.parallel import hopper_resident2d, hopper_shard2d, hopper_shard3d
     from epic_tpu_torch.solver import (batched, core, hopper_batched, hopper_sweep,
                                        hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled,
                                        tiled3d)
 
     for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
               hopper_tile2d.launches, hopper_tile3d.launches, hopper_shard2d.launches,
-              hopper_shard3d.launches, core.calls, batched.calls, tiled.calls, tiled3d.calls,
-              hopper_shard2d.calls, hopper_shard3d.calls):
+              hopper_shard3d.launches, hopper_resident2d.launches, core.calls, batched.calls,
+              tiled.calls, tiled3d.calls, hopper_shard2d.calls, hopper_shard3d.calls,
+              hopper_resident2d.calls):
         for k in d:
             d[k] = 0
 
@@ -1560,25 +1592,45 @@ def phase_batch_goals(dev) -> dict:
     return launches
 
 
-def counted_mesh(what: str, drive) -> dict:
+def mesh_counts(ran: dict, what: str, drive) -> dict:
     """Run ``drive()`` with every count zeroed just before and read just
-    after: the shard entry must have run; the plain versions and the
-    single-device 2D kernels must not. Returns the shard entry's launches."""
-    from epic_tpu_torch.parallel import hopper_shard2d
+    after: each launch count in ``ran`` (the route's entries) must have
+    moved; the other 2D mesh entries, the single-device 2D kernels and the
+    plain versions must not. Returns the route's launches."""
+    from epic_tpu_torch.parallel import hopper_resident2d, hopper_shard2d
     from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
 
     zero_counts()
     drive()
     torch.cuda.synchronize()
-    launches = dict(hopper_shard2d.launches)
+    launches = dict(ran)
     others = {**hopper_sweep.launches, **hopper_tile2d.launches,
+              **{k: v for k, v in {**hopper_shard2d.launches,
+                                   **hopper_resident2d.launches}.items() if k not in ran},
               **{f"core.{k}": v for k, v in core.calls.items()},
               **{f"tiled.{k}": v for k, v in tiled.calls.items()},
-              **{f"hopper_shard2d.{k}": v for k, v in hopper_shard2d.calls.items()}}
-    require(all(v > 0 for v in launches.values()), f"{what}: the shard entry never ran: {launches}")
+              **{f"hopper_shard2d.{k}": v for k, v in hopper_shard2d.calls.items()},
+              **{f"hopper_resident2d.{k}": v for k, v in hopper_resident2d.calls.items()}}
+    require(all(v > 0 for v in launches.values()), f"{what}: an entry never ran: {launches}")
     require(all(v == 0 for v in others.values()),
-            f"{what}: a plain version or a single-device kernel ran: {others}")
+            f"{what}: another entry, a plain version or a single-device kernel ran: {others}")
     return launches
+
+
+def counted_mesh(what: str, drive) -> dict:
+    """:func:`mesh_counts` for the per-shard route: the shard entry
+    (K14/K15) must run."""
+    from epic_tpu_torch.parallel import hopper_shard2d
+
+    return mesh_counts(hopper_shard2d.launches, what, drive)
+
+
+def counted_resident(what: str, drive) -> dict:
+    """:func:`mesh_counts` for the resident route: both of its entries
+    (K16/K17) must run."""
+    from epic_tpu_torch.parallel import hopper_resident2d
+
+    return mesh_counts(hopper_resident2d.launches, what, drive)
 
 
 def same_field(a, b, what: str) -> float:
@@ -1591,9 +1643,11 @@ def same_field(a, b, what: str) -> float:
     return err
 
 
-def phase_mesh_session(dev, maze) -> dict:
-    """Phase 4's session on a MeshPlanner over a 2 x 4 virtual mesh, then a
-    single-device Planner replaying the same verbs at the same ticks."""
+def mesh_session(dev, maze, kernel: str) -> dict:
+    """Phase 4's session on a MeshPlanner over a 2 x 4 virtual mesh on the
+    route ``kernel`` names ("pallas": the shard entry; "resident": the
+    resident entries), counted, then a single-device Planner replaying the
+    same verbs at the same ticks (its solve timed: K2)."""
     from epic_tpu_torch import grid as G
     from epic_tpu_torch import path
     from epic_tpu_torch.config import EpicConfig
@@ -1606,7 +1660,7 @@ def phase_mesh_session(dev, maze) -> dict:
     steps = cfg.service.steps_per_update
     img = maze["img"]
     mesh = make_mesh(MESH, devices=[dev] * (MESH[0] * MESH[1]))
-    planner = MeshPlanner(cfg, mesh=mesh)
+    planner = MeshPlanner(cfg, mesh=mesh, kernel=kernel)
     node = EpicNavigationNodeRviz(cfg, update_rate=cfg.service.update_rate_hz, planner=planner)
     ingest_map(node, img)
     require(planner.device == dev, f"the mesh planner lives on {planner.device}")
@@ -1662,8 +1716,9 @@ def phase_mesh_session(dev, maze) -> dict:
         r, _ = s.call("info")
         require(r["success"] and r["iteration"] >= int(out["solved"].iteration), f"info: {r}")
 
+    counted = counted_mesh if kernel == "pallas" else counted_resident
     try:
-        launches = counted_mesh("mesh session", drive)
+        launches = counted(f"mesh session ({kernel})", drive)
     finally:
         client.close()
         server.close()
@@ -1680,19 +1735,31 @@ def phase_mesh_session(dev, maze) -> dict:
         ref.planner.set_cells(xy, types)
     for _ in range(out["solve_at"] - done):
         ref.update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ref.planner.solve(max_iterations=cfg.solver.max_iterations)
+    torch.cuda.synchronize()
+    k2_solve_s = time.perf_counter() - t0
     err = same_field(out["solved"], ref.planner.state, "mesh session solve vs the Planner")
     for _ in range(s.ticks - out["solve_at"]):
         ref.update()
     err = max(err, same_field(final, ref.planner.state, "mesh session's final field vs the Planner"))
     iters = int(out["solved"].iteration)
+    return dict(kernel=kernel, shard=[planner._sh.h_loc, planner._sh.w_loc], ticks=s.ticks,
+                sweeps_per_tick=steps, ten_ticks_s=out["ten_ticks_s"], solve_iterations=iters,
+                solve_s=out["solve_s"], k2_solve_s=k2_solve_s, paths=len(out["lengths"]),
+                path_points=out["lengths"], compute_path_s=out["path_s"],
+                max_abs_err_vs_planner=err, launches=launches,
+                bounds={"solve": bound(out["solved"].locked, 0, iters)}, planner=planner)
+
+
+def phase_mesh_session(dev, maze) -> dict:
+    """Phase 18: the maze session on the per-shard route (K14/K15)."""
+    out = mesh_session(dev, maze, "pallas")
     emit(phase="mesh_session", config="configs/maze.yaml", mesh=list(MESH),
-         shard=[planner._sh.h_loc, planner._sh.w_loc], ticks=s.ticks, sweeps_per_tick=steps,
-         ten_ticks_s=out["ten_ticks_s"], solve_iterations=iters,
-         solve_s=out["solve_s"], paths=len(out["lengths"]), path_points=out["lengths"],
-         compute_path_s=out["path_s"], max_abs_err_vs_planner=err, launches=launches,
-         bounds={"solve": bound(out["solved"].locked, 0, iters)})
-    return {"launches": launches, "err": err}
+         **{k: v for k, v in out.items() if k != "planner"})
+    del out["planner"]
+    return {**out, "err": out["max_abs_err_vs_planner"]}
 
 
 def shard_bound(frozen_view: torch.Tensor, par0: int, t0: int, sweeps: int, k: int,
@@ -1701,6 +1768,21 @@ def shard_bound(frozen_view: torch.Tensor, par0: int, t0: int, sweeps: int, k: i
     u and frozen bytes read, the centre written, twice with u1) over the HBM
     rate, or its updates (the centre's unfrozen cells of each sweep's class)
     over the float32 rate, whichever is larger."""
+    return work_bound(*shard_work(frozen_view, par0, t0, sweeps, k, u1))
+
+
+def work_bound(n_bytes: float, n_updates: int) -> dict:
+    """The larger of ``n_bytes`` over the HBM rate and ``n_updates`` lse4
+    updates over the float32 rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_updates * OPS_LSE4 / PEAK_FP32_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def shard_work(frozen_view: torch.Tensor, par0: int, t0: int, sweeps: int, k: int,
+               u1: bool = False) -> tuple[float, int]:
+    """:func:`shard_bound`'s bytes and updates."""
     he, we = frozen_view.shape
     centre = frozen_view[k:he - k, k:we - k]
     h, w = centre.shape
@@ -1711,10 +1793,21 @@ def shard_bound(frozen_view: torch.Tensor, par0: int, t0: int, sweeps: int, k: i
     n_even, n_odd = int((free & ~odd).sum()), int((free & odd).sum())
     at_even_t = (sweeps + 1 - t0 % 2) // 2
     n_updates = at_even_t * n_odd + (sweeps - at_even_t) * n_even
-    t_bytes = (he * we * 5 + h * w * 4 * (2 if u1 else 1)) / PEAK_BYTES_PER_S
-    t_ops = n_updates * OPS_LSE4 / PEAK_FP32_PER_S
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return float(he * we * 5 + h * w * 4 * (2 if u1 else 1)), n_updates
+
+
+def plan_bound(sh, k: int, t0: int, per_chunk, u1: bool = True) -> dict:
+    """The least time for chunks of ``per_chunk`` sweeps from ``t0`` on every
+    shard of the mesh grid ``sh`` (u1 in chunk 0): the sum of each shard's
+    chunks' bytes and updates (:func:`shard_work`)."""
+    H, n_bytes, n_updates, t = sh.halo, 0.0, 0, t0
+    for c, ns in enumerate(per_chunk):
+        for ij in sh.mesh.local:
+            view = sh.frozen_blocks[ij][H - k:H + sh.h_loc + k, H - k:H + sh.w_loc + k]
+            b, n = shard_work(view, sh.par0(ij), t, ns, k, u1 and c == 0)
+            n_bytes, n_updates = n_bytes + b, n_updates + n
+        t += ns
+    return work_bound(n_bytes, n_updates)
 
 
 def phase_mesh16k(dev) -> dict:
@@ -1735,7 +1828,7 @@ def phase_mesh16k(dev) -> dict:
     del img
     t0 = time.perf_counter()
     mesh = make_mesh(MESH, devices=[dev] * (MESH[0] * MESH[1]))
-    planner = MeshPlanner(cfg, mesh=mesh)
+    planner = MeshPlanner(cfg, mesh=mesh, kernel="pallas")
     planner.init(side, side)
     planner.update_occupancy(occ)
     require(planner.add_goals([(float(gx), float(gy))]), "the goal was refused")
@@ -1832,7 +1925,151 @@ def phase_mesh16k(dev) -> dict:
                  "entry": entry_bound},
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     return {"launches": launches, "err": max(errs + entry_errs),
-            "entry": (entry_ms, plain_ms, entry_bound)}
+            "entry": (entry_ms, plain_ms, entry_bound), "base": base, "starts": starts,
+            "ref": ref, "got": got, "times": times}
+
+def copy_grid(sh):
+    """A copy of a mesh grid with its own u, twin, u1 and frozen blocks."""
+    c = copy.copy(sh)
+    for name in ("u_blocks", "twin_blocks", "u1_blocks", "frozen_blocks"):
+        setattr(c, name, {ij: b.clone() for ij, b in getattr(sh, name).items()})
+    return c
+
+
+def same_blocks(a, b, what: str) -> float:
+    """Two mesh grids: the same bits in every u, twin and u1 block."""
+    err = max(max_abs(getattr(a, n)[ij], getattr(b, n)[ij])
+              for n in ("u_blocks", "twin_blocks", "u1_blocks") for ij in a.mesh.local)
+    require(err == 0.0, f"{what}: differ by {err}")
+    return err
+
+
+def phase_mesh_resident(dev, maze, mesh_s, m16) -> dict:
+    """Phase 23: the resident route (K16/K17's two entries) on phase 18's
+    maze mesh and phase 19's 16384^2 mesh, counted, held to the
+    single-device routes and to the per-shard route (K14/K15) bit for bit;
+    each entry alone against its plain version."""
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.parallel import hopper_resident2d, make_mesh, sharded
+    from epic_tpu_torch.planner_mesh import MeshPlanner
+
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    mesh = make_mesh(MESH, devices=[dev] * (MESH[0] * MESH[1]))
+
+    def route(sh) -> str:
+        return "resident" if sharded.prefers_resident(mesh, sh.h_loc, sh.w_loc) else "pallas"
+
+    # The maze session of phase 18 on the resident route.
+    maze_run = mesh_session(dev, maze, "resident")
+    maze_sh = maze_run.pop("planner")._sh
+
+    # The solve entry alone: the maze mesh from its reset field, capped at
+    # SOLVE_ENTRY_CAP, against the plain version on a copy.
+    sharded.reset_free_cells_resident(maze_sh)
+    locked = sharded.unshard(maze_sh).locked
+    k = sharded._prepare(maze_sh, sharded.DEFAULT_CHUNK_DEPTH)
+    plan = hopper_resident2d.plans(mesh)[0]
+    plain_sh = copy_grid(maze_sh)
+
+    def scalars():
+        return (torch.zeros((), dtype=torch.int32, device=dev),
+                (maze_sh.epsilon + 1.0).to(torch.float32),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    kern, plain = scalars(), scalars()
+    solve_ms = event_ms(lambda: hopper_resident2d.solve(maze_sh, plan, k, STAGGER,
+                                                         SOLVE_ENTRY_CAP, *kern))
+    t0 = time.perf_counter()
+    hopper_resident2d.plain_solve(plain_sh, plan, k, STAGGER, SOLVE_ENTRY_CAP, *plain)
+    torch.cuda.synchronize()
+    solve_plain_ms = (time.perf_counter() - t0) * 1e3
+    solve_err = same_blocks(maze_sh, plain_sh, "the solve entry vs plain")
+    require([float(x) for x in kern] == [float(x) for x in plain],
+            f"the solve entry's scalars {kern} differ from plain's {plain}")
+    solve_bound = bound(locked, 0, int(kern[0]))
+    del plain_sh
+
+    # Phase 19's grid on the resident route.
+    side = MESH_SIDE
+    base, starts, ref, got19 = m16["base"], m16["starts"], m16["ref"], m16["got"]
+    planner = MeshPlanner(cfg, mesh=mesh, kernel="resident")
+    got, times = {}, {}
+
+    def drive():
+        for t in (0, 1):
+            planner.state = starts[t]
+            planner.update(50)
+            got[t, 50] = planner.state
+            planner.update(100)
+            got[t, 150] = planner.state
+        planner.state = base
+        times["solve"] = event_ms(lambda: planner.solve(max_iterations=MESH_CAP))
+        got["solve"] = planner.state
+        planner.state = base
+        times["segments"] = event_ms(lambda: planner.solve(max_iterations=MESH_CAP,
+                                                            segment_iterations=MESH_SEGMENT))
+        got["segments"] = planner.state
+        planner.state = starts[0]
+        planner.update(100)
+        times["tick5"] = event_ms(lambda: planner.update(100), reps=5)
+
+    launches16 = counted_resident(f"{side}^2 resident mesh", drive)
+    errs = []
+    for key in sorted(key for key in ref if key != "solve"):
+        errs.append(same_field(got[key], ref[key], f"{side}^2 resident tick to {sum(key)} vs tiles"))
+        errs.append(same_field(got[key], got19[key], f"{side}^2 resident tick to {sum(key)} vs K14"))
+    for key in ("solve", "segments"):
+        for other, name in ((ref["solve"], "tiles"), (got19["solve"], "K14")):
+            errs.append(same_field(got[key], other, f"{side}^2 resident {key} vs {name}"))
+            require(bool(got[key].converged) == bool(other.converged), f"{key} verdicts differ")
+    del got
+
+    # The cycle entry alone: three chunks with u1 on every shard, against
+    # the plain version on a copy.
+    sh = planner._sh
+    k16 = sh.halo
+    sh.u1_blocks = sharded._blank(mesh, sh.u_blocks[0, 0].shape, sharded.FILL, torch.float32)
+    plan16 = hopper_resident2d.plans(mesh)[0]
+    it0 = int(sh.iteration)
+    plain_sh = copy_grid(sh)
+    d = hopper_resident2d.cycle(sh, plan16, k16, it0, 3 * k16, 3, u1=True)
+    t0 = time.perf_counter()
+    p = hopper_resident2d.plain_cycle(plain_sh, plan16, k16, it0, 3 * k16, 3, u1=True)
+    torch.cuda.synchronize()
+    cycle_plain_ms = (time.perf_counter() - t0) * 1e3
+    cycle_err = max(same_blocks(sh, plain_sh, "the cycle entry vs plain"), max_abs(d, p))
+    require(cycle_err == 0.0, f"the cycle entry's deltas {d.tolist()} differ from {p.tolist()}")
+    del plain_sh
+    cycle_ms = event_ms(lambda: hopper_resident2d.cycle(sh, plan16, k16, it0, 3 * k16, 3, u1=True),
+                        reps=10)
+    cycle_bound = plan_bound(sh, k16, it0, [k16] * 3)
+
+    t19 = m16["times"]
+    emit(phase="mesh_resident", mesh=list(MESH),
+         maze={**{key: v for key, v in maze_run.items() if key != "kernel"},
+               "k14_solve_s": mesh_s["solve_s"], "k14_ten_ticks_s": mesh_s["ten_ticks_s"],
+               "auto_route": route(maze_sh)},
+         grid16k=dict(shape=[side, side], shard=[sh.h_loc, sh.w_loc], chunk_depth=k16,
+                      launches=launches16, max_abs_err=max(errs),
+                      resident_tick_ms_mean5=times["tick5"], k14_tick_ms_mean5=t19["mesh_tick5"],
+                      tile_tick_ms_mean5=t19["tile_tick5"], resident_solve_ms=times["solve"],
+                      resident_segments_ms=times["segments"], segment_iterations=MESH_SEGMENT,
+                      k14_solve_ms=t19["mesh_solve"], tile_solve_ms=t19["tile_solve"],
+                      solve_cap=MESH_CAP, auto_route=route(sh)),
+         cycle_entry=dict(shards=len(plan16.slots), chunks=3, sweeps=3 * k16, u1=True,
+                          ms_mean10=cycle_ms, plain_ms=cycle_plain_ms, max_abs_err=cycle_err,
+                          bound=cycle_bound),
+         solve_entry=dict(shape=list(locked.shape), cap=SOLVE_ENTRY_CAP,
+                          iterations=int(kern[0]), ms=solve_ms, plain_ms=solve_plain_ms,
+                          max_abs_err=solve_err, bound=solve_bound),
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    launches = dict(maze_run["launches"])
+    add_counts(launches, launches16)
+    return {"launches": launches,
+            "err": max(maze_run["max_abs_err_vs_planner"], max(errs), cycle_err, solve_err),
+            "cycle": (cycle_ms, cycle_plain_ms, cycle_bound),
+            "solve": (solve_ms, solve_plain_ms, solve_bound)}
+
 
 def counted_mesh3d(what: str, drive) -> dict:
     """Run ``drive()`` with every count zeroed just before and read just
@@ -2167,8 +2404,10 @@ def main() -> None:
     m3z = phase_mesh3d_z(dev, m3)
     del m3["ref"], m3["base"], m3["starts"]
     m3w = phase_mesh3d_wide(dev)
+    res = phase_mesh_resident(dev, maze, mesh_s, mesh16)
+    del mesh16["base"], mesh16["starts"], mesh16["ref"], mesh16["got"]
     for counts in (mesh_s["launches"], mesh16["launches"], m3["launches"], m3z["launches"],
-                   m3w["launches"]):
+                   m3w["launches"], res["launches"]):
         add_counts(launches, counts)
     for name in big["launches"]:
         launches[name] = big["launches"][name] + wide["launches"][name]
@@ -2191,11 +2430,14 @@ def main() -> None:
         "epic_tile3d_solve": tile3d_err,
         "epic_shard2d_chunk": max(mesh_s["err"], mesh16["err"]),
         "epic_shard3d_chunk": max(m3["err"], m3z["err"], m3w["err"]),
+        "epic_resident2d_cycle": res["err"],
+        "epic_resident2d_solve": res["err"],
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
     # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3, one
-    # 8192 x 4096 shard of the 16384^2 mesh, and one 64 x 512 x 256 shard of
-    # the 64 x 1024 x 1024 mesh.
+    # 8192 x 4096 shard of the 16384^2 mesh, one 64 x 512 x 256 shard of the
+    # 64 x 1024 x 1024 mesh, all eight shards of the 16384^2 mesh (the cycle
+    # entry) and of the maze mesh (the solve entry).
     times = {
         "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"], m["tick_bound"]),
         "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
@@ -2211,6 +2453,8 @@ def main() -> None:
         "epic_tile3d_solve": big3["solve"],
         "epic_shard2d_chunk": mesh16["entry"],
         "epic_shard3d_chunk": m3w["entry"],
+        "epic_resident2d_cycle": res["cycle"],
+        "epic_resident2d_solve": res["solve"],
     }
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],

@@ -24,7 +24,19 @@
 //                         _band_shard_kernel (K15; DMA row bands for shards
 //                         beyond VMEM), which compute one function
 // with the plain version sweep_k_local in
-// epic_tpu_torch/parallel/hopper_shard2d.py.
+// epic_tpu_torch/parallel/hopper_shard2d.py. And the 2D resident route,
+// every shard of one device in one launch:
+//   epic_resident2d_cycle <- epic_tpu/parallel/resident.py:188 _resident_kernel
+//                            (K16; a shard in a 128-lane guard layout, DMA
+//                            row bands, src -> aliased dst) and
+//                            resident_tiled.py:167 _chunk_cycle (K17; K6's
+//                            body at nc = 1 on the tiled guard layout): one
+//                            chunk of a shard, its trapezoid, the delta over
+//                            its centre; here N chunks ping-pong in one launch
+//   epic_resident2d_solve <- the while loops of resident.py:451 and
+//                            resident_tiled.py:315 _solve_resident (the whole
+//                            solve inside shard_map over K16/K17's chunks)
+// with the plain versions in epic_tpu_torch/parallel/hopper_resident2d.py.
 //
 // Design. A full-width band never fits shared memory here (8192 columns x 48
 // rows x 5 B is 1.9 MB), so one layout answers both TPU layouts: a block owns
@@ -63,6 +75,20 @@
 // tile a block. The TPU's constraints (depth a multiple of 4, 128-lane
 // widths, sharded.py:474-481) do not apply: any K that fits shared memory,
 // any shard extent.
+//
+// The resident route. A device's shards share one plan (a table, below):
+// for each shard its blocks and, for each of the eight neighbours of its
+// view, whether the tile reads that neighbour's current centre directly
+// (a shard of the same device: no halo copy) or the shard's own halo (a
+// neighbour on another device or process, copied there by the host between
+// launches, or outside the mesh: the fill, frozen). The frozen bytes always
+// come from the own block, whose halos are exchanged once per edit. A
+// block strides over (shard, tile) pairs; every shard of a chunk reads the
+// same set of blocks (u or twin) and writes the other, and a grid barrier
+// separates chunks. The delta is taken over the shards' centres: each
+// chunk starts from the neighbours' current values, so a halo cell repeats
+// its owner's sweep-0 update, and the max over the shards equals the block
+// delta's (K14/K15) and K16/K17's interior delta's.
 //
 // Numerics. lse4 from sweep_common.cuh, no --use_fast_math: the kernels give
 // the plain version's (and solver/core.py's) bits.
@@ -382,6 +408,214 @@ shard_chunk_kernel(Shard g, const int* it, int t_off, int ns, unsigned int* delt
   tile_pass(t, g.dst, g.u1, *it + t_off, ns, delta_bits, smem, frozen_of(smem, g.K));
 }
 
+// The resident route's plan of one device: kPlanCols int64 a shard (its
+// slot): the addresses of its blocks (set 0, the current u; set 1, the twin;
+// set 2, u1, or 0 when none), of its frozen bytes, the parity of its block's
+// (0, 0), and for each of the nine regions of its view (rows above, within
+// and below the centre x columns left, within and right, row-major; region
+// 4 the centre) the slot whose centre it reads, or -1 for the own block.
+// Every block is (h + 2H) x (w + 2H) cells with row pitch ld; a chunk of
+// depth K reads the view of (h + 2K) x (w + 2K) cells at (H - K, H - K).
+constexpr int kPlanCols = 14;
+constexpr int kPlanFrozen = 3;
+constexpr int kPlanPar0 = 4;
+constexpr int kPlanRegions = 5;
+
+struct Plan {
+  const long long* rows;
+  long long ld;
+  int n_shards, h, w, H, K;
+  int nx;        // tiles across a shard
+  int n_tiles;   // tiles a shard
+};
+
+// For one (shard, chunk): where each region of the view is read, and the
+// shift of a view cell's index there (0 in the own block).
+struct Regions {
+  const float* src[9];
+  long long shift[9];
+};
+
+// A tile of a resident shard's view, local (0, 0) at view (r0, c0): u from
+// the region's source, the frozen bytes from the own block; beyond the view
+// LOG_SPACE_OBSTACLE, frozen. The view's trapezoid bounds the tile's, as
+// ShardTile's does; the delta covers the tile's centre cells, which are the
+// shard's.
+struct ResidentTile {
+  const Regions* reg;
+  const uint8_t* frozen;   // at the view's (0, 0)
+  long long ld;
+  int h, w, K, par0, r0, c0, ch, cw;
+  __device__ __forceinline__ void load(int lr, int lc, float& v, uint8_t& f) const {
+    const int R = r0 + lr;
+    const int C = c0 + lc;
+    v = kObstacle;
+    f = 1;
+    if (R < h + 2 * K && C < w + 2 * K) {
+      const long long idx = static_cast<long long>(R) * ld + C;
+      const int n = 3 * ((R >= K) + (R >= K + h)) + (C >= K) + (C >= K + w);
+      v = __ldcg(reg->src[n] + (idx - reg->shift[n]));
+      f = frozen[idx] != 0;
+    }
+  }
+  __device__ __forceinline__ int par() const { return (par0 + r0 + c0) & 1; }
+  __device__ __forceinline__ int last_row(int s) const {
+    return min(kTH + 2 * K, h + 2 * K - r0) - 2 - s;
+  }
+  __device__ __forceinline__ int last_col(int s) const {
+    return min(kTW + 2 * K, w + 2 * K - c0) - 2 - s;
+  }
+  __device__ __forceinline__ bool in_delta(int lr, int lc) const {
+    return lr >= K && lr < K + ch && lc >= K && lc < K + cw;
+  }
+  __device__ __forceinline__ float* at(float* out, int r, int c) const {
+    return out + static_cast<long long>(r0 + K + r) * ld + c0 + K + c;
+  }
+};
+
+// One chunk of ns sweeps from t0 on job `job` of the plan (shard job /
+// n_tiles, one of its tiles): set src_set to set dst_set, and with with_u1
+// the centre after sweep 0 to set 2. The nine regions go to shared memory
+// first: a direct neighbour's region is its block of set src_set, shifted
+// by its offset on the mesh (K <= h, w, so a region lies in one centre).
+__device__ void resident_job(const Plan& p, int job, int src_set, int dst_set, bool with_u1,
+                             int t0, int ns, unsigned int* delta_acc, float* us, uint8_t* fs,
+                             Regions* reg) {
+  const int slot = job / p.n_tiles;
+  const int tile = job - slot * p.n_tiles;
+  const long long* row = p.rows + static_cast<long long>(slot) * kPlanCols;
+  const long long v0 = static_cast<long long>(p.H - p.K) * (p.ld + 1);   // the view's (0, 0)
+  if (threadIdx.x < 9) {
+    const int n = threadIdx.x;
+    const long long nb = row[kPlanRegions + n];
+    const long long* from = nb >= 0 ? p.rows + nb * kPlanCols : row;
+    reg->src[n] = reinterpret_cast<const float*>(from[src_set]) + v0;
+    reg->shift[n] = nb >= 0 ? (n / 3 - 1) * static_cast<long long>(p.h) * p.ld + (n % 3 - 1) * p.w
+                            : 0;
+  }
+  __syncthreads();
+  const int ty = tile / p.nx;
+  const int r0 = ty * kTH;
+  const int c0 = (tile - ty * p.nx) * kTW;
+  const ResidentTile t{reg, reinterpret_cast<const uint8_t*>(row[kPlanFrozen]) + v0, p.ld,
+                       p.h, p.w, p.K, static_cast<int>(row[kPlanPar0]), r0, c0,
+                       min(kTH, p.h - r0), min(kTW, p.w - c0)};
+  float* dst = reinterpret_cast<float*>(row[dst_set]) + v0;
+  float* u1 = with_u1 ? reinterpret_cast<float*>(row[2]) + v0 : nullptr;
+  tile_pass(t, dst, u1, t0, ns, delta_acc, us, fs);
+}
+
+// Every (shard, tile) job of one chunk, strided over the blocks.
+__device__ void all_resident_jobs(const Plan& p, int src_set, int dst_set, bool with_u1, int t0,
+                                  int ns, unsigned int* delta_acc, float* us, uint8_t* fs,
+                                  Regions* reg) {
+  const int jobs = p.n_shards * p.n_tiles;
+  for (int job = blockIdx.x; job < jobs; job += gridDim.x)
+    resident_job(p, job, src_set, dst_set, with_u1, t0, ns, delta_acc, us, fs, reg);
+}
+
+// K16/K17: `total` sweeps from *it + t_off over n_chunks chunks on every
+// shard of the plan; chunk c reads set c & 1 and writes the other, its
+// sweep-0 delta (max over the plan's centres) into deltas[c] (zeroed by the
+// caller); with with_u1, chunk 0 writes u1 too. An even count ends in set 0.
+__global__ void __launch_bounds__(kThreads)
+resident_cycle_kernel(Plan p, const int* it, int t_off, int total, int n_chunks, int with_u1,
+                      unsigned int* deltas) {
+  extern __shared__ float smem[];
+  __shared__ Regions reg;
+  uint8_t* fs = frozen_of(smem, p.K);
+  cg::grid_group grid = cg::this_grid();
+  int t = *it + t_off;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int ns = spread_at(total, n_chunks, c);
+    if (c > 0) grid.sync();
+    all_resident_jobs(p, c & 1, (c & 1) ^ 1, c == 0 && with_u1 != 0, t, ns, deltas + c, smem, fs,
+                      &reg);
+    t += ns;
+  }
+}
+
+// The centres of every shard of the plan, set `from` to set `to`.
+__device__ void copy_centres(const Plan& p, int from, int to, cg::grid_group& grid) {
+  const long long cells = static_cast<long long>(p.h) * p.w;
+  for (int s = 0; s < p.n_shards; ++s) {
+    const long long* row = p.rows + static_cast<long long>(s) * kPlanCols;
+    const float* a = reinterpret_cast<const float*>(row[from]);
+    float* b = reinterpret_cast<float*>(row[to]);
+    for (long long i = grid.thread_rank(); i < cells; i += grid.size()) {
+      const long long r = i / p.w;
+      const long long off = (p.H + r) * p.ld + p.H + (i - r * p.w);
+      b[off] = __ldcg(a + off);
+    }
+  }
+}
+
+// tile_solve_kernel's resumable stagger protocol over every shard of a plan
+// that covers the whole mesh (no neighbour copied by the host): sets 0 and 1
+// ping-pong, the check chunk writes set 2 (u1) too. The state ends in set 0:
+// the last step copies the centres there from set 1 or 2.
+__global__ void __launch_bounds__(kThreads)
+resident_solve_kernel(Plan p, const float* eps_ptr, int m_max, int bound, int stagger,
+                      unsigned int* acc, int* it_io, float* delta_io, int* done_io) {
+  extern __shared__ float smem[];
+  __shared__ Regions reg;
+  uint8_t* fs = frozen_of(smem, p.K);
+  cg::grid_group grid = cg::this_grid();
+  const float eps = *eps_ptr;
+  int it = *it_io;
+  float delta = *delta_io;
+  bool done = *done_io != 0;
+  const int depth = min(p.K, stagger);
+  const int rest = stagger - depth;
+  const int n_rest = (rest + p.K - 1) / p.K;
+  int cur = 0;
+  int slot = 0;
+  while (!done && it < bound) {
+    all_resident_jobs(p, cur, cur ^ 1, true, it, depth, acc + slot, smem, fs, &reg);
+    grid.sync();
+    delta = __uint_as_float(__ldcg(acc + slot));
+    if (grid.thread_rank() == 0) acc[slot ^ 1] = 0u;
+    slot ^= 1;
+    done = delta < eps && it + 1 >= m_max;
+    if (done) {
+      it += 1;
+      cur = 2;
+      break;
+    }
+    cur ^= 1;
+    int t = it + depth;
+    for (int r = 0; r < n_rest; ++r) {
+      const int ns = spread_at(rest, n_rest, r);
+      all_resident_jobs(p, cur, cur ^ 1, false, t, ns, nullptr, smem, fs, &reg);
+      grid.sync();
+      cur ^= 1;
+      t += ns;
+    }
+    if (n_rest == 0) grid.sync();
+    it += stagger;
+  }
+  if (cur != 0) copy_centres(p, cur, 0, grid);
+  if (grid.thread_rank() == 0) {
+    *it_io = it;
+    *delta_io = delta;
+    *done_io = done ? 1 : 0;
+  }
+}
+
+Plan make_plan(const void* rows, int n_shards, int h, int w, int H, long long ld, int K) {
+  Plan p;
+  p.rows = static_cast<const long long*>(rows);
+  p.ld = ld;
+  p.n_shards = n_shards;
+  p.h = h;
+  p.w = w;
+  p.H = H;
+  p.K = K;
+  p.nx = (w + kTW - 1) / kTW;
+  p.n_tiles = ((h + kTH - 1) / kTH) * p.nx;
+  return p;
+}
+
 size_t smem_bytes(int K) {
   return static_cast<size_t>(kTH + 2 * K) * (kTW + 2 * K) * (sizeof(float) + 1);
 }
@@ -489,6 +723,47 @@ int epic_shard2d_chunk(const void* src, void* dst, void* u1, const void* frozen,
   shard_chunk_kernel<<<ny * g.nx, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       g, static_cast<const int*>(it), t_off, ns, static_cast<unsigned int*>(delta));
   return cudaGetLastError();
+}
+
+// The resident route on one device's plan: `plan` is n_shards rows of
+// kPlanCols int64 (see Plan) on the device; every shard's centre is h x w,
+// its blocks (h + 2H) x (w + 2H) with row pitch ld, and K (<= H, h, w) the
+// chunk depth. `total` sweeps from *it + t_off spread over n_chunks
+// ping-pong chunks (set 0 -> set 1 -> set 0 ...), none deeper than K, in
+// one cooperative launch; with with_u1, chunk 0 writes the centres after
+// sweep 0 to set 2; deltas[c] gets chunk c's sweep-0 delta over the plan's
+// centres (zeroed by the caller). The state ends in set 0 when n_chunks is
+// even.
+int epic_resident2d_cycle(const void* plan, int n_shards, int h, int w, int H, long long ld,
+                          int K, const void* it, int t_off, int total, int n_chunks, int with_u1,
+                          void* deltas, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Plan p = make_plan(plan, n_shards, h, w, H, ld, K);
+  const int* it_i = static_cast<const int*>(it);
+  unsigned int* d_u = static_cast<unsigned int*>(deltas);
+  void* args[] = {&p, &it_i, &t_off, &total, &n_chunks, &with_u1, &d_u};
+  return launch_cooperative(reinterpret_cast<const void*>(resident_cycle_kernel), kThreads,
+                            n_shards * p.n_tiles, smem_bytes(K), args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The solve protocol on a plan that covers the whole mesh (no neighbour
+// copied by the host), in one launch, resumed from (*it_io, *delta_io,
+// *done_io) and run while not done and the iteration is below `bound`; the
+// final state is in set 0 and the three scalars are written back. acc holds
+// two zeroed uint32 slots.
+int epic_resident2d_solve(const void* plan, int n_shards, int h, int w, int H, long long ld,
+                          int K, const void* eps, int m_max, int bound, int stagger, void* acc,
+                          void* it_io, void* delta_io, void* done_io, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Plan p = make_plan(plan, n_shards, h, w, H, ld, K);
+  const float* eps_f = static_cast<const float*>(eps);
+  void* args[] = {&p, &eps_f, &m_max, &bound, &stagger, &acc, &it_io, &delta_io, &done_io};
+  return launch_cooperative(reinterpret_cast<const void*>(resident_solve_kernel), kThreads,
+                            n_shards * p.n_tiles, smem_bytes(K), args, device,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -24,19 +24,29 @@ deeper than the kernel's shared memory takes (``hopper_shard2d.max_depth``);
 trajectories do not depend on it (the trapezoid makes each chunk exactly
 ``ns`` global sweeps), so neither do results.
 
-Solves are a host loop of stagger cycles with ``core.solve``'s protocol:
-the checked chunk (depth ``min(K, stagger)``) also writes u1, the state
-after its first sweep; the host reads the delta once an exit is possible
-(``iteration + 1 >= max(H, W)``, the unpadded grid's) and keeps u1 on exit;
-else the rest of the cycle follows.
+Solves run stagger cycles with ``core.solve``'s protocol: the checked
+chunk (depth ``min(K, stagger)``) also writes u1, the state after its first
+sweep; the delta is read once an exit is possible (``iteration + 1 >=
+max(H, W)``, the unpadded grid's) and u1 kept on exit; else the rest of the
+cycle follows. The host runs that loop, except where the resident route
+runs it in one launch.
 
-The route follows the mesh's device: the CUDA entry on a card, the plain
-version on the CPU. ``kernel`` takes the reference's names only to refuse
-the ones that would say otherwise: "auto" runs anywhere,
-"pallas"/"pallas_banded" (the CUDA entry) only on a card, "xla" and the
-"*_interpret" names (the plain version) only on the CPU. "resident" waits
-for the resident layout (ROADMAP §1 item 3.2, K16/K17) and raises; so does
-``segment_iterations``.
+Two routes run those chunks. The per-shard route (K14/K15) launches
+``hopper_shard2d.chunk`` a shard a chunk after a full exchange. The
+resident route (K16/K17, :mod:`.hopper_resident2d`) launches one program a
+device for all of its shards: a tile reads a neighbour on the same device
+straight from its block, and the host copies only the halos of neighbours
+on other devices or processes; where one device holds the whole mesh, a
+tick's chunks run in one launch and a solve's whole loop in one more.
+Both give the same bits. ``kernel`` picks the route: "resident" (anywhere)
+and "resident_interpret" (the CPU) the resident one; "pallas" and
+"pallas_banded" (a card) and "xla", "pallas_interpret" and
+"pallas_banded_interpret" (the CPU) the per-shard one; "auto" follows
+:func:`prefers_resident`. Either route runs its CUDA entries on a card and
+its plain versions on the CPU; a name that says otherwise raises.
+``segment_iterations`` (a solve paused at stagger-aligned bounds,
+``solver.tiled.segment_bounds``) needs the resident route, as in
+``epic_tpu``.
 
 In place, like the rest of the port: the resident verbs
 (``update_n_resident``, ``solve_resident``, ``set_cells_resident``, ...)
@@ -46,6 +56,7 @@ change the ``ShardedGrid`` they are given and return it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -54,7 +65,8 @@ import torch.distributed as dist
 from .. import constants as C
 from .. import grid as G
 from ..grid import GridState
-from . import hopper_shard2d, multihost
+from ..solver.tiled import segment_bounds, spread
+from . import hopper_resident2d, hopper_shard2d, multihost
 
 # Sweeps per halo exchange (epic_tpu's DEFAULT_CHUNK_DEPTH).
 DEFAULT_CHUNK_DEPTH = 16
@@ -63,10 +75,15 @@ DEFAULT_CHUNK_DEPTH = 16
 # stands between.
 FILL = float(C.LOG_SPACE_OBSTACLE)
 
+# The names that hold only on a card (the per-shard route's CUDA entry) and
+# only on the CPU (the plain versions); "auto" and "resident" run anywhere.
 _CARD_NAMES = ("pallas", "pallas_banded")
-_CPU_NAMES = ("xla", "pallas_interpret", "pallas_banded_interpret")
-_NOT_PORTED = ("the resident shard layout (epic_tpu.parallel.resident, resident_tiled: K16 and "
-               "K17) is not ported yet: ROADMAP §1 item 3.2")
+_CPU_NAMES = ("xla", "pallas_interpret", "pallas_banded_interpret", "resident_interpret")
+_RESIDENT = ("resident", "resident_interpret")
+# The largest shard "auto" sends to the resident route: between the 4.7M
+# cells where it measured faster on an H100 and the 8.4M where it measured
+# slower (prefers_resident).
+RESIDENT_MAX_SHARD_CELLS = 6_000_000
 
 
 class Mesh:
@@ -408,11 +425,9 @@ def _frozen_halos(sh: ShardedGrid, k: int) -> None:
 
 
 def check_kernel(kernel: str, mesh: Mesh) -> None:
-    """Refuse a kernel name this mesh does not run: the per-shard route
-    follows the device (the CUDA entry on a card, the plain version on the
-    CPU), and a name only confirms it."""
-    if kernel in ("resident", "resident_interpret"):
-        raise NotImplementedError(f"kernel={kernel!r}: {_NOT_PORTED}")
+    """Refuse a kernel name this mesh does not run: each route follows the
+    device (the CUDA entries on a card, the plain versions on the CPU), and
+    a name only picks the route and confirms the device."""
     on_card = mesh.device_type == "cuda"
     if kernel in _CARD_NAMES and not on_card:
         raise ValueError(f"kernel={kernel!r} runs the CUDA entry; this mesh lies on "
@@ -420,8 +435,31 @@ def check_kernel(kernel: str, mesh: Mesh) -> None:
     if kernel in _CPU_NAMES and on_card:
         raise ValueError(f"kernel={kernel!r} names the plain version; this mesh lies on "
                          "cuda (use 'auto')")
-    if kernel != "auto" and kernel not in _CARD_NAMES + _CPU_NAMES:
+    if kernel not in ("auto", "resident") + _CARD_NAMES + _CPU_NAMES:
         raise ValueError(f"unknown sharded kernel {kernel!r}")
+
+
+def prefers_resident(mesh: Mesh, h_loc: int, w_loc: int) -> bool:
+    """The route "auto" takes for ``h_loc x w_loc`` shards on ``mesh``: the
+    resident one where one device holds the whole mesh and a shard has at
+    most ``RESIDENT_MAX_SHARD_CELLS`` cells, else the per-shard one. On an
+    H100 (``tile_probe --mesh2d``, PERF.md) the resident tick of a 2 x 4
+    virtual mesh takes 0.12-0.97 of the per-shard tick's time up to shards
+    of 3072 x 1536, where the host's launches set the pace, and 1.07-1.12
+    from 4096 x 2048, where its tile pass is the slower. Across devices
+    each device's launch carries one chunk on either route, so the resident
+    route saves no launch where a device holds one shard; it is not
+    measured there."""
+    one_device = len({str(d) for d in mesh.devices.flat}) == 1 and not mesh.multi_process
+    return one_device and h_loc * w_loc <= RESIDENT_MAX_SHARD_CELLS
+
+
+def _resident(sh: ShardedGrid, kernel: str) -> bool:
+    """Whether ``kernel`` sends this grid to the resident route."""
+    check_kernel(kernel, sh.mesh)
+    if kernel == "auto":
+        return prefers_resident(sh.mesh, sh.h_loc, sh.w_loc)
+    return kernel in _RESIDENT
 
 
 def _depth(mesh: Mesh, h_loc: int, w_loc: int, chunk_depth: int) -> int:
@@ -466,14 +504,58 @@ def _chunk(sh: ShardedGrid, k: int, its: dict, t_off: int, ns: int, *, delta: bo
             sh.u_blocks[ij][view], sh.twin_blocks[ij][view], sh.frozen_blocks[ij][view], k=k,
             par0=sh.par0(ij), iteration=its[sh.mesh.devices[ij]], ns=ns, t_off=t_off,
             u1=sh.u1_blocks[ij][view] if u1 else None, want_delta=delta))
-    sh.u_blocks, sh.twin_blocks = sh.twin_blocks, sh.u_blocks
+    _swap(sh)
     return _pmax(sh.mesh, deltas) if delta else None
 
 
-def _prepare(sh: ShardedGrid, chunk_depth: int, kernel: str) -> int:
+def _swap(sh: ShardedGrid) -> None:
+    sh.u_blocks, sh.twin_blocks = sh.twin_blocks, sh.u_blocks
+
+
+def _resident_chunk(sh: ShardedGrid, plans: list, transfers: list, k: int, its: dict, t_off: int,
+                    ns: int, *, delta: bool = False, u1: bool = False):
+    """One chunk of the resident route on a mesh whose plans copy halos:
+    the host's copies, one launch a device, the swap. Returns the pmax of
+    sweep 0's delta when ``delta``."""
+    _run_phase(sh.mesh, sh.u_blocks, transfers)
+    deltas = [hopper_resident2d.cycle(sh, p, k, its[p.device], ns, 1, t_off=t_off, u1=u1)[0]
+              for p in plans]
+    _swap(sh)
+    return _pmax(sh.mesh, deltas) if delta else None
+
+
+def _resident_plans(sh: ShardedGrid, k: int):
+    """The mesh's plans, the host's copies at depth k, and whether one plan
+    covers the whole mesh."""
+    plans = hopper_resident2d.plans(sh.mesh)
+    transfers = hopper_resident2d.copied_transfers(sh.mesh, plans, sh.h_loc, sh.w_loc, sh.halo, k)
+    return plans, transfers, len(plans) == 1 and plans[0].whole
+
+
+def _update_resident(sh: ShardedGrid, k: int, num_steps: int) -> torch.Tensor:
+    """``num_steps`` sweeps on the resident route, spread over ceil(num_steps
+    / K) chunks: one launch where one plan covers the mesh, else a chunk at
+    a time. Returns the first sweep's delta (pmax)."""
+    plans, transfers, whole = _resident_plans(sh, k)
+    its = _on_devices(sh, sh.iteration)
+    n_chunks = -(-num_steps // k)
+    if whole:
+        deltas = hopper_resident2d.cycle(sh, plans[0], k, its[plans[0].device], num_steps,
+                                         n_chunks)
+        if n_chunks % 2:
+            _swap(sh)
+        return deltas[0]
+    delta, t = None, 0
+    for ns in spread(num_steps, n_chunks):
+        d = _resident_chunk(sh, plans, transfers, k, its, t, ns, delta=delta is None)
+        delta = d if delta is None else delta
+        t += ns
+    return delta
+
+
+def _prepare(sh: ShardedGrid, chunk_depth: int) -> int:
     """The depth of a call; regrow the halo and exchange the frozen halos as
     needed."""
-    check_kernel(kernel, sh.mesh)
     k = _depth(sh.mesh, sh.h_loc, sh.w_loc, chunk_depth)
     if k > sh.halo:
         _regrow(sh, k)
@@ -483,12 +565,16 @@ def _prepare(sh: ShardedGrid, chunk_depth: int, kernel: str) -> int:
 
 def _update_n_sharded(sh: ShardedGrid, num_steps: int, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
                       kernel: str = "auto") -> torch.Tensor:
-    """``num_steps`` sweeps from ``sh.iteration`` as ceil(num_steps / K)
-    exchange rounds (the first ``min(K, num_steps)`` deep, then full chunks,
-    then the remainder); returns the first sweep's delta (pmax)."""
+    """``num_steps`` sweeps from ``sh.iteration``: on the resident route
+    (:func:`_update_resident`), or on the per-shard route as ceil(num_steps
+    / K) exchange rounds (the first ``min(K, num_steps)`` deep, then full
+    chunks, then the remainder); returns the first sweep's delta (pmax)."""
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
-    k = _prepare(sh, chunk_depth, kernel)
+    resident = _resident(sh, kernel)
+    k = _prepare(sh, chunk_depth)
+    if resident:
+        return _update_resident(sh, k, num_steps)
     its = _on_devices(sh, sh.iteration)
     d1 = min(k, num_steps)
     delta = _chunk(sh, k, its, 0, d1, delta=True)
@@ -528,36 +614,68 @@ def solve_resident(sh: ShardedGrid, mesh: Mesh | None = None, stagger: int = C.D
     """Solve to convergence on the resident blocks, in place, with the
     protocol of ``core.solve`` (iteration reset to 0, a check every
     ``stagger`` sweeps, exit only right after a passing check with
-    ``iteration >= max(H, W)``, the post-check-sweep state kept). Returns
-    ``(sh, converged)``."""
+    ``iteration >= max(H, W)``, the post-check-sweep state kept), paused at
+    the bounds of ``segment_iterations`` (the resident route only). Where
+    one plan covers the mesh, the resident route runs each segment in one
+    launch. Returns ``(sh, converged)``."""
     _check_mesh(sh, mesh)
-    if segment_iterations is not None:
-        raise NotImplementedError(f"segment_iterations needs the resident layout: {_NOT_PORTED}")
     if stagger < 1:
         raise ValueError(f"stagger must be >= 1, got {stagger}")
-    k = _prepare(sh, chunk_depth, kernel)
+    resident = _resident(sh, kernel)
+    if segment_iterations is not None and not resident:
+        raise ValueError("segment_iterations needs the resident route (kernel='resident', or "
+                         "'auto' where it picks that route)")
+    bounds = ([max_iterations] if segment_iterations is None
+              else segment_bounds(stagger, max_iterations, segment_iterations))
+    k = _prepare(sh, chunk_depth)
     if sh.u1_blocks is None:
         sh.u1_blocks = _blank(sh.mesh, sh.u_blocks[sh.mesh.local[0]].shape, FILL, torch.float32)
     first = sh.mesh.first_device
     zero = _on_devices(sh, torch.zeros((), dtype=torch.int32, device=first))
+    if not resident:
+        chunk = functools.partial(_chunk, sh, k, zero)
+    else:
+        plans, transfers, whole = _resident_plans(sh, k)
+        if whole:
+            return _solve_whole(sh, plans[0], k, stagger, bounds)
+        chunk = functools.partial(_resident_chunk, sh, plans, transfers, k, zero)
     m_max = max(sh.height, sh.width)
     depth = min(k, stagger)
     it, delta, done = 0, sh.epsilon + 1.0, False
-    while not done and it < max_iterations:
-        delta = _chunk(sh, k, zero, it, depth, delta=True, u1=True)
-        if it + 1 >= m_max and bool(delta < sh.epsilon):
-            sh.u_blocks, sh.u1_blocks = sh.u1_blocks, sh.u_blocks
-            it, done = it + 1, True
+    for bound in bounds:
+        while not done and it < bound:
+            delta = chunk(it, depth, delta=True, u1=True)
+            if it + 1 >= m_max and bool(delta < sh.epsilon):
+                sh.u_blocks, sh.u1_blocks = sh.u1_blocks, sh.u_blocks
+                it, done = it + 1, True
+                break
+            t = it + depth
+            while t < it + stagger:
+                ns = min(k, it + stagger - t)
+                chunk(t, ns)
+                t += ns
+            it += stagger
+        if done:
             break
-        t = it + depth
-        while t < it + stagger:
-            ns = min(k, it + stagger - t)
-            _chunk(sh, k, zero, t, ns)
-            t += ns
-        it += stagger
     sh.iteration = torch.tensor(it, dtype=torch.int32, device=first)
     sh.delta = delta
     return sh, torch.tensor(done, dtype=torch.bool, device=first)
+
+
+def _solve_whole(sh: ShardedGrid, plan, k: int, stagger: int, bounds: list):
+    """The resident solve where one plan covers the mesh: the solve entry
+    once a segment, each resuming where the last stopped; the verdict read
+    between segments."""
+    dev = plan.device
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    delta = (sh.epsilon + 1.0).to(device=dev, dtype=torch.float32)
+    done = torch.zeros((), dtype=torch.int32, device=dev)
+    for bound in bounds:
+        hopper_resident2d.solve(sh, plan, k, stagger, bound, it, delta, done)
+        if len(bounds) > 1 and bool(done):
+            break
+    sh.iteration, sh.delta = it, delta
+    return sh, done != 0
 
 
 def set_cells_resident(sh: ShardedGrid, xy, types) -> ShardedGrid:
@@ -685,11 +803,11 @@ def update_n(state: GridState, num_steps: int, mesh: Mesh,
 def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
           max_iterations: int = 1_000_000, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
           kernel: str = "auto", segment_iterations: int | None = None) -> GridState:
-    """``core.solve`` on a mesh (the protocol of :func:`solve_resident`).
-    Returns a GridState on the mesh's first device."""
-    if segment_iterations is not None:
-        raise NotImplementedError(f"segment_iterations needs the resident layout: {_NOT_PORTED}")
+    """``core.solve`` on a mesh (the protocol of :func:`solve_resident`, in
+    segments with ``segment_iterations``). Returns a GridState on the
+    mesh's first device."""
     check_kernel(kernel, mesh)
     sh = shard_state(state, mesh, halo_for(tuple(state.u.shape), mesh, chunk_depth))
-    sh, converged = solve_resident(sh, mesh, stagger, max_iterations, chunk_depth, kernel)
+    sh, converged = solve_resident(sh, mesh, stagger, max_iterations, chunk_depth, kernel,
+                                   segment_iterations)
     return _result(state, sh, iteration=sh.iteration, delta=sh.delta, converged=converged)

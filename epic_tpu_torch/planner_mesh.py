@@ -5,8 +5,8 @@ authoritative state is a mesh-resident
 :class:`epic_tpu_torch.parallel.sharded.ShardedGrid`:
 
 - anytime ticks run :func:`~epic_tpu_torch.parallel.sharded.update_n_resident`
-  (K-deep halo exchange and the per-shard chunks, in place: no re-pad, no
-  re-upload);
+  (in place: no re-pad, no re-upload) on the route ``kernel`` picks, the
+  resident one (one launch a device) or the per-shard one;
 - blocking solves run :func:`~epic_tpu_torch.parallel.sharded.solve_resident`
   from the current blocks (warm-started, like every verb);
 - SetCells, the goal verbs, ResetFreeCells and occupancy ingest write into
@@ -50,15 +50,19 @@ class MeshPlanner(Planner):
 
     Same verbs as :class:`Planner`. ``mesh=None`` is
     :func:`~epic_tpu_torch.parallel.make_mesh` over every visible card;
-    ``chunk_depth`` (sweeps per halo exchange) goes to the sharded verbs,
-    which run the per-shard chunks on the mesh's device (the CUDA entry on
+    ``chunk_depth`` (sweeps per halo exchange) and ``kernel`` (the route:
+    :func:`~epic_tpu_torch.parallel.sharded.check_kernel`'s names) go to
+    the sharded verbs, which run on the mesh's device (the CUDA entries on
     a card). The planner's ``device`` is the mesh's first device."""
 
-    def __init__(self, config=None, mesh=None, chunk_depth: int | None = None):
+    def __init__(self, config=None, mesh=None, chunk_depth: int | None = None,
+                 kernel: str = "auto"):
         self._sh: sharded.ShardedGrid | None = None
         self._host_state: GridState | None = None
         self._converged = False
         self.mesh = mesh if mesh is not None else make_mesh()
+        sharded.check_kernel(kernel, self.mesh)
+        self.kernel = kernel
         self.chunk_depth = sharded.DEFAULT_CHUNK_DEPTH if chunk_depth is None else chunk_depth
         super().__init__(config, device=self.mesh.first_device)
 
@@ -119,21 +123,23 @@ class MeshPlanner(Planner):
         n = num_steps if num_steps is not None else self.config.steps_per_update
         if n < 1:
             return
-        sharded.update_n_resident(self._sh, n, self.mesh, self.chunk_depth)
+        sharded.update_n_resident(self._sh, n, self.mesh, self.chunk_depth, self.kernel)
         # A single-sweep tick carries a verdict (its delta is the check's).
         self._converged = bool(self._sh.delta < self._sh.epsilon) if n == 1 else False
         self._host_state = None
 
     def solve(self, max_iterations: int | None = None,
               segment_iterations: int | None = None) -> None:
-        """Blocking solve to convergence on the resident blocks."""
+        """Blocking solve to convergence on the resident blocks; with
+        ``segment_iterations`` (the resident route) paused at stagger-aligned
+        bounds, the same trajectory."""
         if self.config.cascade:
             raise NotImplementedError(
                 "cascade solves (epic_tpu.solver.cascade) are not ported to epic_tpu_torch yet")
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
         _, conv = sharded.solve_resident(
-            self._resident(), self.mesh, self.config.stagger, cap, self.chunk_depth,
-            segment_iterations=segment_iterations)
+            self._resident(), self.mesh, self.config.stagger, cap, self.chunk_depth, self.kernel,
+            segment_iterations)
         self._converged = bool(conv)
         self._host_state = None
 

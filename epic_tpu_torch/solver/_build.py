@@ -127,11 +127,16 @@ def load() -> ctypes.CDLL:
                                            p, i]
         lib.epic_shard3d_chunk.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, i,
                                            i, i, i, i, p, i, i, p, p, i]
+        lib.epic_resident2d_cycle.argtypes = [p, i, i, i, i, ctypes.c_longlong, i, p, i, i, i, i,
+                                              p, p, i]
+        lib.epic_resident2d_solve.argtypes = [p, i, i, i, i, ctypes.c_longlong, i, p, i, i, i, p,
+                                              p, p, p, p, i]
         for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
                    lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve,
                    lib.epic_batched2d_chunk, lib.epic_batched2d_solve,
                    lib.epic_tile2d_chunk, lib.epic_tile2d_cycle, lib.epic_tile2d_solve,
-                   lib.epic_shard2d_chunk, lib.epic_shard3d_chunk):
+                   lib.epic_shard2d_chunk, lib.epic_shard3d_chunk,
+                   lib.epic_resident2d_cycle, lib.epic_resident2d_solve):
             fn.restype = i
         lib.epic_cuda_error_string.argtypes = [i]
         lib.epic_cuda_error_string.restype = ctypes.c_char_p

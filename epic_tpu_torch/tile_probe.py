@@ -1,7 +1,8 @@
 """Measure the routing crossovers of the tile kernels on one CUDA card.
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
-[--sides ...] [--volumes ...] [--shapes] [--mesh3d]``. It prints the card's name and
+[--sides ...] [--volumes ...] [--shapes] [--mesh3d] [--mesh2d]``. It prints the card's
+name and
 power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` ticks after one warm-up:
 
@@ -22,7 +23,12 @@ power limit, then one JSON line per measurement, CUDA events, mean of
   of 8 shards and on a 2 x 4 plane mesh of the card, beside the model
   costs of :func:`sharded3d.sweep_cost` and the mesh
   :func:`sharded3d.choose_mesh3d` picks (default volumes:
-  ``MESH_VOLUMES``, or the ``--volumes`` shapes).
+  ``MESH_VOLUMES``, or the ``--volumes`` shapes);
+- ``--mesh2d`` (2D): the mesh route. A 100-sweep tick and a solve capped
+  at 500 sweeps of each square grid (``MESH_SIDES``, or the ``--sides``)
+  on a 2 x 4 virtual mesh of the card through the per-shard route
+  (``kernel="pallas"``) and the resident route (``kernel="resident"``),
+  beside the route :func:`sharded.prefers_resident` picks.
 
 Each routing rule's threshold is set where the tile route starts to win.
 States are built on the card from a seed (10% locked cells, the shell
@@ -54,6 +60,8 @@ DEPTHS = (2, 3, 4)
 # 1024^2, 512^2 and 256^2 planes around the model's switch to the z mesh.
 MESH_VOLUMES = ("256", "64x1024x1024", "128x1024x1024", "256x1024x1024", "384x1024x1024",
                 "512x1024x1024", "128x512x512", "256x512x512", "64x256x256", "128x256x256")
+# --mesh2d's grid sides: the maze's, and squares up to chip_smoke.py's 16384^2.
+MESH_SIDES = (482, 1024, 2048, 3072, 4096, 6144, 8192, 12288, 16384)
 
 
 def random_state(shape, dev: torch.device, seed: int = 0) -> G.GridState:
@@ -219,6 +227,36 @@ def probe_mesh3d(dev, reps: int, volumes=MESH_VOLUMES, shards: int = 8) -> None:
         del st, fields
 
 
+def probe_mesh2d(dev, reps: int, sides=MESH_SIDES, shape=(2, 4)) -> None:
+    from .parallel import make_mesh, sharded
+
+    mesh = make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+    for side in sides:
+        st = random_state((side, side), dev)
+        ms, fields = {}, {}
+        for kernel in ("pallas", "resident"):
+            sh = sharded.shard_state(st, mesh)
+            sharded.update_n_resident(sh, 100, mesh, kernel=kernel)
+            ms[kernel, "tick"] = event_ms(
+                lambda: sharded.update_n_resident(sh, 100, mesh, kernel=kernel), reps)
+            ms[kernel, "solve"] = event_ms(
+                lambda: sharded.solve_resident(sh, mesh, max_iterations=500, kernel=kernel), 1)
+            fields[kernel] = sh.u
+            h_loc, w_loc = sh.h_loc, sh.w_loc
+            del sh
+        print(json.dumps(dict(probe="mesh2d", side=side, mesh=list(shape), shard=[h_loc, w_loc],
+                              k14_tick_ms=ms["pallas", "tick"],
+                              resident_tick_ms=ms["resident", "tick"],
+                              resident_over_k14_tick=ms["resident", "tick"] / ms["pallas", "tick"],
+                              k14_solve500_ms=ms["pallas", "solve"],
+                              resident_solve500_ms=ms["resident", "solve"],
+                              auto="resident" if sharded.prefers_resident(mesh, h_loc, w_loc)
+                              else "pallas",
+                              same_bits=bool(torch.equal(fields["pallas"], fields["resident"])))),
+              flush=True)
+        del st, fields
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -230,6 +268,8 @@ def main() -> None:
                     help="probe the 3D tile shapes on the --volumes shapes")
     ap.add_argument("--mesh3d", action="store_true",
                     help="time the 3D mesh orientations (on the --volumes shapes if given)")
+    ap.add_argument("--mesh2d", action="store_true",
+                    help="time the 2D mesh routes (on the --sides grids if given)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tile_probe needs a CUDA card")
@@ -239,6 +279,8 @@ def main() -> None:
     volumes = VOLUMES if not args.volumes else args.volumes
     if args.mesh3d:
         probe_mesh3d(dev, args.reps, args.volumes or MESH_VOLUMES)
+    elif args.mesh2d:
+        probe_mesh2d(dev, args.reps, args.sides or MESH_SIDES)
     elif args.shapes:
         probe_shapes(dev, args.reps, volumes)
     elif args.volumes is not None:

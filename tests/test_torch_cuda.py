@@ -2,9 +2,10 @@
 the card: the 2D kernels (csrc/sweep2d.cu), the 2D tile kernels for grids
 beyond the L2 (csrc/tile2d.cu), the 3D kernels (csrc/sweep3d.cu), the 3D
 tile kernels for volumes beyond it (csrc/tile3d.cu), the batched scenario
-kernels (csrc/batched2d.cu), the shard chunk of the 2D mesh (in
-csrc/tile2d.cu) and the mesh solver and MeshPlanner on a virtual mesh of
-eight shards on the one card, the shard chunk of the 3D mesh
+kernels (csrc/batched2d.cu), the shard chunk of the 2D mesh and the
+resident route's cycle and solve entries (in csrc/tile2d.cu) and the mesh
+solver and MeshPlanner on a virtual mesh of eight shards on the one card,
+the shard chunk of the 3D mesh
 (csrc/shard3d.cu) and the 3D mesh solver and MeshVolumePlanner on virtual
 meshes of the card, the planners that drive them, and the batched walkers
 on the card against the same walkers on the CPU.
@@ -20,6 +21,7 @@ same accurate expf/logf, in the same op order (solver/_sweep_body.py); the
 walkers use only IEEE-exact ops (+, -, *, /, sqrt) and gathers.
 """
 
+import copy
 import dataclasses
 import pathlib
 
@@ -34,8 +36,8 @@ import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.planner_mesh import MeshPlanner, MeshVolumePlanner
-from epic_tpu_torch.parallel import (hopper_shard2d, hopper_shard3d, make_mesh, make_mesh3d,
-                                     sharded, sharded3d)
+from epic_tpu_torch.parallel import (hopper_resident2d, hopper_shard2d, hopper_shard3d, make_mesh,
+                                     make_mesh3d, sharded, sharded3d)
 from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
                                    hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled, tiled3d)
 
@@ -838,26 +840,34 @@ def test_shard_chunk_refuses_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.parametrize("shape,depth", [((2, 4), 16), ((2, 4), 64), ((8, 1), 4), ((1, 1), 16)])
 def test_virtual_mesh_update_and_solve_give_cores_bits(dev, shape, depth):
-    """The mesh solver on P shards of the one card: ticks from both parities
-    and solves (converged, and capped) equal core's; only the CUDA entry
-    runs."""
+    """The mesh solver on P shards of the one card, on the per-shard route
+    ("pallas") and the resident route ("resident", which "auto" takes):
+    ticks from both parities and solves (converged, capped, and in
+    segments on the resident route) equal core's; only the CUDA entries
+    run."""
     mesh = make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
-    before, calls = dict(hopper_shard2d.launches), dict(hopper_shard2d.calls)
-    for t0 in (0, 1):
-        st = _grid(67, 101, dev, t0=t0)
-        for n in (1, 50):
-            _assert_same(sharded.update_n(st, n, mesh, chunk_depth=depth), core.update_n(st, n))
-    st = _grid(67, 101, dev, seed=5, eps=1e-1)
-    for stagger, cap in ((100, 1_000_000), (7, 1_000_000), (10, 95)):
-        out = sharded.solve(st, mesh, stagger, cap, chunk_depth=depth)
-        _assert_same(out, core.solve(st, stagger, cap))
-    assert hopper_shard2d.launches["epic_shard2d_chunk"] > before["epic_shard2d_chunk"]
-    assert hopper_shard2d.calls == calls
-    for kernel in ("xla", "pallas_interpret"):     # the plain version's names
+    before = dict(hopper_shard2d.launches), dict(hopper_resident2d.launches)
+    calls = dict(hopper_shard2d.calls), dict(hopper_resident2d.calls)
+    for kernel in ("pallas", "resident", "auto"):
+        for t0 in (0, 1):
+            st = _grid(67, 101, dev, t0=t0)
+            for n in (1, 50):
+                _assert_same(sharded.update_n(st, n, mesh, chunk_depth=depth, kernel=kernel),
+                             core.update_n(st, n))
+        st = _grid(67, 101, dev, seed=5, eps=1e-1)
+        for stagger, cap in ((100, 1_000_000), (7, 1_000_000), (10, 95)):
+            out = sharded.solve(st, mesh, stagger, cap, chunk_depth=depth, kernel=kernel)
+            _assert_same(out, core.solve(st, stagger, cap))
+    out = sharded.solve(st, mesh, 100, chunk_depth=depth, kernel="resident",
+                        segment_iterations=150)
+    _assert_same(out, core.solve(st, 100))
+    assert hopper_shard2d.launches["epic_shard2d_chunk"] > before[0]["epic_shard2d_chunk"]
+    for name, n in hopper_resident2d.launches.items():
+        assert n > before[1][name]
+    assert (dict(hopper_shard2d.calls), dict(hopper_resident2d.calls)) == calls
+    for kernel in ("xla", "pallas_interpret", "resident_interpret"):   # the plain versions' names
         with pytest.raises(ValueError, match="plain version"):
             sharded.update_n(st, 3, mesh, kernel=kernel)
-    with pytest.raises(NotImplementedError, match="K16"):
-        sharded.update_n(st, 3, mesh, kernel="resident")
 
 
 def test_mesh_planner_on_the_card_equals_the_planner(dev):
@@ -868,7 +878,7 @@ def test_mesh_planner_on_the_card_equals_the_planner(dev):
     occ = np.where(img == 0, 100, 0).astype(np.int8)
     gy, gx = [int(v) for v in np.argwhere(img == 255)[0]]
     cfg = PlannerConfig(epsilon=1e-2, steps_per_update=25)
-    mp = MeshPlanner(cfg, mesh=make_mesh((2, 4), devices=[dev] * 8))
+    mp = MeshPlanner(cfg, mesh=make_mesh((2, 4), devices=[dev] * 8), kernel="pallas")
     sp = Planner(PlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
     for pl in (mp, sp):
         pl.init(160, 96)
@@ -887,6 +897,185 @@ def test_mesh_planner_on_the_card_equals_the_planner(dev):
     a, b = mp.state, sp.state
     assert a.u.device == dev and torch.equal(a.u, b.u)
     assert int(a.iteration) == int(b.iteration) and bool(a.converged) and bool(b.converged)
+
+
+# -- the 2D resident route: epic_resident2d_cycle and epic_resident2d_solve -------------------
+
+def _resident_grid(dev, t0=0, seed=0, halo=16, eps=1e-2, image=False):
+    """A ShardedGrid on a 2 x 4 virtual mesh of the card: 150 x 300 (shards
+    of 75 x 75 over two ragged 64 x 128 tiles each), a random field with
+    obstacles and goals (or, with ``image``, a seeded random-obstacle map
+    that converges), its frozen halos exchanged and u1 blocks allocated."""
+    if image:
+        st = _grid(150, 300, dev, seed=seed, eps=eps, t0=t0)
+    else:
+        rng = np.random.default_rng(seed)
+        u = np.where(rng.random((150, 300)) < 0.05, 0.0,
+                     -rng.random((150, 300)) * 40).astype(np.float32)
+        st = TG.make_state(u, rng.random((150, 300)) < 0.15, eps, device=dev)
+        st = dataclasses.replace(st, iteration=torch.tensor(t0, dtype=torch.int32, device=dev))
+    mesh = make_mesh((2, 4), devices=[dev] * 8)
+    sh = sharded.shard_state(st, mesh, halo=halo)
+    sharded._frozen_halos(sh, halo)
+    sh.u1_blocks = sharded._blank(mesh, sh.u_blocks[0, 0].shape, sharded.FILL, torch.float32)
+    return sh
+
+
+def _copy_grid(sh):
+    c = copy.copy(sh)
+    for name in ("u_blocks", "twin_blocks", "u1_blocks", "frozen_blocks"):
+        setattr(c, name, {ij: b.clone() for ij, b in getattr(sh, name).items()})
+    return c
+
+
+def _same_blocks(a, b):
+    torch.cuda.synchronize()
+    for name in ("u_blocks", "twin_blocks", "u1_blocks"):
+        for ij in a.mesh.local:
+            assert torch.equal(getattr(a, name)[ij], getattr(b, name)[ij]), (name, ij)
+
+
+@pytest.mark.parametrize("n_chunks,total", [(1, 16), (2, 32), (3, 40), (2, 17), (3, 4)])
+def test_resident_cycle_gives_the_plain_versions_bits(dev, n_chunks, total):
+    """K16/K17: 1, 2 and 3 chunks (spread, a ragged remainder) on all eight
+    shards in one launch, with and without u1, from both parities, against
+    the plain version on the same blocks: every block and every chunk's
+    delta the same bits."""
+    for t0 in (0, 1):
+        for with_u1 in (False, True):
+            sh = _resident_grid(dev, t0=t0, seed=t0)
+            ref = _copy_grid(sh)
+            plan = hopper_resident2d.plans(sh.mesh)[0]
+            assert plan.whole and len(plan.slots) == 8
+            before, calls = dict(hopper_resident2d.launches), dict(hopper_resident2d.calls)
+            d = hopper_resident2d.cycle(sh, plan, 16, sh.iteration, total, n_chunks, u1=with_u1)
+            torch.cuda.synchronize()
+            assert hopper_resident2d.launches["epic_resident2d_cycle"] == \
+                before["epic_resident2d_cycle"] + 1
+            assert hopper_resident2d.calls == calls
+            p = hopper_resident2d.plain_cycle(ref, plan, 16, ref.iteration, total, n_chunks,
+                                              u1=with_u1)
+            assert torch.equal(d, p) and bool((d > 0).all())
+            _same_blocks(sh, ref)
+
+
+def test_resident_cycle_with_copied_neighbours_gives_the_same_bits(dev):
+    """Neighbours forced to "copied" in the plan: the host copies their
+    halos between one-chunk launches, and the result is the all-direct
+    three-chunk launch's, bit for bit, with the same deltas."""
+    sh = _resident_grid(dev, t0=1, seed=4)
+    ref = _copy_grid(sh)
+    plan = hopper_resident2d.plans(sh.mesh)[0]
+    d_all = hopper_resident2d.cycle(ref, plan, 16, ref.iteration, 40, 3, u1=True)
+    sharded._swap(ref)                        # three chunks: the state is in the twins
+    kinds = {ij: dict(nb) for ij, nb in plan.kinds.items()}
+    for ij, offsets in {(0, 1): [(0, 1), (1, 1), (1, 0), (1, -1)], (1, 2): [(-1, -1), (0, -1)],
+                        (1, 3): [(-1, 0), (-1, -1)]}.items():
+        for d in offsets:
+            kinds[ij][d] = hopper_resident2d.COPIED
+    forced = hopper_resident2d.Plan(plan.device, list(plan.slots), kinds)
+    assert not forced.whole
+    transfers = hopper_resident2d.copied_transfers(sh.mesh, [forced], sh.h_loc, sh.w_loc,
+                                                   sh.halo, 16)
+    with pytest.raises(ValueError, match="one chunk a launch"):
+        hopper_resident2d.cycle(sh, forced, 16, sh.iteration, 40, 3)
+    deltas = []
+    for c, ns in enumerate((14, 13, 13)):
+        sharded._run_phase(sh.mesh, sh.u_blocks, transfers)
+        deltas.append(hopper_resident2d.cycle(sh, forced, 16, sh.iteration, ns, 1,
+                                              t_off=sum((14, 13, 13)[:c]), u1=c == 0)[0])
+        sharded._swap(sh)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(deltas), d_all)
+    for ij in sh.mesh.local:
+        for name in ("u_blocks", "u1_blocks"):
+            a, b = sh.centre(getattr(sh, name), ij), ref.centre(getattr(ref, name), ij)
+            assert torch.equal(a, b), (name, ij)
+
+
+@pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (7, 1_000_000), (10, 95)])
+def test_resident_solve_resumed_across_segments_gives_one_launchs_bits(dev, stagger, cap):
+    """The solve entry resumed at the segment bounds of 37 sweeps against
+    one launch, and both against the plain version and core: the same bits,
+    iterations and verdicts."""
+    st = _grid(150, 300, dev, seed=5, eps=1e-1)
+    runs = {}
+    for name in ("one", "segments", "plain"):
+        sh = _resident_grid(dev, seed=5, eps=1e-1, image=True)
+        plan = hopper_resident2d.plans(sh.mesh)[0]
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        delta = (sh.epsilon + 1.0).to(torch.float32)
+        done = torch.zeros((), dtype=torch.int32, device=dev)
+        bounds = tiled.segment_bounds(stagger, cap, 37) if name == "segments" else [cap]
+        run = hopper_resident2d.plain_solve if name == "plain" else hopper_resident2d.solve
+        for bound in bounds:
+            run(sh, plan, 16, stagger, bound, it, delta, done)
+            if bool(done):
+                break
+        torch.cuda.synchronize()
+        runs[name] = (sharded.unshard(sh).u, int(it), float(delta), int(done))
+    ref = core.solve(st, stagger, cap)
+    for name in ("segments", "plain"):
+        assert torch.equal(runs[name][0], runs["one"][0]) and runs[name][1:] == runs["one"][1:]
+    assert torch.equal(runs["one"][0], ref.u)
+    assert runs["one"][1:] == (int(ref.iteration), float(ref.delta), int(ref.converged))
+
+
+def test_resident_mesh_planner_on_the_card_equals_the_planner(dev):
+    """A MeshPlanner on the resident route ("auto" takes it) and a Planner
+    run one session to the same bits; on the mesh only the resident
+    entries run."""
+    img = maps.recursive_maze(96, 160, seed=3)
+    occ = np.where(img == 0, 100, 0).astype(np.int8)
+    gy, gx = [int(v) for v in np.argwhere(img == 255)[0]]
+    for kernel in ("resident", "auto"):
+        mp = MeshPlanner(PlannerConfig(epsilon=1e-2, steps_per_update=25),
+                         mesh=make_mesh((2, 4), devices=[dev] * 8), kernel=kernel)
+        sp = Planner(PlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+        for pl in (mp, sp):
+            pl.init(160, 96)
+            pl.update_occupancy(occ)
+            assert pl.add_goals([(float(gx), float(gy))])
+        counts = (dict(hopper_shard2d.launches), dict(hopper_resident2d.launches),
+                  dict(hopper_resident2d.calls), dict(core.calls))
+        for _ in range(3):
+            mp.update()
+        mp.set_cells([(10, 10)], [C.CELL_TYPE_OBSTACLE])
+        mp.update(13)
+        mp.solve(segment_iterations=500)
+        torch.cuda.synchronize()
+        assert hopper_shard2d.launches == counts[0]
+        assert all(hopper_resident2d.launches[n] > counts[1][n] for n in counts[1])
+        assert hopper_resident2d.calls == counts[2] and core.calls == counts[3]
+        for _ in range(3):
+            sp.update()
+        sp.set_cells([(10, 10)], [C.CELL_TYPE_OBSTACLE])
+        sp.update(13)
+        sp.solve()
+        a, b = mp.state, sp.state
+        assert torch.equal(a.u, b.u) and int(a.iteration) == int(b.iteration)
+        assert bool(a.converged) and bool(b.converged)
+
+
+def test_resident_entries_refuse_what_they_do_not_take(dev):
+    sh = _resident_grid(dev, halo=61)
+    plan = hopper_resident2d.plans(sh.mesh)[0]
+    launches = dict(hopper_resident2d.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        hopper_resident2d.cycle(sh, plan, 61, 0, 61, 1)
+    with pytest.raises(ValueError, match="depth 62"):
+        hopper_resident2d.cycle(sh, plan, 62, 0, 62, 1)
+    with pytest.raises(ValueError, match="chunks of 1..16"):
+        hopper_resident2d.cycle(sh, plan, 16, 0, 49, 3)
+    twin = sh.twin_blocks[0, 0]
+    sh.twin_blocks[0, 0] = sh.u_blocks[0, 0]
+    with pytest.raises(ValueError, match="distinct"):
+        hopper_resident2d.cycle(sh, plan, 16, 0, 16, 1)
+    sh.twin_blocks[0, 0] = twin
+    it, done = torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int32)
+    with pytest.raises(ValueError, match="scalars"):
+        hopper_resident2d.solve(sh, plan, 16, 100, 1000, it, torch.ones(()), done)
+    assert hopper_resident2d.launches == launches
 
 
 # -- the 3D mesh: epic_shard3d_chunk in csrc/shard3d.cu -------------------------------------

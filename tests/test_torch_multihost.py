@@ -1,6 +1,8 @@
 """The port's mesh across processes: two processes of 4 CPU shards each, one
 2x4 mesh over torch.distributed (gloo standing in for the network between
-hosts), as tests/test_multihost.py runs epic_tpu's; in the 3D modes a
+hosts), as tests/test_multihost.py runs epic_tpu's; a 48 x 512 grid on the
+resident route (``solve_resident``: the halos between the processes are its
+copied neighbours, those within a process direct); in the 3D modes a
 seeded volume on that plane mesh (``solve3d``) and on an 8 x 1 x 1 z mesh
 through the resident route (``solve_resident_z``). Halos between the
 processes travel by point-to-point sends, the check's delta by an
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from epic_tpu_torch.parallel._mh_worker import worker_state, worker_volume
+from epic_tpu_torch.parallel._mh_worker import RESIDENT_WIDTH, worker_state, worker_volume
 from epic_tpu_torch.solver import core
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -34,7 +36,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.parametrize("mode", ["solve", "update", "solve3d", "solve_resident_z"])
+@pytest.mark.parametrize("mode", ["solve", "update", "solve_resident", "solve3d",
+                                  "solve_resident_z"])
 def test_two_process_mesh_equals_core(tmp_path, mode):
     port = _free_port()
     out = tmp_path / "mh.npz"
@@ -61,6 +64,8 @@ def test_two_process_mesh_equals_core(tmp_path, mode):
     assert int(d["process_count"]) == 2
     if mode == "update":
         ref = core.update_n(worker_state(), 137)
+    elif mode == "solve_resident":
+        ref = core.solve(worker_state(48, RESIDENT_WIDTH))
     else:
         ref = core.solve(worker_state() if mode == "solve" else worker_volume())
     assert int(d["iteration"]) == int(ref.iteration)

@@ -17,7 +17,7 @@ from epic_tpu.planner_mesh import MeshPlanner as JMeshPlanner
 from epic_tpu_torch.parallel import make_mesh
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner_mesh import MeshPlanner
-from epic_tpu_torch.parallel import hopper_shard2d
+from epic_tpu_torch.parallel import hopper_resident2d, hopper_shard2d
 
 FIELD = dict(rtol=2e-6, atol=1e-3)
 CPU = torch.device("cpu")
@@ -169,9 +169,21 @@ def test_navigation_node_runs_on_mesh_planner(jmesh8):
 
 
 def test_mesh_planner_never_runs_the_kernel_on_the_cpu_and_refuses_resident():
-    before = dict(hopper_shard2d.launches)
-    pl = MeshPlanner(PlannerConfig(epsilon=1e-2), mesh=_mesh())
-    _session(pl, maps.recursive_maze(32, 48, seed=2), ticks=2, steps=7)
-    assert hopper_shard2d.launches == before
-    with pytest.raises(NotImplementedError, match="K16"):
-        pl.solve(segment_iterations=100)     # resumable segments wait for the resident layout
+    """On a CPU mesh no CUDA entry runs; a solve in resumable segments runs
+    on the resident route (K16/K17's) and gives the Planner's bits, and is
+    refused on the per-shard route."""
+    before = dict(hopper_shard2d.launches), dict(hopper_resident2d.launches)
+    img = maps.recursive_maze(32, 48, seed=2)
+    pl = _session(MeshPlanner(PlannerConfig(epsilon=1e-2), mesh=_mesh(), kernel="resident"), img,
+                  ticks=2, steps=7)
+    ref = _session(Planner(PlannerConfig(epsilon=1e-2), device="cpu"), img, ticks=2, steps=7)
+    pl.solve(segment_iterations=100)
+    ref.solve()
+    _same(pl, ref)
+    assert (dict(hopper_shard2d.launches), dict(hopper_resident2d.launches)) == before
+    per_shard = _session(MeshPlanner(PlannerConfig(epsilon=1e-2), mesh=_mesh(), kernel="xla"),
+                         img, ticks=2, steps=7)
+    with pytest.raises(ValueError, match="resident route"):
+        per_shard.solve(segment_iterations=100)
+    with pytest.raises(ValueError, match="CUDA entry"):
+        MeshPlanner(PlannerConfig(epsilon=1e-2), mesh=_mesh(), kernel="pallas")

@@ -190,6 +190,8 @@ def test_set_cells_resident_on_and_off_the_ring():
 
 
 def test_unknown_and_unported_kernels_raise():
+    """Unknown names raise; the resident route's names (K16/K17) run and give
+    core's bits, and segments run on it and raise on the per-shard route."""
     img = maps.random_obstacles(48, 64, density=0.1, seed=7)
     _, st = _states(img)
     mesh = _mesh()
@@ -199,12 +201,15 @@ def test_unknown_and_unported_kernels_raise():
     with pytest.raises(ValueError, match="unknown sharded kernel"):
         sharded.update_n(st, 1, mesh, kernel="bogus")
     for kernel in ("resident", "resident_interpret"):
-        with pytest.raises(NotImplementedError, match="K16"):
-            sharded.update_n(st, 1, mesh, kernel=kernel)
-        with pytest.raises(NotImplementedError, match="K16"):
-            sharded.solve_resident(sh, mesh, kernel=kernel)
-    with pytest.raises(NotImplementedError, match="3.2"):
-        sharded.solve(st, mesh, segment_iterations=100)
+        _same(sharded.update_n(st, 3, mesh, kernel=kernel), core.update_n(st, 3))
+        out, conv = sharded.solve_resident(sharded.shard_state(st, mesh), mesh, 10, 60,
+                                           kernel=kernel)
+        ref = core.solve(st, 10, 60)
+        assert torch.equal(sharded.unshard(out).u, ref.u) and bool(conv) == bool(ref.converged)
+        assert int(out.iteration) == int(ref.iteration)
+    _same(sharded.solve(st, mesh, 10, 60, segment_iterations=25), core.solve(st, 10, 60))
+    with pytest.raises(ValueError, match="resident route"):
+        sharded.solve(st, mesh, 10, 60, kernel="xla", segment_iterations=25)
     # The CUDA entry's names on a CPU mesh raise; the plain version's names run it.
     for kernel in ("pallas", "pallas_banded"):
         with pytest.raises(ValueError, match="CUDA entry"):
