@@ -202,9 +202,14 @@ Bounds. ``bound_ms`` is the larger of two times for the same work as
 3.35 TB/s, and its operations (17 float32 operations an lse4 update and 25
 an lse6 update, an expf or logf counted as one, which makes the bound
 loose; the updates counted from this run's unlocked interior cells and
-sweeps) over 67 TFLOP/s: the H100 SXM's published peaks. No single
-PyTorch call computes a red-black logsumexp sweep, so ``library_ms`` is
-null.
+sweeps) over 67 TFLOP/s: the H100 SXM's published peaks. No bit-exact
+kernel can come near the operation bound: an accurate expf or logf is
+many instructions. ``issue_bound_ms`` is the least time to issue the same
+updates' instructions: the updates times the SASS instructions of one
+accurate lse4 or lse6 (``LSE4_SASS``, ``LSE6_SASS``), over the card's SMs
+x 128 lanes a clock at the SM clock nvidia-smi reads under load in this
+run (phase 12). No single PyTorch call computes a red-black logsumexp
+sweep, so ``library_ms`` is null.
 Times are CUDA-event times on the card the script ran on, unless a name
 says ``_s`` (host clock around work that ends in a synchronize).
 """
@@ -262,6 +267,12 @@ PEAK_FP32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # float32 operations of one update: lse4 = 3 max, 4 sub, 4 expf, 3 add, logf,
 # add, sub; lse6 = 5 max, 6 sub, 6 expf, 5 add, logf, add, sub.
 OPS_LSE4, OPS_LSE6 = 17, 25
+# SASS instructions of one update on sm_90a, counted once on the card with
+# `python -m epic_tpu_torch.tile_probe --sass` (`cuobjdump -sass` of a kernel
+# that computes one lse4 / lse6 a thread, less one that adds the same loaded
+# values; no branch inside either): the issue slots an accurate update needs.
+LSE4_SASS, LSE6_SASS = 71, 91
+LANES_PER_SM_CLOCK = 128     # a Hopper SM: four schedulers, a warp instruction a clock each
 BYTES_PER_CELL = 9           # u read, locked read, u written
 SOURCES = {
     "epic_sweep2d_chunk": "epic_tpu_torch/csrc/sweep2d.cu",
@@ -442,7 +453,34 @@ def bound(locked: torch.Tensor, t0: int, sweeps, lse6: bool = False,
     t_bytes = locked.numel() * BYTES_PER_CELL / PEAK_BYTES_PER_S
     t_ops = n_updates * (OPS_LSE6 if lse6 else OPS_LSE4) / PEAK_FP32_PER_S
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                updates=n_updates, lse6=lse6)
+
+
+def issue_bound_ms(b: dict, sm_clock_mhz: float) -> float:
+    """The least time to issue a bound's updates at ``LSE4_SASS`` or
+    ``LSE6_SASS`` instructions each on every SM of the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_update = LSE6_SASS if b["lse6"] else LSE4_SASS
+    return b["updates"] * per_update / (sms * LANES_PER_SM_CLOCK * sm_clock_mhz * 1e6) * 1e3
+
+
+def sm_clock_mhz(fn) -> float:
+    """The highest SM clock nvidia-smi reads, every 50 ms, while ``fn`` runs
+    (it should keep the card busy for a second or more)."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                             "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.5)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=10)[0]
+    clocks = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+    require(bool(clocks), "nvidia-smi read no SM clock")
+    return max(clocks)
 
 
 def phase_build() -> dict:
@@ -808,6 +846,7 @@ def phase_biggrid(dev) -> dict:
 
     k1 = copy_state(starts[0])
     k1_ms10 = event_ms(lambda: hopper_sweep.update_n(k1, 100), reps=10)
+    clock = sm_clock_mhz(lambda: [hopper_sweep.update_n(k1, 100) for _ in range(50)])
 
     # The chunk and cycle entries alone, against the plain tile version.
     src, locked = base.u, base.locked
@@ -838,8 +877,10 @@ def phase_biggrid(dev) -> dict:
          cycle_sweeps=50, cycle_chunks=4, cycle_kernel_ms_mean10=cycle_ms,
          cycle_plain_ms=cycle_p_ms,
          cell_updates_per_s_tile=(side - 2) ** 2 / 2 * 100 / (times["tick10"] / 1e3),
-         cell_updates_per_s_sweep2d=(side - 2) ** 2 / 2 * 100 / (k1_ms10 / 1e3), bounds=bounds)
+         cell_updates_per_s_sweep2d=(side - 2) ** 2 / 2 * 100 / (k1_ms10 / 1e3), bounds=bounds,
+         sm_clock_mhz_under_load=clock)
     return {"launches": launches, "err": max(errs + [solve_err, seg_err, chunk_err, cycle_err]),
+            "sm_clock_mhz": clock,
             "chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
             "cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
             "solve": (times["solve"], solve_p_ms, bounds["solve"])}
@@ -1777,7 +1818,8 @@ def work_bound(n_bytes: float, n_updates: int) -> dict:
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = n_updates * OPS_LSE4 / PEAK_FP32_PER_S
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                updates=n_updates, lse6=False)
 
 
 def shard_work(frozen_view: torch.Tensor, par0: int, t0: int, sweeps: int, k: int,
@@ -2279,7 +2321,8 @@ def shard_bound3d(frozen_view: torch.Tensor, halo, par0: int, t0: int, sweeps: i
     t_bytes = (frozen_view.numel() * 5 + centre.numel() * 4 * (2 if u1 else 1)) / PEAK_BYTES_PER_S
     t_ops = n_updates * OPS_LSE6 / PEAK_FP32_PER_S
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                updates=n_updates, lse6=True)
 
 
 def entry_alone(sv, idx, runs, what: str):
@@ -2459,7 +2502,9 @@ def main() -> None:
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],
                     plain_ms=times[name][1], bound_ms=times[name][2]["bound_ms"],
-                    bound_by=times[name][2]["bound_by"], library_ms=None)
+                    bound_by=times[name][2]["bound_by"],
+                    issue_bound_ms=issue_bound_ms(times[name][2], big["sm_clock_mhz"]),
+                    library_ms=None)
                for name in SOURCES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(built["smi"], flush=True)

@@ -39,19 +39,62 @@
 // with the plain versions in epic_tpu_torch/parallel/hopper_resident2d.py.
 //
 // Design. A full-width band never fits shared memory here (8192 columns x 48
-// rows x 5 B is 1.9 MB), so one layout answers both TPU layouts: a block owns
-// a kTH x kTW centre of the unpadded H x W grid (the last row and column of
-// tiles ragged), loads (kTH+2K) x (kTW+2K) cells of u (float) and of a frozen
-// byte (locked, the grid's ring, or outside the grid, where u is
-// LOG_SPACE_OBSTACLE) into dynamic shared memory, and runs up to K sweeps
-// there in place (a class reads only the other class; __syncthreads between
-// sweeps). Sweep s updates a cell only inside the trapezoid of
-// pallas_biggrid.py:251-255 (local row and column in (s, ext-1-s)), of the
-// class (y + x) % 2 != (t0 + s) % 2 in global coordinates; after K sweeps the
-// centre is exact and is written to dst, never to src, whose halo the
-// neighbouring blocks read. So chunks ping-pong between two buffers, and
-// grid-wide barriers (cooperative_groups::this_grid().sync()) separate the
-// chunks of a cycle or a solve.
+// rows x 4 B is 1.6 MB), so one layout answers both TPU layouts: a block owns
+// a TH x TW centre of the unpadded H x W grid (the last row and column of
+// tiles ragged), loads the (TH+2K) x (TW+2K) cells of its halo-extended
+// tile (u, and whether it is frozen: locked, the grid's ring, or outside the
+// grid, where u is LOG_SPACE_OBSTACLE) into dynamic shared memory, and runs
+// up to K sweeps there in place (a class reads only the other class;
+// __syncthreads between sweeps). Sweep s updates a cell only inside the
+// trapezoid of pallas_biggrid.py:251-255 (local row and column in (s,
+// ext-1-s)), of the class (y + x) % 2 != (t0 + s) % 2 in global coordinates;
+// after K sweeps the centre is exact and is written to dst, never to src,
+// whose halo the neighbouring blocks read. So chunks ping-pong between two
+// buffers, and grid-wide barriers (cooperative_groups::this_grid().sync())
+// separate the chunks of a cycle or a solve.
+//
+// The tile in shared memory, class-split. Cell (lr, lc) of the extended
+// tile has class q = (par + lr + lc) & 1 (par: the parity of local (0, 0) in
+// global coordinates) and lives at a[q][lr * P + (lc >> 1)]: each class in
+// its own array of P = (TW + 2K) / 2 cells a row. In a row the cells of
+// class q are the columns o + 2j, o = (par + lr + q) & 1, so cell j's N and S
+// neighbours are a[1-q] at rows lr -+ 1, index j, and its W and E ones a[1-q]
+// at row lr, indices j + o - 1 and j + o: lanes at consecutive j touch
+// consecutive words, free of bank conflicts. The frozen flags are bits, one
+// a cell, in 32-bit words per class row (f[q][lr * NW + j / 32], bit j % 32),
+// so a cell costs 4 B and 1/8 B of shared memory (smem_bytes), and the
+// 96 x 160 tile at K = 16 (101 KB) leaves room for two blocks an SM. The
+// load gives a lane the pair of columns (2m, 2m+1), which lands at index m
+// of both arrays (one float2 __ldcg where the row's address allows), and
+// builds the frozen words with two ballots.
+//
+// Sweeps with no division. A warp walks a strip of rows down the tile, its
+// lanes at consecutive j, and keeps the other class's cells at its j in the
+// rows above in registers: an update costs two shared loads (the row below,
+// and the W or E neighbour that is not index j) besides its frozen word and
+// its store. Rows go in pairs of known o, so no parity arithmetic is left a
+// cell; sweep 0 is its own instantiation (kFirst), so the delta test stays
+// out of sweeps 1..ns-1; lse4 runs on every lane and only the store is
+// predicated. The loop comes to some 84 SASS instructions an update, of
+// which lse4 is 71.
+//
+// Two tile shapes. Beyond the L2 the 96 x 160 tile (Big) is the fastest of
+// the shapes measured: its class row of 96 cells at K = 16 is three whole
+// warps, and its halo recompute 1.27x (64 x 128's is 1.39x). A launch whose
+// grid, shard or plan gives the SMs fewer than two such tiles each (the
+// maze, its mesh shards) runs on the 32 x 96 tile (Small) instead, which
+// spreads the same work over more SMs.
+//
+// What each step measured on one 8192 x 4096 shard chunk at K = 16 (H100
+// 80GB HBM3, 700 W; tile_probe --shapes2d, the earlier design 1.76 ms):
+// class-split rows, a warp a row, at 64 x 128: 2.08 ms (a class row of 80
+// cells idles a quarter of the lanes); a flat walk over the trapezoid's
+// cells, one division a sweep: 1.83 ms, 1.60 ms at 96 x 160; the strip walk
+// with registers down a column: 1.55 ms; rows in pairs of known parity:
+// 1.39 ms; the predicated store: 1.35 ms. The small tile took the maze's
+// tile solve from 225 ms to 116 ms. The solve kernels keep the tile and the
+// pass's arguments in shared memory while they sweep (kStash), which is
+// what lets them fit 64 registers with no spill.
 //
 // Delta. max |u1 - u0| over the block's centre cells that lie in the grid,
 // never over fill cells (ROADMAP R7), reduced with block_max_atomic
@@ -88,7 +131,10 @@
 // separates chunks. The delta is taken over the shards' centres: each
 // chunk starts from the neighbours' current values, so a halo cell repeats
 // its owner's sweep-0 update, and the max over the shards equals the block
-// delta's (K14/K15) and K16/K17's interior delta's.
+// delta's (K14/K15) and K16/K17's interior delta's. The tile's load
+// resolves the region once a row: a row of the view crosses at most three
+// regions (left halo, centre, right halo), whose row addresses it computes
+// from the table before its cells, so a cell only picks one of three.
 //
 // Numerics. lse4 from sweep_common.cuh, no --use_fast_math: the kernels give
 // the plain version's (and solver/core.py's) bits.
@@ -97,13 +143,13 @@
 // solve the previous chunk's blocks wrote it during the same launch.
 //
 // Bound on this card. A chunk of K sweeps moves each cell through HBM about
-// once (the halo reads (1 + 2K/kTH)(1 + 2K/kTW) of the grid, 5 B a cell, plus
-// 4 B written), so beyond L2 the kernels are no longer bound by HBM bytes,
-// as K1 is, but by the lse4 arithmetic in shared memory (two expf and logf
-// calls' worth of accurate libm code a cell) and by the halo recompute
-// (the trapezoid's mean area over the centre's). Simple first: one thread
-// per cell of a class, an integer division by a run-time width per cell,
-// 2-way bank conflicts on the stride-2 class; tuning is later work.
+// once (the halo reads (1 + 2K/TH)(1 + 2K/TW) of the grid, 5 B a cell, plus
+// 4 B written), so beyond L2 the kernels are not bound by HBM bytes, as K1
+// is, but by the instructions the SMs issue: the accurate lse4 (four expf
+// and a logf, no fast math: 71 SASS instructions, chip_smoke.py's
+// LSE4_SASS) and the dozen around it, over the halo recompute and the lanes
+// a class row leaves idle. chip_smoke.py's issue_bound_ms prices the useful
+// updates at LSE4_SASS each; PERF.md holds the kernels' share of it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -117,12 +163,35 @@ namespace {
 
 constexpr float kObstacle = -1e6f;  // constants.LOG_SPACE_OBSTACLE
 
-// The centre a block owns and the threads of a block: the fastest of the
-// shapes measured at 4096^2 and 8192^2 on an H100 (PERF.md).
-// solver/hopper_tile2d.py's TILE holds the same centre.
-constexpr int kTH = 64;
-constexpr int kTW = 128;
+// The centre a block owns, the threads of a block and the blocks an SM the
+// register budget is held to: the fastest of the shapes tile_probe
+// --shapes2d measured on an H100 (PERF.md). solver/hopper_tile2d.py's TILE
+// holds the same centre. A grid (or shard, or plan) too small to give every
+// SM two such tiles runs on the small tile instead (TILE_SMALL there), which
+// spreads it over more SMs at the cost of more halo recompute.
+constexpr int kTH = 96;
+constexpr int kTW = 160;
+constexpr int kSmallTH = 32;
+constexpr int kSmallTW = 96;
 constexpr int kThreads = 512;
+constexpr int kMinBlocks = 2;
+constexpr int kWarps = kThreads / 32;
+static_assert(kThreads % 32 == 0, "whole warps");
+
+// A tile shape: a TH x TW centre; a class row of its extended tile at depth
+// K holds class_row(K) cells of u and frozen_words(K) words of frozen bits.
+template <int TH, int TW>
+struct Shape {
+  static_assert(TW % 2 == 0, "a class row is half of an extended row of even width");
+  static constexpr int kTH = TH;
+  static constexpr int kTW = TW;
+  __host__ __device__ static constexpr int class_row(int K) { return TW / 2 + K; }
+  __host__ __device__ static constexpr int frozen_words(int K) {
+    return (class_row(K) + 31) / 32;
+  }
+};
+using Big = Shape<kTH, kTW>;
+using Small = Shape<kSmallTH, kSmallTW>;
 
 // The grid, the tiling and the chunk depth bound of one launch.
 struct Tiling {
@@ -133,22 +202,160 @@ struct Tiling {
   int n_tiles;
 };
 
-// The block's dynamic shared memory holds u of the extended tile, then its
-// frozen bytes.
-__device__ __forceinline__ uint8_t* frozen_of(float* smem, int K) {
-  return reinterpret_cast<uint8_t*>(smem + (kTH + 2 * K) * (kTW + 2 * K));
+// The block's dynamic shared memory.
+__device__ __forceinline__ float* dyn_smem() {
+  extern __shared__ float smem[];
+  return smem;
+}
+
+// Its layout for shape S at depth K: a(0), a(1) (u of each class, rows of P
+// floats), then f(0), f(1) (the frozen bits of each class, rows of NW words).
+template <class S>
+struct Smem {
+  int P, NW;
+  int rows;   // TH + 2K
+  __device__ __forceinline__ explicit Smem(int K)
+      : P(S::class_row(K)), NW(S::frozen_words(K)), rows(S::kTH + 2 * K) {}
+  __device__ __forceinline__ float* a(int q) const { return dyn_smem() + q * rows * P; }
+  __device__ __forceinline__ uint32_t* f(int q) const {
+    return reinterpret_cast<uint32_t*>(dyn_smem() + 2 * rows * P) + q * rows * NW;
+  }
+};
+
+// Whether p is aligned to `bytes` (a power of two).
+__device__ __forceinline__ bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 // The centre (ch x cw of it), from shared memory to out (tile.at gives a
 // centre cell's address).
-template <class Tile>
-__device__ __forceinline__ void write_centre(const float* us, float* out, const Tile& tile) {
-  const int EC = kTW + 2 * tile.K;
-  for (int i = threadIdx.x; i < kTH * kTW; i += kThreads) {
-    const int r = i / kTW;
-    const int c = i % kTW;
-    if (r < tile.ch && c < tile.cw) *tile.at(out, r, c) = us[(tile.K + r) * EC + tile.K + c];
+template <class S, class Tile>
+__device__ __forceinline__ void write_centre(const Smem<S>& m, int par, float* out,
+                                             const Tile& tile) {
+  for (int i = threadIdx.x; i < S::kTH * S::kTW; i += kThreads) {
+    const int r = i / S::kTW;
+    const int c = i - r * S::kTW;
+    if (r < tile.ch && c < tile.cw) {
+      const int lr = tile.K + r;
+      const int lc = tile.K + c;
+      *tile.at(out, r, c) = m.a((par + lr + lc) & 1)[lr * m.P + (lc >> 1)];
+    }
   }
+}
+
+// Load the halo-extended tile into shared memory: a warp a row, a lane a
+// pair of columns (2m, 2m+1), which go to index m of the row in both class
+// arrays; the pair's frozen flags become bits by ballot. Cells beyond the
+// source are LOG_SPACE_OBSTACLE and frozen, and so are the bits past a
+// row's P cells, which no sweep reads.
+template <class S, class Tile>
+__device__ __forceinline__ void load_tile(const Tile& tile, const Smem<S>& m, int par) {
+  const int lane = threadIdx.x & 31;
+  for (int lr = threadIdx.x >> 5; lr < m.rows; lr += kWarps) {
+    const typename Tile::Row row = tile.row(lr);
+    const int qe = (par + lr) & 1;   // the class of the even local columns
+    float* ae = m.a(qe) + lr * m.P;
+    float* ao = m.a(qe ^ 1) + lr * m.P;
+    for (int mb = 0; mb < m.P; mb += 32) {
+      const int j = mb + lane;
+      float ve = kObstacle, vo = kObstacle;
+      bool fe = true, fo = true;
+      if (j < m.P) {
+        tile.pair(row, j, ve, fe, vo, fo);
+        ae[j] = ve;
+        ao[j] = vo;
+      }
+      const uint32_t be = __ballot_sync(0xffffffffu, fe);
+      const uint32_t bo = __ballot_sync(0xffffffffu, fo);
+      if (lane == 0) {
+        m.f(qe)[lr * m.NW + (mb >> 5)] = be;
+        m.f(qe ^ 1)[lr * m.NW + (mb >> 5)] = bo;
+      }
+    }
+  }
+}
+
+// The update of one cell (cell j of row lr, local column lc) from its N, S,
+// W and E neighbours into *cur, unless `ok` is false (outside the
+// trapezoid) or its bit in `frozen` is set; with kFirst, |new - old| is
+// max-accumulated into `local` where tile.in_delta admits the cell. The
+// lse4 runs on every lane and only the store is predicated: a warp whose
+// lanes are all skipped is rare on a map, and a branch around the update
+// costs every other warp its divergence bookkeeping.
+template <bool kFirst, class Tile>
+__device__ __forceinline__ void update(const Tile& tile, bool ok, uint32_t frozen, uint32_t bit,
+                                       int lr, int lc, float n, float s, float w, float e,
+                                       float* cur, float& local) {
+  const float v = lse4(n, s, w, e);
+  if (ok && !(frozen & bit)) {
+    if (kFirst && tile.in_delta(lr, lc)) local = fmaxf(local, fabsf(v - *cur));
+    *cur = v;
+  }
+}
+
+// One sweep s of class q inside the trapezoid (rows s+1..last_row(s),
+// columns s+1..last_col(s)). A warp walks a strip of consecutive rows, its
+// lanes at consecutive j (one column block of 32 after another, from the
+// trapezoid's first j of either parity). Cell j of row lr is local column
+// o + 2j, o = (par + lr + q) & 1 alternating down the strip, so the walk
+// takes rows in pairs of o = 0 then o = 1 (a lone row at either end) and
+// each lane knows at the start of a column block whether its cell lies in
+// the trapezoid's columns for either parity. A lane keeps the other class's
+// cells at its j in the rows above and at (`above`, `mid`): a row costs it
+// one load for the row below and one for its W (o = 0) or E (o = 1)
+// neighbour, the other side being index j itself. With kFirst (sweep 0) it
+// returns `local` max-accumulated over the cells tile.in_delta admits.
+template <bool kFirst, class S, class Tile>
+__device__ __forceinline__ float sweep(const Tile& tile, const Smem<S>& m, int par, int q, int s,
+                                       float local) {
+  const int c0 = s + 1;                  // the first row and column
+  const int c1 = tile.last_col(s);
+  const int r1 = tile.last_row(s);
+  const int strip = (r1 - s + kWarps - 1) / kWarps;
+  const int first = c0 + (threadIdx.x >> 5) * strip;
+  const int last = min(first + strip - 1, r1);
+  const int jmax = c1 >> 1;              // the last j of either parity
+  const int P = m.P;
+  const int NW = m.NW;
+  const int lane = threadIdx.x & 31;
+  for (int j = (c0 >> 1) + lane; j - lane <= jmax; j += 32) {
+    const bool in_j = j <= jmax;
+    const bool ok0 = in_j && 2 * j >= c0 && 2 * j <= c1;           // o = 0: column 2j
+    const bool ok1 = in_j && 2 * j + 1 >= c0 && 2 * j + 1 <= c1;   // o = 1: column 2j + 1
+    const uint32_t bit = 1u << (j & 31);
+    int lr = first;
+    const float* col = m.a(q ^ 1) + lr * P + j;   // the other class, row lr, index j
+    float* cur = m.a(q) + lr * P + j;
+    const uint32_t* fz = m.f(q) + lr * NW + (j >> 5);
+    if (lr > last) continue;
+    float above = col[-P];
+    float mid = col[0];
+    if ((par + lr + q) & 1) {            // a first row of o = 1
+      const float b = col[P];
+      update<kFirst>(tile, ok1, *fz, bit, lr, 2 * j + 1, above, b, mid, col[1], cur, local);
+      above = mid;
+      mid = b;
+      col += P;
+      cur += P;
+      fz += NW;
+      ++lr;
+    }
+    for (; lr < last; lr += 2) {         // rows lr (o = 0) and lr + 1 (o = 1)
+      const float b1 = col[P];
+      update<kFirst>(tile, ok0, fz[0], bit, lr, 2 * j, above, b1, col[-1], mid, cur, local);
+      const float b2 = col[2 * P];
+      update<kFirst>(tile, ok1, fz[NW], bit, lr + 1, 2 * j + 1, mid, b2, b1, col[P + 1],
+                     cur + P, local);
+      above = b1;
+      mid = b2;
+      col += 2 * P;
+      cur += 2 * P;
+      fz += 2 * NW;
+    }
+    if (lr == last)                      // a last row of o = 0
+      update<kFirst>(tile, ok0, *fz, bit, lr, 2 * j, above, col[P], col[-1], mid, cur, local);
+  }
+  return local;
 }
 
 // One chunk of `ns` (1..K) sweeps from iteration t0 on one tile, in the
@@ -157,75 +364,92 @@ __device__ __forceinline__ void write_centre(const float* us, float* out, const 
 // tile.last_row/last_col bound, write the centre to dst (and after sweep 0
 // to u1, when given), max-accumulate sweep 0's delta over the cells that
 // tile.in_delta admits into delta_acc (when given). Every thread of the
-// block calls it; us/fs are the block's dynamic shared memory. The Tile
-// type is a compile-time choice, so each caller's pass holds only its own
-// state in registers: the solve kernel sits at its limit of 64.
-template <class Tile>
-__device__ __forceinline__ void tile_pass(const Tile& tile, float* dst, float* u1, int t0,
-                                          int ns, unsigned int* delta_acc, float* us,
-                                          uint8_t* fs) {
-  const int ER = kTH + 2 * tile.K;
-  const int EC = kTW + 2 * tile.K;
-  for (int i = threadIdx.x; i < ER * EC; i += kThreads) {
-    const int lr = i / EC;
-    tile.load(lr, i - lr * EC, us[i], fs[i]);
-  }
+// block calls it. The Tile type is a compile-time choice, so each caller's
+// pass holds only its own state. With kStash (the solve kernels, whose loop
+// state stays live across the passes) the tile and the pass's arguments
+// wait in shared memory, the same for every thread, while the block sweeps,
+// so that the sweeps and the loop fit the 64 registers of two blocks an SM;
+// elsewhere they stay in registers, which the sweeps measured faster with.
+template <bool kStash, class Tile>
+__device__ __forceinline__ void tile_pass(const Tile& tile_in, float* dst_in, float* u1_in,
+                                          int t0_in, int ns_in, unsigned int* delta_acc_in) {
+  struct Pass {
+    Tile tile;
+    float* dst;
+    float* u1;
+    unsigned int* delta_acc;
+    int t0, ns;
+  };
+  __shared__ Pass stash;
+  const Pass own{tile_in, dst_in, u1_in, delta_acc_in, t0_in, ns_in};
+  if (kStash && threadIdx.x == 0) stash = own;
+  const Smem<typename Tile::S> m(tile_in.K);
+  const int par = tile_in.par();  // (row + column) & 1 of local (0, 0) in global coordinates
+  load_tile(tile_in, m, par);
   __syncthreads();
-
-  const int par = tile.par();  // (row + column) & 1 of local (0, 0) in global coordinates
-  float local = 0.0f;
-  for (int s = 0; s < ns; ++s) {
-    const int want = ((t0 + s) & 1) ^ 1;  // the class updated: (par + lr + lc) & 1 == want
-    const int r0 = s + 1;                 // the trapezoid: rows r0..r1, columns c0..c1
-    const int c0 = s + 1;                 // (never empty: the centre has a cell and s < K)
-    const int r1 = tile.last_row(s);
-    const int c1 = tile.last_col(s);
-    const int half = (c1 - c0 + 2) / 2;   // cells of one class in a row, at most
-    const int units = (r1 - r0 + 1) * half;
-    for (int i = threadIdx.x; i < units; i += kThreads) {
-      const int row = i / half;
-      const int lr = r0 + row;
-      const int lc = c0 + ((par + lr + c0 + want) & 1) + 2 * (i - row * half);
-      if (lc > c1) continue;
-      const int li = lr * EC + lc;
-      if (fs[li]) continue;
-      const float v = lse4(us[li - EC], us[li + EC], us[li - 1], us[li + 1]);
-      if (s == 0 && tile.in_delta(lr, lc)) local = fmaxf(local, fabsf(v - us[li]));
-      us[li] = v;
-    }
+  const Pass& pass = kStash ? stash : own;
+  const Tile& tile = pass.tile;
+  // Sweep t updates the class (par + lr + lc) & 1 == ((t0 + t) & 1) ^ 1.
+  float local = sweep<true>(tile, m, par, ((pass.t0 & 1) ^ 1), 0, 0.0f);
+  __syncthreads();
+  if (pass.u1 != nullptr) {
+    write_centre(m, par, pass.u1, tile);
     __syncthreads();
-    if (s == 0 && u1 != nullptr) {
-      write_centre(us, u1, tile);
-      __syncthreads();
-    }
   }
-  if (delta_acc != nullptr) block_max_atomic<kThreads>(local, delta_acc);
-  write_centre(us, dst, tile);
-  __syncthreads();  // the next tile reuses us/fs
+  for (int s = 1; s < pass.ns; ++s) {
+    sweep<false>(tile, m, par, ((pass.t0 + s) & 1) ^ 1, s, 0.0f);
+    __syncthreads();
+  }
+  if (pass.delta_acc != nullptr) block_max_atomic<kThreads>(local, pass.delta_acc);
+  write_centre(m, par, pass.dst, tile);
+  __syncthreads();  // the next tile reuses the shared memory
 }
 
 // A tile of the unpadded H x W grid whose centre starts at (gy0, gx0):
 // frozen cells are locked or on the grid's ring; beyond the grid
 // LOG_SPACE_OBSTACLE, frozen; the trapezoid is the tile's own; the delta
 // covers the centre's cells in the grid.
+template <class Shape>
 struct GridTile {
+  using S = Shape;
   const float* src;
   const uint8_t* locked;
   int H, W, K, gy0, gx0, ch, cw;
-  __device__ __forceinline__ void load(int lr, int lc, float& v, uint8_t& f) const {
+  struct Row {
+    long long idx;   // the grid index of local column 0 (x = gx0 - K)
+    bool in, ring;   // the row lies in the grid; it is the grid's first or last
+  };
+  __device__ __forceinline__ Row row(int lr) const {
     const int y = gy0 - K + lr;
+    return Row{static_cast<long long>(y) * W + gx0 - K, y >= 0 && y < H, y == 0 || y == H - 1};
+  }
+  __device__ __forceinline__ void cell(const Row& r, int lc, float& v, bool& f) const {
     const int x = gx0 - K + lc;
-    v = kObstacle;
-    f = 1;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      const size_t idx = static_cast<size_t>(y) * W + x;
-      v = __ldcg(src + idx);
-      f = (locked[idx] != 0) | (y == 0) | (y == H - 1) | (x == 0) | (x == W - 1);
+    if (r.in && x >= 0 && x < W) {
+      v = __ldcg(src + r.idx + lc);
+      f = locked[r.idx + lc] != 0 || r.ring || x == 0 || x == W - 1;
+    }
+  }
+  __device__ __forceinline__ void pair(const Row& r, int j, float& ve, bool& fe, float& vo,
+                                       bool& fo) const {
+    const int x = gx0 - K + 2 * j;
+    const float* p = src + r.idx + 2 * j;
+    const uint8_t* l = locked + r.idx + 2 * j;
+    if (r.in && x >= 0 && x + 1 < W && aligned(p, 8) && aligned(l, 2)) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+      const uchar2 b = *reinterpret_cast<const uchar2*>(l);
+      ve = v.x;
+      vo = v.y;
+      fe = b.x != 0 || r.ring || x == 0;
+      fo = b.y != 0 || r.ring || x + 1 == W - 1;
+    } else {
+      cell(r, 2 * j, ve, fe);
+      cell(r, 2 * j + 1, vo, fo);
     }
   }
   __device__ __forceinline__ int par() const { return (gy0 + gx0) & 1; }  // -2K is even
-  __device__ __forceinline__ int last_row(int s) const { return kTH + 2 * K - 2 - s; }
-  __device__ __forceinline__ int last_col(int s) const { return kTW + 2 * K - 2 - s; }
+  __device__ __forceinline__ int last_row(int s) const { return S::kTH + 2 * K - 2 - s; }
+  __device__ __forceinline__ int last_col(int s) const { return S::kTW + 2 * K - 2 - s; }
   __device__ __forceinline__ bool in_delta(int lr, int lc) const {
     return lr >= K && lr < K + ch && lc >= K && lc < K + cw;
   }
@@ -236,46 +460,47 @@ struct GridTile {
 
 // One chunk of `ns` (1..K) sweeps from iteration t0 on tile `tile` of the
 // grid, src -> dst (and u1).
+template <class S, bool kStash = false>
 __device__ void tile_chunk(const float* src, float* dst, float* u1, const Tiling& g, int tile,
-                           int t0, int ns, unsigned int* delta_acc, float* us, uint8_t* fs) {
+                           int t0, int ns, unsigned int* delta_acc) {
   const int ty = tile / g.nx;
-  const int gy0 = ty * kTH;
-  const int gx0 = (tile - ty * g.nx) * kTW;
-  const GridTile t{src, g.locked, g.H, g.W, g.K, gy0, gx0, min(kTH, g.H - gy0),
-                   min(kTW, g.W - gx0)};
-  tile_pass(t, dst, u1, t0, ns, delta_acc, us, fs);
+  const int gy0 = ty * S::kTH;
+  const int gx0 = (tile - ty * g.nx) * S::kTW;
+  const GridTile<S> t{src, g.locked, g.H, g.W, g.K, gy0, gx0, min(S::kTH, g.H - gy0),
+                      min(S::kTW, g.W - gx0)};
+  tile_pass<kStash>(t, dst, u1, t0, ns, delta_acc);
 }
 
 // All tiles of one chunk, strided over the blocks.
+template <class S, bool kStash = false>
 __device__ void all_tiles(const float* src, float* dst, float* u1, const Tiling& g, int t0,
-                          int ns, unsigned int* delta_acc, float* us, uint8_t* fs) {
+                          int ns, unsigned int* delta_acc) {
   for (int tile = blockIdx.x; tile < g.n_tiles; tile += gridDim.x)
-    tile_chunk(src, dst, u1, g, tile, t0, ns, delta_acc, us, fs);
+    tile_chunk<S, kStash>(src, dst, u1, g, tile, t0, ns, delta_acc);
 }
 
 // K3/K5 (and T1/T2): one chunk from iteration *it + t_off; a block a tile.
-__global__ void __launch_bounds__(kThreads)
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 tile_chunk_kernel(const float* src, float* dst, float* u1, Tiling g, const int* it, int t_off,
                   int ns, unsigned int* delta_bits) {
-  extern __shared__ float smem[];
-  tile_chunk(src, dst, u1, g, blockIdx.x, *it + t_off, ns, delta_bits, smem, frozen_of(smem, g.K));
+  tile_chunk<S>(src, dst, u1, g, blockIdx.x, *it + t_off, ns, delta_bits);
 }
 
 // K4/K6: `total` sweeps from *it + t_off spread over n_chunks chunks; chunk
 // c reads a when c is even and b otherwise and writes the other, its
 // sweep-0 delta into deltas[c] (zeroed by the caller). An even count ends in
 // a.
-__global__ void __launch_bounds__(kThreads)
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 tile_cycle_kernel(float* a, float* b, Tiling g, const int* it, int t_off, int total,
                   int n_chunks, unsigned int* deltas) {
-  extern __shared__ float smem[];
-  uint8_t* fs = frozen_of(smem, g.K);
   cg::grid_group grid = cg::this_grid();
   int t = *it + t_off;
   for (int c = 0; c < n_chunks; ++c) {
     const int ns = spread_at(total, n_chunks, c);
     if (c > 0) grid.sync();
-    all_tiles((c & 1) ? b : a, (c & 1) ? a : b, nullptr, g, t, ns, deltas + c, smem, fs);
+    all_tiles<S>((c & 1) ? b : a, (c & 1) ? a : b, nullptr, g, t, ns, deltas + c);
     t += ns;
   }
 }
@@ -291,51 +516,49 @@ tile_cycle_kernel(float* a, float* b, Tiling g, const int* it, int t_off, int to
 // barrier (a rest chunk's, or the extra one when there is none) separates
 // the clear from the next check's atomics. The state ends in u: the last
 // step copies it there when it is in twin or u1.
-__global__ void __launch_bounds__(kThreads)
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 tile_solve_kernel(float* u, float* twin, float* u1, Tiling g, const float* eps_ptr, int m_max,
                   int bound, int stagger, unsigned int* acc, int* it_io, float* delta_io,
                   int* done_io) {
-  extern __shared__ float smem[];
-  uint8_t* fs = frozen_of(smem, g.K);
   cg::grid_group grid = cg::this_grid();
-  const float eps = *eps_ptr;
+  // Few registers stay live across the tile passes: where the state is
+  // follows from the count of chunks run (u after an even count, twin after
+  // an odd one), and the schedule and eps are read again where needed.
   int it = *it_io;
   float delta = *delta_io;
   bool done = *done_io != 0;
-  const int depth = min(g.K, stagger);
-  const int rest = stagger - depth;
-  const int n_rest = (rest + g.K - 1) / g.K;
-  float* cur = u;
-  float* oth = twin;
+  int flips = 0;
   int slot = 0;
   while (!done && it < bound) {
-    all_tiles(cur, oth, u1, g, it, depth, acc + slot, smem, fs);
+    const int depth = min(g.K, stagger);
+    all_tiles<S, true>((flips & 1) ? twin : u, (flips & 1) ? u : twin, u1, g, it, depth,
+                       acc + slot);
     grid.sync();
     delta = __uint_as_float(__ldcg(acc + slot));
     if (grid.thread_rank() == 0) acc[slot ^ 1] = 0u;
     slot ^= 1;
-    done = delta < eps && it + 1 >= m_max;
+    done = delta < *eps_ptr && it + 1 >= m_max;
     if (done) {
       it += 1;
-      cur = u1;
       break;
     }
-    float* tmp = cur;
-    cur = oth;
-    oth = tmp;
+    ++flips;
+    const int rest = stagger - depth;
+    const int n_rest = (rest + g.K - 1) / g.K;
     int t = it + depth;
     for (int r = 0; r < n_rest; ++r) {
       const int ns = spread_at(rest, n_rest, r);
-      all_tiles(cur, oth, nullptr, g, t, ns, nullptr, smem, fs);
+      all_tiles<S, true>((flips & 1) ? twin : u, (flips & 1) ? u : twin, nullptr, g, t, ns,
+                         nullptr);
       grid.sync();
-      tmp = cur;
-      cur = oth;
-      oth = tmp;
+      ++flips;
       t += ns;
     }
     if (n_rest == 0) grid.sync();
     it += stagger;
   }
+  const float* cur = done ? u1 : (flips & 1) ? twin : u;
   if (cur != u) {
     const size_t n = static_cast<size_t>(g.H) * g.W;
     for (size_t i = grid.thread_rank(); i < n; i += grid.size()) u[i] = __ldcg(cur + i);
@@ -353,28 +576,49 @@ tile_solve_kernel(float* u, float* twin, float* u1, Tiling g, const float* eps_p
 // The block's trapezoid bounds the tile's (its lower ends are the tile's);
 // the tiles' halos are the block's, so their sweep-0 trapezoids cover the
 // whole block, and the delta covers every cell they update.
+template <class Shape>
 struct ShardTile {
+  using S = Shape;
   const float* src;
   const uint8_t* frozen;
   long long ld;
   int he, we, K, par0, r0, c0, ch, cw;
-  __device__ __forceinline__ void load(int lr, int lc, float& v, uint8_t& f) const {
+  struct Row {
+    long long idx;   // the view index of local column 0 (view column c0)
+    int n;           // the row's cells inside the view (0 below it)
+  };
+  __device__ __forceinline__ Row row(int lr) const {
     const int R = r0 + lr;
-    const int C = c0 + lc;
-    v = kObstacle;
-    f = 1;
-    if (R < he && C < we) {
-      const long long idx = static_cast<long long>(R) * ld + C;
-      v = __ldcg(src + idx);
-      f = frozen[idx] != 0;
+    return Row{static_cast<long long>(R) * ld + c0, R < he ? we - c0 : 0};
+  }
+  __device__ __forceinline__ void cell(const Row& r, int lc, float& v, bool& f) const {
+    if (lc < r.n) {
+      v = __ldcg(src + r.idx + lc);
+      f = frozen[r.idx + lc] != 0;
+    }
+  }
+  __device__ __forceinline__ void pair(const Row& r, int j, float& ve, bool& fe, float& vo,
+                                       bool& fo) const {
+    const float* p = src + r.idx + 2 * j;
+    const uint8_t* l = frozen + r.idx + 2 * j;
+    if (2 * j + 1 < r.n && aligned(p, 8) && aligned(l, 2)) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+      const uchar2 b = *reinterpret_cast<const uchar2*>(l);
+      ve = v.x;
+      vo = v.y;
+      fe = b.x != 0;
+      fo = b.y != 0;
+    } else {
+      cell(r, 2 * j, ve, fe);
+      cell(r, 2 * j + 1, vo, fo);
     }
   }
   __device__ __forceinline__ int par() const { return (par0 + r0 + c0) & 1; }
   __device__ __forceinline__ int last_row(int s) const {
-    return min(kTH + 2 * K, he - r0) - 2 - s;
+    return min(S::kTH + 2 * K, he - r0) - 2 - s;
   }
   __device__ __forceinline__ int last_col(int s) const {
-    return min(kTW + 2 * K, we - c0) - 2 - s;
+    return min(S::kTW + 2 * K, we - c0) - 2 - s;
   }
   __device__ __forceinline__ bool in_delta(int, int) const { return true; }
   __device__ __forceinline__ float* at(float* out, int r, int c) const {
@@ -397,15 +641,15 @@ struct Shard {
 
 // K14/K15: one chunk of ns (1..K) sweeps from iteration *it + t_off on a
 // shard's block, a tile a block.
-__global__ void __launch_bounds__(kThreads)
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 shard_chunk_kernel(Shard g, const int* it, int t_off, int ns, unsigned int* delta_bits) {
-  extern __shared__ float smem[];
   const int ty = blockIdx.x / g.nx;
-  const int r0 = ty * kTH;
-  const int c0 = (blockIdx.x - ty * g.nx) * kTW;
-  const ShardTile t{g.src, g.frozen, g.ld, g.he, g.we, g.K, g.par0, r0, c0,
-                    min(kTH, g.he - 2 * g.K - r0), min(kTW, g.we - 2 * g.K - c0)};
-  tile_pass(t, g.dst, g.u1, *it + t_off, ns, delta_bits, smem, frozen_of(smem, g.K));
+  const int r0 = ty * S::kTH;
+  const int c0 = (blockIdx.x - ty * g.nx) * S::kTW;
+  const ShardTile<S> t{g.src, g.frozen, g.ld, g.he, g.we, g.K, g.par0, r0, c0,
+                       min(S::kTH, g.he - 2 * g.K - r0), min(S::kTW, g.we - 2 * g.K - c0)};
+  tile_pass<false>(t, g.dst, g.u1, *it + t_off, ns, delta_bits);
 }
 
 // The resident route's plan of one device: kPlanCols int64 a shard (its
@@ -441,29 +685,66 @@ struct Regions {
 // LOG_SPACE_OBSTACLE, frozen. The view's trapezoid bounds the tile's, as
 // ShardTile's does; the delta covers the tile's centre cells, which are the
 // shard's.
+template <class Shape>
 struct ResidentTile {
+  using S = Shape;
   const Regions* reg;
   const uint8_t* frozen;   // at the view's (0, 0)
   long long ld;
   int h, w, K, par0, r0, c0, ch, cw;
-  __device__ __forceinline__ void load(int lr, int lc, float& v, uint8_t& f) const {
+  struct Row {
+    const float *s0, *s1, *s2;   // local column 0 of this row in the left, centre and
+                                 // right column band's source
+    long long idx;               // the view index of local column 0 (the frozen bytes)
+    int n;                       // the row's cells inside the view (0 below it)
+    int t1, t2;                  // the local columns where the centre and the right band start
+  };
+  __device__ __forceinline__ Row row(int lr) const {
     const int R = r0 + lr;
-    const int C = c0 + lc;
-    v = kObstacle;
-    f = 1;
-    if (R < h + 2 * K && C < w + 2 * K) {
-      const long long idx = static_cast<long long>(R) * ld + C;
-      const int n = 3 * ((R >= K) + (R >= K + h)) + (C >= K) + (C >= K + w);
-      v = __ldcg(reg->src[n] + (idx - reg->shift[n]));
-      f = frozen[idx] != 0;
+    const int n = 3 * ((R >= K) + (R >= K + h));   // the row band's first region
+    Row r;
+    r.idx = static_cast<long long>(R) * ld + c0;
+    r.s0 = reg->src[n] + (r.idx - reg->shift[n]);
+    r.s1 = reg->src[n + 1] + (r.idx - reg->shift[n + 1]);
+    r.s2 = reg->src[n + 2] + (r.idx - reg->shift[n + 2]);
+    r.n = R < h + 2 * K ? w + 2 * K - c0 : 0;
+    r.t1 = K - c0;
+    r.t2 = K + w - c0;
+    return r;
+  }
+  // The source of local column lc of the row.
+  __device__ __forceinline__ const float* seg(const Row& r, int lc) const {
+    return lc < r.t1 ? r.s0 : lc < r.t2 ? r.s1 : r.s2;
+  }
+  __device__ __forceinline__ void cell(const Row& r, int lc, float& v, bool& f) const {
+    if (lc < r.n) {
+      v = __ldcg(seg(r, lc) + lc);
+      f = frozen[r.idx + lc] != 0;
+    }
+  }
+  __device__ __forceinline__ void pair(const Row& r, int j, float& ve, bool& fe, float& vo,
+                                       bool& fo) const {
+    const float* base = seg(r, 2 * j);
+    const float* p = base + 2 * j;
+    const uint8_t* l = frozen + r.idx + 2 * j;
+    if (2 * j + 1 < r.n && base == seg(r, 2 * j + 1) && aligned(p, 8) && aligned(l, 2)) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+      const uchar2 f2 = *reinterpret_cast<const uchar2*>(l);
+      ve = v.x;
+      vo = v.y;
+      fe = f2.x != 0;
+      fo = f2.y != 0;
+    } else {
+      cell(r, 2 * j, ve, fe);
+      cell(r, 2 * j + 1, vo, fo);
     }
   }
   __device__ __forceinline__ int par() const { return (par0 + r0 + c0) & 1; }
   __device__ __forceinline__ int last_row(int s) const {
-    return min(kTH + 2 * K, h + 2 * K - r0) - 2 - s;
+    return min(S::kTH + 2 * K, h + 2 * K - r0) - 2 - s;
   }
   __device__ __forceinline__ int last_col(int s) const {
-    return min(kTW + 2 * K, w + 2 * K - c0) - 2 - s;
+    return min(S::kTW + 2 * K, w + 2 * K - c0) - 2 - s;
   }
   __device__ __forceinline__ bool in_delta(int lr, int lc) const {
     return lr >= K && lr < K + ch && lc >= K && lc < K + cw;
@@ -478,9 +759,9 @@ struct ResidentTile {
 // the centre after sweep 0 to set 2. The nine regions go to shared memory
 // first: a direct neighbour's region is its block of set src_set, shifted
 // by its offset on the mesh (K <= h, w, so a region lies in one centre).
+template <class S, bool kStash>
 __device__ void resident_job(const Plan& p, int job, int src_set, int dst_set, bool with_u1,
-                             int t0, int ns, unsigned int* delta_acc, float* us, uint8_t* fs,
-                             Regions* reg) {
+                             int t0, int ns, unsigned int* delta_acc, Regions* reg) {
   const int slot = job / p.n_tiles;
   const int tile = job - slot * p.n_tiles;
   const long long* row = p.rows + static_cast<long long>(slot) * kPlanCols;
@@ -495,42 +776,40 @@ __device__ void resident_job(const Plan& p, int job, int src_set, int dst_set, b
   }
   __syncthreads();
   const int ty = tile / p.nx;
-  const int r0 = ty * kTH;
-  const int c0 = (tile - ty * p.nx) * kTW;
-  const ResidentTile t{reg, reinterpret_cast<const uint8_t*>(row[kPlanFrozen]) + v0, p.ld,
-                       p.h, p.w, p.K, static_cast<int>(row[kPlanPar0]), r0, c0,
-                       min(kTH, p.h - r0), min(kTW, p.w - c0)};
+  const int r0 = ty * S::kTH;
+  const int c0 = (tile - ty * p.nx) * S::kTW;
+  const ResidentTile<S> t{reg, reinterpret_cast<const uint8_t*>(row[kPlanFrozen]) + v0, p.ld,
+                          p.h, p.w, p.K, static_cast<int>(row[kPlanPar0]), r0, c0,
+                          min(S::kTH, p.h - r0), min(S::kTW, p.w - c0)};
   float* dst = reinterpret_cast<float*>(row[dst_set]) + v0;
   float* u1 = with_u1 ? reinterpret_cast<float*>(row[2]) + v0 : nullptr;
-  tile_pass(t, dst, u1, t0, ns, delta_acc, us, fs);
+  tile_pass<kStash>(t, dst, u1, t0, ns, delta_acc);
 }
 
 // Every (shard, tile) job of one chunk, strided over the blocks.
+template <class S, bool kStash = false>
 __device__ void all_resident_jobs(const Plan& p, int src_set, int dst_set, bool with_u1, int t0,
-                                  int ns, unsigned int* delta_acc, float* us, uint8_t* fs,
-                                  Regions* reg) {
+                                  int ns, unsigned int* delta_acc, Regions* reg) {
   const int jobs = p.n_shards * p.n_tiles;
   for (int job = blockIdx.x; job < jobs; job += gridDim.x)
-    resident_job(p, job, src_set, dst_set, with_u1, t0, ns, delta_acc, us, fs, reg);
+    resident_job<S, kStash>(p, job, src_set, dst_set, with_u1, t0, ns, delta_acc, reg);
 }
 
 // K16/K17: `total` sweeps from *it + t_off over n_chunks chunks on every
 // shard of the plan; chunk c reads set c & 1 and writes the other, its
 // sweep-0 delta (max over the plan's centres) into deltas[c] (zeroed by the
 // caller); with with_u1, chunk 0 writes u1 too. An even count ends in set 0.
-__global__ void __launch_bounds__(kThreads)
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 resident_cycle_kernel(Plan p, const int* it, int t_off, int total, int n_chunks, int with_u1,
                       unsigned int* deltas) {
-  extern __shared__ float smem[];
   __shared__ Regions reg;
-  uint8_t* fs = frozen_of(smem, p.K);
   cg::grid_group grid = cg::this_grid();
   int t = *it + t_off;
   for (int c = 0; c < n_chunks; ++c) {
     const int ns = spread_at(total, n_chunks, c);
     if (c > 0) grid.sync();
-    all_resident_jobs(p, c & 1, (c & 1) ^ 1, c == 0 && with_u1 != 0, t, ns, deltas + c, smem, fs,
-                      &reg);
+    all_resident_jobs<S>(p, c & 1, (c & 1) ^ 1, c == 0 && with_u1 != 0, t, ns, deltas + c, &reg);
     t += ns;
   }
 }
@@ -554,54 +833,83 @@ __device__ void copy_centres(const Plan& p, int from, int to, cg::grid_group& gr
 // that covers the whole mesh (no neighbour copied by the host): sets 0 and 1
 // ping-pong, the check chunk writes set 2 (u1) too. The state ends in set 0:
 // the last step copies the centres there from set 1 or 2.
-__global__ void __launch_bounds__(kThreads)
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 resident_solve_kernel(Plan p, const float* eps_ptr, int m_max, int bound, int stagger,
                       unsigned int* acc, int* it_io, float* delta_io, int* done_io) {
-  extern __shared__ float smem[];
   __shared__ Regions reg;
-  uint8_t* fs = frozen_of(smem, p.K);
   cg::grid_group grid = cg::this_grid();
-  const float eps = *eps_ptr;
+  // Only the iteration and `cur` stay live across the passes: cur's bits
+  // 0-1 the set holding the state (2: u1, after a passing check), bit 2 the
+  // next check's slot, bit 3 set once a check ran (the last check's delta is
+  // read back from its slot at the end). The incoming verdict is kept in
+  // shared memory (thread 0 writes *done_io at the end, while another block
+  // may still be reading). The rest of a cycle runs in chunks of K and a
+  // last shorter one, as plain_solve runs it.
+  __shared__ int done0;
+  if (threadIdx.x == 0) done0 = *done_io;
+  __syncthreads();
   int it = *it_io;
-  float delta = *delta_io;
-  bool done = *done_io != 0;
-  const int depth = min(p.K, stagger);
-  const int rest = stagger - depth;
-  const int n_rest = (rest + p.K - 1) / p.K;
   int cur = 0;
-  int slot = 0;
-  while (!done && it < bound) {
-    all_resident_jobs(p, cur, cur ^ 1, true, it, depth, acc + slot, smem, fs, &reg);
+  while (done0 == 0 && it < bound) {
+    const int depth = min(p.K, stagger);
+    const int slot = (cur >> 2) & 1;
+    all_resident_jobs<S, true>(p, cur & 3, (cur & 3) ^ 1, true, it, depth, acc + slot, &reg);
     grid.sync();
-    delta = __uint_as_float(__ldcg(acc + slot));
+    const float delta = __uint_as_float(__ldcg(acc + slot));
     if (grid.thread_rank() == 0) acc[slot ^ 1] = 0u;
-    slot ^= 1;
-    done = delta < eps && it + 1 >= m_max;
-    if (done) {
+    cur = (cur ^ 4) | 8;
+    if (delta < *eps_ptr && it + 1 >= m_max) {
       it += 1;
-      cur = 2;
+      cur = (cur & 12) | 2;
       break;
     }
     cur ^= 1;
     int t = it + depth;
-    for (int r = 0; r < n_rest; ++r) {
-      const int ns = spread_at(rest, n_rest, r);
-      all_resident_jobs(p, cur, cur ^ 1, false, t, ns, nullptr, smem, fs, &reg);
+    if (t == it + stagger) grid.sync();
+    for (; t < it + stagger; t += p.K) {
+      all_resident_jobs<S, true>(p, cur & 3, (cur & 3) ^ 1, false, t, min(p.K, it + stagger - t),
+                                 nullptr, &reg);
       grid.sync();
       cur ^= 1;
-      t += ns;
     }
-    if (n_rest == 0) grid.sync();
     it += stagger;
   }
-  if (cur != 0) copy_centres(p, cur, 0, grid);
+  if ((cur & 3) != 0) copy_centres(p, cur & 3, 0, grid);
   if (grid.thread_rank() == 0) {
+    if (cur & 8) *delta_io = __uint_as_float(__ldcg(acc + (((cur >> 2) & 1) ^ 1)));
+    *done_io = done0 != 0 || (cur & 3) == 2 ? 1 : 0;
     *it_io = it;
-    *delta_io = delta;
-    *done_io = done ? 1 : 0;
   }
 }
 
+// Tiles of shape S across w columns, and over an h x w centre.
+template <class S>
+int tiles_across(int w) {
+  return (w + S::kTW - 1) / S::kTW;
+}
+template <class S>
+long long tile_count(int h, int w) {
+  return static_cast<long long>((h + S::kTH - 1) / S::kTH) * tiles_across<S>(w);
+}
+
+// The shape for work of n_big big tiles on `device`: the big tile where it
+// gives every SM two (the blocks an SM holds at the default depth), else
+// the small one. The SM count is read once a device (a launch on the mesh's
+// small shards is host bound).
+bool use_big(long long n_big, int device) {
+  constexpr int kDevices = 64;
+  static int sms[kDevices] = {};
+  int n = device >= 0 && device < kDevices ? sms[device] : 0;
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+      return true;
+    if (device >= 0 && device < kDevices) sms[device] = n;
+  }
+  return n_big >= 2LL * n;
+}
+
+template <class S>
 Plan make_plan(const void* rows, int n_shards, int h, int w, int H, long long ld, int K) {
   Plan p;
   p.rows = static_cast<const long long*>(rows);
@@ -611,35 +919,120 @@ Plan make_plan(const void* rows, int n_shards, int h, int w, int H, long long ld
   p.w = w;
   p.H = H;
   p.K = K;
-  p.nx = (w + kTW - 1) / kTW;
-  p.n_tiles = ((h + kTH - 1) / kTH) * p.nx;
+  p.nx = tiles_across<S>(w);
+  p.n_tiles = static_cast<int>(tile_count<S>(h, w));
   return p;
 }
 
+// The dynamic shared memory of one block of shape S (Smem): two class arrays
+// of u and two of frozen words, TH + 2K rows each. solver/hopper_tile2d.py's
+// tile_smem_bytes gives the same.
+template <class S>
 size_t smem_bytes(int K) {
-  return static_cast<size_t>(kTH + 2 * K) * (kTW + 2 * K) * (sizeof(float) + 1);
+  return static_cast<size_t>(S::kTH + 2 * K) * 2 *
+         (S::class_row(K) * sizeof(float) + S::frozen_words(K) * sizeof(uint32_t));
 }
 
+template <class S>
 Tiling make_tiling(const void* locked, int H, int W, int K) {
   Tiling g;
   g.locked = static_cast<const uint8_t*>(locked);
   g.H = H;
   g.W = W;
   g.K = K;
-  g.nx = (W + kTW - 1) / kTW;
-  g.n_tiles = ((H + kTH - 1) / kTH) * g.nx;
+  g.nx = tiles_across<S>(W);
+  g.n_tiles = static_cast<int>(tile_count<S>(H, W));
   return g;
+}
+
+template <class S>
+int tile2d_chunk(const void* src, void* dst, void* u1, const void* locked, int H, int W,
+                 const void* it, int t_off, int ns, void* delta, int K, void* stream) {
+  const Tiling g = make_tiling<S>(locked, H, W, K);
+  const size_t smem = smem_bytes<S>(g.K);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(tile_chunk_kernel<S>), smem);
+  if (err != cudaSuccess) return err;
+  tile_chunk_kernel<S><<<g.n_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), static_cast<float*>(u1), g,
+      static_cast<const int*>(it), t_off, ns, static_cast<unsigned int*>(delta));
+  return cudaGetLastError();
+}
+
+template <class S>
+int tile2d_cycle(void* a, void* b, const void* locked, int H, int W, const void* it, int t_off,
+                 int total, int n_chunks, void* deltas, int K, void* stream, int device) {
+  Tiling g = make_tiling<S>(locked, H, W, K);
+  const int* it_i = static_cast<const int*>(it);
+  unsigned int* d_u = static_cast<unsigned int*>(deltas);
+  void* args[] = {&a, &b, &g, &it_i, &t_off, &total, &n_chunks, &d_u};
+  return launch_cooperative(reinterpret_cast<const void*>(tile_cycle_kernel<S>), kThreads,
+                            g.n_tiles, smem_bytes<S>(g.K), args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+template <class S>
+int tile2d_solve(void* u, void* twin, void* u1, const void* locked, int H, int W,
+                 const void* eps, int m_max, int bound, int stagger, void* acc, void* it_io,
+                 void* delta_io, void* done_io, int K, void* stream, int device) {
+  Tiling g = make_tiling<S>(locked, H, W, K);
+  const float* eps_f = static_cast<const float*>(eps);
+  void* args[] = {&u, &twin, &u1, &g, &eps_f, &m_max, &bound, &stagger,
+                  &acc, &it_io, &delta_io, &done_io};
+  return launch_cooperative(reinterpret_cast<const void*>(tile_solve_kernel<S>), kThreads,
+                            g.n_tiles, smem_bytes<S>(g.K), args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+template <class S>
+int shard2d_chunk(Shard g, const void* it, int t_off, int ns, void* delta, void* stream) {
+  g.nx = tiles_across<S>(g.we - 2 * g.K);
+  const int n = static_cast<int>(tile_count<S>(g.he - 2 * g.K, g.we - 2 * g.K));
+  const size_t smem = smem_bytes<S>(g.K);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(shard_chunk_kernel<S>), smem);
+  if (err != cudaSuccess) return err;
+  shard_chunk_kernel<S><<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      g, static_cast<const int*>(it), t_off, ns, static_cast<unsigned int*>(delta));
+  return cudaGetLastError();
+}
+
+template <class S>
+int resident2d_cycle(const void* plan, int n_shards, int h, int w, int H, long long ld, int K,
+                     const void* it, int t_off, int total, int n_chunks, int with_u1,
+                     void* deltas, void* stream, int device) {
+  Plan p = make_plan<S>(plan, n_shards, h, w, H, ld, K);
+  const int* it_i = static_cast<const int*>(it);
+  unsigned int* d_u = static_cast<unsigned int*>(deltas);
+  void* args[] = {&p, &it_i, &t_off, &total, &n_chunks, &with_u1, &d_u};
+  return launch_cooperative(reinterpret_cast<const void*>(resident_cycle_kernel<S>), kThreads,
+                            n_shards * p.n_tiles, smem_bytes<S>(K), args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+template <class S>
+int resident2d_solve(const void* plan, int n_shards, int h, int w, int H, long long ld, int K,
+                     const void* eps, int m_max, int bound, int stagger, void* acc, void* it_io,
+                     void* delta_io, void* done_io, void* stream, int device) {
+  Plan p = make_plan<S>(plan, n_shards, h, w, H, ld, K);
+  const float* eps_f = static_cast<const float*>(eps);
+  void* args[] = {&p, &eps_f, &m_max, &bound, &stagger, &acc, &it_io, &delta_io, &done_io};
+  return launch_cooperative(reinterpret_cast<const void*>(resident_solve_kernel<S>), kThreads,
+                            n_shards * p.n_tiles, smem_bytes<S>(K), args, device,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" {
 
+// The dynamic shared memory a launch of depth K asks for on the big tile
+// (the small tile asks for less).
+long long epic_tile2d_smem_bytes(int K) { return static_cast<long long>(smem_bytes<Big>(K)); }
+
 // Each entry launches on `stream` (PyTorch's current stream, as a pointer),
 // does not synchronise, allocates nothing, and returns the cudaError_t of the
 // launch (0 on success). u, twin, u1, src and dst are f32[H, W] and locked
 // u8[H, W], contiguous; src and dst are distinct. K is the halo depth
-// (SolverConfig.tile_depth).
+// (SolverConfig.tile_depth). Each picks the tile shape by use_big.
 
 // One chunk of ns (1..K) sweeps from iteration *it + t_off, src -> dst; with
 // u1 non-null, the state after sweep 0 goes there too; sweep 0's delta is
@@ -647,16 +1040,11 @@ extern "C" {
 int epic_tile2d_chunk(const void* src, void* dst, void* u1, const void* locked, int H, int W,
                       const void* it, int t_off, int ns, void* delta, int K, void* stream,
                       int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Tiling g = make_tiling(locked, H, W, K);
-  const size_t smem = smem_bytes(g.K);
-  err = allow_smem(reinterpret_cast<const void*>(tile_chunk_kernel), smem);
-  if (err != cudaSuccess) return err;
-  tile_chunk_kernel<<<g.n_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst), static_cast<float*>(u1), g,
-      static_cast<const int*>(it), t_off, ns, static_cast<unsigned int*>(delta));
-  return cudaGetLastError();
+  return use_big(tile_count<Big>(H, W), device)
+             ? tile2d_chunk<Big>(src, dst, u1, locked, H, W, it, t_off, ns, delta, K, stream)
+             : tile2d_chunk<Small>(src, dst, u1, locked, H, W, it, t_off, ns, delta, K, stream);
 }
 
 // `total` sweeps from *it + t_off spread over n_chunks ping-pong chunks
@@ -665,14 +1053,13 @@ int epic_tile2d_chunk(const void* src, void* dst, void* u1, const void* locked, 
 int epic_tile2d_cycle(void* a, void* b, const void* locked, int H, int W, const void* it,
                       int t_off, int total, int n_chunks, void* deltas, int K, void* stream,
                       int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Tiling g = make_tiling(locked, H, W, K);
-  const int* it_i = static_cast<const int*>(it);
-  unsigned int* d_u = static_cast<unsigned int*>(deltas);
-  void* args[] = {&a, &b, &g, &it_i, &t_off, &total, &n_chunks, &d_u};
-  return launch_cooperative(reinterpret_cast<const void*>(tile_cycle_kernel), kThreads, g.n_tiles,
-                            smem_bytes(g.K), args, device, static_cast<cudaStream_t>(stream));
+  return use_big(tile_count<Big>(H, W), device)
+             ? tile2d_cycle<Big>(a, b, locked, H, W, it, t_off, total, n_chunks, deltas, K,
+                                 stream, device)
+             : tile2d_cycle<Small>(a, b, locked, H, W, it, t_off, total, n_chunks, deltas, K,
+                                   stream, device);
 }
 
 // The solve protocol in one launch, resumed from (*it_io, *delta_io,
@@ -683,14 +1070,13 @@ int epic_tile2d_solve(void* u, void* twin, void* u1, const void* locked, int H, 
                       const void* eps, int m_max, int bound, int stagger, void* acc,
                       void* it_io, void* delta_io, void* done_io, int K, void* stream,
                       int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Tiling g = make_tiling(locked, H, W, K);
-  const float* eps_f = static_cast<const float*>(eps);
-  void* args[] = {&u, &twin, &u1, &g, &eps_f, &m_max, &bound, &stagger,
-                  &acc, &it_io, &delta_io, &done_io};
-  return launch_cooperative(reinterpret_cast<const void*>(tile_solve_kernel), kThreads, g.n_tiles,
-                            smem_bytes(g.K), args, device, static_cast<cudaStream_t>(stream));
+  return use_big(tile_count<Big>(H, W), device)
+             ? tile2d_solve<Big>(u, twin, u1, locked, H, W, eps, m_max, bound, stagger, acc,
+                                 it_io, delta_io, done_io, K, stream, device)
+             : tile2d_solve<Small>(u, twin, u1, locked, H, W, eps, m_max, bound, stagger, acc,
+                                   it_io, delta_io, done_io, K, stream, device);
 }
 
 // One chunk of ns (1..K) sweeps from iteration *it + t_off on one shard's
@@ -703,7 +1089,7 @@ int epic_tile2d_solve(void* u, void* twin, void* u1, const void* locked, int H, 
 int epic_shard2d_chunk(const void* src, void* dst, void* u1, const void* frozen, long long ld,
                        int he, int we, int K, int par0, const void* it, int t_off, int ns,
                        void* delta, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Shard g;
   g.src = static_cast<const float*>(src);
@@ -715,14 +1101,9 @@ int epic_shard2d_chunk(const void* src, void* dst, void* u1, const void* frozen,
   g.we = we;
   g.K = K;
   g.par0 = par0 & 1;
-  g.nx = (we - 2 * K + kTW - 1) / kTW;
-  const int ny = (he - 2 * K + kTH - 1) / kTH;
-  const size_t smem = smem_bytes(K);
-  err = allow_smem(reinterpret_cast<const void*>(shard_chunk_kernel), smem);
-  if (err != cudaSuccess) return err;
-  shard_chunk_kernel<<<ny * g.nx, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      g, static_cast<const int*>(it), t_off, ns, static_cast<unsigned int*>(delta));
-  return cudaGetLastError();
+  return use_big(tile_count<Big>(he - 2 * K, we - 2 * K), device)
+             ? shard2d_chunk<Big>(g, it, t_off, ns, delta, stream)
+             : shard2d_chunk<Small>(g, it, t_off, ns, delta, stream);
 }
 
 // The resident route on one device's plan: `plan` is n_shards rows of
@@ -737,15 +1118,13 @@ int epic_shard2d_chunk(const void* src, void* dst, void* u1, const void* frozen,
 int epic_resident2d_cycle(const void* plan, int n_shards, int h, int w, int H, long long ld,
                           int K, const void* it, int t_off, int total, int n_chunks, int with_u1,
                           void* deltas, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Plan p = make_plan(plan, n_shards, h, w, H, ld, K);
-  const int* it_i = static_cast<const int*>(it);
-  unsigned int* d_u = static_cast<unsigned int*>(deltas);
-  void* args[] = {&p, &it_i, &t_off, &total, &n_chunks, &with_u1, &d_u};
-  return launch_cooperative(reinterpret_cast<const void*>(resident_cycle_kernel), kThreads,
-                            n_shards * p.n_tiles, smem_bytes(K), args, device,
-                            static_cast<cudaStream_t>(stream));
+  return use_big(n_shards * tile_count<Big>(h, w), device)
+             ? resident2d_cycle<Big>(plan, n_shards, h, w, H, ld, K, it, t_off, total,
+                                     n_chunks, with_u1, deltas, stream, device)
+             : resident2d_cycle<Small>(plan, n_shards, h, w, H, ld, K, it, t_off, total,
+                                       n_chunks, with_u1, deltas, stream, device);
 }
 
 // The solve protocol on a plan that covers the whole mesh (no neighbour
@@ -756,14 +1135,13 @@ int epic_resident2d_cycle(const void* plan, int n_shards, int h, int w, int H, l
 int epic_resident2d_solve(const void* plan, int n_shards, int h, int w, int H, long long ld,
                           int K, const void* eps, int m_max, int bound, int stagger, void* acc,
                           void* it_io, void* delta_io, void* done_io, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Plan p = make_plan(plan, n_shards, h, w, H, ld, K);
-  const float* eps_f = static_cast<const float*>(eps);
-  void* args[] = {&p, &eps_f, &m_max, &bound, &stagger, &acc, &it_io, &delta_io, &done_io};
-  return launch_cooperative(reinterpret_cast<const void*>(resident_solve_kernel), kThreads,
-                            n_shards * p.n_tiles, smem_bytes(K), args, device,
-                            static_cast<cudaStream_t>(stream));
+  return use_big(n_shards * tile_count<Big>(h, w), device)
+             ? resident2d_solve<Big>(plan, n_shards, h, w, H, ld, K, eps, m_max, bound, stagger,
+                                     acc, it_io, delta_io, done_io, stream, device)
+             : resident2d_solve<Small>(plan, n_shards, h, w, H, ld, K, eps, m_max, bound,
+                                       stagger, acc, it_io, delta_io, done_io, stream, device);
 }
 
 }  // extern "C"

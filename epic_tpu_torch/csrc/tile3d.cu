@@ -366,6 +366,12 @@ Tiling make_tiling(const void* locked, int D, int H, int W, int K) {
 
 extern "C" {
 
+// The dynamic shared memory a launch of depth K asks for (5 B a voxel of the
+// extended tile; solver/hopper_tile3d.py's smem_bytes gives the same).
+long long epic_tile3d_smem_bytes(int K) {
+  return static_cast<long long>(ext_voxels(K)) * (sizeof(float) + 1);
+}
+
 // Each entry launches on `stream` (PyTorch's current stream, as a pointer),
 // does not synchronise, allocates nothing, and returns the cudaError_t of the
 // launch (0 on success). u, twin, u1, src and dst are f32[D, H, W] and locked

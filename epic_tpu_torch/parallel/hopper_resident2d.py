@@ -197,12 +197,14 @@ def plain_cycle(sh, plan: Plan, k: int, iteration, total: int, n_chunks: int, *,
 def plain_solve(sh, plan: Plan, k: int, stagger: int, bound: int, iteration: torch.Tensor,
                 delta: torch.Tensor, done: torch.Tensor) -> None:
     """The plain version of :func:`solve`, on any device: the entry's loop
-    over :func:`plain_cycle`."""
+    over :func:`plain_cycle`, the rest of each cycle after its checked chunk
+    in chunks of ``k`` and a last shorter one, as the entry runs it (any
+    split gives the same field; this one leaves the twin and u1 blocks as
+    the entry leaves them)."""
     calls["solve"] += 1
     _check_solve(sh, plan, stagger)
     home, other = sh.u_blocks, sh.twin_blocks
     m_max, depth = max(sh.height, sh.width), min(k, stagger)
-    rest = stagger - depth
     it, d, finished = int(iteration), delta.clone(), bool(done)
     final = home
     while not finished and it < bound:
@@ -211,11 +213,9 @@ def plain_solve(sh, plan: Plan, k: int, stagger: int, bound: int, iteration: tor
             it, finished, final = it + 1, True, sh.u1_blocks
             break
         sh.u_blocks, sh.twin_blocks = sh.twin_blocks, sh.u_blocks
-        if rest:
-            n_rest = -(-rest // k)
-            plain_cycle(sh, plan, k, it + depth, rest, n_rest)
-            if n_rest % 2:
-                sh.u_blocks, sh.twin_blocks = sh.twin_blocks, sh.u_blocks
+        for t in range(it + depth, it + stagger, k):
+            plain_cycle(sh, plan, k, t, min(k, it + stagger - t), 1)
+            sh.u_blocks, sh.twin_blocks = sh.twin_blocks, sh.u_blocks
         it += stagger
         final = sh.u_blocks
     sh.u_blocks, sh.twin_blocks = home, other

@@ -39,7 +39,7 @@ calls = {"sweep_k_local": 0}
 
 def depth_limit(smem_limit: int) -> int:
     """The deepest halo whose extended tile (``hopper_tile2d.TILE``, the
-    kernel's 64 x 128 centre) fits ``smem_limit`` bytes of shared memory."""
+    kernel's 96 x 160 centre) fits ``smem_limit`` bytes of shared memory."""
     k = 0
     while hopper_tile2d.smem_bytes(k + 1) <= smem_limit:
         k += 1
@@ -53,7 +53,7 @@ def _smem_limit(device: torch.device) -> int:
 
 
 def max_depth(device: torch.device) -> int:
-    """The deepest halo the kernel takes on ``device`` (60 on an H100)."""
+    """The deepest halo the kernel takes on ``device`` (55 on an H100)."""
     return depth_limit(_smem_limit(device))
 
 

@@ -80,10 +80,10 @@ FILL = float(C.LOG_SPACE_OBSTACLE)
 _CARD_NAMES = ("pallas", "pallas_banded")
 _CPU_NAMES = ("xla", "pallas_interpret", "pallas_banded_interpret", "resident_interpret")
 _RESIDENT = ("resident", "resident_interpret")
-# The largest shard "auto" sends to the resident route: between the 4.7M
-# cells where it measured faster on an H100 and the 8.4M where it measured
+# The largest shard "auto" sends to the resident route: between the 8.4M
+# cells where it measured faster on an H100 and the 18.9M where it measured
 # slower (prefers_resident).
-RESIDENT_MAX_SHARD_CELLS = 6_000_000
+RESIDENT_MAX_SHARD_CELLS = 12_000_000
 
 
 class Mesh:
@@ -444,9 +444,9 @@ def prefers_resident(mesh: Mesh, h_loc: int, w_loc: int) -> bool:
     resident one where one device holds the whole mesh and a shard has at
     most ``RESIDENT_MAX_SHARD_CELLS`` cells, else the per-shard one. On an
     H100 (``tile_probe --mesh2d``, PERF.md) the resident tick of a 2 x 4
-    virtual mesh takes 0.12-0.97 of the per-shard tick's time up to shards
-    of 3072 x 1536, where the host's launches set the pace, and 1.07-1.12
-    from 4096 x 2048, where its tile pass is the slower. Across devices
+    virtual mesh takes 0.13-0.91 of the per-shard tick's time up to shards
+    of 4096 x 2048, where the host's launches weigh, and 1.07-1.12 from
+    6144 x 3072, where the tile pass sets the pace. Across devices
     each device's launch carries one chunk on either route, so the resident
     route saves no launch where a device holds one shard; it is not
     measured there."""

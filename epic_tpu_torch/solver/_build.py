@@ -107,40 +107,45 @@ def set_tile3d_types(lib: ctypes.CDLL) -> None:
         fn.restype = i
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of every entry in ``lib`` (the
+    library of :func:`build`, or a probe's variant of it); returns it."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.epic_sweep2d_chunk.argtypes = [p, p, i, i, p, i, p, p, i]
+    lib.epic_sweep2d_solve.argtypes = [p, p, i, i, p, i, i, i, p, p, p, p, p, i]
+    lib.epic_sweep3d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, i]
+    lib.epic_sweep3d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i]
+    lib.epic_batched2d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, p, i]
+    lib.epic_batched2d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, p, i]
+    lib.epic_tile2d_chunk.argtypes = [p, p, p, p, i, i, p, i, i, p, i, p, i]
+    lib.epic_tile2d_cycle.argtypes = [p, p, p, i, i, p, i, i, i, p, i, p, i]
+    lib.epic_tile2d_solve.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, p, p, i, p, i]
+    set_tile3d_types(lib)
+    lib.epic_shard2d_chunk.argtypes = [p, p, p, p, ll, i, i, i, i, p, i, i, p, p, i]
+    lib.epic_shard3d_chunk.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i, p, i, i, p, p, i]
+    lib.epic_resident2d_cycle.argtypes = [p, i, i, i, i, ll, i, p, i, i, i, i, p, p, i]
+    lib.epic_resident2d_solve.argtypes = [p, i, i, i, i, ll, i, p, i, i, i, p, p, p, p, p, i]
+    for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
+               lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve,
+               lib.epic_batched2d_chunk, lib.epic_batched2d_solve,
+               lib.epic_tile2d_chunk, lib.epic_tile2d_cycle, lib.epic_tile2d_solve,
+               lib.epic_shard2d_chunk, lib.epic_shard3d_chunk,
+               lib.epic_resident2d_cycle, lib.epic_resident2d_solve):
+        fn.restype = i
+    for name in ("epic_tile2d_smem_bytes", "epic_tile3d_smem_bytes"):
+        if hasattr(lib, name):   # an earlier design of a tile family may lack it
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = ll
+    lib.epic_cuda_error_string.argtypes = [i]
+    lib.epic_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call and loaded once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.epic_sweep2d_chunk.argtypes = [p, p, i, i, p, i, p, p, i]
-        lib.epic_sweep2d_solve.argtypes = [p, p, i, i, p, i, i, i, p, p, p, p, p, i]
-        lib.epic_sweep3d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, i]
-        lib.epic_sweep3d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i]
-        lib.epic_batched2d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, p, i]
-        lib.epic_batched2d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, p, i]
-        lib.epic_tile2d_chunk.argtypes = [p, p, p, p, i, i, p, i, i, p, i, p, i]
-        lib.epic_tile2d_cycle.argtypes = [p, p, p, i, i, p, i, i, i, p, i, p, i]
-        lib.epic_tile2d_solve.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, p, p, i, p, i]
-        set_tile3d_types(lib)
-        lib.epic_shard2d_chunk.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, p, i, i, p,
-                                           p, i]
-        lib.epic_shard3d_chunk.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, i,
-                                           i, i, i, i, p, i, i, p, p, i]
-        lib.epic_resident2d_cycle.argtypes = [p, i, i, i, i, ctypes.c_longlong, i, p, i, i, i, i,
-                                              p, p, i]
-        lib.epic_resident2d_solve.argtypes = [p, i, i, i, i, ctypes.c_longlong, i, p, i, i, i, p,
-                                              p, p, p, p, i]
-        for fn in (lib.epic_sweep2d_chunk, lib.epic_sweep2d_solve,
-                   lib.epic_sweep3d_chunk, lib.epic_sweep3d_solve,
-                   lib.epic_batched2d_chunk, lib.epic_batched2d_solve,
-                   lib.epic_tile2d_chunk, lib.epic_tile2d_cycle, lib.epic_tile2d_solve,
-                   lib.epic_shard2d_chunk, lib.epic_shard3d_chunk,
-                   lib.epic_resident2d_cycle, lib.epic_resident2d_solve):
-            fn.restype = i
-        lib.epic_cuda_error_string.argtypes = [i]
-        lib.epic_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 

@@ -39,9 +39,12 @@ class TileKernels:
     unless a call says otherwise, plain version ``plain``. ``launches``
     counts each kernel's launches; nothing else changes it."""
 
-    def __init__(self, prefix: str, plain, tile: tuple[int, ...], default_depth: int):
+    def __init__(self, prefix: str, plain, tile: tuple[int, ...], default_depth: int,
+                 smem_bytes=None):
         self.prefix, self.plain, self.tile = prefix, plain, tuple(tile)
         self.default_depth = default_depth
+        if smem_bytes is not None:
+            self.smem_bytes = smem_bytes
         self.ndim = len(self.tile)
         self.launches = {f"{prefix}_{e}": 0 for e in ("chunk", "cycle", "solve")}
         self.scratch: dict = {}
@@ -50,7 +53,8 @@ class TileKernels:
 
     def smem_bytes(self, k: int) -> int:
         """Dynamic shared memory of one block: u (4 B) and a frozen byte for
-        each cell of the halo-extended tile."""
+        each cell of the halo-extended tile (the 3D family's layout; a
+        family with another layout passes its own formula)."""
         return math.prod(t + 2 * k for t in self.tile) * 5
 
     def check_depth(self, k: int, smem_limit: int) -> None:

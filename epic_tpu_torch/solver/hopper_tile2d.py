@@ -35,12 +35,28 @@ from ._tiles import TileKernels
 
 DEFAULT_DEPTH = 16        # SolverConfig.tile_depth's default: sweeps per trip to memory
 # The centre a block owns, TH x TW: kTH x kTW of csrc/tile2d.cu, fixed there
-# (with 512 threads a block) as the fastest shape measured at 4096² and 8192²
-# on an H100 (PERF.md). The plain version takes any tile; it is held to the
-# kernels at this one.
-TILE = (64, 128)
+# (with 512 threads a block) as the fastest shape ``tile_probe --shapes2d``
+# measured on an H100 (PERF.md). A launch whose grid, shard or plan gives
+# the card's SMs fewer than two such tiles each runs on the small tile
+# kSmallTH x kSmallTW instead (TILE_SMALL), which busies more SMs. The plain
+# version takes any tile and gives the same bits with each; it is held to
+# the kernels at TILE.
+TILE = (96, 160)
+TILE_SMALL = (32, 96)
 
-_kernels = TileKernels("epic_tile2d", tiled, TILE, DEFAULT_DEPTH)
+
+def tile_smem_bytes(k: int, tile: tuple[int, int] = TILE) -> int:
+    """Dynamic shared memory of one block of ``csrc/tile2d.cu`` at halo depth
+    ``k`` (its ``smem_bytes``): each of the extended tile's ``TH + 2k`` rows
+    holds two class rows (the red and the black cells) of ``(TW + 2k) / 2``
+    floats and their frozen flags as bits in 32-bit words. At ``TILE``, the
+    larger of the two shapes, it bounds what a launch asks for."""
+    th, tw = tile
+    half = tw // 2 + k
+    return (th + 2 * k) * 2 * (4 * half + 4 * -(-half // 32))
+
+
+_kernels = TileKernels("epic_tile2d", tiled, TILE, DEFAULT_DEPTH, tile_smem_bytes)
 launches = _kernels.launches
 smem_bytes = _kernels.smem_bytes
 check_depth = _kernels.check_depth

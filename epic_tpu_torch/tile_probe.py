@@ -1,10 +1,10 @@
 """Measure the routing crossovers of the tile kernels on one CUDA card.
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
-[--sides ...] [--volumes ...] [--shapes] [--mesh3d] [--mesh2d]``. It prints the card's
-name and
-power limit, then one JSON line per measurement, CUDA events, mean of
-``--reps`` ticks after one warm-up:
+[--sides ...] [--volumes ...] [--shapes] [--mesh3d] [--mesh2d] [--shapes2d
+[--baseline FILE]] [--compare2d FILE] [--sass]``. It prints the card's name
+and power limit, then one JSON line per measurement, CUDA events, mean of
+``--reps`` runs after one warm-up:
 
 - ``--sides`` (2D, the default): a 100-sweep tick per sweep through the
   in-place kernel (``hopper_sweep``, K1) and through the tile route
@@ -28,7 +28,29 @@ power limit, then one JSON line per measurement, CUDA events, mean of
   at 500 sweeps of each square grid (``MESH_SIDES``, or the ``--sides``)
   on a 2 x 4 virtual mesh of the card through the per-shard route
   (``kernel="pallas"``) and the resident route (``kernel="resident"``),
-  beside the route :func:`sharded.prefers_resident` picks.
+  beside the route :func:`sharded.prefers_resident` picks;
+- ``--shapes2d`` (2D): the tile shape of ``csrc/tile2d.cu``. Each candidate
+  ``(kTH, kTW, kThreads, kMinBlocks)`` of ``SHAPES2D`` is built as a copy of
+  the library with those constants replaced in ``tile2d.cu`` (under the
+  build directory; the source keeps its one shape), and each of its
+  ``-Xptxas -v`` lines is printed. At each depth of ``DEPTHS2D`` whose tile
+  fits shared memory it times one chunk of K sweeps on an 8192² grid and
+  on one 8192 x 4096 shard's K-extended block (the 16384² mesh's), and a
+  100-sweep cycle on the 8192² grid, each held to the plain version bit for
+  bit. With ``--baseline FILE`` (another ``tile2d.cu``, such as an earlier
+  design, with its own constants) that file is built and timed the same
+  way, in turns with the source's shape (baseline, source, source,
+  baseline);
+- ``--compare2d FILE``: the source's 2D tile, shard and resident entries
+  against ``FILE``'s (another ``tile2d.cu`` with the same entries), each
+  built into a whole library, at every shape of PERF.md's table of them:
+  entries, ticks and solves through the wrappers with one library loaded
+  and then the other, in turns (FILE, source, source, FILE) for each in
+  a row, the results of the two held equal bit for bit;
+- ``--sass``: the SASS instructions of one ``lse4`` and one ``lse6``
+  update (``sweep_common.cuh``), counted with ``cuobjdump -sass`` in a
+  kernel that computes one a thread, less a kernel that adds the same
+  loaded values (chip_smoke.py's ``LSE4_SASS`` and ``LSE6_SASS``).
 
 Each routing rule's threshold is set where the tile route starts to win.
 States are built on the card from a seed (10% locked cells, the shell
@@ -42,7 +64,9 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import pathlib
 import re
+import shutil
 import subprocess
 
 import torch
@@ -62,6 +86,18 @@ MESH_VOLUMES = ("256", "64x1024x1024", "128x1024x1024", "256x1024x1024", "384x10
                 "512x1024x1024", "128x512x512", "256x512x512", "64x256x256", "128x256x256")
 # --mesh2d's grid sides: the maze's, and squares up to chip_smoke.py's 16384^2.
 MESH_SIDES = (482, 1024, 2048, 3072, 4096, 6144, 8192, 12288, 16384)
+# (kTH, kTW, kThreads, kMinBlocks) candidates for --shapes2d: the class row
+# (kTW / 2 + K cells) near a whole number of warp passes or not, taller and
+# wider tiles (less halo recompute, fewer blocks an SM), and a register
+# budget for three blocks an SM.
+SHAPES2D = ((64, 128, 512, 2), (64, 160, 512, 3), (96, 160, 512, 2), (128, 96, 512, 2),
+            (128, 160, 1024, 1), (160, 160, 1024, 1), (96, 224, 1024, 1), (128, 224, 1024, 1))
+DEPTHS2D = (8, 12, 16, 24)
+SHAPE2D_NAMES = ("kTH", "kTW", "kThreads", "kMinBlocks")
+# --shapes2d's grid and shard: chip_smoke.py's 8192^2 and one 8192 x 4096
+# shard of its 16384^2 mesh.
+BIG2D = (8192, 8192)
+SHARD2D = (8192, 4096)
 
 
 def random_state(shape, dev: torch.device, seed: int = 0) -> G.GridState:
@@ -199,6 +235,330 @@ def probe_shapes(dev, reps: int, volumes=VOLUMES, shapes=SHAPES, depths=DEPTHS) 
         del st, ref
 
 
+def build_libraries(variants: dict) -> dict:
+    """One whole kernel library a variant of ``csrc/tile2d.cu`` ({name:
+    source text}): the other sources compiled once, each variant beside
+    them, linked and bound under the build directory. Prints each variant's
+    ``-Xptxas -v`` lines; returns {name: CDLL}."""
+    out_dir = _build.BUILD_DIR / "tile_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    flags = [*_build.COMPILE_FLAGS, "-I", str(_build.CSRC)]
+    others = [src for src in _build.SOURCES if src.name != "tile2d.cu"]
+    objs = {src: out_dir / f"{src.stem}.o" for src in others}
+    cus, logs = {}, {}
+    for name, text in variants.items():
+        cus[name] = out_dir / f"tile2d_{name}.cu"
+        cus[name].write_text(text)
+    procs = {name: subprocess.Popen([nvcc, *flags, "-o", str(cu.with_suffix(".o")), str(cu)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, cu in cus.items()}
+    _build._run([[nvcc, *flags, "-o", str(o), str(src)] for src, o in objs.items()])
+    for name, proc in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{logs[name]}")
+    _build._run([[nvcc, *_build.LINK_FLAGS, "-o", str(out_dir / f"lib_{name}.so"),
+                  str(cu.with_suffix(".o")), *map(str, objs.values())]
+                 for name, cu in cus.items()])
+    libs = {}
+    for name in variants:
+        ptxas = [ln.strip() for ln in logs[name].splitlines() if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
+        print(json.dumps(dict(probe="ptxas", variant=name, lines=ptxas)), flush=True)
+        libs[name] = _build.bind(ctypes.CDLL(str(out_dir / f"lib_{name}.so")))
+    return libs
+
+
+def shape_variant(shape) -> str:
+    """``csrc/tile2d.cu`` with its (kTH, kTW, kThreads, kMinBlocks) replaced."""
+    text = (_build.CSRC / "tile2d.cu").read_text()
+    for name, value in zip(SHAPE2D_NAMES, shape):
+        text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+                          text)
+        if n != 1:
+            raise RuntimeError(f"tile2d.cu has no single `constexpr int {name}`")
+    return text
+
+
+def source_shape(text: str) -> tuple:
+    """The (kTH, kTW, kThreads, kMinBlocks) of a ``tile2d.cu`` text (1 block
+    an SM where it names none)."""
+    vals = []
+    for name in SHAPE2D_NAMES:
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        vals.append(int(m.group(1)) if m else 1)
+    return tuple(vals)
+
+
+def shard_block(shape, k: int, dev, seed: int = 0):
+    """A random K-extended shard block (10% frozen cells, a frozen outer
+    ring of the block), its parity origin 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    he, we = shape[0] + 2 * k, shape[1] + 2 * k
+    frozen = torch.rand((he, we), generator=gen, device=dev) < 0.1
+    frozen[0].fill_(True)
+    frozen[:, 0].fill_(True)
+    u = torch.where(frozen, torch.full((he, we), -1e6, device=dev),
+                    -40 * torch.rand((he, we), generator=gen, device=dev))
+    return u, frozen
+
+
+def probe_shapes2d(dev, reps: int, shapes=SHAPES2D, depths=DEPTHS2D,
+                   baseline: str | None = None) -> None:
+    from .parallel import hopper_shard2d
+    from .solver import core
+
+    variants = {"x".join(map(str, shape)): shape_variant(shape) for shape in shapes}
+    if baseline is not None:
+        variants["baseline"] = pathlib.Path(baseline).read_text()
+    libs = build_libraries(variants)
+    shape_of = {name: source_shape(text) for name, text in variants.items()}
+    smem_limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    st = random_state(BIG2D, dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    ref_tick = core.update_n(st, 100).u
+    source = "x".join(map(str, source_shape((_build.CSRC / "tile2d.cu").read_text())))
+    order = list(libs)
+    if baseline is not None:   # in turns: baseline, the source's shape, again, baseline
+        order = [v for v in order if v not in ("baseline", source)]
+        order += ["baseline", source, source, "baseline"]
+    for k in depths:
+        ref_chunk = core.update_n(st, k).u
+        u_sh, fz_sh = shard_block(SHARD2D, k, dev)
+        ref_shard = hopper_shard2d.sweep_k_local(u_sh, fz_sh, 1, 0, k)[0][k:-k, k:-k]
+        dst, sh_dst = torch.empty_like(st.u), torch.empty_like(u_sh)
+        a, b = st.u.clone(), torch.empty_like(st.u)
+        n_chunks = -(-100 // k)
+        runs: dict = {}
+        for name in order:
+            lib = libs[name]
+            th, tw, threads, min_blocks = shape_of[name]
+            smem = (int(lib.epic_tile2d_smem_bytes(k)) if hasattr(lib, "epic_tile2d_smem_bytes")
+                    else (th + 2 * k) * (tw + 2 * k) * 5)   # a design of 5 B a cell
+            if smem > smem_limit:
+                continue
+            delta = torch.zeros((), device=dev)
+            deltas = torch.zeros(n_chunks, device=dev)
+
+            def chunk():
+                _build.check(lib.epic_tile2d_chunk(
+                    st.u.data_ptr(), dst.data_ptr(), None, st.locked.data_ptr(), *BIG2D,
+                    it.data_ptr(), 0, k, delta.data_ptr(), k, stream, dev.index),
+                    "epic_tile2d_chunk")
+
+            def shard():
+                _build.check(lib.epic_shard2d_chunk(
+                    u_sh.data_ptr(), sh_dst.data_ptr(), None, fz_sh.data_ptr(), u_sh.stride(0),
+                    *u_sh.shape, k, 1, it.data_ptr(), 0, k, delta.data_ptr(), stream, dev.index),
+                    "epic_shard2d_chunk")
+
+            def tick():
+                _build.check(lib.epic_tile2d_cycle(
+                    a.data_ptr(), b.data_ptr(), st.locked.data_ptr(), *BIG2D, it.data_ptr(), 0,
+                    100, n_chunks, deltas.data_ptr(), k, stream, dev.index), "epic_tile2d_cycle")
+
+            chunk()
+            same = [bool(torch.equal(dst, ref_chunk))]
+            shard()
+            same.append(bool(torch.equal(sh_dst[k:-k, k:-k], ref_shard)))
+            a.copy_(st.u)
+            tick()
+            same.append(bool(torch.equal(a if n_chunks % 2 == 0 else b, ref_tick)))
+            ms = {"chunk8k": event_ms(chunk, reps), "shard16k": event_ms(shard, reps),
+                  "tick8k": event_ms(tick, reps)}
+            runs.setdefault(name, []).append(ms)
+            print(json.dumps(dict(probe="shape2d", variant=name, tile=[th, tw], threads=threads,
+                                  min_blocks=min_blocks, k=k, smem_bytes=smem,
+                                  chunk8k_ms=ms["chunk8k"], shard16k_ms=ms["shard16k"],
+                                  tick8k_ms=ms["tick8k"], chunk8k_ms_per_sweep=ms["chunk8k"] / k,
+                                  shard16k_ms_per_sweep=ms["shard16k"] / k,
+                                  same_bits=all(same))), flush=True)
+        if baseline is not None and "baseline" in runs and source in runs:
+            mean = {n: {w: sum(r[w] for r in runs[n]) / len(runs[n]) for w in runs[n][0]}
+                    for n in ("baseline", source)}
+            print(json.dumps(dict(probe="shape2d_vs_baseline", k=k, source=source,
+                                  **{f"{w}_speedup": mean["baseline"][w] / mean[source][w]
+                                     for w in mean[source]})), flush=True)
+        del u_sh, fz_sh, sh_dst, ref_shard, ref_chunk
+
+
+def probe_compare2d(dev, reps: int, baseline: str) -> None:
+    """The source's 2D tile, shard and resident entries against
+    ``baseline``'s at PERF.md's shapes, in turns (baseline, source, source,
+    baseline); each workload's results under the two held equal."""
+    import numpy as np
+
+    from . import grid as Gm
+    from .parallel import hopper_resident2d, hopper_shard2d, make_mesh, sharded
+
+    libs = {"source": _build.load(),
+            "baseline": build_libraries({"baseline": pathlib.Path(baseline).read_text()})[
+                "baseline"]}
+    maze_img = np.load(pathlib.Path(__file__).resolve().parents[1] / "tests" / "goldens"
+                       / "maze.npz")["img"]
+    maze = Gm.from_occupancy_image(maze_img, 1e-3, device=dev)
+    g8, g4, strip = (random_state(s, dev) for s in ((8192, 8192), (4096, 4096), (2000, 33_333)))
+    g16 = random_state((16384, 16384), dev)
+    mesh = make_mesh((2, 4), devices=[dev] * 8)
+
+    def copy(s):
+        return dataclasses.replace(s, u=s.u.clone())
+
+    def fresh_mesh(state):
+        sh = sharded.shard_state(state, mesh)
+        sharded.update_n_resident(sh, 1, mesh, kernel="pallas")   # halos exchanged once
+        return sh
+
+    sh16 = fresh_mesh(g16)
+    k = sh16.halo
+    H = sh16.halo
+    view = (slice(H - k, H + sh16.h_loc + k), slice(H - k, H + sh16.w_loc + k))
+    ij = (0, 1)
+    shard_src = sh16.u_blocks[ij][view].clone()
+    shard_fz = sh16.frozen_blocks[ij][view].clone()
+    shard_dst = torch.empty_like(shard_src)
+    sh_maze = fresh_mesh(maze)         # one maze shard's block: the entry alone, host bound path
+    km = sh_maze.halo
+    mview = (slice(0, sh_maze.h_loc + 2 * km), slice(0, sh_maze.w_loc + 2 * km))
+    maze_src = sh_maze.u_blocks[0, 1][mview].clone()
+    maze_fz = sh_maze.frozen_blocks[0, 1][mview].clone()
+    maze_dst = torch.empty_like(maze_src)
+    sh_cycle = fresh_mesh(g16)
+    sh_cycle.u1_blocks = sharded._blank(mesh, sh_cycle.u_blocks[0, 0].shape, sharded.FILL,
+                                        torch.float32)
+    plan = hopper_resident2d.plans(mesh)[0]
+    cyc_start = {ij: b.clone() for ij, b in sh_cycle.u_blocks.items()}
+
+    def cycle():
+        for key, b in cyc_start.items():
+            sh_cycle.u_blocks[key].copy_(b)
+        hopper_resident2d.cycle(sh_cycle, plan, k, 1, 3 * k, 3, u1=True)
+        return torch.cat([sh_cycle.twin_blocks[key].flatten() for key in mesh.local])
+
+    def mesh_run(state, route, solve_cap=None):
+        def run():
+            sh = fresh_mesh(state)
+            if solve_cap is None:
+                sharded.update_n_resident(sh, 100, mesh, kernel=route)
+            else:
+                sharded.solve_resident(sh, mesh, max_iterations=solve_cap, kernel=route)
+            return sharded.unshard(sh).u
+        return run
+
+    a8, b8 = g8.u.clone(), torch.empty_like(g8.u)
+    work = {
+        "shard_chunk_8192x4096_k16": (lambda: (hopper_shard2d.chunk(
+            shard_src, shard_dst, shard_fz, k=k, par0=1, iteration=0, ns=k, want_delta=True),
+            shard_dst)[1], 30),
+        "shard_chunk_241x121_k16": (lambda: (hopper_shard2d.chunk(
+            maze_src, maze_dst, maze_fz, k=km, par0=1, iteration=0, ns=km, want_delta=True),
+            maze_dst)[1], 200),
+        "tile_chunk_8192_16": (lambda: hopper_tile2d.sweep_chunk(g8.u, g8.locked, 0, 16, k=16)[0],
+                               20),
+        "tile_cycle_8192_50in4": (lambda: hopper_tile2d.sweep_cycle(
+            a8.copy_(g8.u), b8, g8.locked, 0, 4, 50, k=16)[0], 10),
+        "tick_8192": (lambda: hopper_tile2d.update_n(copy(g8), 100).u, 5),
+        "solve_8192_cap2000": (lambda: hopper_tile2d.solve(copy(g8), 100, 2000).u, 1),
+        "tick_4096": (lambda: hopper_tile2d.update_n(copy(g4), 100).u, 5),
+        "solve_4096_cap2000": (lambda: hopper_tile2d.solve(copy(g4), 100, 2000).u, 1),
+        "tick_strip": (lambda: hopper_tile2d.update_n(copy(strip), 100).u, 5),
+        "solve_strip_cap1000": (lambda: hopper_tile2d.solve(copy(strip), 100, 1000).u, 1),
+        "maze_chunk_u1_16": (lambda: hopper_tile2d.sweep_chunk(maze.u, maze.locked, 0, 16, k=16,
+                                                               u1=True)[2], 50),
+        "maze_tile_solve": (lambda: hopper_tile2d.solve(copy(maze)).u, 1),
+        "mesh16k_tick_pershard": (mesh_run(g16, "pallas"), 3),
+        "mesh16k_tick_resident": (mesh_run(g16, "resident"), 3),
+        "mesh16k_solve2000_pershard": (mesh_run(g16, "pallas", 2000), 1),
+        "mesh16k_solve2000_resident": (mesh_run(g16, "resident", 2000), 1),
+        "resident_cycle_3x16_u1": (cycle, 5),
+        "maze_mesh_solve_resident": (mesh_run(maze, "resident", 1_000_000), 1),
+        "maze_mesh_solve_pershard": (mesh_run(maze, "pallas", 1_000_000), 1),
+    }
+    times: dict = {w: {"baseline": [], "source": []} for w in work}
+    results: dict = {w: {} for w in work}
+    try:
+        for w, (fn, n) in work.items():      # each workload's turns back to back
+            for turn in ("baseline", "source", "source", "baseline"):
+                _build._lib = libs[turn]
+                if turn not in results[w]:
+                    results[w][turn] = fn().clone()
+                times[w][turn].append(event_ms(fn, n))
+    finally:
+        _build._lib = libs["source"]
+    for w in work:
+        old = sum(times[w]["baseline"]) / 2
+        new = sum(times[w]["source"]) / 2
+        print(json.dumps(dict(probe="compare2d", work=w, baseline_ms=times[w]["baseline"],
+                              source_ms=times[w]["source"], speedup=old / new,
+                              same_bits=bool(torch.equal(results[w]["baseline"],
+                                                         results[w]["source"])))), flush=True)
+
+
+SASS_PROBE = r"""
+#include "sweep_common.cuh"
+extern "C" __global__ void probe_lse4(const float* a, float* o) {
+  const int i = threadIdx.x;
+  o[i] = lse4(a[i], a[i + 32], a[i + 64], a[i + 96]);
+}
+extern "C" __global__ void probe_add4(const float* a, float* o) {
+  const int i = threadIdx.x;
+  o[i] = ((a[i] + a[i + 32]) + a[i + 64]) + a[i + 96];
+}
+extern "C" __global__ void probe_lse6(const float* a, float* o) {
+  const int i = threadIdx.x;
+  o[i] = lse6(a[i], a[i + 32], a[i + 64], a[i + 96], a[i + 128], a[i + 160]);
+}
+extern "C" __global__ void probe_add6(const float* a, float* o) {
+  const int i = threadIdx.x;
+  o[i] = ((((a[i] + a[i + 32]) + a[i + 64]) + a[i + 96]) + a[i + 128]) + a[i + 160];
+}
+"""
+
+
+def sass_counts(sass: str) -> dict:
+    """Instructions of each function in ``cuobjdump -sass`` output, less the
+    NOPs and the branch that parks a finished warp; and its branches."""
+    counts, branches, fn = {}, {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn], branches[fn] = 0, 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and m:
+            op = m.group(2)
+            if op.startswith("NOP"):
+                continue
+            counts[fn] += 1
+            branches[fn] += op.startswith("BRA")
+    return {fn: (counts[fn], branches[fn]) for fn in counts}
+
+
+def probe_sass() -> None:
+    out_dir = _build.BUILD_DIR / "tile_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, obj = out_dir / "sass_probe.cu", out_dir / "sass_probe.o"
+    cu.write_text(SASS_PROBE)
+    _build._run([[_build.find_nvcc(), *_build.ARCH_FLAGS, "-c", "-I", str(_build.CSRC),
+                  "-o", str(obj), str(cu)]])
+    cuobjdump = (shutil.which("cuobjdump")
+                 or str(pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")))
+    sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = sass_counts(sass)
+    (out_dir / "sass_probe.sass").write_text(sass)
+    for name, base, adds in (("lse4", "probe_add4", 3), ("lse6", "probe_add6", 5)):
+        n, br = counts[f"probe_{name}"]
+        n0, br0 = counts[base]
+        print(json.dumps(dict(probe="sass", update=name, instructions=n - n0 + adds,
+                              kernel_instructions=n, baseline_instructions=n0,
+                              branches=br - br0, command=f"cuobjdump -sass {obj.name}")),
+              flush=True)
+
+
 def probe_mesh3d(dev, reps: int, volumes=MESH_VOLUMES, shards: int = 8) -> None:
     from .parallel import make_mesh, make_mesh3d, sharded, sharded3d
 
@@ -270,14 +630,29 @@ def main() -> None:
                     help="time the 3D mesh orientations (on the --volumes shapes if given)")
     ap.add_argument("--mesh2d", action="store_true",
                     help="time the 2D mesh routes (on the --sides grids if given)")
+    ap.add_argument("--shapes2d", action="store_true",
+                    help="probe the 2D tile shapes at 8192^2 and on a 16384^2 mesh's shard")
+    ap.add_argument("--baseline", default=None,
+                    help="with --shapes2d: another tile2d.cu to time in turns with the source")
+    ap.add_argument("--compare2d", default=None, metavar="FILE",
+                    help="time the 2D tile, shard and resident paths against FILE's tile2d.cu")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the SASS instructions of one lse4 and one lse6 update")
     args = ap.parse_args()
+    if args.sass:
+        probe_sass()
+        return
     if not torch.cuda.is_available():
         raise SystemExit("tile_probe needs a CUDA card")
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     volumes = VOLUMES if not args.volumes else args.volumes
-    if args.mesh3d:
+    if args.shapes2d:
+        probe_shapes2d(dev, args.reps, baseline=args.baseline)
+    elif args.compare2d:
+        probe_compare2d(dev, args.reps, args.compare2d)
+    elif args.mesh3d:
         probe_mesh3d(dev, args.reps, args.volumes or MESH_VOLUMES)
     elif args.mesh2d:
         probe_mesh2d(dev, args.reps, args.sides or MESH_SIDES)

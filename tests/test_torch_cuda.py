@@ -431,18 +431,25 @@ def _grid(h, w, dev, seed=3, eps=1e-2, t0=0):
     return dataclasses.replace(st, iteration=torch.tensor(t0, dtype=torch.int32, device=dev))
 
 
-# (H, W) over the kernels' 64 x 128 tiles: ragged edges over 3 x 3 tiles, a
-# grid smaller than one tile, a grid within one tile's halo, and a tall
-# ragged column of tiles.
-TILE_GRIDS = [(150, 300), (37, 91), (20, 30), (200, 45)]
+# (H, W) over the kernels' tiles: ragged edges over 3 x 3 tiles of 96 x 160,
+# a grid smaller than one tile, a grid within one tile's halo, a tall ragged
+# column of tiles, grids whose last row and column of 96 x 160 tiles are
+# one cell high and wide (odd extents: an odd count of cells in a class
+# row), and a ragged grid of more than two 96 x 160 tiles a SM of an H100,
+# which runs on that tile (the others run on the small one, 32 x 96).
+TILE_GRIDS = [(250, 400), (37, 91), (20, 30), (300, 45), (97, 161), (193, 321), (2017, 2083)]
+# The deepest halo the 96 x 160 tile takes in an H100's shared memory
+# (hopper_shard2d.max_depth; the tests that use it check that they do).
+H100_MAX_DEPTH = 55
 
 
-@pytest.mark.parametrize("k", [1, 8, 16, 32])
+@pytest.mark.parametrize("k", [1, 8, 16, 32, H100_MAX_DEPTH])
 @pytest.mark.parametrize("grid", TILE_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
 def test_tile_chunk_kernel_gives_the_plain_versions_bits(dev, grid, k):
     """K3/K5 (and T1 with u1): one chunk at depths 1, about k/2 and k, from an
     even and an odd iteration, against the plain tile version and core."""
     h, w = grid
+    assert k <= hopper_shard2d.max_depth(dev)
     for t0 in (0, 1):
         st = _grid(h, w, dev, t0=t0)
         for ns in sorted({1, k // 2 + 1, k}):
@@ -760,10 +767,15 @@ def test_tile3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 # -- the 2D mesh: epic_shard2d_chunk in csrc/tile2d.cu ---------------------------------------
 
-# (h, w, k): one shard's centre and halo depth: ragged over several 64 x 128
-# tiles, a non-aligned small shard, a centre smaller than its halo, and the
-# deepest halo the tile takes in an H100's shared memory (k = 60).
-SHARDS = [(150, 300, 16), (37, 91, 8), (5, 9, 7), (70, 140, 60)]
+# (h, w, k): one shard's centre and halo depth: ragged over several 96 x 160
+# tiles, a non-aligned small shard with odd extents (he x we = 53 x 107: odd
+# class rows), a centre smaller than its halo, the deepest halo the tile
+# takes in an H100's shared memory, a one-column shard at k = 1, shards
+# whose last tiles are one row high and one column wide (odd extents at
+# odd and even depths), and a ragged shard of more than two 96 x 160 tiles
+# a SM (the big tile; the others run on the small one).
+SHARDS = [(250, 400, 16), (37, 91, 8), (5, 9, 7), (70, 140, H100_MAX_DEPTH), (33, 1, 1),
+          (97, 161, 3), (193, 321, 12), (64, 127, 5), (2001, 2083, 16)]
 
 
 def _shard_block(h, w, k, dev, seed):
@@ -785,6 +797,7 @@ def test_shard_chunk_kernel_gives_the_plain_versions_bits(dev, shard):
     """K14/K15: odd and even origins and iterations, ns = 1, < k and = k,
     u1 on and off, against the plain per-shard version on the same view."""
     h, w, k = shard
+    assert k <= hopper_shard2d.max_depth(dev)
     for seed, par0 in ((0, 0), (1, 1)):
         u, frozen, view = _shard_block(h, w, k, dev, seed)
         for t0 in (0, 3):
@@ -813,6 +826,20 @@ def test_shard_chunk_kernel_gives_the_plain_versions_bits(dev, shard):
                         assert torch.equal(u1[view][c], ref_u1[c])
                     else:
                         assert (u1 == 5.0).all()
+
+
+def test_tile_smem_formulas_are_what_the_kernels_ask_for(dev):
+    """The wrappers' shared-memory formulas (the 2D class-split layout, the
+    3D 5 B a voxel) equal the bytes each library's launches ask for, and
+    H100_MAX_DEPTH is the 2D kernels' deepest halo on this card."""
+    from epic_tpu_torch.solver import _build
+    lib = _build.load()
+    for k in range(1, 80):
+        assert lib.epic_tile2d_smem_bytes(k) == hopper_tile2d.smem_bytes(k)
+    for k in range(1, 8):
+        assert lib.epic_tile3d_smem_bytes(k) == hopper_tile3d.smem_bytes(k)
+    if torch.cuda.get_device_properties(dev).shared_memory_per_block_optin == 232_448:
+        assert hopper_shard2d.max_depth(dev) == H100_MAX_DEPTH
 
 
 def test_shard_chunk_refuses_what_the_kernel_does_not_take(dev):
@@ -901,18 +928,25 @@ def test_mesh_planner_on_the_card_equals_the_planner(dev):
 
 # -- the 2D resident route: epic_resident2d_cycle and epic_resident2d_solve -------------------
 
-def _resident_grid(dev, t0=0, seed=0, halo=16, eps=1e-2, image=False):
-    """A ShardedGrid on a 2 x 4 virtual mesh of the card: 150 x 300 (shards
-    of 75 x 75 over two ragged 64 x 128 tiles each), a random field with
-    obstacles and goals (or, with ``image``, a seeded random-obstacle map
-    that converges), its frozen halos exchanged and u1 blocks allocated."""
+# Grids for the resident route on 2 x 4: shards of 75 x 75 (one ragged
+# 96 x 160 tile each), of 97 x 161 (odd extents, the last tiles one row
+# high and one column wide), and of 1001 x 1001 (ragged, more than two
+# 96 x 160 tiles a SM of an H100 in all: that tile; the others the small).
+RESIDENT_GRIDS = [(150, 300), (194, 644), (2002, 4004)]
+
+
+def _resident_grid(dev, t0=0, seed=0, halo=16, eps=1e-2, image=False, shape=(150, 300)):
+    """A ShardedGrid on a 2 x 4 virtual mesh of the card: ``shape`` (by
+    default 150 x 300, shards of 75 x 75, one ragged 96 x 160 tile
+    each), a random field with obstacles and goals (or, with ``image``, a
+    seeded random-obstacle map that converges), its frozen halos exchanged
+    and u1 blocks allocated."""
     if image:
-        st = _grid(150, 300, dev, seed=seed, eps=eps, t0=t0)
+        st = _grid(*shape, dev, seed=seed, eps=eps, t0=t0)
     else:
         rng = np.random.default_rng(seed)
-        u = np.where(rng.random((150, 300)) < 0.05, 0.0,
-                     -rng.random((150, 300)) * 40).astype(np.float32)
-        st = TG.make_state(u, rng.random((150, 300)) < 0.15, eps, device=dev)
+        u = np.where(rng.random(shape) < 0.05, 0.0, -rng.random(shape) * 40).astype(np.float32)
+        st = TG.make_state(u, rng.random(shape) < 0.15, eps, device=dev)
         st = dataclasses.replace(st, iteration=torch.tensor(t0, dtype=torch.int32, device=dev))
     mesh = make_mesh((2, 4), devices=[dev] * 8)
     sh = sharded.shard_state(st, mesh, halo=halo)
@@ -935,15 +969,16 @@ def _same_blocks(a, b):
             assert torch.equal(getattr(a, name)[ij], getattr(b, name)[ij]), (name, ij)
 
 
+@pytest.mark.parametrize("grid", RESIDENT_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
 @pytest.mark.parametrize("n_chunks,total", [(1, 16), (2, 32), (3, 40), (2, 17), (3, 4)])
-def test_resident_cycle_gives_the_plain_versions_bits(dev, n_chunks, total):
+def test_resident_cycle_gives_the_plain_versions_bits(dev, n_chunks, total, grid):
     """K16/K17: 1, 2 and 3 chunks (spread, a ragged remainder) on all eight
     shards in one launch, with and without u1, from both parities, against
     the plain version on the same blocks: every block and every chunk's
     delta the same bits."""
     for t0 in (0, 1):
         for with_u1 in (False, True):
-            sh = _resident_grid(dev, t0=t0, seed=t0)
+            sh = _resident_grid(dev, t0=t0, seed=t0, shape=grid)
             ref = _copy_grid(sh)
             plan = hopper_resident2d.plans(sh.mesh)[0]
             assert plan.whole and len(plan.slots) == 8
@@ -959,11 +994,12 @@ def test_resident_cycle_gives_the_plain_versions_bits(dev, n_chunks, total):
             _same_blocks(sh, ref)
 
 
-def test_resident_cycle_with_copied_neighbours_gives_the_same_bits(dev):
+@pytest.mark.parametrize("grid", RESIDENT_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_resident_cycle_with_copied_neighbours_gives_the_same_bits(dev, grid):
     """Neighbours forced to "copied" in the plan: the host copies their
     halos between one-chunk launches, and the result is the all-direct
     three-chunk launch's, bit for bit, with the same deltas."""
-    sh = _resident_grid(dev, t0=1, seed=4)
+    sh = _resident_grid(dev, t0=1, seed=4, shape=grid)
     ref = _copy_grid(sh)
     plan = hopper_resident2d.plans(sh.mesh)[0]
     d_all = hopper_resident2d.cycle(ref, plan, 16, ref.iteration, 40, 3, u1=True)
@@ -997,11 +1033,12 @@ def test_resident_cycle_with_copied_neighbours_gives_the_same_bits(dev):
 def test_resident_solve_resumed_across_segments_gives_one_launchs_bits(dev, stagger, cap):
     """The solve entry resumed at the segment bounds of 37 sweeps against
     one launch, and both against the plain version and core: the same bits,
-    iterations and verdicts."""
+    iterations and verdicts, and one launch leaves every block (the twin
+    and u1 too) as the plain version does."""
     st = _grid(150, 300, dev, seed=5, eps=1e-1)
-    runs = {}
+    runs, grids = {}, {}
     for name in ("one", "segments", "plain"):
-        sh = _resident_grid(dev, seed=5, eps=1e-1, image=True)
+        sh = grids[name] = _resident_grid(dev, seed=5, eps=1e-1, image=True)
         plan = hopper_resident2d.plans(sh.mesh)[0]
         it = torch.zeros((), dtype=torch.int32, device=dev)
         delta = (sh.epsilon + 1.0).to(torch.float32)
@@ -1015,6 +1052,7 @@ def test_resident_solve_resumed_across_segments_gives_one_launchs_bits(dev, stag
         torch.cuda.synchronize()
         runs[name] = (sharded.unshard(sh).u, int(it), float(delta), int(done))
     ref = core.solve(st, stagger, cap)
+    _same_blocks(grids["one"], grids["plain"])       # the twin and u1 blocks too
     for name in ("segments", "plain"):
         assert torch.equal(runs[name][0], runs["one"][0]) and runs[name][1:] == runs["one"][1:]
     assert torch.equal(runs["one"][0], ref.u)
@@ -1058,13 +1096,14 @@ def test_resident_mesh_planner_on_the_card_equals_the_planner(dev):
 
 
 def test_resident_entries_refuse_what_they_do_not_take(dev):
-    sh = _resident_grid(dev, halo=61)
+    deep = hopper_shard2d.max_depth(dev) + 1        # 56 on an H100: within the 75-cell shards
+    sh = _resident_grid(dev, halo=deep)
     plan = hopper_resident2d.plans(sh.mesh)[0]
     launches = dict(hopper_resident2d.launches)
     with pytest.raises(ValueError, match="shared memory"):
-        hopper_resident2d.cycle(sh, plan, 61, 0, 61, 1)
-    with pytest.raises(ValueError, match="depth 62"):
-        hopper_resident2d.cycle(sh, plan, 62, 0, 62, 1)
+        hopper_resident2d.cycle(sh, plan, deep, 0, deep, 1)
+    with pytest.raises(ValueError, match=f"depth {deep + 1}"):
+        hopper_resident2d.cycle(sh, plan, deep + 1, 0, deep + 1, 1)
     with pytest.raises(ValueError, match="chunks of 1..16"):
         hopper_resident2d.cycle(sh, plan, 16, 0, 49, 3)
     twin = sh.twin_blocks[0, 0]

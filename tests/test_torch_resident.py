@@ -249,12 +249,12 @@ def test_eligible_and_prefer_tiled_gates():
 
 def test_auto_route_rule():
     """"auto" takes the resident route where one device holds the mesh and
-    shards are at most 6M cells (PERF.md's times), else the per-shard
+    shards are at most 12M cells (PERF.md's times), else the per-shard
     route; both give the same bits."""
     for mesh in (_mesh(), _mesh((8, 1)), _mesh((1, 1))):
-        for h_loc, w_loc in ((1, 1), (241, 121), (3072, 1536), (2000, 3000)):
+        for h_loc, w_loc in ((1, 1), (241, 121), (4096, 2048), (3000, 4000)):
             assert sharded.prefers_resident(mesh, h_loc, w_loc)
-        for h_loc, w_loc in ((4096, 2048), (8192, 4096), (2000, 3001)):
+        for h_loc, w_loc in ((6144, 3072), (8192, 4096), (3000, 4001)):
             assert not sharded.prefers_resident(mesh, h_loc, w_loc)
     assert not sharded.prefers_resident(_two_devices(), 241, 121)
     two_processes = _mesh_of([[CPU] * 4] * 2, [[0] * 4, [1] * 4], rank=0)

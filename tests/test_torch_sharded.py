@@ -340,9 +340,10 @@ def test_per_shard_wrapper_runs_plain_on_the_cpu():
     assert hopper_shard2d.calls["sweep_k_local"] == calls + 2
     with pytest.raises(ValueError, match="1..k=3"):
         hopper_shard2d.chunk(u, dst, frozen, k=3, par0=0, iteration=0, ns=4)
-    # The kernel's 64 x 128 tile: 60 halo cells fit an H100's 227 KB, 61 do not.
-    assert hopper_shard2d.depth_limit(232448) == 60
-    assert hopper_tile2d.smem_bytes(60) <= 232448 < hopper_tile2d.smem_bytes(61)
+    # The kernel's 96 x 160 tile at 4 B and a bit a cell: 55 halo cells fit
+    # an H100's 227 KB, 56 do not.
+    assert hopper_shard2d.depth_limit(232448) == 55
+    assert hopper_tile2d.smem_bytes(55) <= 232448 < hopper_tile2d.smem_bytes(56)
 
 
 def test_multihost_single_process_is_a_no_op():

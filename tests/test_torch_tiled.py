@@ -13,6 +13,8 @@ tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ import epic_tpu_torch.solver as TS
 from epic_tpu_torch import grid as TG
 from epic_tpu_torch.config import EpicConfig, SolverConfig
 from epic_tpu_torch.planner import Planner, PlannerConfig
-from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
+from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, hopper_tile3d, tiled
 
 FIELD = dict(rtol=2e-6, atol=1e-3)
 DELTA = dict(rtol=1e-5, atol=1e-5)
@@ -286,11 +288,54 @@ def test_config_takes_tile_depth_and_refuses_tile_band():
     assert SolverConfig(tile_depth=64).tile_depth == 64
     h100 = 232_448                                  # an H100 block's opt-in shared memory
     hopper_tile2d.check_depth(32, h100)
+    hopper_tile2d.check_depth(55, h100)
     with pytest.raises(ValueError, match="shared memory"):
-        hopper_tile2d.check_depth(64, h100)
+        hopper_tile2d.check_depth(56, h100)
     with pytest.raises(ValueError, match=">= 1"):
         hopper_tile2d.check_depth(0, h100)
-    assert hopper_tile2d.smem_bytes(16) == 96 * 160 * 5
+    # 128 rows of the 96 x 160 tile's 192-wide extension at K = 16: two class
+    # rows of 96 floats and of 3 words of frozen bits each.
+    assert hopper_tile2d.smem_bytes(16) == 128 * 2 * (96 * 4 + 3 * 4)
+
+
+CSRC = pathlib.Path(hopper_tile2d.__file__).resolve().parent.parent / "csrc"
+
+
+def _constants(source: str, names) -> tuple:
+    text = (CSRC / source).read_text()
+    return text, tuple(int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+                       for n in names)
+
+
+@pytest.mark.parametrize("family", ["tile2d", "tile3d"])
+def test_smem_formulas_are_what_the_kernels_allocate(family):
+    """Each wrapper's smem_bytes is the dynamic shared memory its kernels'
+    launches ask for: the tile that the source fixes (which TILE mirrors),
+    laid out as the source lays it out. 2D: two class arrays, each of
+    kTH + 2K rows of (kTW + 2K) / 2 floats and of their frozen bits in
+    32-bit words; 3D: a float and a frozen byte a voxel. The card tests
+    compare the formulas with the libraries' own."""
+    if family == "tile2d":
+        text, (th, tw, sth, stw) = _constants("tile2d.cu", ("kTH", "kTW", "kSmallTH", "kSmallTW"))
+        assert hopper_tile2d.TILE == (th, tw) and hopper_tile2d.TILE_SMALL == (sth, stw)
+        assert ("(S::kTH + 2 * K) * 2 *\n         (S::class_row(K) * sizeof(float) + "
+                "S::frozen_words(K) * sizeof(uint32_t))") in text
+        assert "class_row(int K) { return TW / 2 + K; }" in text
+        assert "return (class_row(K) + 31) / 32;" in text
+        for k in range(1, 80):
+            for (a, b) in ((th, tw), (sth, stw)):
+                half = (b + 2 * k) // 2
+                assert hopper_tile2d.tile_smem_bytes(k, (a, b)) == \
+                    (a + 2 * k) * 2 * (half * 4 + -(-half // 32) * 4)
+            assert hopper_tile2d.smem_bytes(k) == hopper_tile2d.tile_smem_bytes(k)
+            assert hopper_tile2d.tile_smem_bytes(k, (sth, stw)) < hopper_tile2d.smem_bytes(k)
+    else:
+        text, (td, th, tw) = _constants("tile3d.cu", ("kTD", "kTH", "kTW"))
+        assert hopper_tile3d.TILE == (td, th, tw)
+        assert "static_cast<size_t>(ext_voxels(g.K)) * (sizeof(float) + 1)" in text
+        assert "(kTD + 2 * K) * (kTH + 2 * K) * (kTW + 2 * K)" in text
+        for k in range(1, 8):
+            assert hopper_tile3d.smem_bytes(k) == (td + 2 * k) * (th + 2 * k) * (tw + 2 * k) * 5
 
 
 def test_planner_on_the_cpu_runs_core():
