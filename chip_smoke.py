@@ -149,31 +149,41 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 of 5 against the tile tick's, and the exchange's share of a
                 tick (CUDA events around the halo copies);
  20. mesh3d   — phase 9's 256^3 volume on a 2 x 4 virtual plane mesh of the
-                card (eight shards of 256 x 128 x 64). Counted main path
-                (counts zeroed just before, read just after; the 3D shard
-                entry must run, K7, the 3D tiles and the plain versions must
-                not): MeshVolumePlanner.update(50) then (100) from an even and
-                an odd start iteration, an uncapped solve, and with
-                kernel="resident" ticks from the odd start and a solve in
-                segments of 500; each the same bits and iterations as the
-                VolumePlanner on the whole volume (K7; 1,301 iterations). The
-                mesh tick's mean of 5 against K7's;
+                card (eight shards of 256 x 128 x 64), on both 3D mesh routes,
+                each counted on its own (counts zeroed just before, read just
+                after; K7, the 3D tiles and the plain versions must not run):
+                the device route ("auto" and "resident": epic_resident3d_cycle
+                and epic_resident3d_solve must run, the shard entry must not)
+                and the per-shard route (kernel="pallas": epic_shard3d_chunk
+                must run, the device entries must not).
+                MeshVolumePlanner.update(50) then (100) from an even and an
+                odd start iteration and an uncapped solve on each, and with
+                "resident" ticks from the odd start and a solve in segments
+                of 500; each the same bits and iterations as the
+                VolumePlanner on the whole volume (K7; 1,301 iterations).
+                Each route's tick (mean of 5) and solve beside K7's. The
+                device entries alone against their plain versions: a
+                13-sweep cycle with u1 and a 5-sweep one from an odd
+                iteration, a solve capped at 300 in two segments, the same
+                bits; a 100-sweep cycle and the capped solve timed beside
+                the plain versions;
  21. mesh3d_z — the same volume on an 8 x 1 x 1 z mesh (shards of 32 whole
-                planes), "auto" and "resident", counted and compared the
-                same way; the entry alone on one z shard's block (halo on z
-                only): 8 sweeps with and without u1 and a 5-sweep remainder,
-                against the plain per-shard version, the same bits; the
-                orientation choose_mesh3d picks for it, and both
-                orientations' tick times (mean of 5);
+                planes), "auto" and "resident" (the device route) and
+                "pallas" (the per-shard route), counted and compared the
+                same way; the shard entry alone on one z shard's block (halo
+                on z only): 8 sweeps with and without u1 and a 5-sweep
+                remainder, against the plain per-shard version, the same
+                bits; the orientation choose_mesh3d picks for it, and both
+                orientations' tick times on both routes (mean of 5);
  22. mesh3d_wide — a 64 x 1024 x 1024 volume (tools/probe.py's
                 sharded3d-resident shape, 268 MB of u) on 2 x 4 (shards of
                 64 x 512 x 256): counted MeshVolumePlanner ticks of 100 from
-                both parities and a solve capped at 1,000, against the
-                VolumePlanner. The entry alone on one shard's extended block:
-                a chunk with and without u1 and a 5-sweep remainder, against
-                the plain per-shard version, the same bits. The mesh tick's
-                mean of 5 against K7's (and the z
-                mesh's), and the exchange's share of a tick;
+                both parities and a solve capped at 1,000 on both routes,
+                against the VolumePlanner. The shard entry alone on one
+                shard's extended block: a chunk with and without u1 and a
+                5-sweep remainder, against the plain per-shard version, the
+                same bits. Each route's tick (mean of 5) against K7's (and
+                the z mesh's), and the exchange's share of a per-shard tick;
  23. mesh_resident — the resident route (K16/K17: epic_resident2d_cycle and
                 epic_resident2d_solve in csrc/tile2d.cu, all eight shards in
                 one launch). Phase 18's maze session on
@@ -250,6 +260,7 @@ SOLVE_ENTRY_CAP = 1000    # the solve entry alone on the maze mesh, against its 
 MESH3D_WIDE = (64, 1024, 1024)   # tools/probe.py:1493's sharded3d-resident volume: 268 MB of u
 MESH3D_WIDE_CAP = 1000
 MESH3D_SEGMENT = 500
+MESH3D_ALONE_CAP = 300     # the device solve entry alone against its plain version
 WIDE3D = (32, 2048, 2048)  # a building floor at 5 cm: 537 MB of u, 10x the L2
 WIDE3D_CAP = 500
 WIDE3D_SEGMENT = 200
@@ -291,6 +302,8 @@ SOURCES = {
     "epic_shard3d_chunk": "epic_tpu_torch/csrc/shard3d.cu",
     "epic_resident2d_cycle": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_resident2d_solve": "epic_tpu_torch/csrc/tile2d.cu",
+    "epic_resident3d_cycle": "epic_tpu_torch/csrc/shard3d.cu",
+    "epic_resident3d_solve": "epic_tpu_torch/csrc/shard3d.cu",
 }
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
@@ -347,6 +360,17 @@ REPLACES = {
                               "epic_tpu/parallel/resident_tiled.py:167"],
     "epic_resident2d_solve": ["epic_tpu/parallel/resident.py:188",
                               "epic_tpu/parallel/resident_tiled.py:167"],
+    # K18-K21 again, on every shard of a device in one launch (same-device face
+    # neighbours read in place); the solve entry also carries the host loops
+    # of stagger cycles around them
+    "epic_resident3d_cycle": ["epic_tpu/parallel/sharded3d.py:170",
+                              "epic_tpu/parallel/sharded3d.py:243",
+                              "epic_tpu/parallel/resident3d.py:233",
+                              "epic_tpu/parallel/resident_z.py:166"],
+    "epic_resident3d_solve": ["epic_tpu/parallel/sharded3d.py:170",
+                              "epic_tpu/parallel/sharded3d.py:243",
+                              "epic_tpu/parallel/resident3d.py:233",
+                              "epic_tpu/parallel/resident_z.py:166"],
 }
 
 
@@ -392,16 +416,17 @@ def copy_state(state):
 
 
 def zero_counts() -> None:
-    from epic_tpu_torch.parallel import hopper_resident2d, hopper_shard2d, hopper_shard3d
+    from epic_tpu_torch.parallel import (hopper_resident2d, hopper_resident3d, hopper_shard2d,
+                                         hopper_shard3d)
     from epic_tpu_torch.solver import (batched, core, hopper_batched, hopper_sweep,
                                        hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled,
                                        tiled3d)
 
     for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
               hopper_tile2d.launches, hopper_tile3d.launches, hopper_shard2d.launches,
-              hopper_shard3d.launches, hopper_resident2d.launches, core.calls, batched.calls,
-              tiled.calls, tiled3d.calls, hopper_shard2d.calls, hopper_shard3d.calls,
-              hopper_resident2d.calls):
+              hopper_shard3d.launches, hopper_resident2d.launches, hopper_resident3d.launches,
+              core.calls, batched.calls, tiled.calls, tiled3d.calls, hopper_shard2d.calls,
+              hopper_shard3d.calls, hopper_resident2d.calls, hopper_resident3d.calls):
         for k in d:
             d[k] = 0
 
@@ -2113,25 +2138,31 @@ def phase_mesh_resident(dev, maze, mesh_s, m16) -> dict:
             "solve": (solve_ms, solve_plain_ms, solve_bound)}
 
 
-def counted_mesh3d(what: str, drive) -> dict:
+def counted_mesh3d(what: str, drive, route: str) -> dict:
     """Run ``drive()`` with every count zeroed just before and read just
-    after: the 3D shard entry must have run; the plain versions, K7 and the
-    3D tiles must not. Returns the shard entry's launches."""
-    from epic_tpu_torch.parallel import hopper_shard3d
+    after: the entries of ``route`` must have run (the device route's
+    epic_resident3d_cycle and epic_resident3d_solve, or the per-shard
+    route's epic_shard3d_chunk); the other route's, the plain versions, K7
+    and the 3D tiles must not. Returns the route's launches."""
+    from epic_tpu_torch.parallel import hopper_resident3d, hopper_shard3d
     from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d, tiled3d
 
     zero_counts()
     drive()
     torch.cuda.synchronize()
-    launches = dict(hopper_shard3d.launches)
-    others = {**hopper_sweep3d.launches, **hopper_tile3d.launches,
+    ran, other = ((hopper_resident3d.launches, hopper_shard3d.launches) if route == "device"
+                  else (hopper_shard3d.launches, hopper_resident3d.launches))
+    launches = dict(ran)
+    others = {**other, **hopper_sweep3d.launches, **hopper_tile3d.launches,
               **{f"core.{k}": v for k, v in core.calls.items()},
               **{f"tiled3d.{k}": v for k, v in tiled3d.calls.items()},
-              **{f"hopper_shard3d.{k}": v for k, v in hopper_shard3d.calls.items()}}
+              **{f"hopper_shard3d.{k}": v for k, v in hopper_shard3d.calls.items()},
+              **{f"hopper_resident3d.{k}": v for k, v in hopper_resident3d.calls.items()}}
     require(all(v > 0 for v in launches.values()),
-            f"{what}: the 3D shard entry never ran: {launches}")
+            f"{what}: an entry of the {route} route never ran: {launches}")
     require(all(v == 0 for v in others.values()),
-            f"{what}: a plain version or a single-device 3D kernel ran: {others}")
+            f"{what}: another route's entry, a plain version or a single-device 3D kernel ran: "
+            f"{others}")
     return launches
 
 
@@ -2227,8 +2258,77 @@ def compare_session(got, ref, keys, what: str) -> list:
     return errs
 
 
+def copy_volume(sv):
+    """A ShardedVolume sharing ``sv``'s frozen blocks, with copies of its u
+    (and u1) blocks."""
+    out = copy.copy(sv)
+    out.u_blocks = {idx: b.clone() for idx, b in sv.u_blocks.items()}
+    if sv.u1_blocks is not None:
+        out.u1_blocks = {idx: b.clone() for idx, b in sv.u1_blocks.items()}
+    return out
+
+
+def same_volumes(a, b, what: str) -> float:
+    """Two ShardedVolumes: the same bits in every u block, and in the u1
+    blocks' centres."""
+    err = 0.0
+    for idx in a.u_blocks:
+        err = max(err, max_abs(a.u_blocks[idx], b.u_blocks[idx]))
+        if a.u1_blocks is not None:
+            c = a.view(0)
+            err = max(err, max_abs(a.u1_blocks[idx][c], b.u1_blocks[idx][c]))
+    require(err == 0.0, f"{what}: kernel and plain blocks differ by {err}")
+    return err
+
+
+def device_alone(dev, base, mesh, lt, what: str) -> dict:
+    """The device entries alone on every shard of ``mesh`` holding ``base``,
+    against their plain versions on copies of the same blocks: a 13-sweep
+    cycle with u1 and a 5-sweep one from an odd iteration, and a solve
+    capped at MESH3D_ALONE_CAP in two segments; the same bits. Then a
+    100-sweep cycle and the capped solve timed beside the plain versions,
+    with their bounds."""
+    from epic_tpu_torch.parallel import hopper_resident3d, sharded3d
+
+    sv = sharded3d.shard_state3d(base, mesh)
+    sv.u1_blocks = sharded3d._blank(mesh, sv.block_shape(sv.halo), -7.0, torch.float32)
+    (plan,) = hopper_resident3d.plans(mesh)
+    errs = []
+    for t0, ns, u1 in ((0, 13, True), (1, 5, False)):
+        k, p = copy_volume(sv), copy_volume(sv)
+        dk = hopper_resident3d.cycle(k, plan, t0, ns, u1=u1)
+        dp = hopper_resident3d.plain_cycle3d(p, plan, t0, ns, u1=u1)
+        torch.cuda.synchronize()
+        errs.append(max(same_volumes(k, p, f"{what} cycle ({ns} sweeps)"), max_abs(dk, dp)))
+    seg = MESH3D_ALONE_CAP // 2
+
+    def solved(fn, bounds):
+        out = copy_volume(sv)
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        delta = (sv.epsilon + 1.0).to(device=dev, dtype=torch.float32)
+        done = torch.zeros((), dtype=torch.int32, device=dev)
+        for bound in bounds:
+            fn(out, plan, STAGGER, bound, it, delta, done)
+        return out, int(it), float(delta), int(done)
+
+    (a, *ka), (b, *kb) = (solved(hopper_resident3d.solve, (seg, MESH3D_ALONE_CAP)),
+                          solved(hopper_resident3d.plain_solve3d, (seg, MESH3D_ALONE_CAP)))
+    require(ka == kb, f"{what}: the solve entry's (iteration, delta, done) {ka} != plain {kb}")
+    errs.append(same_volumes(a, b, f"{what} solve capped at {MESH3D_ALONE_CAP}"))
+    work = copy_volume(sv)
+    cycle_ms = event_ms(lambda: hopper_resident3d.cycle(work, plan, 0, 100), reps=5)
+    cycle_plain = event_ms(lambda: hopper_resident3d.plain_cycle3d(work, plan, 0, 100))
+    solve_ms = event_ms(lambda: solved(hopper_resident3d.solve, (MESH3D_ALONE_CAP,)))
+    solve_plain = event_ms(lambda: solved(hopper_resident3d.plain_solve3d, (MESH3D_ALONE_CAP,)))
+    iters = ka[0]
+    return {"errs": errs, "cycle": (cycle_ms, cycle_plain, bound(lt, 0, 100, lse6=True)),
+            "solve": (solve_ms, solve_plain, bound(lt, 0, iters, lse6=True)),
+            "solve_iterations": iters}
+
+
 def phase_mesh3d(dev) -> dict:
-    """Phase 9's 256^3 volume on a 2 x 4 plane mesh of the card."""
+    """Phase 9's 256^3 volume on a 2 x 4 plane mesh of the card, on both
+    routes, and the device entries alone."""
     from epic_tpu_torch.parallel import make_mesh
 
     u, locked = volume_arrays(SIZE3D)
@@ -2241,33 +2341,50 @@ def phase_mesh3d(dev) -> dict:
     mesh = make_mesh(MESH, devices=[dev] * (MESH[0] * MESH[1]))
     out = {}
 
-    def drive():
+    def drive_device():
         out["auto"] = mesh_volume_session(dev, mesh, base, starts, (50, 100), 1_000_000)
         out["resident"] = mesh_volume_session(dev, mesh, base, {1: starts[1]}, (50, 100),
                                               1_000_000, "resident", MESH3D_SEGMENT)
         out["tick_ms5"] = mesh_tick_ms(out["auto"]["planner"], starts[0])
 
-    launches = counted_mesh3d("256^3 plane mesh", drive)
+    def drive_shard():
+        out["pallas"] = mesh_volume_session(dev, mesh, base, starts, (50, 100), 1_000_000,
+                                            "pallas")
+        out["pallas_tick_ms5"] = mesh_tick_ms(out["pallas"]["planner"], starts[0])
+
+    launches = counted_mesh3d("256^3 plane mesh, device route", drive_device, "device")
+    launches.update(counted_mesh3d("256^3 plane mesh, per-shard route", drive_shard, "shard"))
     keys = [(t, n) for t in (0, 1) for n in (50, 150)]
-    errs = compare_session(out["auto"], ref, keys, "256^3 2x4 mesh")
+    errs = compare_session(out["auto"], ref, keys, "256^3 2x4 mesh (auto)")
     errs += compare_session(out["resident"], ref, [(1, 50), (1, 150)], "256^3 2x4 resident mesh")
-    sv = out["auto"]["planner"]._sv
+    errs += compare_session(out["pallas"], ref, keys, "256^3 2x4 mesh (pallas)")
+    alone = device_alone(dev, base, mesh, lt, "256^3 2x4 device entries")
+    sv = out["pallas"]["planner"]._sv
     iters = int(ref["solve"].iteration)
     emit(phase="mesh3d", shape=list(SIZE3D), mesh=list(MESH), shard=list(sv.loc),
          chunk_depth=sv.halo, launches=launches, max_abs_err=max(errs),
-         solve_iterations=iters, mesh_solve_ms=out["auto"]["solve_ms"],
-         resident_segments_solve_ms=out["resident"]["solve_ms"],
-         segment_iterations=MESH3D_SEGMENT, sweep3d_solve_ms=ref["solve_ms"],
-         mesh_tick_ms_mean5=out["tick_ms5"], sweep3d_tick_ms_mean5=ref["tick_ms5"],
-         bounds={"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True)})
-    return {"launches": launches, "err": max(errs), "ref": ref, "base": base, "starts": starts,
-            "plane_tick_ms5": out["tick_ms5"]}
+         solve_iterations=iters, device_solve_ms=out["auto"]["solve_ms"],
+         device_segments_solve_ms=out["resident"]["solve_ms"],
+         segment_iterations=MESH3D_SEGMENT, pershard_solve_ms=out["pallas"]["solve_ms"],
+         sweep3d_solve_ms=ref["solve_ms"], device_tick_ms_mean5=out["tick_ms5"],
+         pershard_tick_ms_mean5=out["pallas_tick_ms5"], sweep3d_tick_ms_mean5=ref["tick_ms5"],
+         device_alone_max_abs_err=max(alone["errs"]),
+         device_cycle100_ms_mean5=alone["cycle"][0], device_cycle100_plain_ms=alone["cycle"][1],
+         device_solve_capped_ms=alone["solve"][0], device_solve_capped_plain_ms=alone["solve"][1],
+         device_solve_cap=MESH3D_ALONE_CAP,
+         bounds={"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True),
+                 "solve_capped": alone["solve"][2]})
+    return {"launches": launches, "err": max(errs + alone["errs"]), "ref": ref, "base": base,
+            "starts": starts, "plane_tick_ms5": out["tick_ms5"],
+            "plane_pallas_tick_ms5": out["pallas_tick_ms5"], "cycle": alone["cycle"],
+            "solve": alone["solve"]}
 
 
 def phase_mesh3d_z(dev, m3) -> dict:
-    """The same volume on an 8 x 1 x 1 z mesh, "auto" and "resident", held
-    to phase 20's VolumePlanner results; the orientation choose_mesh3d
-    picks, and both orientations' tick times in this phase."""
+    """The same volume on an 8 x 1 x 1 z mesh, "auto" and "resident" (the
+    device route) and "pallas" (the per-shard route), held to phase 20's
+    VolumePlanner results; the orientation choose_mesh3d picks, and both
+    orientations' tick times on both routes."""
     from epic_tpu_torch.parallel import choose_mesh3d, make_mesh, make_mesh3d
 
     n = MESH[0] * MESH[1]
@@ -2275,33 +2392,43 @@ def phase_mesh3d_z(dev, m3) -> dict:
     zmesh = make_mesh3d((n, 1, 1), devices=[dev] * n)
     out = {}
 
-    def drive():
+    def drive_device():
         for kernel in ("auto", "resident"):
             out[kernel] = mesh_volume_session(dev, zmesh, base, starts, (50, 100), 1_000_000,
                                               kernel)
 
-    launches = counted_mesh3d("256^3 z mesh", drive)
+    def drive_shard():
+        out["pallas"] = mesh_volume_session(dev, zmesh, base, starts, (50, 100), 1_000_000,
+                                            "pallas")
+
+    launches = counted_mesh3d("256^3 z mesh, device route", drive_device, "device")
+    launches.update(counted_mesh3d("256^3 z mesh, per-shard route", drive_shard, "shard"))
     keys = [(t, n_) for t in (0, 1) for n_ in (50, 150)]
     errs = []
-    for kernel in ("auto", "resident"):
+    for kernel in ("auto", "resident", "pallas"):
         errs += compare_session(out[kernel], ref, keys, f"256^3 8x1x1 mesh ({kernel})")
     picked = choose_mesh3d(SIZE3D, devices=[dev] * n)
     times = {"z": mesh_tick_ms(out["auto"]["planner"], starts[0]),
+             "z_pallas": mesh_tick_ms(out["pallas"]["planner"], starts[0]),
              "plane": mesh_tick_ms(mesh_planner(dev, make_mesh(MESH, devices=[dev] * n)),
                                    starts[0])}
-    # The entry alone on a z shard's block (halo on z only), after the timed
-    # ticks: 8 sweeps with and without u1, and a 5-sweep remainder chunk.
-    sv = out["auto"]["planner"]._sv
+    # The shard entry alone on a z shard's block (halo on z only), after the
+    # timed ticks: 8 sweeps with and without u1, and a 5-sweep remainder.
+    sv = out["pallas"]["planner"]._sv
     k = sv.halo
     entry_errs, _ = entry_alone(sv, (3, 0, 0), ((k, False), (k, True), (5, True)),
                                 "256^3 z shard")
-    emit(phase="mesh3d_z", shape=list(SIZE3D), mesh=[n, 1, 1],
-         shard=list(out["auto"]["planner"]._sv.loc), launches=launches, max_abs_err=max(errs),
-         mesh_solve_ms=out["auto"]["solve_ms"], resident_solve_ms=out["resident"]["solve_ms"],
+    emit(phase="mesh3d_z", shape=list(SIZE3D), mesh=[n, 1, 1], shard=list(sv.loc),
+         launches=launches, max_abs_err=max(errs), device_solve_ms=out["auto"]["solve_ms"],
+         resident_solve_ms=out["resident"]["solve_ms"],
+         pershard_solve_ms=out["pallas"]["solve_ms"], sweep3d_solve_ms=ref["solve_ms"],
          choose_mesh3d={axis: int(v) for axis, v in picked.shape.items()},
-         z_tick_ms_mean5=times["z"], plane_tick_ms_mean5=times["plane"],
-         plane_tick_ms_mean5_phase20=m3["plane_tick_ms5"], sweep3d_tick_ms_mean5=ref["tick_ms5"],
-         entry_block=list(sv.block_shape(k)), entry_max_abs_err=max(entry_errs))
+         z_device_tick_ms_mean5=times["z"], z_pershard_tick_ms_mean5=times["z_pallas"],
+         plane_device_tick_ms_mean5=times["plane"],
+         plane_device_tick_ms_mean5_phase20=m3["plane_tick_ms5"],
+         plane_pershard_tick_ms_mean5_phase20=m3["plane_pallas_tick_ms5"],
+         sweep3d_tick_ms_mean5=ref["tick_ms5"], entry_block=list(sv.block_shape(k)),
+         entry_max_abs_err=max(entry_errs))
     return {"launches": launches, "err": max(errs + entry_errs)}
 
 
@@ -2357,9 +2484,9 @@ def entry_alone(sv, idx, runs, what: str):
 
 
 def phase_mesh3d_wide(dev) -> dict:
-    """64 x 1024 x 1024 on 2 x 4: the counted mesh path against the
-    VolumePlanner, and the entry alone against the plain per-shard
-    version."""
+    """64 x 1024 x 1024 on 2 x 4: the counted mesh path on both routes
+    against the VolumePlanner, and the shard entry alone against the plain
+    per-shard version."""
     from epic_tpu_torch.parallel import hopper_shard3d, make_mesh, make_mesh3d
 
     t0_s = time.perf_counter()
@@ -2375,18 +2502,28 @@ def phase_mesh3d_wide(dev) -> dict:
     mesh = make_mesh(MESH, devices=[dev] * n)
     out, exchange = {}, []
 
-    def drive():
+    def drive_device():
         out["auto"] = mesh_volume_session(dev, mesh, base, starts, (100,), MESH3D_WIDE_CAP)
-        out["tick_ms5"] = mesh_tick_ms(out["auto"]["planner"], starts[0], exchange)
+        out["tick_ms5"] = mesh_tick_ms(out["auto"]["planner"], starts[0])
 
-    launches = counted_mesh3d("64x1024x1024 plane mesh", drive)
-    errs = compare_session(out["auto"], ref, [(0, 100), (1, 100)], "64x1024x1024 2x4 mesh")
+    def drive_shard():
+        out["pallas"] = mesh_volume_session(dev, mesh, base, starts, (100,), MESH3D_WIDE_CAP,
+                                            "pallas")
+        out["pallas_tick_ms5"] = mesh_tick_ms(out["pallas"]["planner"], starts[0], exchange)
+
+    launches = counted_mesh3d("64x1024x1024 plane mesh, device route", drive_device, "device")
+    launches.update(counted_mesh3d("64x1024x1024 plane mesh, per-shard route", drive_shard,
+                                   "shard"))
+    errs = []
+    for kernel in ("auto", "pallas"):
+        errs += compare_session(out[kernel], ref, [(0, 100), (1, 100)],
+                                f"64x1024x1024 2x4 mesh ({kernel})")
     exchange_ms = sum(a.elapsed_time(b) for a, b in exchange) / 5
     z_tick = mesh_tick_ms(mesh_planner(dev, make_mesh3d((n, 1, 1), devices=[dev] * n)),
                           starts[0])
 
-    # The entry alone on shard (0, 1)'s extended block.
-    sv = out["auto"]["planner"]._sv
+    # The shard entry alone on shard (0, 1)'s extended block.
+    sv = out["pallas"]["planner"]._sv
     k = sv.halo
     entry_errs, (work, src, frozen, halo, par0, it0) = entry_alone(
         sv, (0, 1), ((k, False), (k, True), (5, True)), "64x1024x1024 shard")
@@ -2401,13 +2538,15 @@ def phase_mesh3d_wide(dev) -> dict:
     d, h, w = MESH3D_WIDE
     emit(phase="mesh3d_wide", shape=list(MESH3D_WIDE), mesh=list(MESH), shard=list(sv.loc),
          chunk_depth=k, setup_s=setup_s, launches=launches, max_abs_err=max(errs),
-         mesh_tick_ms_mean5=out["tick_ms5"], sweep3d_tick_ms_mean5=ref["tick_ms5"],
-         z_mesh_tick_ms_mean5=z_tick, exchange_ms_per_tick=exchange_ms,
-         exchange_share=exchange_ms / out["tick_ms5"], mesh_solve_ms=out["auto"]["solve_ms"],
+         device_tick_ms_mean5=out["tick_ms5"], pershard_tick_ms_mean5=out["pallas_tick_ms5"],
+         sweep3d_tick_ms_mean5=ref["tick_ms5"], z_mesh_device_tick_ms_mean5=z_tick,
+         exchange_ms_per_pershard_tick=exchange_ms,
+         exchange_share=exchange_ms / out["pallas_tick_ms5"],
+         device_solve_ms=out["auto"]["solve_ms"], pershard_solve_ms=out["pallas"]["solve_ms"],
          sweep3d_solve_ms=ref["solve_ms"], solve_cap=MESH3D_WIDE_CAP, solve_iterations=iters,
          entry_sweeps=k, entry_block=list(src.shape), entry_ms_mean10=entry_ms,
          entry_plain_ms=plain_ms, entry_max_abs_err=max(entry_errs),
-         cell_updates_per_s_mesh=(d - 2) * (h - 2) * (w - 2) / 2 * 100
+         cell_updates_per_s_device=(d - 2) * (h - 2) * (w - 2) / 2 * 100
          / (out["tick_ms5"] / 1e3),
          bounds={"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True),
                  "entry": entry_bound},
@@ -2475,12 +2614,15 @@ def main() -> None:
         "epic_shard3d_chunk": max(m3["err"], m3z["err"], m3w["err"]),
         "epic_resident2d_cycle": res["err"],
         "epic_resident2d_solve": res["err"],
+        "epic_resident3d_cycle": max(m3["err"], m3z["err"], m3w["err"]),
+        "epic_resident3d_solve": max(m3["err"], m3z["err"], m3w["err"]),
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
     # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3, one
     # 8192 x 4096 shard of the 16384^2 mesh, one 64 x 512 x 256 shard of the
     # 64 x 1024 x 1024 mesh, all eight shards of the 16384^2 mesh (the cycle
-    # entry) and of the maze mesh (the solve entry).
+    # entry) and of the maze mesh (the solve entry), all eight shards of
+    # 256^3 on 2 x 4 (a 100-sweep cycle, a solve capped at 300).
     times = {
         "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"], m["tick_bound"]),
         "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
@@ -2498,6 +2640,8 @@ def main() -> None:
         "epic_shard3d_chunk": m3w["entry"],
         "epic_resident2d_cycle": res["cycle"],
         "epic_resident2d_solve": res["solve"],
+        "epic_resident3d_cycle": m3["cycle"],
+        "epic_resident3d_solve": m3["solve"],
     }
     kernels = [dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errs[name], ms=times[name][0],

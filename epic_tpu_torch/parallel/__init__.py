@@ -7,9 +7,12 @@ plain torch version on the CPU) and resident (``hopper_resident2d``: all of
 a device's shards in one launch of ``epic_resident2d_cycle`` or
 ``epic_resident2d_solve``, also in ``csrc/tile2d.cu``), with the
 reference's entry names in ``resident`` and ``resident_tiled``;
-``sharded3d`` does the same for volumes on plane and z meshes
-(``hopper_shard3d``: ``epic_shard3d_chunk`` of ``csrc/shard3d.cu``), with
-the resident routes ``resident3d`` and ``resident_z`` on the same blocks;
+``sharded3d`` does the same for volumes on plane and z meshes, per shard
+(``hopper_shard3d``: ``epic_shard3d_chunk`` of ``csrc/shard3d.cu``) and on
+the device route (``hopper_resident3d``: every shard of a device in one
+launch of ``epic_resident3d_cycle`` or ``epic_resident3d_solve``, also in
+``csrc/shard3d.cu``), with the reference's entry names in ``resident3d``
+and ``resident_z``;
 ``multihost`` spreads a mesh over processes with ``torch.distributed``."""
 
 from . import multihost, resident, resident3d, resident_tiled, resident_z, sharded, sharded3d

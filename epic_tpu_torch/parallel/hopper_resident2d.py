@@ -328,7 +328,8 @@ def cycle(sh, plan: Plan, k: int, iteration, total: int, n_chunks: int, *, t_off
         raise ValueError("u1 asked for, but the grid has no u1 blocks")
     _check_blocks(sh, plan, k, u1)
     deltas = torch.zeros(n_chunks, dtype=torch.float32, device=plan.device)
-    _launch("epic_resident2d_cycle", sh, plan, k, _iteration(iteration, plan.device).data_ptr(),
+    it = _iteration(iteration, plan.device)   # held until the launch is enqueued
+    _launch("epic_resident2d_cycle", sh, plan, k, it.data_ptr(),
             int(t_off), total, n_chunks, int(u1), deltas.data_ptr())
     return deltas
 

@@ -137,10 +137,11 @@ def chunk(src: torch.Tensor, dst: torch.Tensor, frozen: torch.Tensor, *, k: int,
     hopper_tile2d.check_depth(k, _smem_limit(dev))
     he, we = src.shape
     delta = torch.zeros((), dtype=torch.float32, device=dev) if want_delta else None
+    it = _iteration(iteration, dev)   # held until the launch is enqueued
     err = _build.load().epic_shard2d_chunk(
         src.data_ptr(), dst.data_ptr(), None if u1 is None else u1.data_ptr(),
         frozen.data_ptr(), src.stride(0), he, we, k, int(par0) & 1,
-        _iteration(iteration, dev).data_ptr(), int(t_off), ns,
+        it.data_ptr(), int(t_off), ns,
         None if delta is None else delta.data_ptr(), _stream(dev), dev.index)
     _build.check(err, "epic_shard2d_chunk")
     launches["epic_shard2d_chunk"] += 1

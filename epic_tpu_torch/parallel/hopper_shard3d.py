@@ -7,8 +7,11 @@ the whole extended block in VMEM), ``_band_shard3d_kernel`` (K19, DMA
 plane bands), ``resident3d._chunk_cycle`` (K20, K11's body on a
 plane-guarded resident shard) and ``resident_z._resident_z_kernel`` (K21,
 whole planes with guard planes). All of them compute one function, and one
-CUDA entry answers the four kernels: ``epic_shard3d_chunk`` in
-``csrc/shard3d.cu``.
+CUDA entry answers the four kernels shard by shard: ``epic_shard3d_chunk``
+in ``csrc/shard3d.cu``. It is :mod:`.sharded3d`'s per-shard route: the
+route of any mesh with a face neighbour on another device or process, and
+of the per-shard kernel names. Where one device holds the whole mesh,
+:mod:`.hopper_resident3d`'s entries sweep every shard at once instead.
 
 A chunk takes one shard's extended block after the halo exchange
 (``de x he x we`` voxels: the centre and a halo of ``halo = (hz, hy, hx)``
@@ -32,7 +35,9 @@ wrapper: a CPU tensor goes to the plain version, a CUDA tensor to the kernel
 or an exception. ``launches`` counts the kernel's launches and ``calls`` the
 plain version's calls; nothing else changes them. The entry has no depth
 limit: the block stays in device memory, so any halo the shard's extents
-allow runs.
+allow runs. A lane takes one class voxel of a flat walk over the sweep's
+trapezoid, so short rows leave no lane idle; the walk's index is 32-bit,
+which bounds a block below ``MAX_VOXELS``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ import torch
 from ..solver import _build
 from ..solver._sweep_body import lse6
 from ..solver.hopper_sweep import _iteration, _stream
+
+# The entry's flat index is 32-bit: a block stays below it.
+MAX_VOXELS = 2**31
 
 launches = {"epic_shard3d_chunk": 0}
 calls = {"sweep_k_local3d": 0}
@@ -102,8 +110,8 @@ def sweep_k_local3d(u_ext: torch.Tensor, frozen_ext: torch.Tensor, par0: int, it
 def _check(u, frozen, u1, halo, ns: int) -> None:
     """What the entry takes: f32 views ``u`` (and ``u1``) and a bool
     ``frozen`` of one 3D shape and pitch, unit x stride, on one CUDA device,
-    ``u1`` another buffer; halos that leave a centre; 1 <= ns <= the
-    shallowest cut halo."""
+    ``u1`` another buffer; halos that leave a centre; fewer than
+    ``MAX_VOXELS`` voxels; 1 <= ns <= the shallowest cut halo."""
     if u.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got one on {u.device}")
     grids = [u] + ([u1] if u1 is not None else [])
@@ -123,8 +131,8 @@ def _check(u, frozen, u1, halo, ns: int) -> None:
         raise ValueError("u1 must be another buffer than u")
     if len(halo) != 3 or any(h < 0 or n - 2 * h < 1 for n, h in zip(u.shape, halo)):
         raise ValueError(f"a {tuple(u.shape)} block has no centre with halos {tuple(halo)}")
-    if (u.shape[0] - 2) * (u.shape[1] - 2) >= 2**31:
-        raise ValueError(f"a {tuple(u.shape)} block has too many rows for the entry")
+    if u.numel() >= MAX_VOXELS:
+        raise ValueError(f"a {tuple(u.shape)} block passes the entry's 32-bit index")
     deepest = _max_sweeps(halo)
     if ns < 1 or (deepest is not None and ns > deepest):
         raise ValueError(f"a chunk runs 1..{deepest or 'any'} sweeps with halos {tuple(halo)}, "
@@ -147,10 +155,11 @@ def chunk(u: torch.Tensor, frozen: torch.Tensor, *, halo, par0: int, iteration, 
     dev = u.device
     de, he, we = u.shape
     delta = torch.zeros((), dtype=torch.float32, device=dev) if want_delta else None
+    it = _iteration(iteration, dev)   # held until the launch is enqueued
     err = _build.load().epic_shard3d_chunk(
         u.data_ptr(), None if u1 is None else u1.data_ptr(), frozen.data_ptr(), u.stride(0),
         u.stride(1), de, he, we, *map(int, halo), int(par0) & 1,
-        _iteration(iteration, dev).data_ptr(), int(t_off), ns,
+        it.data_ptr(), int(t_off), ns,
         None if delta is None else delta.data_ptr(), _stream(dev), dev.index)
     _build.check(err, "epic_shard3d_chunk")
     launches["epic_shard3d_chunk"] += 1

@@ -5,16 +5,19 @@ plane-sharded mesh (z resident) lives permanently in the tiled3d guard
 layout (``_HY``/``_HX`` guard rows and lane tiles, tile-pure guard writes)
 and every chunk is K11's slab cycle at ``nc = 1`` (K20) with the
 interior-masked sweep-0 delta. In the port a shard already stays resident
-as its extended block (:mod:`.sharded3d`): halos written in place, no
-relayout a chunk. So this route is the same blocks and the same CUDA entry
-(``epic_shard3d_chunk``). Its delta over the whole block has K20's max over
-the shards, since a chunk starts right after an exchange (see
-:mod:`.hopper_shard3d`). The TPU guard layouts (``tile_layouts``,
-``choose_layout``, ``_pad_resident``, the fresh twin) are not ported
-(ROADMAP, "Do not port").
+as its extended block (:mod:`.sharded3d`), so this route is
+:mod:`.sharded3d`'s ``kernel="resident"``: where one device of one process
+holds the mesh, the device entries (``epic_resident3d_cycle`` and
+``epic_resident3d_solve``, :mod:`.hopper_resident3d`) sweep every shard's
+centre in one launch, reading same-device face neighbours directly; where
+a face neighbour lives on another device or process, the per-shard entry
+(``epic_shard3d_chunk``) runs each chunk after a halo exchange. Either
+delta is K20's max over the shards (see :mod:`.hopper_shard3d`). The TPU
+guard layouts (``tile_layouts``, ``choose_layout``, ``_pad_resident``, the
+fresh twin) are not ported (ROADMAP, "Do not port").
 
-``eligible`` is the port's own shape rule: the entry needs no alignment and
-no slab budget, so any shard with a centre takes the route.
+``eligible`` is the port's own shape rule: the entries need no alignment
+and no slab budget, so any shard with a centre takes the route.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def update_n(state: GridState, num_steps: int, mesh: Mesh,
     """``core.update_n``'s semantics on a plane mesh, the delta the first
     sweep's."""
     check_mesh(state.u.shape, mesh, interpret)
-    return sharded3d.update_entry(state, num_steps, mesh, chunk_depth)
+    return sharded3d.update_entry(state, num_steps, mesh, chunk_depth, "resident")
 
 
 def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
@@ -69,7 +72,8 @@ def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
           interpret: bool | None = None) -> GridState:
     """``core.solve``'s protocol on a plane mesh."""
     check_mesh(state.u.shape, mesh, interpret)
-    return sharded3d.solve_entry(state, mesh, stagger, max_iterations, chunk_depth, None)
+    return sharded3d.solve_entry(state, mesh, stagger, max_iterations, chunk_depth, None,
+                                 "resident")
 
 
 def solve_segments(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
@@ -81,4 +85,4 @@ def solve_segments(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGE
     the same trajectory."""
     check_mesh(state.u.shape, mesh, interpret)
     return sharded3d.solve_entry(state, mesh, stagger, max_iterations, chunk_depth,
-                                 segment_iterations)
+                                 segment_iterations, "resident")

@@ -7,15 +7,18 @@ the ping-pong plane-band kernel ``_resident_z_kernel`` (K21): the shard's
 global z origin in the parity, a plane trapezoid, the sweep-0 delta masked
 to the interior planes. In the port that is what :mod:`.sharded3d` lays out
 on such a mesh anyway (only z is cut, so a block is ``d_loc + 2K`` whole
-planes), and the same CUDA entry (``epic_shard3d_chunk``) runs each chunk
-in place. Its delta over the whole block has K21's max over the shards,
-since a chunk starts right after an exchange (see :mod:`.hopper_shard3d`).
-The VMEM plane-band layout (``_layout``, ``_pad_resident``, the fresh twin)
-is not ported (ROADMAP, "Do not port").
+planes), and this route is its ``kernel="resident"``: the device entries
+(:mod:`.hopper_resident3d`) where one device of one process holds the mesh,
+each shard's z faces read from its neighbours' planes in place; the
+per-shard entry (``epic_shard3d_chunk``) after a halo exchange where a
+neighbour lives on another device or process, as in the multi-process
+``solve_resident_z``. Either delta is K21's max over the shards (see
+:mod:`.hopper_shard3d`). The VMEM plane-band layout (``_layout``,
+``_pad_resident``, the fresh twin) is not ported (ROADMAP, "Do not port").
 
 ``eligible`` is the port's own shape rule: any shard of at least one plane
 (ROADMAP R3: shards of one or an odd number of planes give core's bits;
-the depth is then ``min(chunk_depth, d_loc)``).
+the per-shard depth is then ``min(chunk_depth, d_loc)``).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def update_n(state: GridState, num_steps: int, mesh: Mesh,
     """``core.update_n``'s semantics on a z-only mesh, the delta the first
     sweep's."""
     check_mesh(state.u.shape, mesh, interpret)
-    return sharded3d.update_entry(state, num_steps, mesh, chunk_depth)
+    return sharded3d.update_entry(state, num_steps, mesh, chunk_depth, "resident")
 
 
 def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
@@ -65,7 +68,8 @@ def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
           interpret: bool | None = None) -> GridState:
     """``core.solve``'s protocol on a z-only mesh."""
     check_mesh(state.u.shape, mesh, interpret)
-    return sharded3d.solve_entry(state, mesh, stagger, max_iterations, chunk_depth, None)
+    return sharded3d.solve_entry(state, mesh, stagger, max_iterations, chunk_depth, None,
+                                 "resident")
 
 
 def solve_segments(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
@@ -76,4 +80,4 @@ def solve_segments(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGE
     ``segment_iterations``: the same trajectory."""
     check_mesh(state.u.shape, mesh, interpret)
     return sharded3d.solve_entry(state, mesh, stagger, max_iterations, chunk_depth,
-                                 segment_iterations)
+                                 segment_iterations, "resident")

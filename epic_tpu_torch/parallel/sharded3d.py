@@ -1,4 +1,4 @@
-"""The 3D volume on a device mesh: shards, K-deep halo exchange, per-shard chunks.
+"""The 3D volume on a device mesh: shards, K-deep halo exchange, two routes.
 
 The counterpart of ``epic_tpu.parallel.sharded3d``. The volume is padded to
 a multiple of the mesh (padding takes the obstacle value and is frozen) and
@@ -9,40 +9,57 @@ Each shard lives on its device as one extended block: its centre with a
 halo of ``halo`` voxels on each side of the axes the mesh cuts (an axis
 with one shard has none: its faces are the volume's frozen shell or
 padding), and a frozen mask of that layout (``locked | shell | padding``;
-halo voxels outside the mesh frozen). A chunk of ``ns <= K`` sweeps:
+halo voxels outside the mesh frozen).
 
-1. exchanges the K-deep halos of the blocks in place, in three phases: z,
-   then y, then x, each later phase moving strips of the already extended
-   block, so edges and corners arrive through the later phases
-   (``sharded3d.py:93-111``);
-2. runs the per-shard chunk on each block, in place
-   (``hopper_shard3d.chunk``: the CUDA entry on a card, the plain version
-   on the CPU). The halo voxels it leaves stale are rewritten by the next
-   exchange; no twin is needed.
+Two routes run the sweeps, in place, with the same bits:
 
-The first chunk of a call carries the staggered check's delta, the max over
-the shards of each whole block's (on the mesh's first device; across
-processes an ``all_reduce(MAX)``). K18/K19 take it over the block and
-K20/K21 over the centre; the max is the same, since a chunk starts right
-after an exchange (see :mod:`.hopper_shard3d`). The frozen mask's halos
-are exchanged once per edit. Depth: ``min(chunk_depth, extents of the cut
-axes)``; trajectories do not depend on it, so neither do results.
+- The device route (:mod:`.hopper_resident3d`): one launch a device runs
+  any number of sweeps over every shard's centre, reading a face
+  neighbour's centre on the same device directly (a sweep's class reads
+  only the other class, so that is race-free): K7's sweeps on the whole
+  volume, with no halo, no recompute and no exchange. A solve runs its
+  whole stagger loop in one more launch (per segment). It takes only a
+  *whole* plan: one device of one process holds every shard, as on a
+  virtual mesh of one card.
+- The per-shard route: a chunk of ``ns <= K`` sweeps (1) exchanges the
+  K-deep halos of the blocks in place, in three phases: z, then y, then x,
+  each later phase moving strips of the already extended block, so edges
+  and corners arrive through the later phases (``sharded3d.py:93-111``);
+  (2) runs the per-shard chunk on each block, in place
+  (``hopper_shard3d.chunk``). The halo voxels it leaves stale are
+  rewritten by the next exchange; no twin is needed. It serves any mesh,
+  and is the only route where a face neighbour lives on another device or
+  process (the host copies its halo).
 
-Solves are a host loop of stagger cycles with ``core.solve``'s protocol:
-the checked chunk (depth ``min(K, stagger)``) also writes u1, the centre
-after its first sweep; the host reads the delta once an exit is possible
-(``iteration + 1 >= max(D, H, W)``) and keeps u1 on exit. With
-``segment_iterations`` the loop pauses at stagger-aligned bounds
-(``solver.tiled.segment_bounds``); the trajectory is the same.
+``kernel`` picks the route (:func:`_device_plan`, counted in ``routes``):
+"auto" the device route on a whole plan except for large shards with
+little halo recompute (:func:`prefers_device`, the rule ``tile_probe
+--mesh3d`` measured, PERF.md), else the per-shard one; "resident" and, on the CPU,
+"resident_interpret" the device route on a whole plan and the per-shard
+one on a plan with a copied face; "pallas" and "pallas_banded" (a card)
+and "xla", "pallas_interpret" and "pallas_banded_interpret" (the CPU) the
+per-shard route. Each route runs its CUDA entries on a card and its plain
+versions on the CPU; a name that says otherwise raises. "resident" is
+refused on a mesh that cuts z and the planes, as ``epic_tpu`` refuses it
+(``sharded3d.py:702-721``); it names :mod:`.resident3d` on plane meshes
+and :mod:`.resident_z` on z-only ones.
 
-The route follows the mesh's device, as in :mod:`.sharded`: ``kernel``
-takes the reference's names only to refuse the ones that would say
-otherwise ("pallas"/"pallas_banded" only on a card, "xla" and the
-"*_interpret" names only on the CPU); "resident" (either device) names
-:mod:`.resident3d` on plane meshes and :mod:`.resident_z` on z-only ones,
-which run the same blocks and the same chunks, and is refused on a mesh
-that cuts z and the planes, as ``epic_tpu`` refuses it
-(``sharded3d.py:702-721``).
+The first sweep of a call carries the staggered check's delta, the max over
+the shards (on the mesh's first device; across processes an
+``all_reduce(MAX)``). K18/K19 take it over the block and K20/K21 over the
+centre; the max is the same, since a chunk starts right after an exchange
+(see :mod:`.hopper_shard3d`). The frozen mask's halos are exchanged once
+per edit. Depth: ``min(chunk_depth, extents of the cut axes)``;
+trajectories do not depend on it, so neither do results.
+
+Solves follow ``core.solve``'s protocol: a check every ``stagger`` sweeps,
+exit only right after a passing check with ``iteration + 1 >= max(D, H,
+W)``, the checked sweep's state kept. The per-shard route runs it as a
+host loop of stagger cycles (the checked chunk, depth ``min(K, stagger)``,
+also writes u1, the centre after its first sweep, kept on exit); the
+device route in one launch. With ``segment_iterations`` either pauses at
+stagger-aligned bounds (``solver.tiled.segment_bounds``); the trajectory is
+the same.
 
 In place, like the rest of the port: the resident verbs change the
 ``ShardedVolume`` they are given and return it.
@@ -60,7 +77,8 @@ from .. import constants as C
 from .. import grid as G
 from ..grid import GridState
 from ..solver.tiled import segment_bounds
-from . import hopper_shard3d, multihost
+from . import hopper_resident3d, hopper_shard3d, multihost
+from .hopper_resident3d import _extents, _zyx
 from .sharded import _CARD_NAMES, FILL, Mesh, _pmax, _run_phase, local_devices, make_mesh, \
     make_mesh3d, near_square
 from .sharded import _CPU_NAMES as _CPU_NAMES_2D
@@ -71,63 +89,105 @@ __all__ = ["ShardedVolume", "make_mesh3d", "choose_mesh3d", "padded_shape", "sha
 
 # Sweeps per halo exchange (epic_tpu's sharded3d.DEFAULT_CHUNK_DEPTH).
 DEFAULT_CHUNK_DEPTH = 8
-# choose_mesh3d's cost of a lane slot against a voxel position (see
-# sweep_cost), fitted to an H100's 100-sweep ticks of ten volumes on 8 x 1 x 1
-# and 2 x 4 meshes (``python -m epic_tpu_torch.tile_probe --mesh3d``; PERF.md).
-LANE_SLOT_COST = 1.3
+# sweep_cost's price of a (z, y) row against one class slot of it, on each
+# route, fitted to an H100's 100-sweep ticks of ten volumes on 8 x 1 x 1 and
+# 2 x 4 virtual meshes (``python -m epic_tpu_torch.tile_probe --mesh3d``;
+# PERF.md): the device route's on all ten, the per-shard route's on the six
+# whose shards hold at least 4M voxels (below that the launches and the
+# exchange the model leaves out set the pace).
+ROW_COST = {"device": 4.5, "shard": 1.25}
+# The rule "auto" follows on a whole plan (prefers_device): the device route,
+# except for shards of more than DEVICE_MAX_SHARD_VOXELS whose per-shard
+# chunks would recompute less than DEVICE_MIN_RECOMPUTE times their centre.
+# On an H100 the per-shard route's tick measured faster there (2 x 4 shards
+# of 16.8M voxels and more, recompute 1.03; 8 x 1 x 1 shards of 67M, 1.105),
+# the device route's everywhere else (shards up to 8.4M voxels, and z shards
+# up to 50M at a recompute of 1.14); tile_probe --mesh3d, PERF.md.
+DEVICE_MAX_SHARD_VOXELS = 12_000_000
+DEVICE_MIN_RECOMPUTE = 1.12
 
 _CPU_NAMES = _CPU_NAMES_2D + ("resident_interpret",)
 _RESIDENT = ("resident", "resident_interpret")
+# The route of each tick and solve (_device_plan): the device entries, or the
+# per-shard entry (a plan with a copied face, or a per-shard name).
+routes = {"device": 0, "shard": 0}
 
 
 def _has_z(mesh: Mesh) -> bool:
     return "mz" in mesh.shape
 
 
-def _extents(mesh: Mesh) -> tuple[int, int, int]:
-    """Shards along (z, y, x); 1 along z on a 2D mesh."""
-    return mesh.shape.get("mz", 1), mesh.shape["my"], mesh.shape["mx"]
-
-
-def _zyx(idx) -> tuple[int, int, int]:
-    """A mesh index as (z, y, x) shard coordinates."""
-    return tuple(idx) if len(idx) == 3 else (0, *idx)
-
-
-def sweep_cost(shape, extents, chunk_depth: int = DEFAULT_CHUNK_DEPTH) -> tuple[int, float]:
+def sweep_cost(shape, extents, chunk_depth: int = DEFAULT_CHUNK_DEPTH,
+               route: str = "shard") -> tuple[int, float]:
     """``(k, cost)``: the chunk depth of a volume of ``shape`` cut into
-    ``extents`` (z, y, x) shards, and the modelled cost of one shard's sweep,
-    averaged over a chunk. The entry's warps each take a (z, y) row of the
-    sweep's trapezoid and its class voxels two apart, 64 positions a pass,
-    so a sweep costs one for each position and ``LANE_SLOT_COST`` for each
-    lane slot of those passes. A chunk's fixed cost (launches, the
-    exchange) is left out."""
+    ``extents`` (z, y, x) shards, and the modelled cost of one shard's sweep
+    on ``route``. Both routes give a lane one class slot of a flat walk over
+    the (z, y) rows' half-row slots, so a sweep costs one for each slot and
+    ``ROW_COST[route]`` for each row, whose ends break the lanes' runs. The
+    device route sweeps the centre; the per-shard route sweeps each sweep's
+    trapezoid of the K-extended block (the halo recompute), averaged over a
+    chunk. A chunk's fixed cost (launches, the exchange) is left out."""
     loc = [-(-s // n) for s, n in zip(shape, extents)]
     cut = [n > 1 for n in extents]
     k = _depth(loc, cut, chunk_depth)
+    if route == "device":
+        return k, loc[0] * loc[1] * (-(-loc[2] // 2) + ROW_COST[route])
     block = [n + 2 * k if c else n for n, c in zip(loc, cut)]
     cost = 0.0
     for s in range(k):
         spans = [e - 2 - 2 * s if c else e - 2 for e, c in zip(block, cut)]
         if min(spans) > 0:
-            cost += spans[0] * spans[1] * (spans[2] + LANE_SLOT_COST * 64 * -(-spans[2] // 64))
+            cost += spans[0] * spans[1] * (-(-spans[2] // 2) + ROW_COST[route])
     return k, cost / k
+
+
+def _trapezoid(loc, cut, k: int) -> float:
+    """The voxels a per-shard chunk of depth ``k`` sweeps, a sweep on
+    average: each sweep's trapezoid of the K-extended block."""
+    block = [n + 2 * k if c else n for n, c in zip(loc, cut)]
+    total = 0
+    for s in range(k):
+        spans = [e - 2 - 2 * s if c else e - 2 for e, c in zip(block, cut)]
+        total += max(0, spans[0]) * max(0, spans[1]) * max(0, spans[2])
+    return total / k
+
+
+def prefers_device(loc, cut, k: int) -> bool:
+    """Whether "auto" sends a whole plan of ``loc`` shards (``cut`` axes,
+    chunk depth ``k``) to the device route: a shard of at most
+    ``DEVICE_MAX_SHARD_VOXELS``, or one whose per-shard chunks would sweep
+    at least ``DEVICE_MIN_RECOMPUTE`` times its centre."""
+    voxels = loc[0] * loc[1] * loc[2]
+    return (voxels <= DEVICE_MAX_SHARD_VOXELS
+            or _trapezoid(loc, cut, k) >= DEVICE_MIN_RECOMPUTE * voxels)
+
+
+def whole_mesh(devices) -> bool:
+    """Whether a mesh over ``devices`` (this process's) is one whole plan:
+    one device of one process holds every shard."""
+    return multihost.world()[0] == 1 and len({str(d) for d in devices}) == 1
 
 
 def choose_mesh3d(shape: tuple[int, int, int], devices=None) -> Mesh:
     """The mesh orientation for a volume of ``shape`` over ``devices`` (by
     default every visible card; without one this raises): a z mesh
     ``make_mesh3d((n, 1, 1))`` where its sweeps cost less than the
-    near-square plane mesh's (:func:`sweep_cost`) and its chunks are as
-    deep, else that plane mesh (:func:`make_mesh`). ``epic_tpu`` gates the
-    z mesh on a VMEM budget (``resident_z.eligible``); the port's model is
-    fitted to the card's times of both orientations (PERF.md)."""
+    near-square plane mesh's (:func:`sweep_cost`: on the device route where
+    one device of one process holds the mesh, else on the per-shard route,
+    whose z chunks must also be as deep), else that plane mesh
+    (:func:`make_mesh`). ``epic_tpu`` gates the z mesh on a VMEM budget
+    (``resident_z.eligible``); the port's model is fitted to the card's
+    times of both orientations on each route (PERF.md). On one card the
+    device route's model favours the z mesh's long rows; where "auto" then
+    takes the per-shard route instead (the largest volumes), the plane
+    mesh's per-shard tick measured up to 8% faster (PERF.md)."""
     local = local_devices(devices, "choose_mesh3d")
     n = multihost.world()[0] * len(local)
     plane = near_square(n)
-    kz, z = sweep_cost(shape, (n, 1, 1))
-    kp, p = sweep_cost(shape, (1, *plane))
-    if kz >= kp and z < p:
+    route = "device" if whole_mesh(local) else "shard"
+    kz, z = sweep_cost(shape, (n, 1, 1), route=route)
+    kp, p = sweep_cost(shape, (1, *plane), route=route)
+    if (route == "device" or kz >= kp) and z < p:
         return make_mesh3d((n, 1, 1), devices=local)
     return make_mesh(plane, devices=local)
 
@@ -384,9 +444,9 @@ def _frozen_halos(sv: ShardedVolume, k: int) -> None:
 
 
 def check_kernel(kernel: str, mesh: Mesh) -> None:
-    """Refuse a kernel name this mesh does not run: the per-shard route
-    follows the device (the CUDA entry on a card, the plain version on the
-    CPU), and a name only confirms it."""
+    """Refuse a kernel name this mesh does not run: each route follows the
+    device (the CUDA entries on a card, the plain versions on the CPU), and a
+    name only picks the route and confirms the device."""
     on_card = mesh.device_type == "cuda"
     if kernel in _CARD_NAMES and not on_card:
         raise ValueError(f"kernel={kernel!r} runs the CUDA entry; this mesh lies on "
@@ -421,6 +481,23 @@ def _on_devices(mesh: Mesh, t: torch.Tensor) -> dict:
     return {dev: t.to(dev) for dev in {mesh.devices[idx] for idx in mesh.local}}
 
 
+def _device_plan(sv: ShardedVolume, kernel: str, k: int):
+    """The route rule: the plan the device entries run for ``kernel`` at
+    chunk depth ``k``, or None for the per-shard route. "resident" and
+    "resident_interpret" take the device route where one plan covers the
+    mesh (no face copied) and its centres fit the entries' index; "auto"
+    does so where :func:`prefers_device` holds too; every other name, and
+    every other plan, takes the per-shard route. Counted in ``routes``."""
+    check_kernel(kernel, sv.mesh)
+    plan = None
+    if kernel in _RESIDENT or (kernel == "auto" and prefers_device(sv.loc, sv.cut, k)):
+        found = hopper_resident3d.plans(sv.mesh)
+        if len(found) == 1 and found[0].whole and hopper_resident3d.fits(sv, found[0]):
+            plan = found[0]
+    routes["device" if plan is not None else "shard"] += 1
+    return plan
+
+
 def _chunk(sv: ShardedVolume, k: int, its: dict, t_off: int, ns: int, *, delta: bool = False,
            u1: bool = False):
     """One exchange and ``ns`` sweeps in place on every local shard from
@@ -439,7 +516,7 @@ def _chunk(sv: ShardedVolume, k: int, its: dict, t_off: int, ns: int, *, delta: 
 
 def _prepare(sv: ShardedVolume, chunk_depth: int) -> int:
     """The depth of a call; regrow the halo and exchange the frozen halos as
-    needed."""
+    needed (either route: the layout does not depend on the route)."""
     k = _depth(sv.loc, sv.cut, chunk_depth)
     if k > sv.halo and any(sv.cut):
         _regrow(sv, k)
@@ -447,35 +524,47 @@ def _prepare(sv: ShardedVolume, chunk_depth: int) -> int:
     return k
 
 
-def _update(sv: ShardedVolume, num_steps: int, chunk_depth: int) -> ShardedVolume:
-    """``num_steps`` sweeps from ``sv.iteration`` as ceil(num_steps / K)
-    exchange rounds (the first ``min(K, num_steps)`` deep, then full chunks,
-    then the remainder), in place; the delta is the first sweep's (pmax)."""
+def _update(sv: ShardedVolume, num_steps: int, chunk_depth: int, kernel: str) -> ShardedVolume:
+    """``num_steps`` sweeps from ``sv.iteration``, in place: one launch of
+    the device route, or ceil(num_steps / K) exchange rounds of the
+    per-shard route (the first ``min(K, num_steps)`` deep, then full chunks,
+    then the remainder); the delta is the first sweep's (pmax)."""
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     k = _prepare(sv, chunk_depth)
-    its = _on_devices(sv.mesh, sv.iteration)
-    d1 = min(k, num_steps)
-    delta = _chunk(sv, k, its, 0, d1, delta=True)
-    t = d1
-    while t < num_steps:
-        ns = min(k, num_steps - t)
-        _chunk(sv, k, its, t, ns)
-        t += ns
+    plan = _device_plan(sv, kernel, k)
+    if plan is not None:
+        delta = hopper_resident3d.cycle(sv, plan, sv.iteration.to(plan.device), num_steps)
+    else:
+        its = _on_devices(sv.mesh, sv.iteration)
+        d1 = min(k, num_steps)
+        delta = _chunk(sv, k, its, 0, d1, delta=True)
+        t = d1
+        while t < num_steps:
+            ns = min(k, num_steps - t)
+            _chunk(sv, k, its, t, ns)
+            t += ns
     sv.iteration = sv.iteration + num_steps
     sv.delta = delta
     return sv
 
 
 def _solve(sv: ShardedVolume, stagger: int, max_iterations: int, chunk_depth: int,
-           segment_iterations: int | None):
+           segment_iterations: int | None, kernel: str):
     """``core.solve``'s protocol on the resident blocks, in place (iteration
     reset to 0, a check every ``stagger`` sweeps, exit only right after a
     passing check with ``iteration >= max(D, H, W)``, the post-check-sweep
-    state kept), paused at the segment bounds. Returns ``(sv, converged)``."""
+    state kept), paused at the segment bounds: the device route's solve
+    entry once a segment, or the per-shard route's host loop. Returns
+    ``(sv, converged)``."""
     if stagger < 1:
         raise ValueError(f"stagger must be >= 1, got {stagger}")
     k = _prepare(sv, chunk_depth)
+    bounds = ([max_iterations] if segment_iterations is None
+              else segment_bounds(stagger, max_iterations, segment_iterations))
+    plan = _device_plan(sv, kernel, k)
+    if plan is not None:
+        return _solve_whole(sv, plan, stagger, bounds)
     mesh = sv.mesh
     if sv.u1_blocks is None:
         sv.u1_blocks = _blank(mesh, sv.block_shape(sv.halo), FILL, torch.float32)
@@ -483,8 +572,6 @@ def _solve(sv: ShardedVolume, stagger: int, max_iterations: int, chunk_depth: in
     zero = _on_devices(mesh, torch.zeros((), dtype=torch.int32, device=first))
     m_max = max(sv.shape)
     depth = min(k, stagger)
-    bounds = ([max_iterations] if segment_iterations is None
-              else segment_bounds(stagger, max_iterations, segment_iterations))
     it, delta, done = 0, sv.epsilon + 1.0, False
     for bound in bounds:
         while not done and it < bound:
@@ -506,6 +593,21 @@ def _solve(sv: ShardedVolume, stagger: int, max_iterations: int, chunk_depth: in
     return sv, torch.tensor(done, dtype=torch.bool, device=first)
 
 
+def _solve_whole(sv: ShardedVolume, plan, stagger: int, bounds: list):
+    """The device route's solve: the solve entry once a segment, each
+    resuming where the last stopped; the verdict read between segments."""
+    dev = plan.device
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    delta = (sv.epsilon + 1.0).to(device=dev, dtype=torch.float32)
+    done = torch.zeros((), dtype=torch.int32, device=dev)
+    for bound in bounds:
+        hopper_resident3d.solve(sv, plan, stagger, bound, it, delta, done)
+        if len(bounds) > 1 and bool(done):
+            break
+    sv.iteration, sv.delta = it, delta
+    return sv, done != 0
+
+
 def _check_mesh(sv: ShardedVolume, mesh: Mesh | None) -> None:
     if mesh is not None and mesh != sv.mesh:
         raise ValueError(f"the volume lives on {sv.mesh}, not {mesh}")
@@ -521,10 +623,11 @@ def update_n_resident3d(sv: ShardedVolume, num_steps: int, mesh: Mesh | None = N
                         kernel: str = "auto") -> ShardedVolume:
     """Anytime chunk on a mesh-resident volume, in place: no re-pad, no
     re-upload; returns ``sv``, relaxed, its iteration advanced and its delta
-    the first sweep's. ``kernel`` only refuses names (:func:`_check_route`)."""
+    the first sweep's. ``kernel`` picks the route (:func:`_device_plan`) or
+    refuses the name (:func:`_check_route`)."""
     _check_mesh(sv, mesh)
     _check_route(sv.mesh, kernel, sv.shape)
-    return _update(sv, num_steps, chunk_depth)
+    return _update(sv, num_steps, chunk_depth, kernel)
 
 
 def solve_resident3d(sv: ShardedVolume, mesh: Mesh | None = None,
@@ -532,11 +635,11 @@ def solve_resident3d(sv: ShardedVolume, mesh: Mesh | None = None,
                      chunk_depth: int = DEFAULT_CHUNK_DEPTH, kernel: str = "auto",
                      segment_iterations: int | None = None):
     """Solve to convergence on the resident blocks, in place (the protocol
-    of :func:`_solve`); ``kernel`` only refuses names. Returns
-    ``(sv, converged)``."""
+    of :func:`_solve`); ``kernel`` as in :func:`update_n_resident3d`.
+    Returns ``(sv, converged)``."""
     _check_mesh(sv, mesh)
     _check_route(sv.mesh, kernel, sv.shape)
-    return _solve(sv, stagger, max_iterations, chunk_depth, segment_iterations)
+    return _solve(sv, stagger, max_iterations, chunk_depth, segment_iterations, kernel)
 
 
 def set_cells_resident3d(sv: ShardedVolume, xyz, types) -> ShardedVolume:
@@ -646,32 +749,34 @@ def _result(state: GridState, sv: ShardedVolume, converged: torch.Tensor) -> Gri
                                iteration=sv.iteration, delta=sv.delta, converged=converged)
 
 
-def update_entry(state: GridState, num_steps: int, mesh: Mesh, chunk_depth: int) -> GridState:
-    """``core.update_n``'s semantics on a mesh through the blocks."""
+def update_entry(state: GridState, num_steps: int, mesh: Mesh, chunk_depth: int,
+                 kernel: str) -> GridState:
+    """``core.update_n``'s semantics on a mesh through the blocks, on the
+    route ``kernel`` picks."""
     sv = shard_state3d(state, mesh, halo_for(tuple(state.u.shape), mesh, chunk_depth))
-    _update(sv, num_steps, chunk_depth)
+    _update(sv, num_steps, chunk_depth, kernel)
     converged = ((sv.delta < sv.epsilon) if num_steps == 1
                  else torch.zeros((), dtype=torch.bool, device=mesh.first_device))
     return _result(state, sv, converged)
 
 
 def solve_entry(state: GridState, mesh: Mesh, stagger: int, max_iterations: int,
-                chunk_depth: int, segment_iterations: int | None) -> GridState:
+                chunk_depth: int, segment_iterations: int | None, kernel: str) -> GridState:
     """``core.solve`` on a mesh through the blocks (the protocol of
-    :func:`_solve`)."""
+    :func:`_solve`), on the route ``kernel`` picks."""
     sv = shard_state3d(state, mesh, halo_for(tuple(state.u.shape), mesh, chunk_depth))
-    sv, converged = _solve(sv, stagger, max_iterations, chunk_depth, segment_iterations)
+    sv, converged = _solve(sv, stagger, max_iterations, chunk_depth, segment_iterations, kernel)
     return _result(state, sv, converged)
 
 
 def update_n(state: GridState, num_steps: int, mesh: Mesh,
              chunk_depth: int = DEFAULT_CHUNK_DEPTH, kernel: str = "auto") -> GridState:
     """``core.update_n``'s semantics on a mesh: ``num_steps`` sweeps, delta
-    from the first, ``converged`` only for a single sweep. ``kernel`` only
-    refuses names (:func:`_check_route`). Returns a GridState on the mesh's
-    first device."""
+    from the first, ``converged`` only for a single sweep. ``kernel`` picks
+    the route or refuses the name (:func:`_check_route`). Returns a
+    GridState on the mesh's first device."""
     _check_route(mesh, kernel, tuple(state.u.shape))
-    return update_entry(state, num_steps, mesh, chunk_depth)
+    return update_entry(state, num_steps, mesh, chunk_depth, kernel)
 
 
 def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
@@ -682,4 +787,4 @@ def solve(state: GridState, mesh: Mesh, stagger: int = C.DEFAULT_STAGGER,
     GridState on the mesh's first device."""
     _check_route(mesh, kernel, tuple(state.u.shape))
     return solve_entry(state, mesh, stagger, max_iterations, DEFAULT_CHUNK_DEPTH,
-                       segment_iterations)
+                       segment_iterations, kernel)

@@ -241,9 +241,10 @@ class MeshVolumePlanner(VolumePlanner):
     planner's ``device``). ``mesh=None`` picks the orientation per ingested
     volume with :func:`~epic_tpu_torch.parallel.sharded3d.choose_mesh3d`
     over every visible card, and raises when there is none. ``kernel``
-    takes the reference's names only to refuse the ones this mesh does not
-    run (:func:`~epic_tpu_torch.parallel.sharded3d.check_kernel`); every
-    name runs the same chunks."""
+    picks the route (the device route, one launch a device, or the
+    per-shard one) with the names of
+    :func:`~epic_tpu_torch.parallel.sharded3d.check_kernel`, which refuses
+    the ones this mesh does not run."""
 
     def __init__(self, config: VolumePlannerConfig | None = None, mesh=None,
                  chunk_depth: int | None = None, kernel: str = "auto"):

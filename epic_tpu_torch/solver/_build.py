@@ -132,6 +132,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.epic_shard2d_chunk, lib.epic_shard3d_chunk,
                lib.epic_resident2d_cycle, lib.epic_resident2d_solve):
         fn.restype = i
+    if hasattr(lib, "epic_resident3d_cycle"):   # an earlier shard3d.cu lacks the device entries
+        lib.epic_resident3d_cycle.argtypes = [p, i, i, i, i, i, i, i, ll, ll, p, i, i, i, p, p, i]
+        lib.epic_resident3d_solve.argtypes = [p, i, i, i, i, i, i, i, ll, ll, p, i, i, i, p, p, p,
+                                              p, p, i]
+        lib.epic_resident3d_cycle.restype = i
+        lib.epic_resident3d_solve.restype = i
     for name in ("epic_tile2d_smem_bytes", "epic_tile3d_smem_bytes"):
         if hasattr(lib, name):   # an earlier design of a tile family may lack it
             getattr(lib, name).argtypes = [i]

@@ -1,8 +1,8 @@
 """Measure the routing crossovers of the tile kernels on one CUDA card.
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
-[--sides ...] [--volumes ...] [--shapes] [--mesh3d] [--mesh2d] [--shapes2d
-[--baseline FILE]] [--compare2d FILE] [--sass]``. It prints the card's name
+[--sides ...] [--volumes ...] [--shapes] [--mesh3d] [--compare3d FILE]
+[--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--sass]``. It prints the card's name
 and power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` runs after one warm-up:
 
@@ -18,12 +18,30 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   constants replaced (under the build directory; the source keeps its one
   shape), and its cycle entry runs a 100-sweep tick at each depth that fits
   shared memory, on the ``--volumes`` shapes;
-- ``--mesh3d`` (3D): the mesh orientation. A 100-sweep resident tick
-  (``sharded3d.update_n_resident3d``) of each volume on a virtual z mesh
-  of 8 shards and on a 2 x 4 plane mesh of the card, beside the model
-  costs of :func:`sharded3d.sweep_cost` and the mesh
-  :func:`sharded3d.choose_mesh3d` picks (default volumes:
-  ``MESH_VOLUMES``, or the ``--volumes`` shapes);
+- ``--mesh3d`` (3D): the mesh orientation and route. A 100-sweep
+  resident tick (``sharded3d.update_n_resident3d``) of each volume on a
+  virtual z mesh of 8 shards and on a 2 x 4 plane mesh of the card, each
+  on the device route ("resident") and the per-shard route ("pallas"), beside
+  K7's tick on the whole volume, the device route's on a 1 x 1 mesh (one
+  shard, no face read from a neighbour: K7's work plus the entry's face
+  tests), the model costs of :func:`sharded3d.sweep_cost` on each route,
+  the mesh :func:`sharded3d.choose_mesh3d` picks, the route "auto" takes
+  on each mesh (:func:`sharded3d.prefers_device`), and whether every route
+  gave the same bits (default volumes: ``MESH_VOLUMES``, or the
+  ``--volumes`` shapes). A last line gives, for each route, the
+  ``ROW_COST`` that brings the model's z-over-plane ratios closest to the
+  measured ones (least worst relative error; the per-shard route's over
+  the volumes whose shards hold at least ``FIT_MIN_SHARD_VOXELS``, since
+  its model leaves out the launches and the exchange);
+- ``--compare3d FILE``: the source's 3D mesh entries against ``FILE``'s
+  (another ``shard3d.cu``), each built into a whole library: the per-shard
+  entry (``epic_shard3d_chunk``) in an 8-sweep chunk on the extended blocks
+  of a 64 x 1024 x 1024 volume's 2 x 4 shard, a 256^3 volume's 2 x 4 shard
+  and its 8 x 1 x 1 shard, and the 256^3 per-shard 100-sweep tick on both
+  meshes; where FILE has the device entries too, the device route's
+  100-sweep ticks of 256^3 on 2 x 4, 8 x 1 x 1 and 1 x 1 and of 64 x 1024
+  x 1024 on 2 x 4, and its 256^3 solve capped at 500 on 2 x 4. In turns
+  (FILE, source, source, FILE), the results held equal bit for bit;
 - ``--mesh2d`` (2D): the mesh route. A 100-sweep tick and a solve capped
   at 500 sweeps of each square grid (``MESH_SIDES``, or the ``--sides``)
   on a 2 x 4 virtual mesh of the card through the per-shard route
@@ -84,6 +102,8 @@ DEPTHS = (2, 3, 4)
 # 1024^2, 512^2 and 256^2 planes around the model's switch to the z mesh.
 MESH_VOLUMES = ("256", "64x1024x1024", "128x1024x1024", "256x1024x1024", "384x1024x1024",
                 "512x1024x1024", "128x512x512", "256x512x512", "64x256x256", "128x256x256")
+# The smallest shard (voxels) whose per-shard tick --mesh3d fits the model to.
+FIT_MIN_SHARD_VOXELS = 4_000_000
 # --mesh2d's grid sides: the maze's, and squares up to chip_smoke.py's 16384^2.
 MESH_SIDES = (482, 1024, 2048, 3072, 4096, 6144, 8192, 12288, 16384)
 # (kTH, kTW, kThreads, kMinBlocks) candidates for --shapes2d: the class row
@@ -235,8 +255,8 @@ def probe_shapes(dev, reps: int, volumes=VOLUMES, shapes=SHAPES, depths=DEPTHS) 
         del st, ref
 
 
-def build_libraries(variants: dict) -> dict:
-    """One whole kernel library a variant of ``csrc/tile2d.cu`` ({name:
+def build_libraries(variants: dict, source: str = "tile2d.cu") -> dict:
+    """One whole kernel library a variant of ``csrc/<source>`` ({name:
     source text}): the other sources compiled once, each variant beside
     them, linked and bound under the build directory. Prints each variant's
     ``-Xptxas -v`` lines; returns {name: CDLL}."""
@@ -244,11 +264,12 @@ def build_libraries(variants: dict) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     flags = [*_build.COMPILE_FLAGS, "-I", str(_build.CSRC)]
-    others = [src for src in _build.SOURCES if src.name != "tile2d.cu"]
+    others = [src for src in _build.SOURCES if src.name != source]
     objs = {src: out_dir / f"{src.stem}.o" for src in others}
     cus, logs = {}, {}
+    stem = pathlib.Path(source).stem
     for name, text in variants.items():
-        cus[name] = out_dir / f"tile2d_{name}.cu"
+        cus[name] = out_dir / f"{stem}_{name}.cu"
         cus[name].write_text(text)
     procs = {name: subprocess.Popen([nvcc, *flags, "-o", str(cu.with_suffix(".o")), str(cu)],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -565,26 +586,162 @@ def probe_mesh3d(dev, reps: int, volumes=MESH_VOLUMES, shards: int = 8) -> None:
     devs = [dev] * shards
     meshes = {"z": make_mesh3d((shards, 1, 1), devices=devs),
               "plane": make_mesh(sharded.near_square(shards), devices=devs)}
+    one = make_mesh((1, 1), devices=[dev])
+    kernels = {"device": "resident", "shard": "pallas"}
+    rows = []
     for spec in volumes:
         shape = volume_shape(spec)
         st = random_state(shape, dev)
+        k7 = dataclasses.replace(st, u=st.u.clone())
+        k7_ms = event_ms(lambda: hopper_sweep3d.update_n(k7, 100), reps)
         ms, cost, fields = {}, {}, {}
-        for name, mesh in meshes.items():
-            sv = sharded3d.shard_state3d(st, mesh)
-            sharded3d.update_n_resident3d(sv, 100, mesh)
-            fields[name] = sharded3d.unshard3d(sv).u
-            ms[name] = event_ms(lambda: sharded3d.update_n_resident3d(sv, 100, mesh), reps)
-            cost[name] = sharded3d.sweep_cost(shape, sharded3d._extents(mesh))[1]
-            del sv
+        for name, mesh in {**meshes, "one": one}.items():
+            for route, kernel in kernels.items():
+                if name == "one" and route == "shard":
+                    continue
+                sv = sharded3d.shard_state3d(st, mesh)
+                sharded3d.update_n_resident3d(sv, 100, mesh, kernel=kernel)
+                fields[name, route] = sharded3d.unshard3d(sv).u
+                ms[name, route] = event_ms(
+                    lambda: sharded3d.update_n_resident3d(sv, 100, mesh, kernel=kernel), reps)
+                cost[name, route] = sharded3d.sweep_cost(shape, sharded3d._extents(mesh),
+                                                         route=route)[1]
+                del sv
         picked = sharded3d.choose_mesh3d(shape, devices=devs)
-        print(json.dumps(dict(probe="mesh3d", shape=list(shape), shards=shards,
-                              z_tick_ms=ms["z"], plane_tick_ms=ms["plane"],
-                              z_over_plane=ms["z"] / ms["plane"],
-                              model_z_over_plane=cost["z"] / cost["plane"],
-                              choose_mesh3d="z" if "mz" in picked.shape else "plane",
-                              same_bits=bool(torch.equal(fields["z"], fields["plane"])))),
-              flush=True)
-        del st, fields
+        auto = {}
+        for name, mesh in meshes.items():
+            ext = sharded3d._extents(mesh)
+            loc = [p // n for p, n in zip(sharded3d.padded_shape(shape, mesh), ext)]
+            k = sharded3d.halo_for(shape, mesh, sharded3d.DEFAULT_CHUNK_DEPTH)
+            auto[name] = ("device" if sharded3d.prefers_device(loc, [n > 1 for n in ext], k)
+                          else "shard")
+        ref = fields["one", "device"]
+        row = dict(probe="mesh3d", shape=list(shape), shards=shards, k7_tick_ms=k7_ms,
+                   one_shard_device_tick_ms=ms["one", "device"],
+                   **{f"{name}_{route}_tick_ms": ms[name, route]
+                      for name in meshes for route in kernels},
+                   **{f"{route}_z_over_plane": ms["z", route] / ms["plane", route]
+                      for route in kernels},
+                   **{f"model_{route}_z_over_plane": cost["z", route] / cost["plane", route]
+                      for route in kernels},
+                   **{f"{name}_device_over_shard": ms[name, "device"] / ms[name, "shard"]
+                      for name in meshes},
+                   choose_mesh3d="z" if "mz" in picked.shape else "plane", auto=auto,
+                   same_bits=all(bool(torch.equal(f, ref)) for f in fields.values()))
+        rows.append((shape, row))
+        print(json.dumps(row), flush=True)
+        del st, k7, fields
+    print(json.dumps(dict(probe="mesh3d_fit", **{
+        f"row_cost_{route}": fit_row_cost(rows, route) for route in kernels})), flush=True)
+
+
+def fit_row_cost(rows, route: str) -> dict:
+    """The ``ROW_COST[route]`` (a quarter-slot grid on 0..64) whose model
+    z-over-plane ratios come closest to the measured ones: the least worst
+    relative error over the volumes (the per-shard route's over those whose
+    shards hold at least ``FIT_MIN_SHARD_VOXELS``), and that error."""
+    from .parallel import sharded, sharded3d
+
+    kept = sharded3d.ROW_COST[route]
+    best = None
+    try:
+        for q in range(0, 257):
+            sharded3d.ROW_COST[route] = q / 4
+            err = 0.0
+            for shape, row in rows:
+                if route == "shard" and shape[0] * shape[1] * shape[2] < (
+                        FIT_MIN_SHARD_VOXELS * row["shards"]):
+                    continue
+                ext = {name: e for name, e in (("z", (row["shards"], 1, 1)),
+                                               ("plane", (1, *sharded.near_square(row["shards"]))))}
+                z, p = (sharded3d.sweep_cost(shape, ext[n], route=route)[1] for n in ("z", "plane"))
+                err = max(err, abs(z / p / row[f"{route}_z_over_plane"] - 1))
+            if best is None or err < best[1]:
+                best = (q / 4, err)
+    finally:
+        sharded3d.ROW_COST[route] = kept
+    return {"row_cost": best[0], "max_rel_err": best[1]}
+
+
+def probe_compare3d(dev, reps: int, baseline: str) -> None:
+    """The source's per-shard 3D entry against ``baseline``'s at PERF.md's
+    shapes, in turns (baseline, source, source, baseline); each workload's
+    results under the two held equal."""
+    from .parallel import hopper_shard3d, make_mesh, make_mesh3d, sharded3d
+
+    libs = {"source": _build.load(),
+            "baseline": build_libraries({"baseline": pathlib.Path(baseline).read_text()},
+                                        "shard3d.cu")["baseline"]}
+    plane = make_mesh((2, 4), devices=[dev] * 8)
+    zmesh = make_mesh3d((8, 1, 1), devices=[dev] * 8)
+    cube, wide = random_state((256, 256, 256), dev), random_state((64, 1024, 1024), dev)
+
+    def block(state, mesh, idx):
+        sv = sharded3d.shard_state3d(state, mesh)
+        sharded3d.update_n_resident3d(sv, 1, mesh, kernel="pallas")   # halos exchanged once
+        k = sv.halo
+        view, halo = sv.view(k), sv.halos(k)
+        src = sv.u_blocks[idx][view].clone()
+        work = sv.u_blocks[idx][view]
+        frozen = sv.frozen_blocks[idx][view]
+        par0 = sv.par0(idx, k)
+
+        def run():
+            work.copy_(src)
+            hopper_shard3d.chunk(work, frozen, halo=halo, par0=par0, iteration=1, ns=k,
+                                 want_delta=True)
+            return work
+        return run
+
+    def tick(state, mesh, kernel="pallas"):
+        sv = sharded3d.shard_state3d(state, mesh)
+        start = {idx: b.clone() for idx, b in sv.u_blocks.items()}
+
+        def run():
+            for idx, b in start.items():
+                sv.u_blocks[idx].copy_(b)
+            sv.iteration.zero_()
+            sharded3d.update_n_resident3d(sv, 100, mesh, kernel=kernel)
+            return sharded3d.unshard3d(sv).u
+        return run
+
+    def solve(state, mesh, cap):
+        def run():
+            sv = sharded3d.shard_state3d(state, mesh)
+            sharded3d.solve_resident3d(sv, mesh, max_iterations=cap, kernel="resident")
+            return sharded3d.unshard3d(sv).u
+        return run
+
+    work = {"chunk_64x1024x1024_2x4_k8": (block(wide, plane, (0, 1)), 20),
+            "chunk_256cube_2x4_k8": (block(cube, plane, (0, 1)), 20),
+            "chunk_256cube_8x1x1_k8": (block(cube, zmesh, (3, 0, 0)), 20),
+            "tick_256cube_2x4_pershard": (tick(cube, plane), 3),
+            "tick_256cube_8x1x1_pershard": (tick(cube, zmesh), 3)}
+    if hasattr(libs["baseline"], "epic_resident3d_cycle"):
+        one = make_mesh((1, 1), devices=[dev])
+        work.update({"tick_256cube_2x4_device": (tick(cube, plane, "resident"), 5),
+                     "tick_256cube_8x1x1_device": (tick(cube, zmesh, "resident"), 5),
+                     "tick_256cube_1x1_device": (tick(cube, one, "resident"), 5),
+                     "tick_64x1024x1024_2x4_device": (tick(wide, plane, "resident"), 3),
+                     "solve500_256cube_2x4_device": (solve(cube, plane, 500), 1)})
+    times: dict = {w: {"baseline": [], "source": []} for w in work}
+    results: dict = {w: {} for w in work}
+    try:
+        for w, (fn, n) in work.items():
+            for turn in ("baseline", "source", "source", "baseline"):
+                _build._lib = libs[turn]
+                if turn not in results[w]:
+                    results[w][turn] = fn().clone()
+                times[w][turn].append(event_ms(fn, n))
+    finally:
+        _build._lib = libs["source"]
+    for w in work:
+        old = sum(times[w]["baseline"]) / 2
+        new = sum(times[w]["source"]) / 2
+        print(json.dumps(dict(probe="compare3d", work=w, baseline_ms=times[w]["baseline"],
+                              source_ms=times[w]["source"], speedup=old / new,
+                              same_bits=bool(torch.equal(results[w]["baseline"],
+                                                         results[w]["source"])))), flush=True)
 
 
 def probe_mesh2d(dev, reps: int, sides=MESH_SIDES, shape=(2, 4)) -> None:
@@ -628,6 +785,8 @@ def main() -> None:
                     help="probe the 3D tile shapes on the --volumes shapes")
     ap.add_argument("--mesh3d", action="store_true",
                     help="time the 3D mesh orientations (on the --volumes shapes if given)")
+    ap.add_argument("--compare3d", default=None, metavar="FILE",
+                    help="time the per-shard 3D entry against FILE's shard3d.cu")
     ap.add_argument("--mesh2d", action="store_true",
                     help="time the 2D mesh routes (on the --sides grids if given)")
     ap.add_argument("--shapes2d", action="store_true",
@@ -652,6 +811,8 @@ def main() -> None:
         probe_shapes2d(dev, args.reps, baseline=args.baseline)
     elif args.compare2d:
         probe_compare2d(dev, args.reps, args.compare2d)
+    elif args.compare3d:
+        probe_compare3d(dev, args.reps, args.compare3d)
     elif args.mesh3d:
         probe_mesh3d(dev, args.reps, args.volumes or MESH_VOLUMES)
     elif args.mesh2d:

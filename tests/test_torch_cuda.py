@@ -6,8 +6,8 @@ kernels (csrc/batched2d.cu), the shard chunk of the 2D mesh and the
 resident route's cycle and solve entries (in csrc/tile2d.cu) and the mesh
 solver and MeshPlanner on a virtual mesh of eight shards on the one card,
 the shard chunk of the 3D mesh
-(csrc/shard3d.cu) and the 3D mesh solver and MeshVolumePlanner on virtual
-meshes of the card, the planners that drive them, and the batched walkers
+and its device route's cycle and solve entries (csrc/shard3d.cu) and the
+3D mesh solver and MeshVolumePlanner on virtual meshes of the card, the planners that drive them, and the batched walkers
 on the card against the same walkers on the CPU.
 Every test here needs a CUDA card and skips without one.
 
@@ -36,8 +36,9 @@ import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.planner_mesh import MeshPlanner, MeshVolumePlanner
-from epic_tpu_torch.parallel import (hopper_resident2d, hopper_shard2d, hopper_shard3d, make_mesh,
-                                     make_mesh3d, sharded, sharded3d)
+from epic_tpu_torch.parallel import (hopper_resident2d, hopper_resident3d, hopper_shard2d,
+                                     hopper_shard3d, make_mesh, make_mesh3d, sharded, sharded3d)
+from epic_tpu_torch.parallel.sharded import Mesh
 from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
                                    hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled, tiled3d)
 
@@ -1200,16 +1201,146 @@ def test_shard3d_chunk_refuses_what_the_kernel_does_not_take(dev):
     assert hopper_shard3d.launches == launches
 
 
+@pytest.mark.parametrize("row", [1, 2, 31, 33, 64, 65, 80, 130])
+def test_shard3d_chunk_rows_give_the_plain_versions_bits(dev, row):
+    """K18-K21 on centres whose rows hold ``row`` voxels (a lane a class
+    voxel: rows shorter, as long as and longer than a warp's 32 or 64
+    positions), with a halo on each combination of the axes, both parity
+    origins, u1 on and off: the plain per-shard version's bits."""
+    for cut in np.ndindex(2, 2, 2):
+        halo = tuple(3 * c for c in cut)
+        centre = (5, 6, row if cut[2] else row + 2)
+        k = min([h for h in halo if h] or [4])
+        u, frozen, view = _shard3d_block(centre, halo, dev, sum(cut) + row)
+        c = tuple(slice(h, h + n) for n, h in zip(centre, halo))
+        for par0 in (0, 1):
+            for with_u1 in (False, True):
+                work, u1 = u.clone(), torch.full_like(u, 5.0)
+                d = hopper_shard3d.chunk(work[view], frozen[view], halo=halo, par0=par0,
+                                         iteration=par0 + 2, ns=k,
+                                         u1=u1[view] if with_u1 else None, want_delta=True)
+                ref, ref_d, ref_u1 = hopper_shard3d.sweep_k_local3d(
+                    u[view], frozen[view], par0, par0 + 2, k, halo=halo, u1=True)
+                torch.cuda.synchronize()
+                assert torch.equal(work[view], ref) and torch.equal(d, ref_d), (cut, par0)
+                if with_u1:
+                    assert torch.equal(u1[view][c], ref_u1[c]), (cut, par0)
+
+
+def _vmesh(shape, dev):
+    n = int(np.prod(shape))
+    return (make_mesh3d if len(shape) == 3 else make_mesh)(shape, devices=[dev] * n)
+
+
+def _copy_volume(sv):
+    out = copy.copy(sv)
+    out.u_blocks = {idx: b.clone() for idx, b in sv.u_blocks.items()}
+    if sv.u1_blocks is not None:
+        out.u1_blocks = {idx: b.clone() for idx, b in sv.u1_blocks.items()}
+    return out
+
+
+def _same_volumes(a, b):
+    for idx in a.u_blocks:
+        assert torch.equal(a.u_blocks[idx], b.u_blocks[idx]), idx
+        if a.u1_blocks is not None:
+            c = a.view(0)
+            assert torch.equal(a.u1_blocks[idx][c], b.u1_blocks[idx][c]), idx
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (8, 1, 1), (2, 2, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_resident3d_entries_give_the_plain_versions_bits(dev, shape):
+    """epic_resident3d_cycle (1, 2 and 13 sweeps from both parities, u1 on
+    and off) and epic_resident3d_solve (converged, capped, and resumed
+    across segment bounds) on every shard of a virtual mesh: the plain
+    versions' blocks, deltas, iterations and verdicts."""
+    from epic_tpu_torch.solver.tiled import segment_bounds
+
+    mesh = _vmesh(shape, dev)
+    (plan,) = hopper_resident3d.plans(mesh)
+    st = _volume((21, 30, 45), 0.1, 3, dev)
+    sv = sharded3d.shard_state3d(st, mesh, halo=2)
+    sv.u1_blocks = sharded3d._blank(mesh, sv.block_shape(sv.halo), 5.0, torch.float32)
+    for t0 in (0, 1):
+        for ns in (1, 2, 13):
+            for with_u1 in (False, True):
+                k, p = _copy_volume(sv), _copy_volume(sv)
+                before = hopper_resident3d.launches["epic_resident3d_cycle"]
+                dk = hopper_resident3d.cycle(k, plan, t0, ns, u1=with_u1)
+                dp = hopper_resident3d.plain_cycle3d(p, plan, t0, ns, u1=with_u1)
+                torch.cuda.synchronize()
+                assert hopper_resident3d.launches["epic_resident3d_cycle"] == before + 1
+                assert torch.equal(dk, dp)
+                _same_volumes(k, p)
+    st = dataclasses.replace(_volume((18, 24, 30), 0.1, 5, dev),
+                             epsilon=torch.tensor(1e-1, device=dev))
+    for stagger, cap, seg in ((100, 1_000_000, None), (7, 1_000_000, 30), (10, 95, None),
+                              (1, 1_000_000, None), (10, 1_000_000, 40)):
+        runs = {}
+        for name, fn in (("kernel", hopper_resident3d.solve),
+                         ("plain", hopper_resident3d.plain_solve3d)):
+            sv = sharded3d.shard_state3d(st, mesh)
+            it = torch.zeros((), dtype=torch.int32, device=dev)
+            delta = torch.full((), 2.0, device=dev)
+            done = torch.zeros((), dtype=torch.int32, device=dev)
+            for bound in ([cap] if seg is None else segment_bounds(stagger, cap, seg)):
+                fn(sv, plan, stagger, bound, it, delta, done)
+            runs[name] = (sv, int(it), float(delta), int(done))
+        (a, *ka), (b, *kb) = runs["kernel"], runs["plain"]
+        assert ka == kb, (stagger, cap, seg)
+        _same_volumes(a, b)
+        ref = core.solve(st, stagger, cap)
+        assert torch.equal(sharded3d.unshard3d(a).u, ref.u) and ka[0] == int(ref.iteration)
+
+
+def test_resident3d_entries_refuse_what_they_do_not_take(dev):
+    """A plan with a copied face (a shard of another process), blocks of
+    another pitch, ns < 1 and stagger < 1: refused before a launch."""
+    st = _volume((10, 16, 24), 0.1, 1, dev)
+    mesh = _vmesh((2, 2, 2), dev)
+    sv = sharded3d.shard_state3d(st, mesh)
+    (plan,) = hopper_resident3d.plans(mesh)
+    it, delta, done = (torch.zeros((), dtype=torch.int32, device=dev),
+                       torch.ones((), device=dev), torch.zeros((), dtype=torch.int32, device=dev))
+    launches = dict(hopper_resident3d.launches)
+    devs = np.empty((2, 2, 2), dtype=object)
+    devs.fill(dev)
+    ranks = np.zeros((2, 2, 2), dtype=int)
+    ranks[1] = 1
+    (split,) = hopper_resident3d.plans(Mesh(devs, ranks, 0))
+    with pytest.raises(ValueError, match="whole plan"):
+        hopper_resident3d.cycle(sv, split, 0, 3)
+    with pytest.raises(ValueError, match="whole plan"):
+        hopper_resident3d.solve(sv, split, 10, 50, it, delta, done)
+    with pytest.raises(ValueError, match="at least one sweep"):
+        hopper_resident3d.cycle(sv, plan, 0, 0)
+    with pytest.raises(ValueError, match="stagger"):
+        hopper_resident3d.solve(sv, plan, 0, 50, it, delta, done)
+    idx = mesh.local[3]
+    wide = torch.zeros(sv.u_blocks[idx].shape[:2] + (sv.u_blocks[idx].shape[2] + 4,),
+                       device=dev)[:, :, 2:-2]
+    wide.copy_(sv.u_blocks[idx])
+    kept, sv.u_blocks[idx] = sv.u_blocks[idx], wide
+    with pytest.raises(ValueError, match="pitch"):
+        hopper_resident3d.cycle(sv, plan, 0, 3)
+    sv.u_blocks[idx] = kept
+    with pytest.raises(ValueError, match="0-d"):
+        hopper_resident3d.solve(sv, plan, 10, 50, it.long(), delta, done)
+    assert hopper_resident3d.launches == launches
+
+
 @pytest.mark.parametrize("shape,depth", [((2, 4), 8), ((8, 1, 1), 8), ((2, 2, 2), 3),
                                          ((1, 1), 8), ((8, 1), 64)])
 def test_virtual_mesh3d_update_and_solve_give_cores_bits(dev, shape, depth):
     """The 3D mesh solver on P shards of the one card: ticks from both
     parities and solves (converged, capped, in segments) equal core's on the
-    generic and the resident routes; only the CUDA entry runs."""
-    n = int(np.prod(shape))
-    mesh = (make_mesh3d if len(shape) == 3 else make_mesh)(shape, devices=[dev] * n)
-    kernels = ("auto",) if shape == (2, 2, 2) else ("auto", "resident")
-    before, calls = dict(hopper_shard3d.launches), dict(hopper_shard3d.calls)
+    device route ("auto", "resident") and the per-shard route ("pallas");
+    only the CUDA entries run."""
+    mesh = _vmesh(shape, dev)
+    kernels = ("auto", "pallas") if shape == (2, 2, 2) else ("auto", "resident", "pallas")
+    before = (dict(hopper_shard3d.launches), dict(hopper_resident3d.launches))
+    calls = (dict(hopper_shard3d.calls), dict(hopper_resident3d.calls))
     for t0 in (0, 1):
         st = _volume((41, 37, 53), 0.1, 3, dev, t0=t0)
         for steps in (1, 50):
@@ -1224,17 +1355,20 @@ def test_virtual_mesh3d_update_and_solve_give_cores_bits(dev, shape, depth):
         for kernel in kernels:
             _assert_same(sharded3d.solve(st, mesh, stagger, cap, kernel=kernel,
                                          segment_iterations=seg), ref)
-    assert hopper_shard3d.launches["epic_shard3d_chunk"] > before["epic_shard3d_chunk"]
-    assert hopper_shard3d.calls == calls
+    assert hopper_shard3d.launches["epic_shard3d_chunk"] > before[0]["epic_shard3d_chunk"]
+    for name, n in hopper_resident3d.launches.items():
+        assert n > before[1][name], name
+    assert (dict(hopper_shard3d.calls), dict(hopper_resident3d.calls)) == calls
     for kernel in ("xla", "pallas_interpret", "resident_interpret"):   # the plain version's names
         with pytest.raises(ValueError, match="plain version"):
             sharded3d.update_n(st, 3, mesh, kernel=kernel)
 
 
 def test_mesh_volume_planner_on_the_card_equals_the_volume_planner(dev):
-    """A MeshVolumePlanner on a 2 x 4 virtual mesh and a VolumePlanner on
-    the card run one session to the same bits; the mesh never runs a plain
-    version or a single-device kernel. mesh=None picks a mesh over the card."""
+    """A MeshVolumePlanner on a 2 x 4 virtual mesh (the device route) and a
+    VolumePlanner on the card run one session to the same bits; the mesh
+    never runs a plain version or a single-device kernel. mesh=None picks a
+    mesh over the card."""
     shape = (20, 48, 40)
     occ = np.where(np.random.default_rng(2).random(shape) < 0.1, 100, 0).astype(np.int8)
     occ[10, 24, 20] = 0
@@ -1246,18 +1380,20 @@ def test_mesh_volume_planner_on_the_card_equals_the_volume_planner(dev):
         pl.update_occupancy(occ)
         assert pl.add_goals([(20.0, 24.0, 10.0)])
     for pl in (mp, sp):
-        others = (dict(hopper_shard3d.calls), dict(core.calls), dict(hopper_sweep3d.launches),
-                  dict(hopper_tile3d.launches))
-        launches = hopper_shard3d.launches["epic_shard3d_chunk"]
+        others = (dict(hopper_shard3d.calls), dict(hopper_resident3d.calls), dict(core.calls),
+                  dict(hopper_sweep3d.launches), dict(hopper_tile3d.launches),
+                  dict(hopper_shard3d.launches))
+        launches = dict(hopper_resident3d.launches)
         for _ in range(3):
             pl.update()
         pl.set_cells([(10, 10, 5)], [C.CELL_TYPE_OBSTACLE])
         pl.update(13)
         pl.solve()
         if pl is mp:
-            assert hopper_shard3d.launches["epic_shard3d_chunk"] > launches
-            assert (dict(hopper_shard3d.calls), dict(core.calls), dict(hopper_sweep3d.launches),
-                    dict(hopper_tile3d.launches)) == others
+            assert all(hopper_resident3d.launches[n] > launches[n] for n in launches)
+            assert (dict(hopper_shard3d.calls), dict(hopper_resident3d.calls), dict(core.calls),
+                    dict(hopper_sweep3d.launches), dict(hopper_tile3d.launches),
+                    dict(hopper_shard3d.launches)) == others
     assert mp.get_cell(10, 10, 5) == sp.get_cell(10, 10, 5) == -1e6
     a, b = mp.state, sp.state
     assert a.u.device == dev and torch.equal(a.u, b.u)

@@ -17,7 +17,7 @@ from epic_tpu.planner3d import VolumePlannerConfig as JVolumePlannerConfig
 from epic_tpu.planner_mesh import MeshVolumePlanner as JMeshVolumePlanner
 from epic_tpu_torch import constants as C
 from epic_tpu_torch import grid as TG
-from epic_tpu_torch.parallel import hopper_shard3d, make_mesh, make_mesh3d
+from epic_tpu_torch.parallel import hopper_resident3d, hopper_shard3d, make_mesh, make_mesh3d
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.planner_mesh import MeshVolumePlanner
 from epic_tpu_torch.solver import core
@@ -177,14 +177,14 @@ def test_solve_resident_segments_and_single_step_verdict():
 
 
 def test_mesh_volume_planner_never_runs_the_kernel_on_the_cpu_and_refuses_names():
-    before = dict(hopper_shard3d.launches)
-    calls = hopper_shard3d.calls["sweep_k_local3d"]
+    before = (dict(hopper_shard3d.launches), dict(hopper_resident3d.launches))
+    calls = hopper_resident3d.calls["cycle"]
     u, locked = _arrays(d=10, h=12, w=16)
     p = MeshVolumePlanner(VolumePlannerConfig(epsilon=1e-2), mesh=_mesh((2, 2, 2)))
     p.state = TG.make_state(u, locked, 1e-2, device="cpu")
-    p.update(9)
-    assert hopper_shard3d.launches == before
-    assert hopper_shard3d.calls["sweep_k_local3d"] > calls
+    p.update(9)     # "auto" on one device: the device route's plain version
+    assert (dict(hopper_shard3d.launches), dict(hopper_resident3d.launches)) == before
+    assert hopper_resident3d.calls["cycle"] > calls
     assert p.device == CPU and p.initialized
     with pytest.raises(ValueError, match="unknown sharded 3D kernel"):
         MeshVolumePlanner(mesh=_mesh((2, 4)), kernel="bogus")

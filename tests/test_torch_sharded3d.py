@@ -125,23 +125,39 @@ def test_make_mesh3d_and_choose_mesh3d():
     with pytest.raises(ValueError, match="3D shape"):
         make_mesh3d((2, 4), devices=[CPU] * 8)
     devs = [CPU] * 8
-    # The cheaper orientation by sharded3d.sweep_cost: z on deep volumes of
-    # short rows, planes on shallow or wide ones, and planes where z shards
-    # would be thinner than a chunk.
+    # The cheaper orientation by sharded3d.sweep_cost. One device holds the
+    # mesh, so the device route's model: the z mesh's long rows, except
+    # where z shards would be padded planes.
     cube = choose_mesh3d((256, 256, 256), devices=devs)
     assert cube.shape == {"mz": 8, "my": 1, "mx": 1}
-    for shape in ((64, 1024, 1024), (128, 1024, 1024), (4, 64, 128), (32, 2048, 2048)):
-        assert choose_mesh3d(shape, devices=devs).shape == {"my": 2, "mx": 4}, shape
-    assert "mz" in choose_mesh3d((512, 1024, 1024), devices=devs).shape
+    for shape in ((64, 1024, 1024), (128, 1024, 1024), (32, 2048, 2048), (512, 1024, 1024)):
+        assert choose_mesh3d(shape, devices=devs).shape == cube.shape, shape
+    assert choose_mesh3d((4, 64, 128), devices=devs).shape == {"my": 2, "mx": 4}
+    # Eight devices: the per-shard route's model. Its lanes no longer idle on
+    # short rows, so the plane mesh's smaller halo wins, except on deep
+    # volumes of small planes.
+    split = [torch.device("cpu", i) for i in range(8)]
+    for shape in ((256, 256, 256), (64, 1024, 1024), (512, 1024, 1024), (4, 64, 128)):
+        assert choose_mesh3d(shape, devices=split).shape == {"my": 2, "mx": 4}, shape
+    assert choose_mesh3d((2048, 64, 64), devices=split).shape == cube.shape
     # The model against the z mesh's tick over the plane mesh's, 8 shards,
-    # as tile_probe --mesh3d measured them on an H100 (PERF.md): within 8%.
-    for shape, measured in (((256, 256, 256), 0.694), ((64, 1024, 1024), 1.724),
-                            ((128, 1024, 1024), 1.342), ((256, 1024, 1024), 1.114),
-                            ((384, 1024, 1024), 1.027), ((512, 1024, 1024), 0.984),
-                            ((128, 512, 512), 1.148), ((256, 512, 512), 1.010),
-                            ((64, 256, 256), 1.194), ((128, 256, 256), 0.846)):
-        z, plane = (sharded3d.sweep_cost(shape, ext)[1] for ext in ((8, 1, 1), (1, 2, 4)))
-        assert abs(z / plane / measured - 1) < 0.08, (shape, z / plane, measured)
+    # on each route, as tile_probe --mesh3d measured them on an H100
+    # (PERF.md): within 8% (the per-shard route's on shards of 4M voxels
+    # or more, where the launches it leaves out weigh little).
+    for route, measured in (
+            ("device", (((256, 256, 256), 0.940), ((64, 1024, 1024), 1.027),
+                        ((128, 1024, 1024), 0.972), ((256, 1024, 1024), 0.949),
+                        ((384, 1024, 1024), 0.933), ((512, 1024, 1024), 0.922),
+                        ((128, 512, 512), 0.961), ((256, 512, 512), 0.928),
+                        ((64, 256, 256), 0.961), ((128, 256, 256), 0.944))),
+            ("shard", (((64, 1024, 1024), 1.763), ((128, 1024, 1024), 1.360),
+                       ((256, 1024, 1024), 1.149), ((384, 1024, 1024), 1.080),
+                       ((512, 1024, 1024), 1.039), ((128, 512, 512), 1.327),
+                       ((256, 512, 512), 1.156)))):
+        for shape, ratio in measured:
+            z, plane = (sharded3d.sweep_cost(shape, ext, route=route)[1]
+                        for ext in ((8, 1, 1), (1, 2, 4)))
+            assert abs(z / plane / ratio - 1) < 0.08, (route, shape, z / plane, ratio)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             choose_mesh3d((256, 256, 256))
