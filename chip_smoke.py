@@ -50,12 +50,17 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
  10. batch    — batched scenarios at full width: 4096 lanes of 128^2, built as
                 tools/probe.py's batched-solve builds them (numpy
                 default_rng(1), 10% obstacle cells, the shell locked, one goal
-                a lane; eps 1e-2, stagger 100). A 100-sweep chunk from an even
-                and an odd iteration, kernel against plain; a solve capped at
-                1000 sweeps through the one-launch, the host-driven and the
-                plain route; all the same bits. A solve capped at 2000, as the
+                a lane; eps 1e-2, stagger 100), on the resident route of
+                csrc/batched2d.cu (a block a lane in shared memory; every
+                launch must take it). A 100-sweep chunk from an even and an
+                odd iteration, kernel against plain; a solve capped at 1000
+                sweeps through the one-launch, the host-driven and the plain
+                route; all the same bits. A solve capped at 2000, as the
                 probe's: every lane converged under the protocol. Four lanes
-                re-solved solo with core.solve: the same bits;
+                re-solved solo with core.solve: the same bits. 132 lanes of
+                224^2 (BATCH_WIDE; too large for three an SM, so the
+                resident route's 512-thread block): a 100-sweep chunk and a
+                solve capped at 1000 against plain, the same bits;
  11. batch_goals — the device-built goal batches: one
                 maps.random_obstacles(128, 128, density=0.12, seed=5) base map
                 and one goal a lane drawn from its free cells by
@@ -65,9 +70,19 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 solve_batch_goals on 4096 lanes (one launch of the solve
                 kernel) and the host-driven solve of the same batch (chunk
                 kernel launches), capped at 8000 sweeps, bit-equal, every
-                lane converged; both batch kernels must have run and the
-                plain versions must not. Two lanes re-solved solo: the same
-                bits;
+                lane converged; both batch kernels must have run, on the
+                resident route only, and the plain versions must not. Two
+                lanes re-solved solo: the same bits;
+ 24. batch_big (run after phase 11) — the streamed route of
+                csrc/batched2d.cu: 256 lanes of 384^2 (BATCH_BIG; a lane beyond
+                a block's shared memory, the batch 4x the L2), built as phase 10's with lane 0
+                goalless. The main path, counts zeroed just before and read
+                just after: update_n_batch of 100 sweeps from an even and an
+                odd iteration, solve_batch_device and the host-driven
+                solve_batch capped at BATCH_BIG_CAP; both batch kernels must
+                have run, on the streamed route only, the plain versions must
+                not. Each against the plain version, the same bits; the
+                chunk's mean of 10 and the solves' times;
  12. biggrid  — an 8192 x 8192 maps.random_obstacles grid (seed 0) with
                 configs/maze.yaml's settings: 268 MB of u and 67 MB of
                 locked, beyond the L2. The main path, counts zeroed just
@@ -203,7 +218,8 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
 
 Each phase prints one JSON line and raises on failure (phase 23 runs last).
 Then come the kernels' JSON line (each entry with its time, its plain
-version's, its bound and its launches on the main path), the nvidia-smi
+version's, its bound and its launches on the main path; the batch entries
+once for each route, named ``entry/route``), the nvidia-smi
 line, and last
 ``{"ok": true, "device": ...}``.
 
@@ -268,6 +284,9 @@ BATCH = (4096, 128)       # lanes x side: 67M cells, 268 MB of u, 5x the L2 (BAS
 BATCH_EPS = 1e-2          # tools/probe.py's batched-solve and batched-goals
 BATCH_CAP = 1000          # the capped three-route solve
 BATCH_SOLVE_CAP = 2000    # tools/probe.py batched-solve's cap
+BATCH_WIDE = (132, 224)   # resident lanes too large for three an SM: the 512-thread block
+BATCH_BIG = (256, 384)    # lanes x side beyond a block's shared memory, 4x the L2: the streamed route
+BATCH_BIG_CAP = 1000
 GOALS_CAP = 8000          # tools/probe.py batched-goals' cap (a long tail of late lanes)
 BIG_SIDE = 8192           # 268 MB of u + 67 MB of locked: 6.7x the L2
 BIG_CAP = 2000
@@ -290,8 +309,11 @@ SOURCES = {
     "epic_sweep2d_solve": "epic_tpu_torch/csrc/sweep2d.cu",
     "epic_sweep3d_chunk": "epic_tpu_torch/csrc/sweep3d.cu",
     "epic_sweep3d_solve": "epic_tpu_torch/csrc/sweep3d.cu",
-    "epic_batched2d_chunk": "epic_tpu_torch/csrc/batched2d.cu",
-    "epic_batched2d_solve": "epic_tpu_torch/csrc/batched2d.cu",
+    # One row an entry and route (hopper_batched.lane_resident picks the route).
+    "epic_batched2d_chunk/resident": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_batched2d_solve/resident": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_batched2d_chunk/streamed": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_batched2d_solve/streamed": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_tile2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_tile2d_cycle": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_tile2d_solve": "epic_tpu_torch/csrc/tile2d.cu",
@@ -312,9 +334,11 @@ REPLACES = {
     "epic_sweep3d_chunk": "epic_tpu/solver/pallas_sweep3d.py:88",
     "epic_sweep3d_solve": "epic_tpu/solver/pallas_sweep3d.py:88",
     # K12 via sweep_chunk_blocks (:86 -> :99); K13 via _sweep_chunk_gated (:238 -> :249),
-    # driven by _solve_collage_device (:275)
-    "epic_batched2d_chunk": "epic_tpu/solver/pallas_batched.py:65",
-    "epic_batched2d_solve": "epic_tpu/solver/pallas_batched.py:214",
+    # driven by _solve_collage_device (:275); each on both routes
+    "epic_batched2d_chunk/resident": "epic_tpu/solver/pallas_batched.py:65",
+    "epic_batched2d_solve/resident": "epic_tpu/solver/pallas_batched.py:214",
+    "epic_batched2d_chunk/streamed": "epic_tpu/solver/pallas_batched.py:65",
+    "epic_batched2d_solve/streamed": "epic_tpu/solver/pallas_batched.py:214",
     # K3 (and T2 :100), K5, and with u1 T1
     "epic_tile2d_chunk": ["epic_tpu/solver/pallas_biggrid.py:199",
                           "epic_tpu/solver/pallas_tiled2d.py:120",
@@ -423,6 +447,7 @@ def zero_counts() -> None:
                                        tiled3d)
 
     for d in (hopper_sweep.launches, hopper_sweep3d.launches, hopper_batched.launches,
+              hopper_batched.routes,
               hopper_tile2d.launches, hopper_tile3d.launches, hopper_shard2d.launches,
               hopper_shard3d.launches, hopper_resident2d.launches, hopper_resident3d.launches,
               core.calls, batched.calls, tiled.calls, tiled3d.calls, hopper_shard2d.calls,
@@ -1524,6 +1549,8 @@ def phase_batch(dev) -> dict:
     from epic_tpu_torch.solver import batched, hopper_batched
 
     lanes, side = BATCH
+    require(hopper_batched.lane_resident(side, side, dev), f"{side}^2 lanes are not resident")
+    zero_counts()
     t0 = time.perf_counter()
     u_np, l_np = batch_arrays(lanes, side, seed=1)
     u0, locked = batched.batch_from_numpy(u_np, l_np, device=dev)
@@ -1561,23 +1588,41 @@ def phase_batch(dev) -> dict:
 
     # The capped solve through three routes; the cap is raised until some lane retires.
     cap = max(BATCH_CAP, int(iters.min()))
-    routes, route_ms = {}, {}
+    solves, route_ms = {}, {}
     for name, fn in (("device", hopper_batched.solve_batch_device),
                      ("host", hopper_batched.solve_batch), ("plain", batched.solve_batch)):
         x = u0.clone()
-        route_ms[name] = event_ms(lambda: routes.__setitem__(
+        route_ms[name] = event_ms(lambda: solves.__setitem__(
             name, fn(x, locked, BATCH_EPS, STAGGER, cap)))
-    solve_err = max(compare_batch(routes["device"], routes["plain"], f"batch solve capped at {cap}"),
-                    compare_batch(routes["host"], routes["plain"], f"batch host-driven solve capped at {cap}"))
-    retired = int(routes["device"][3].sum())
+    solve_err = max(compare_batch(solves["device"], solves["plain"], f"batch solve capped at {cap}"),
+                    compare_batch(solves["host"], solves["plain"], f"batch host-driven solve capped at {cap}"))
+    retired = int(solves["device"][3].sum())
     require(retired > 0, f"no lane retired before the cap of {cap}")
 
+    # Lanes that take the resident route's other block (csrc/batched2d.cu).
+    wl, ws = BATCH_WIDE
+    wu_np, wl_np = batch_arrays(wl, ws, seed=3)
+    wu0, wlocked = batched.batch_from_numpy(wu_np, wl_np, device=dev)
+    del wu_np, wl_np
+    wide = {}
+    wide_ms = {"chunk": event_ms(lambda: wide.__setitem__("k", hopper_batched.update_n_batch(
+        wu0.clone(), wlocked, 1, 100)))}
+    wide_ms["solve"] = event_ms(lambda: wide.__setitem__("s", hopper_batched.solve_batch_device(
+        wu0.clone(), wlocked, BATCH_EPS, STAGGER, BATCH_CAP)))
+    wide_err = max(max_abs(wide["k"][0], batched.update_n_batch(wu0, wlocked, 1, 100)[0]),
+                   compare_batch(wide["s"], batched.solve_batch(wu0, wlocked, BATCH_EPS, STAGGER,
+                                                                BATCH_CAP),
+                                 f"{ws}^2 lanes: solve capped at {BATCH_CAP}"))
+    require(wide_err == 0.0, f"{ws}^2 lanes: kernel and plain differ by {wide_err}")
+    routes = dict(hopper_batched.routes)
+    require(routes["streamed"] == 0 and routes["resident"] > 0,
+            f"batch: a launch left the resident route: {routes}")
     pick = [0, lanes - 1, *np.random.default_rng(1).choice(np.arange(1, lanes - 1), 2, replace=False)]
     solo = solo_lanes(dev, u0, locked, full, pick, BATCH_SOLVE_CAP, "batch")
     cells = (side - 2) ** 2 / 2
     bounds = {"chunk": bound(locked, 0, 100, lanes=True),
               "chunk_one_lane": bound(locked[0], 0, 100),
-              "capped_solve": bound(locked, 0, routes["device"][1].cpu(), lanes=True),
+              "capped_solve": bound(locked, 0, solves["device"][1].cpu(), lanes=True),
               "solve": bound(locked, 0, full[1].cpu(), lanes=True)}
     emit(phase="batch", lanes=lanes, shape=[side, side], obstacle_density=0.1, eps=BATCH_EPS,
          stagger=STAGGER, setup_s=setup_s, chunk_sweeps=100, chunk_max_abs_err=max(chunk_errs),
@@ -1592,9 +1637,11 @@ def phase_batch(dev) -> dict:
          mean_iterations=float(iters.mean()), max_iterations=int(iters.max()),
          min_iterations=int(iters.min()),
          cell_updates_per_s_solve=float(iters.sum()) * cells / (full_ms / 1e3),
-         solo_lanes=solo, bounds=bounds)
-    return {"chunk_err": max(chunk_errs), "chunk_ms": chunk_ms10, "chunk_plain_ms": chunk_plain_ms[0],
-            "solve_err": solve_err, "solve_ms": route_ms["device"], "solve_plain_ms": route_ms["plain"],
+         solo_lanes=solo, wide_lanes=[wl, ws, ws], wide_chunk_ms=wide_ms["chunk"],
+         wide_capped_solve_ms=wide_ms["solve"], wide_max_abs_err=wide_err, routes=routes,
+         bounds=bounds)
+    return {"chunk_err": max(*chunk_errs, wide_err), "chunk_ms": chunk_ms10,
+            "chunk_plain_ms": chunk_plain_ms[0], "solve_err": max(solve_err, wide_err), "solve_ms": route_ms["device"], "solve_plain_ms": route_ms["plain"],
             "chunk_bound": bounds["chunk"], "solve_bound": bounds["capped_solve"]}
 
 
@@ -1631,9 +1678,12 @@ def phase_batch_goals(dev) -> dict:
         x, locked, BATCH_EPS, STAGGER, GOALS_CAP)))
     err = compare_batch(res["g"], res["h"], "goal batch: one-launch vs host-driven solve")
     launches = dict(hopper_batched.launches)
+    routes = dict(hopper_batched.routes)
     plain = {**{f"batched.{k}": v for k, v in batched.calls.items()},
              **{f"core.{k}": v for k, v in core.calls.items()}}
     require(all(v > 0 for v in launches.values()), f"a batch kernel never ran on the main path: {launches}")
+    require(routes == {"resident": sum(launches.values()), "streamed": 0},
+            f"goal batch: a launch left the resident route: {routes}")
     require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
 
     out = res["g"]
@@ -1652,10 +1702,79 @@ def phase_batch_goals(dev) -> dict:
          mean_iterations=float(iters.mean()), max_iterations=int(iters.max()),
          min_iterations=int(iters.min()),
          cell_updates_per_s=float(iters.sum()) * (side - 2) ** 2 / 2 / (goals_ms / 1e3),
-         launches=launches, plain_calls=plain, solo_lanes=solo,
+         launches=launches, routes=routes, plain_calls=plain, solo_lanes=solo,
          solo_core_solves=core.calls["solve"] - before,
          bounds={"solve": bound(locked, 0, out[1].cpu(), lanes=True)})
-    return launches
+    return {"launches": {f"{k}/resident": v for k, v in launches.items()}, "err": err}
+
+
+def phase_batch_big(dev) -> dict:
+    """The streamed route: lanes beyond a block's shared memory."""
+    from epic_tpu_torch.solver import batched, core, hopper_batched
+
+    lanes, side = BATCH_BIG
+    require(not hopper_batched.lane_resident(side, side, dev), f"{side}^2 lanes fit shared memory")
+    u_np, l_np = batch_arrays(lanes, side, seed=2)
+    u_np[0] = -1e6    # lane 0 goalless: it retires at its first check past `side` sweeps
+    u0, locked = batched.batch_from_numpy(u_np, l_np, device=dev)
+    del u_np, l_np
+    zero_counts()
+    res, ms = {}, {}
+    for it0 in (0, 1):
+        ku = u0.clone()
+        ms[f"chunk{it0}"] = event_ms(lambda: res.__setitem__(
+            f"k{it0}", hopper_batched.update_n_batch(ku, locked, it0, 100)))
+    x = u0.clone()
+    ms["device"] = event_ms(lambda: res.__setitem__("device", hopper_batched.solve_batch_device(
+        x, locked, BATCH_EPS, STAGGER, BATCH_BIG_CAP)))
+    y = u0.clone()
+    ms["host"] = event_ms(lambda: res.__setitem__("host", hopper_batched.solve_batch(
+        y, locked, BATCH_EPS, STAGGER, BATCH_BIG_CAP)))
+    torch.cuda.synchronize()
+    launches = dict(hopper_batched.launches)
+    routes = dict(hopper_batched.routes)
+    plain = {**{f"batched.{k}": v for k, v in batched.calls.items()},
+             **{f"core.{k}": v for k, v in core.calls.items()}}
+    require(all(v > 0 for v in launches.values()), f"a batch kernel never ran on the main path: {launches}")
+    require(routes == {"resident": 0, "streamed": sum(launches.values())},
+            f"big lanes: a launch left the streamed route: {routes}")
+    require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
+
+    chunk_errs = []
+    for it0 in (0, 1):
+        ms[f"chunk_plain{it0}"] = event_ms(lambda: res.__setitem__(
+            "p", batched.update_n_batch(u0, locked, it0, 100)))
+        k, p = res[f"k{it0}"], res["p"]
+        require(bool(torch.isfinite(k[0]).all()), "big-lane chunk: non-finite values")
+        err = max(max_abs(k[0], p[0]), max_abs(k[1], p[1]))
+        require(err == 0.0, f"big-lane 100-sweep chunk from iteration {it0}: kernel and plain differ by {err}")
+        chunk_errs.append(err)
+    ms["plain"] = event_ms(lambda: res.__setitem__("plain", batched.solve_batch(
+        u0, locked, BATCH_EPS, STAGGER, BATCH_BIG_CAP)))
+    solve_err = max(compare_batch(res["device"], res["plain"], f"big-lane solve capped at {BATCH_BIG_CAP}"),
+                    compare_batch(res["host"], res["plain"], "big-lane host-driven solve"))
+    iters = res["device"][1].cpu().numpy()
+    first = -(-(side - 1) // STAGGER) * STAGGER + 1    # the first check past `side` sweeps
+    require(bool(res["device"][3][0]) and int(iters[0]) == first,
+            f"big lanes: the goalless lane retired at {int(iters[0])}, not {first}")
+    ku = res["k0"][0]
+    chunk_ms10 = event_ms(lambda: hopper_batched.update_n_batch(ku, locked, 0, 100), reps=10)
+    bounds = {"chunk": bound(locked, 0, 100, lanes=True),
+              "capped_solve": bound(locked, 0, res["device"][1].cpu(), lanes=True)}
+    emit(phase="batch_big", lanes=lanes, shape=[side, side], eps=BATCH_EPS, stagger=STAGGER,
+         cap=BATCH_BIG_CAP, smem_bytes=hopper_batched.lane_smem_bytes(side, side),
+         smem_limit=torch.cuda.get_device_properties(dev).shared_memory_per_block_optin,
+         chunk_max_abs_err=max(chunk_errs), chunk_kernel_ms=ms["chunk0"],
+         chunk_kernel_ms_odd=ms["chunk1"], chunk_kernel_ms_mean10=chunk_ms10,
+         chunk_plain_ms=ms["chunk_plain0"], chunk_plain_ms_odd=ms["chunk_plain1"],
+         capped_max_abs_err=solve_err, capped_device_ms=ms["device"], capped_host_ms=ms["host"],
+         capped_plain_ms=ms["plain"], capped_retired=int(res["device"][3].sum()),
+         mean_iterations=float(iters.mean()), launches=launches, routes=routes,
+         plain_calls=plain, bounds=bounds)
+    return {"launches": {f"{k}/streamed": v for k, v in launches.items()},
+            "chunk_err": max(chunk_errs), "solve_err": solve_err,
+            "chunk": (chunk_ms10, ms["chunk_plain0"], bounds["chunk"]),
+            "solve": (ms["device"], ms["plain"], bounds["capped_solve"])}
 
 
 def mesh_counts(ran: dict, what: str, drive) -> dict:
@@ -2573,7 +2692,10 @@ def main() -> None:
     launches.update(phase_session3d(dev, session, maze, v["volume"]))
     z3 = phase_size3d(dev)
     b = phase_batch(dev)
-    launches.update(phase_batch_goals(dev))
+    goals = phase_batch_goals(dev)
+    launches.update(goals["launches"])
+    bb = phase_batch_big(dev)
+    launches.update(bb["launches"])
     big = phase_biggrid(dev)
     wide = phase_wide(dev)
     small = phase_tile_small(dev, maze, m["maze_solved"])
@@ -2602,8 +2724,10 @@ def main() -> None:
         "epic_sweep2d_solve": max(m["solve_err"], z["solve_err"]),
         "epic_sweep3d_chunk": max(v["tick_max_abs_err"], z3["tick_max_abs_err"]),
         "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
-        "epic_batched2d_chunk": b["chunk_err"],
-        "epic_batched2d_solve": b["solve_err"],
+        "epic_batched2d_chunk/resident": b["chunk_err"],
+        "epic_batched2d_solve/resident": max(b["solve_err"], goals["err"]),
+        "epic_batched2d_chunk/streamed": bb["chunk_err"],
+        "epic_batched2d_solve/streamed": bb["solve_err"],
         "epic_tile2d_chunk": tile_err,
         "epic_tile2d_cycle": tile_err,
         "epic_tile2d_solve": tile_err,
@@ -2618,7 +2742,8 @@ def main() -> None:
         "epic_resident3d_solve": max(m3["err"], m3z["err"], m3w["err"]),
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
-    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2, 8192^2, 256^3, one
+    # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2 (the resident batch
+    # route), 256 x 384^2 (the streamed one), 8192^2, 256^3, one
     # 8192 x 4096 shard of the 16384^2 mesh, one 64 x 512 x 256 shard of the
     # 64 x 1024 x 1024 mesh, all eight shards of the 16384^2 mesh (the cycle
     # entry) and of the maze mesh (the solve entry), all eight shards of
@@ -2628,8 +2753,10 @@ def main() -> None:
         "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
         "epic_sweep3d_chunk": (v["tick_kernel_ms"], v["tick_plain_ms"], v["bounds"]["tick"]),
         "epic_sweep3d_solve": (v["solve_kernel_ms"], v["solve_plain_ms"], v["bounds"]["solve"]),
-        "epic_batched2d_chunk": (b["chunk_ms"], b["chunk_plain_ms"], b["chunk_bound"]),
-        "epic_batched2d_solve": (b["solve_ms"], b["solve_plain_ms"], b["solve_bound"]),
+        "epic_batched2d_chunk/resident": (b["chunk_ms"], b["chunk_plain_ms"], b["chunk_bound"]),
+        "epic_batched2d_solve/resident": (b["solve_ms"], b["solve_plain_ms"], b["solve_bound"]),
+        "epic_batched2d_chunk/streamed": bb["chunk"],
+        "epic_batched2d_solve/streamed": bb["solve"],
         "epic_tile2d_chunk": big["chunk"],
         "epic_tile2d_cycle": big["cycle"],
         "epic_tile2d_solve": big["solve"],

@@ -78,7 +78,8 @@ def check_backend(backend: str) -> None:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Multi-chip decomposition (epic_tpu.parallel; not ported yet)."""
+    """Multi-device decomposition (epic_tpu_torch.parallel: the 2D and 3D
+    meshes of MeshPlanner and MeshVolumePlanner)."""
 
     shape: tuple[int, int] | None = None   # None -> near-square over devices
     axis_names: tuple[str, str] = ("my", "mx")
@@ -181,9 +182,10 @@ class EpicConfig:
     def resolve_map_path(self):
         """Resolve :attr:`map` to an existing file path, or None.
 
-        Order: env-var expansion, absolute path, then the path relative to
-        the config file's directory. Raises FileNotFoundError for a
-        configured map that resolves nowhere."""
+        Order: env-var expansion, absolute path, path relative to the
+        config file's directory, then the reference fixture search
+        (:func:`epic_tpu_torch.maps.reference_map_path`). Raises
+        FileNotFoundError for a configured map that resolves nowhere."""
         import os
         import pathlib
 
@@ -203,4 +205,10 @@ class EpicConfig:
             if cand.exists() and (self_path is None
                                   or cand.resolve() != self_path):
                 return cand
+            from . import maps
+
+            ref = maps.reference_map_path(str(p)) or maps.reference_map_path(
+                p.name)
+            if ref is not None:
+                return ref
         raise FileNotFoundError(f"configured map not found: {self.map}")

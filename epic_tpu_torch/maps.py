@@ -19,9 +19,15 @@ benchmarks are self-contained and scale-parameterised.
 from __future__ import annotations
 
 import dataclasses
+import os
 import pathlib
 
 import numpy as np
+
+# The reference's fixtures (maps/maze.png and the like) are searched for in
+# these directories, in this order, of the reference tree named by
+# $EPIC_REFERENCE_ROOT: those of epic_tpu.maps.reference_map_path.
+REFERENCE_MAP_DIRS = ("maps", "libepic/tests/batch", "libepic/tests/maps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,3 +165,19 @@ def recursive_maze(
 def free_fraction(img: np.ndarray) -> float:
     return float((img == 128).mean())
 
+
+def reference_map_path(name: str) -> pathlib.Path | None:
+    """Path to a reference-shipped fixture if the reference tree is mounted.
+
+    Purely optional: sessions and benchmarks use it to run the reference's
+    own workloads (maps/maze.png etc.) when available. Data files only — no
+    code is used. Searches :data:`REFERENCE_MAP_DIRS`, in that order, under
+    ``$EPIC_REFERENCE_ROOT``; None where that is unset."""
+    root = os.environ.get("EPIC_REFERENCE_ROOT")
+    if not root:
+        return None
+    for d in REFERENCE_MAP_DIRS:
+        p = pathlib.Path(root) / d / name
+        if p.exists():
+            return p
+    return None

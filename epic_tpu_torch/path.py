@@ -15,8 +15,9 @@ Host-side, float32, semantics matched to the reference's scalar CPU loop
   "not relaxed enough yet, keep relaxing and retry" (:207-212).
 
 A NumPy copy of ``epic_tpu.path``'s walker: the field is fetched to the
-host once per request and walked there. The JAX package's native C++ twin
-and its batched device walker are not ported yet.
+host once per request and walked there. The batched device walker is
+:mod:`epic_tpu_torch.solver.batched_path` (``compute_paths``); the JAX
+package's native C++ twin of this walker is not ported.
 """
 
 from __future__ import annotations

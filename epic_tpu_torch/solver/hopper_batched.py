@@ -14,12 +14,21 @@ VMEM-sized blocks; any height works. A batch on the CPU goes to the plain
 version in :mod:`.batched`; a batch on a CUDA device goes to the kernels or
 raises.
 
+Two routes, one rule. A lane whose layout (:func:`lane_smem_bytes`) fits
+the device's opt-in shared memory a block (:func:`lane_resident`; lanes up
+to about 236 x 236 on an H100) takes the resident route: a block a lane,
+which stays in shared memory for the whole chunk or the whole solve. A
+larger lane takes the streamed route: one cooperative kernel over (lane,
+row) units, a grid barrier a sweep. The wrapper names the route to the C
+entry, which refuses a resident lane that does not fit; nothing retries.
+
 In place: on CUDA the kernels relax ``u`` in place and the returned ``u``
 is the same tensor; keep only what a call returns. The solves return
 ``(u, iterations int32[B], deltas float32[B], converged bool[B])`` as device
 tensors; ``solve_batch_device`` does not wait for the card.
 
-``launches`` counts each kernel's launches; nothing else changes it.
+``launches`` counts each kernel's launches and ``routes`` the route of each
+launch; nothing else changes them.
 """
 
 from __future__ import annotations
@@ -31,6 +40,26 @@ from . import _build, batched
 from .hopper_sweep import _iteration, _stream
 
 launches = {"epic_batched2d_chunk": 0, "epic_batched2d_solve": 0}
+routes = {"resident": 0, "streamed": 0}
+
+# csrc/batched2d.cu's resident layout: the delta words after the lane.
+DELTA_SLOTS = 3
+
+
+def lane_smem_bytes(h: int, w: int) -> int:
+    """The resident route's shared memory for an ``h x w`` lane, as
+    ``csrc/batched2d.cu`` lays it out (``epic_batched2d_smem_bytes``): u of
+    each class in ``h`` rows of ``(w + 1) // 2`` floats, the frozen bits of
+    each class in ``h`` rows of 32-bit words, and the delta words."""
+    p = (w + 1) // 2
+    return 4 * (2 * h * p + 2 * h * ((p + 31) // 32) + DELTA_SLOTS)
+
+
+def lane_resident(h: int, w: int, device: torch.device) -> bool:
+    """Whether ``h x w`` lanes take the resident route on ``device``: their
+    layout fits its opt-in shared memory a block."""
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    return h >= 1 and w >= 1 and lane_smem_bytes(h, w) <= limit
 
 
 def _check_cuda_batch(u: torch.Tensor, locked: torch.Tensor) -> None:
@@ -66,12 +95,16 @@ def _launch_chunk(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: i
     dev = u.device
     it = _iteration(iteration, dev)
     flags = None if active is None else _lane_flags(active, u)
-    delta = torch.zeros(u.shape[0], dtype=torch.float32, device=dev)
+    resident = lane_resident(*u.shape[1:], dev)
+    # The streamed route max-accumulates into zeroed slots; the resident one writes each.
+    delta = (torch.empty if resident else torch.zeros)(u.shape[0], dtype=torch.float32, device=dev)
     err = _build.load().epic_batched2d_chunk(
         u.data_ptr(), locked.data_ptr(), *u.shape, it.data_ptr(), num_steps,
-        None if flags is None else flags.data_ptr(), delta.data_ptr(), _stream(dev), dev.index)
+        None if flags is None else flags.data_ptr(), delta.data_ptr(), int(resident),
+        _stream(dev), dev.index)
     _build.check(err, "epic_batched2d_chunk")
     launches["epic_batched2d_chunk"] += 1
+    routes["resident" if resident else "streamed"] += 1
     return u, delta
 
 
@@ -121,17 +154,22 @@ def solve_batch_device(u: torch.Tensor, locked: torch.Tensor, epsilon=C.DEFAULT_
     b, h, w = u.shape
     dev = u.device
     eps = batched.epsilon_lanes(epsilon, b, dev)
-    acc = torch.zeros(2 * b, dtype=torch.int32, device=dev)
-    count = torch.zeros(2, dtype=torch.int32, device=dev)
     retired = torch.zeros(b, dtype=torch.uint8, device=dev)
     iters = torch.zeros(b, dtype=torch.int32, device=dev)
     deltas = eps + 1.0
+    resident = lane_resident(h, w, dev)
+    # The streamed route's scratch: two [B] delta halves and two lane counts.
+    acc = None if resident else torch.zeros(2 * b, dtype=torch.int32, device=dev)
+    count = None if resident else torch.zeros(2, dtype=torch.int32, device=dev)
     err = _build.load().epic_batched2d_solve(
         u.data_ptr(), locked.data_ptr(), b, h, w, eps.data_ptr(), max(h, w),
-        min(max_iterations, 2**31 - 1 - stagger), stagger, acc.data_ptr(), count.data_ptr(),
-        retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), _stream(dev), dev.index)
+        min(max_iterations, 2**31 - 1 - stagger), stagger,
+        None if acc is None else acc.data_ptr(), None if count is None else count.data_ptr(),
+        retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), int(resident), _stream(dev),
+        dev.index)
     _build.check(err, "epic_batched2d_solve")
     launches["epic_batched2d_solve"] += 1
+    routes["resident" if resident else "streamed"] += 1
     return u, iters, deltas, retired.bool()
 
 

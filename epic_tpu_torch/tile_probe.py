@@ -2,7 +2,7 @@
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
 [--sides ...] [--volumes ...] [--shapes] [--mesh3d] [--compare3d FILE]
-[--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--sass]``. It prints the card's name
+[--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--batch] [--sass]``. It prints the card's name
 and power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` runs after one warm-up:
 
@@ -65,6 +65,17 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   entries, ticks and solves through the wrappers with one library loaded
   and then the other, in turns (FILE, source, source, FILE) for each in
   a row, the results of the two held equal bit for bit;
+- ``--batch``: the batched scenario kernels (``csrc/batched2d.cu``). Each
+  candidate of ``LANE_BLOCKS`` (one block for every lane, or the source's
+  rule) is built as a copy of the library with those constants replaced
+  (under the build directory), and each of its ``-Xptxas -v`` lines is
+  printed. For square
+  lanes of each side in ``BATCH_SIDES`` and the largest that
+  :func:`hopper_batched.lane_resident` admits, as many lanes as fill 4096 x
+  128^2 cells, a 100-sweep chunk on the resident route under each candidate
+  and on the streamed route; at 128^2 also the solve capped at 1,000, a
+  chunk with one lane active, and chip_smoke.py's goal batch (cap 8,000). In turns (each candidate, then the streamed
+  route, then the same in reverse), the results held equal bit for bit;
 - ``--sass``: the SASS instructions of one ``lse4`` and one ``lse6``
   update (``sweep_common.cuh``), counted with ``cuobjdump -sass`` in a
   kernel that computes one a thread, less a kernel that adds the same
@@ -118,6 +129,19 @@ SHAPE2D_NAMES = ("kTH", "kTW", "kThreads", "kMinBlocks")
 # shard of its 16384^2 mesh.
 BIG2D = (8192, 8192)
 SHARD2D = (8192, 4096)
+# --batch's candidates: csrc/batched2d.cu's constants replaced so that every
+# lane takes one block (threads, blocks an SM the registers are held to), and
+# the source's own rule (256 threads where three lanes fit an SM, else 512).
+# A 128^2 lane fits three blocks an SM; 512 threads at three hold 40
+# registers a thread.
+LANE_BLOCKS = {
+    "t256b3": {"kSmallLaneThreads": 256, "kSmallLaneMinBlocks": 3, "kSmallLanesPerSM": 1},
+    "t512b2": {"kBigLaneThreads": 512, "kBigLaneMinBlocks": 2, "kSmallLanesPerSM": 99},
+    "t512b3": {"kSmallLaneThreads": 512, "kSmallLaneMinBlocks": 3, "kSmallLanesPerSM": 1},
+    "rule": {},
+}
+BATCH_SIDES = (32, 64, 96, 128, 160, 192, 224)
+BATCH_CELLS = 4096 * 128 * 128
 
 
 def random_state(shape, dev: torch.device, seed: int = 0) -> G.GridState:
@@ -558,6 +582,101 @@ def sass_counts(sass: str) -> dict:
     return {fn: (counts[fn], branches[fn]) for fn in counts}
 
 
+def random_batch(lanes: int, side: int, dev: torch.device, seed: int = 0):
+    """``lanes`` square lanes (10% locked cells, the ring locked, one goal
+    cell a lane, -1e6 elsewhere) as contiguous ``(u, locked)``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    locked = torch.rand((lanes, side, side), generator=gen, device=dev) < 0.1
+    locked[:, [0, -1]] = True
+    locked[:, :, [0, -1]] = True
+    u = torch.full((lanes, side, side), -1e6, device=dev)
+    gy, gx = (torch.randint(1, side - 1, (lanes,), generator=gen, device=dev) for _ in range(2))
+    lane = torch.arange(lanes, device=dev)
+    u[lane, gy, gx] = 0.0
+    locked[lane, gy, gx] = True
+    return u, locked
+
+
+def goal_batch(lanes: int, side: int, dev: torch.device):
+    """chip_smoke.py's goal batch: one maps.random_obstacles(side, side,
+    density=0.12, seed=5) base map, one goal a lane drawn from its free
+    cells by default_rng(5)."""
+    import numpy as np
+
+    from . import maps
+    from .solver import hopper_batched
+
+    img = maps.random_obstacles(side, side, density=0.12, seed=5)
+    free_y, free_x = np.nonzero(img != 0)
+    picks = np.random.default_rng(5).choice(len(free_y), size=lanes, replace=True)
+    goal_xy = np.stack([free_x[picks], free_y[picks]], axis=-1)[:, None, :]
+    return hopper_batched.make_goal_batch(np.full(img.shape, np.float32(-1e6)), img == 0, goal_xy,
+                                          device=dev)
+
+
+def lane_variant(consts: dict) -> str:
+    """``csrc/batched2d.cu`` with the ``constexpr int`` constants ``consts``
+    ({name: value}) replaced."""
+    text = (_build.CSRC / "batched2d.cu").read_text()
+    for name, value in consts.items():
+        text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+                          text)
+        if n != 1:
+            raise RuntimeError(f"batched2d.cu has no single `constexpr int {name}`")
+    return text
+
+
+def probe_batch(dev, reps: int, sides=BATCH_SIDES) -> None:
+    """The resident route's block candidates and the streamed route on the
+    same lanes, in turns, the same bits required."""
+    from .solver import hopper_batched
+
+    libs = build_libraries({name: lane_variant(c) for name, c in LANE_BLOCKS.items()},
+                           "batched2d.cu")
+    fit = 3
+    while hopper_batched.lane_resident(fit + 1, fit + 1, dev):
+        fit += 1
+    rule = hopper_batched.lane_resident
+    order = [*libs, "streamed"]
+    try:
+        for side in (*sides, fit):
+            lanes = max(1, BATCH_CELLS // (side * side))
+            u0, locked = random_batch(lanes, side, dev)
+            one = torch.zeros(lanes, dtype=torch.bool, device=dev)
+            one[0] = True
+            work = {"chunk": lambda u: hopper_batched.update_n_batch(u, locked, 0, 100)}
+            if side == 128:
+                work["one_lane"] = lambda u: hopper_batched.update_n_batch(u, locked, 0, 100, one)
+                work["solve"] = lambda u: hopper_batched.solve_batch_device(u, locked, 1e-2, 100,
+                                                                            1000)
+                gu, gl = goal_batch(lanes, side, dev)
+                work["goals"] = lambda u: hopper_batched.solve_batch_device(
+                    u.copy_(gu), gl, 1e-2, 100, 8000)
+            times = {name: [] for name in order}
+            outs = {}
+            for name in order + order[::-1]:
+                _build._lib = libs.get(name, libs[order[0]])
+                hopper_batched.lane_resident = (lambda h, w, d: False) if name == "streamed" \
+                    else rule
+                row = {}
+                for what, fn in work.items():
+                    x = u0.clone()   # a chunk relaxes it further each call; a solve starts afresh
+                    row[f"{what}_ms"] = event_ms(
+                        (lambda: fn(x.copy_(u0))) if what == "solve" else (lambda: fn(x)), reps)
+                    out = fn(x.copy_(u0))
+                    torch.cuda.synchronize()
+                    ref = outs.setdefault(what, [t.clone() for t in out])
+                    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                        raise RuntimeError(f"--batch {side}^2 {what}: {name} differs")
+                times[name].append(row)
+            for name, rows in times.items():
+                print(json.dumps(dict(probe="batch", side=side, lanes=lanes, variant=name, **{
+                    k: [r[k] for r in rows] for k in rows[0]})), flush=True)
+    finally:
+        hopper_batched.lane_resident = rule
+        _build._lib = None
+
+
 def probe_sass() -> None:
     out_dir = _build.BUILD_DIR / "tile_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -795,6 +914,8 @@ def main() -> None:
                     help="with --shapes2d: another tile2d.cu to time in turns with the source")
     ap.add_argument("--compare2d", default=None, metavar="FILE",
                     help="time the 2D tile, shard and resident paths against FILE's tile2d.cu")
+    ap.add_argument("--batch", action="store_true",
+                    help="time the batched kernels' block candidates and both routes")
     ap.add_argument("--sass", action="store_true",
                     help="count the SASS instructions of one lse4 and one lse6 update")
     args = ap.parse_args()
@@ -807,7 +928,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     volumes = VOLUMES if not args.volumes else args.volumes
-    if args.shapes2d:
+    if args.batch:
+        probe_batch(dev, args.reps)
+    elif args.shapes2d:
         probe_shapes2d(dev, args.reps, baseline=args.baseline)
     elif args.compare2d:
         probe_compare2d(dev, args.reps, args.compare2d)

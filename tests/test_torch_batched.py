@@ -15,6 +15,8 @@ whole (3.8e-6 near u = -30). On the card the CUDA kernels must give the plain
 version's bits exactly: tests/test_torch_cuda.py.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -233,6 +235,99 @@ def test_solves_match_pallas(stagger):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert bool(device[3].all())
     _assert_lanes_match_solo(u, locked, device, 1e-2, stagger, field=CHUNK)
+
+
+def _lanes_128(lanes=3, seed=11):
+    """A few 128^2 lanes (BASELINE config 3's lane size, the resident
+    route's on the card): 10% obstacles, the ring locked, one goal a lane,
+    lane 0 without one."""
+    rng = np.random.default_rng(seed)
+    u = np.full((lanes, 128, 128), -1e6, np.float32)
+    locked = rng.random(u.shape) < 0.1
+    locked[:, [0, -1]] = True
+    locked[:, :, [0, -1]] = True
+    for lane in range(1, lanes):
+        gy, gx = rng.integers(1, 127, 2)
+        u[lane, gy, gx] = 0.0
+        locked[lane, gy, gx] = True
+    return u, locked
+
+
+def test_chunk_matches_k12_at_128():
+    """A 100-sweep chunk of 128^2 lanes from an odd start against K12 in
+    interpret mode, lane by lane, each collage block's delta the maximum of
+    its lanes'."""
+    u, locked = _lanes_128()
+    u_c, frozen, meta = pallas_batched.pad_batch(u, locked)
+    out_c, block_delta = pallas_batched.sweep_chunk_batch(u_c, frozen, jnp.int32(1), 100, meta,
+                                                          interpret=True)
+    ours_u, ours_d = hopper_batched.update_n_batch(*_port(u, locked), 1, 100)
+    np.testing.assert_allclose(ours_u.numpy(), pallas_batched.unstack(out_c, meta), **CHUNK)
+    per_group = meta["gpr"] * meta["gpc"]
+    for blk, d in enumerate(np.asarray(block_delta)):
+        lanes = ours_d[blk * per_group:(blk + 1) * per_group]
+        np.testing.assert_allclose(float(lanes.max()), float(d), **DELTA_X)
+    assert float(ours_d[0]) == 0.0    # the goalless lane does not move
+
+
+def test_solves_match_pallas_at_128():
+    """The one-launch and the host-driven solve of 128^2 lanes, capped at
+    1,000 sweeps, against pallas_batched's (K13 and K12 in interpret mode):
+    the goalless lane retires at its first check past 128 sweeps, the
+    others where they converge or at the cap."""
+    u, locked = _lanes_128()
+    device = hopper_batched.solve_batch_device(*_port(u, locked), 1e-2, 100, 1000)
+    host = hopper_batched.solve_batch(*_port(u, locked), 1e-2, 100, 1000)
+    _assert_solves_match(device, pallas_batched.solve_batch_device(
+        u, locked, epsilon=1e-2, stagger=100, max_iterations=1000, interpret=True))
+    for a, b in zip(host, device):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert int(device[1][0]) == 201 and bool(device[3][0])
+
+
+def test_lane_smem_bytes_is_the_resident_layout():
+    """The resident route's shared memory for an H x W lane: u of each class
+    in H rows of (W + 1) // 2 floats, the frozen bits of each class in H
+    rows of words, three delta words. A 128^2 lane leaves room for three
+    blocks an SM on an H100 (228 KB an SM, 1 KB of it kept a block)."""
+    assert hopper_batched.lane_smem_bytes(128, 128) == 4 * (2 * 128 * 64 + 2 * 128 * 2 + 3)
+    assert hopper_batched.lane_smem_bytes(3, 3) == 4 * (2 * 3 * 2 + 2 * 3 * 1 + 3)
+    assert hopper_batched.lane_smem_bytes(5, 131) == 4 * (2 * 5 * 66 + 2 * 5 * 3 + 3)
+    assert 3 * (hopper_batched.lane_smem_bytes(128, 128) + 1024) <= 228 * 1024
+    assert 4 * (hopper_batched.lane_smem_bytes(128, 128) + 1024) > 228 * 1024
+    # Odd and even widths of one class row cost the same.
+    assert hopper_batched.lane_smem_bytes(64, 127) == hopper_batched.lane_smem_bytes(64, 128)
+
+
+def test_lane_resident_rule(monkeypatch):
+    """lane_resident on a device with an H100's opt-in shared memory a
+    block (232,448 bytes): 128^2 and 236^2 resident, 237^2 not, odd sides
+    around the boundary, and the rule monotone in H and in W."""
+    limit = 232_448
+    dev = torch.device("cuda", 0)
+
+    def props(device):
+        assert device == dev
+        return types.SimpleNamespace(shared_memory_per_block_optin=limit)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+
+    def fits(h, w):
+        return hopper_batched.lane_resident(h, w, dev)
+
+    assert fits(128, 128) and fits(236, 236) and not fits(237, 237)
+    assert fits(235, 237) and fits(237, 235) and not fits(239, 235)
+    assert fits(3, 131) and fits(3, 9999) and not fits(3, 40_000)
+    assert not fits(0, 128) and not fits(128, 0)
+    sides = range(1, 400, 3)
+    for h in sides:
+        row = [hopper_batched.lane_smem_bytes(h, w) for w in sides]
+        assert row == sorted(row)
+        ok = [fits(h, w) for w in sides]
+        assert ok == sorted(ok, reverse=True)   # once refused, refused for every wider lane
+        assert all(fits(h - 1, w) for w in sides if h > 1 and fits(h, w))
+    assert hopper_batched.lane_smem_bytes(236, 236) <= limit < hopper_batched.lane_smem_bytes(
+        237, 237)
 
 
 def test_uneven_retirement_matches_pallas():

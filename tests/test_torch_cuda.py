@@ -315,51 +315,133 @@ def _assert_same_solve(k, p):
 
 
 # (lanes, H, W, obstacle density, seed): odd H and W, a lane wider than a
-# warp's two strides, and lanes with a one-cell interior.
-BATCHES = [(6, 24, 32, 0.1, 0), (5, 23, 27, 0.15, 1), (3, 9, 131, 0.05, 2), (4, 3, 3, 0.0, 3)]
+# warp's two strides, lanes with a one-cell interior, one-row interiors of
+# odd widths beyond 128, and "fit" / "over": the largest odd square lane
+# that lane_resident admits on the card and the smallest it refuses.
+BATCHES = [(6, 24, 32, 0.1, 0), (5, 23, 27, 0.15, 1), (3, 9, 131, 0.05, 2), (4, 3, 3, 0.0, 3),
+           (3, 3, 131, 0.05, 5), (2, 3, 257, 0.0, 6), (2, "fit", "fit", 0.1, 7),
+           (2, "over", "over", 0.1, 8)]
+SOLVE_BATCHES = BATCHES[:3] + BATCHES[-2:]
+LANE_RESIDENT = hopper_batched.lane_resident   # the rule, whatever a test patches
+
+
+def _batch_shape(shape, dev):
+    """A BATCHES entry with "fit" / "over" resolved on ``dev``."""
+    lanes, h, w, density, seed = shape
+    if h in ("fit", "over"):
+        side = 3
+        while LANE_RESIDENT(side + 2, side + 2, dev):
+            side += 2
+        h = w = side if h == "fit" else side + 2
+    return lanes, h, w, density, seed
+
+
+@pytest.fixture(params=["resident", "streamed"])
+def route(request, monkeypatch):
+    """The route a test's launches take: "resident" follows lane_resident,
+    and "streamed" makes it refuse every lane, so that small lanes go through
+    the streamed kernels too. Returns the route each lane shape takes."""
+    if request.param == "streamed":
+        monkeypatch.setattr(hopper_batched, "lane_resident", lambda h, w, device: False)
+    return lambda h, w, dev: "resident" if hopper_batched.lane_resident(h, w, dev) else "streamed"
+
+
+def _took(before, route_name, n=1):
+    """``n`` launches since ``before`` (a copy of ``routes``), all on ``route_name``."""
+    other = "streamed" if route_name == "resident" else "resident"
+    return (hopper_batched.routes[route_name] == before[route_name] + n
+            and hopper_batched.routes[other] == before[other])
 
 
 @pytest.mark.parametrize("t0", [0, 1])
 @pytest.mark.parametrize("shape", BATCHES, ids=lambda s: "x".join(map(str, s[:3])))
-def test_batch_chunk_kernel_gives_the_plain_versions_bits(dev, shape, t0):
-    """K12's counterpart: u and the per-lane sweep-0 deltas, with and without
-    per-lane active flags (inactive lanes untouched, delta 0)."""
+def test_batch_chunk_kernel_gives_the_plain_versions_bits(dev, route, shape, t0):
+    """K12's counterpart on both routes: u and the per-lane sweep-0 deltas,
+    with and without per-lane active flags (inactive lanes untouched, delta
+    0), and with only the last lane active."""
+    shape = _batch_shape(shape, dev)
     u, locked = _batch(*shape, dev)
+    taken = route(*shape[1:3], dev)
     active = torch.arange(u.shape[0], device=dev) % 3 != 1
+    last = torch.zeros(u.shape[0], dtype=torch.bool, device=dev)
+    last[-1] = True
     for num_steps in (1, 2, 50):
-        for gate in (None, active):
+        for gate in (None, active, last):
             before = hopper_batched.launches["epic_batched2d_chunk"]
+            routes = dict(hopper_batched.routes)
             it = torch.tensor(t0, dtype=torch.int32, device=dev) if num_steps == 2 else t0
             k = hopper_batched.update_n_batch(u.clone(), locked, it, num_steps, gate)
             p = batched.update_n_batch(u, locked, t0, num_steps, gate)
             _assert_same_solve(k, p)
             assert hopper_batched.launches["epic_batched2d_chunk"] == before + 1
+            assert _took(routes, taken)
             if gate is not None:
                 assert torch.equal(k[0][~gate], u[~gate]) and bool((k[1][~gate] == 0).all())
 
 
 @pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000),
                                          (100, 250), (10, 95)])
-@pytest.mark.parametrize("shape", BATCHES[:3], ids=lambda s: "x".join(map(str, s[:3])))
-def test_batch_solve_kernels_give_the_plain_versions_bits(dev, shape, stagger, cap):
-    """K13's counterpart (one launch) and the host-driven lockstep over K12's:
-    the plain version's bits in u, iterations, deltas and converged, with a
-    goalless lane that retires long before the others, and capped solves."""
+@pytest.mark.parametrize("shape", SOLVE_BATCHES, ids=lambda s: "x".join(map(str, s[:3])))
+def test_batch_solve_kernels_give_the_plain_versions_bits(dev, route, shape, stagger, cap):
+    """K13's counterpart (one launch) and the host-driven lockstep over K12's,
+    on both routes: the plain version's bits in u, iterations, deltas and
+    converged, with a goalless lane that retires long before the others,
+    and capped solves."""
+    shape = _batch_shape(shape, dev)
     u, locked = _batch(*shape, dev, goalless=(0,))
+    taken = route(*shape[1:3], dev)
     before = dict(hopper_batched.launches)
     plain = batched.solve_batch(u, locked, 1e-2, stagger, cap)
+    routes = dict(hopper_batched.routes)
     one = hopper_batched.solve_batch_device(u.clone(), locked, 1e-2, stagger, cap)
+    assert _took(routes, taken)
     host = hopper_batched.solve_batch(u.clone(), locked, 1e-2, stagger, cap)
     _assert_same_solve(one, plain)
     _assert_same_solve(host, plain)
     assert hopper_batched.launches["epic_batched2d_solve"] == before["epic_batched2d_solve"] + 1
-    assert hopper_batched.launches["epic_batched2d_chunk"] > before["epic_batched2d_chunk"]
+    chunks = hopper_batched.launches["epic_batched2d_chunk"] - before["epic_batched2d_chunk"]
+    assert chunks > 0 and _took(routes, taken, 1 + chunks)
     iters = one[1].cpu().numpy()
     if cap == 1_000_000:
         assert bool(one[3].all()) and np.all(iters % stagger == 1 % stagger)
         assert iters[0] == iters.min()           # the goalless lane retires first
         assert stagger == 100 or iters[0] < iters.max()
         assert bool((one[0][0] == u[0]).all())   # and never moved
+
+
+def test_batch_entries_refuse_a_resident_lane_that_does_not_fit(dev):
+    """Asked for the resident route on a lane beyond shared memory, both C
+    entries return an error and launch nothing: no other route is taken.
+    The wrapper's layout size is the entry's own."""
+    from epic_tpu_torch.solver import _build
+
+    lib = _build.load()
+    side = _batch_shape((1, "over", "over", 0.1, 0), dev)[1]
+    assert not LANE_RESIDENT(side, side, dev)
+    for h, w in ((128, 128), (3, 131), (side - 2, side - 2), (side, side), (9, 5)):
+        assert lib.epic_batched2d_smem_bytes(h, w) == hopper_batched.lane_smem_bytes(h, w)
+    u, locked = _batch(2, side, side, 0.1, 9, dev)
+    start = u.clone()
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    delta = torch.zeros(2, dtype=torch.float32, device=dev)
+    eps = torch.full((2,), 1e-2, device=dev)
+    retired = torch.zeros(2, dtype=torch.uint8, device=dev)
+    iters = torch.zeros(2, dtype=torch.int32, device=dev)
+    deltas = eps + 1.0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    errs = [lib.epic_batched2d_chunk(u.data_ptr(), locked.data_ptr(), 2, side, side, it.data_ptr(),
+                                     10, None, delta.data_ptr(), 1, stream, dev.index),
+            lib.epic_batched2d_solve(u.data_ptr(), locked.data_ptr(), 2, side, side,
+                                     eps.data_ptr(), side, 1000, 10, None, None,
+                                     retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), 1,
+                                     stream, dev.index)]
+    torch.cuda.synchronize()
+    for name, err in zip(("epic_batched2d_chunk", "epic_batched2d_solve"), errs):
+        assert err != 0
+        with pytest.raises(RuntimeError, match=name):
+            _build.check(err, name)
+    assert torch.equal(u, start) and bool((delta == 0).all()) and bool((iters == 0).all())
+    assert bool((retired == 0).all()) and torch.equal(deltas, eps + 1.0)
 
 
 def test_batch_solve_per_lane_epsilon_and_solo_lanes(dev):
