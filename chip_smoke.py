@@ -110,23 +110,31 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 after: VolumePlanner.update(50) then (100) from an even and
                 an odd start iteration and an uncapped VolumePlanner.solve;
                 the 3D family the routing rule picks
-                (hopper_tile3d.use_tiles) must have run, the other and the
-                plain versions must not. The ticks against core.update_n and
+                (hopper_tile3d.use_tiles: K7 for this cube, where the tiles
+                measured slower) must have run, the other and the plain
+                versions must not. The ticks against core.update_n and
                 the solve against core.solve and K7's one-launch solve
                 (1,301 iterations), same bits. Then the tile route through
                 hopper_tile3d's own entries (update_n, solve), counted the
                 same way, against the same references; the chunk and cycle
                 entries alone against the plain tile version
-                (solver/tiled3d.py) and core, same bits; the tile tick's and
-                K7's mean of 10 on the same state;
+                (solver/tiled3d.py, handed hopper_tile3d.tile_for's tile)
+                and core, same bits; the tile tick's and K7's mean of 10 on
+                the same state, and both solves;
  16. wide3d   — a 32 x 2048 x 2048 volume, a building floor 102.4 m square
                 and 1.6 m high at 5 cm (537 MB of u), built as phase 6's: the
-                same main path and count rule with 100-sweep ticks from both
-                parities, a solve capped at 500 and solve_volume in segments
-                of 200; then the tile route (update_n of 100 sweeps from
-                both parities and of 50, solve, solve_segments) counted the
-                same way; all against core, the segments against the
-                one-launch solve, same bits;
+                same main path and count rule (the router sends this
+                wide-plane volume to the tiles: they must run, K7 must not)
+                with 100-sweep ticks from both parities, a solve capped at
+                500 and solve_volume in segments of 200; then the tile route
+                (update_n of 100 sweeps from both parities and of 50, solve,
+                solve_segments) counted the same way; all against core, the
+                segments against the one-launch solve, same bits; the tile
+                tick's and K7's mean of 5 and K7's capped solve on the same
+                state; the chunk and cycle entries alone against the plain
+                tile version and core, same bits (the kernels line's three
+                epic_tile3d rows; phase 15's 256^3 times beside them as
+                "cube");
  17. tile3d_small — phase 6's 30 x 256 x 256 volume: the chunk entry with u1
                 against one and K plain sweeps (what epic_tpu's test-only
                 band kernel and the slab kernel's check variant compute),
@@ -1057,7 +1065,7 @@ def phase_biggrid3d(dev) -> dict:
     lt = torch.from_numpy(locked)
     del u
     tiles = hopper_tile3d.use_tiles(SIZE3D, dev)
-    k, tile = hopper_tile3d.DEFAULT_DEPTH, hopper_tile3d.TILE
+    k, tile = hopper_tile3d.DEFAULT_DEPTH, hopper_tile3d.tile_for(SIZE3D, dev)
 
     # The references, before the counted windows.
     plain, res, times = {}, {}, {}
@@ -1145,15 +1153,15 @@ def phase_biggrid3d(dev) -> dict:
          cycle_plain_ms=cycle_p_ms, bounds=bounds)
     return {"main": main, "tiles": tiles, "tile_launches": tile_launches,
             "err": max(errs + [chunk_err, cycle_err]),
-            "chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
-            "cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
-            "solve": (times["tile_solve"], solve_p_ms, bounds["solve"])}
+            "rows": {"epic_tile3d_chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
+                     "epic_tile3d_cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
+                     "epic_tile3d_solve": (times["tile_solve"], solve_p_ms, bounds["solve"])}}
 
 
 def phase_wide3d(dev) -> dict:
     import epic_tpu_torch as T
     from epic_tpu_torch import solver
-    from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d
+    from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d, tiled3d
 
     t0 = time.perf_counter()
     u, locked = volume_arrays(WIDE3D)
@@ -1204,20 +1212,59 @@ def phase_wide3d(dev) -> dict:
              for t in (0, 1, 50)]
     errs.append(compare(res["ts"], res["ps"], f"{what} tile solve capped at {WIDE3D_CAP}"))
     errs.append(compare(res["tseg"], res["ts"], f"{what} tile segments vs one launch"))
+    k7_solve_ms = event_ms(lambda: res.__setitem__("k7", hopper_sweep3d.solve(
+        copy_state(base), STAGGER, WIDE3D_CAP)))
+    errs.append(compare(res["k7"], res["ps"], f"{what} K7 solve capped at {WIDE3D_CAP}"))
     k7s, tls = copy_state(starts[0]), copy_state(starts[0])
     k7_ms5 = event_ms(lambda: hopper_sweep3d.update_n(k7s, 100), reps=5)
     tile_ms5 = event_ms(lambda: hopper_tile3d.update_n(tls, 100, k), reps=5)
+    del k7s, tls
     iters = int(res["ts"].iteration)
-    emit(phase="wide3d", shape=list(WIDE3D), setup_s=setup_s, routed_to_tiles=tiles, k=k,
+
+    # The chunk and cycle entries alone on the routed volume (the kernels
+    # line's rows), against the plain tile version and core.
+    tile = hopper_tile3d.tile_for(WIDE3D, dev)
+    src, lk = base.u, base.locked
+    chunk_ms = event_ms(lambda: res.__setitem__("c", hopper_tile3d.sweep_chunk(src, lk, 0, k, k=k)),
+                        reps=5)
+    chunk_p_ms = event_ms(lambda: res.__setitem__("pc", tiled3d.sweep_chunk(src, lk, 0, k, k=k,
+                                                                            tile=tile)))
+    ref = core.update_n(base, k)
+    chunk_err = max(max_abs(res["c"][0], res["pc"][0]), max_abs(res["c"][1], res["pc"][1]),
+                    max_abs(res["c"][0], ref.u), max_abs(res["c"][1], ref.delta))
+    require(chunk_err == 0.0, f"{what} chunk entry vs plain: {chunk_err}")
+    del res["c"], res["pc"], ref
+    cycle_sweeps, cycle_chunks = 4 * k, 4
+    a, b = src.clone(), torch.empty_like(src)
+    cycle_ms = event_ms(lambda: hopper_tile3d.sweep_cycle(a, b, lk, 0, cycle_chunks, cycle_sweeps,
+                                                          k=k), reps=5)
+    res["y"] = hopper_tile3d.sweep_cycle(a.copy_(src), b, lk, 0, cycle_chunks, cycle_sweeps, k=k)
+    cycle_p_ms = event_ms(lambda: res.__setitem__("py", tiled3d.sweep_cycle(
+        src, src, lk, 0, cycle_chunks, cycle_sweeps, k=k, tile=tile)))
+    cycle_err = max(max_abs(res["y"][0], res["py"][0]), max_abs(res["y"][2], res["py"][2]),
+                    max_abs(res["y"][0], core.update_n(base, cycle_sweeps).u))
+    require(cycle_err == 0.0, f"{what} cycle entry vs plain: {cycle_err}")
+    del res["y"], res["py"], a, b
+    bounds = {"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True),
+              "chunk": bound(lt, 0, k, lse6=True), "cycle": bound(lt, 0, cycle_sweeps, lse6=True)}
+    emit(phase="wide3d", shape=list(WIDE3D), setup_s=setup_s, routed_to_tiles=tiles,
+         tile=list(tile), k=k,
          launches=main, tile_route_launches=tile_launches, max_abs_err=max(errs),
          planner_tick_ms=[times[0], times[1]], planner_solve_ms=times["solve"],
          solve_volume_segments_ms=times["segments"],
          tile_tick_ms=[times["tile", 0], times["tile", 1]], tile_solve_ms=times["tile_solve"],
          tile_segments_ms=times["tile_segments"], tile_tick_ms_mean5=tile_ms5,
-         sweep3d_tick_ms_mean5=k7_ms5, solve_cap=WIDE3D_CAP, segment_iterations=WIDE3D_SEGMENT,
+         sweep3d_tick_ms_mean5=k7_ms5, sweep3d_solve_ms=k7_solve_ms, solve_cap=WIDE3D_CAP,
+         segment_iterations=WIDE3D_SEGMENT,
          solve_iterations=iters, solve_plain_ms=solve_p_ms,
-         bounds={"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True)})
-    return {"main": main, "tiles": tiles, "tile_launches": tile_launches, "err": max(errs)}
+         chunk_sweeps=k, chunk_kernel_ms_mean5=chunk_ms, chunk_plain_ms=chunk_p_ms,
+         cycle_sweeps=cycle_sweeps, cycle_chunks=cycle_chunks, cycle_kernel_ms_mean5=cycle_ms,
+         cycle_plain_ms=cycle_p_ms, bounds=bounds)
+    return {"main": main, "tiles": tiles, "tile_launches": tile_launches,
+            "err": max(errs + [chunk_err, cycle_err]),
+            "chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
+            "cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
+            "solve": (times["tile_solve"], solve_p_ms, bounds["solve"])}
 
 
 def phase_tile3d_small(dev, volume, solved) -> dict:
@@ -1226,13 +1273,13 @@ def phase_tile3d_small(dev, volume, solved) -> dict:
     from epic_tpu_torch.solver import core, hopper_tile3d, tiled3d
 
     u, locked = volume
-    k = hopper_tile3d.DEFAULT_DEPTH
+    k, tile = hopper_tile3d.DEFAULT_DEPTH, hopper_tile3d.tile_for(u.shape, dev)
     errs = []
     for t0 in (0, 1):
         st = volume_state(dev, u, locked, t0)
         dst, delta, u1 = hopper_tile3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k, u1=True)
         p_dst, p_delta, p_u1 = tiled3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
-                                                   tile=hopper_tile3d.TILE, u1=True)
+                                                   tile=tile, u1=True)
         full, one = core.update_n(st, k), core.update_n(st, 1)
         errs.append(max(max_abs(dst, full.u), max_abs(u1, one.u), max_abs(delta, full.delta),
                         max_abs(dst, p_dst), max_abs(u1, p_u1), max_abs(delta, p_delta)))
@@ -1241,14 +1288,14 @@ def phase_tile3d_small(dev, volume, solved) -> dict:
     chunk_ms = event_ms(lambda: hopper_tile3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
                                                           u1=True), reps=10)
     chunk_p_ms = event_ms(lambda: tiled3d.sweep_chunk(st.u, st.locked, st.iteration, k, k=k,
-                                                      tile=hopper_tile3d.TILE, u1=True))
+                                                      tile=tile, u1=True))
     res = {}
     solve_ms = event_ms(lambda: res.__setitem__("s", hopper_tile3d.solve(
         volume_state(dev, u, locked), STAGGER)))
     solve_err = compare(res["s"], solved, "30x256x256 tile solve vs the in-place solve")
     iters = int(res["s"].iteration)
     lt = torch.from_numpy(locked)
-    emit(phase="tile3d_small", shape=list(u.shape), chunk_sweeps=k,
+    emit(phase="tile3d_small", shape=list(u.shape), tile=list(tile), chunk_sweeps=k,
          chunk_u1_max_abs_err=max(errs), chunk_u1_kernel_ms_mean10=chunk_ms,
          chunk_u1_plain_ms=chunk_p_ms, solve_iterations=iters,
          solve_converged=bool(res["s"].converged), solve_max_abs_err=solve_err,
@@ -2743,8 +2790,9 @@ def main() -> None:
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
     # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2 (the resident batch
-    # route), 256 x 384^2 (the streamed one), 8192^2, 256^3, one
-    # 8192 x 4096 shard of the 16384^2 mesh, one 64 x 512 x 256 shard of the
+    # route), 256 x 384^2 (the streamed one), 8192^2, 32 x 2048 x 2048 (the
+    # volume the router sends to the 3D tiles; 256^3 beside it, under
+    # "cube"), one 8192 x 4096 shard of the 16384^2 mesh, one 64 x 512 x 256 shard of the
     # 64 x 1024 x 1024 mesh, all eight shards of the 16384^2 mesh (the cycle
     # entry) and of the maze mesh (the solve entry), all eight shards of
     # 256^3 on 2 x 4 (a 100-sweep cycle, a solve capped at 300).
@@ -2760,9 +2808,9 @@ def main() -> None:
         "epic_tile2d_chunk": big["chunk"],
         "epic_tile2d_cycle": big["cycle"],
         "epic_tile2d_solve": big["solve"],
-        "epic_tile3d_chunk": big3["chunk"],
-        "epic_tile3d_cycle": big3["cycle"],
-        "epic_tile3d_solve": big3["solve"],
+        "epic_tile3d_chunk": wide3["chunk"],
+        "epic_tile3d_cycle": wide3["cycle"],
+        "epic_tile3d_solve": wide3["solve"],
         "epic_shard2d_chunk": mesh16["entry"],
         "epic_shard3d_chunk": m3w["entry"],
         "epic_resident2d_cycle": res["cycle"],
@@ -2777,6 +2825,11 @@ def main() -> None:
                     issue_bound_ms=issue_bound_ms(times[name][2], big["sm_clock_mhz"]),
                     library_ms=None)
                for name in SOURCES]
+    for row in kernels:
+        if row["name"] in big3["rows"]:
+            ms, plain_ms, bnd = big3["rows"][row["name"]]
+            row["cube"] = dict(shape=list(SIZE3D), ms=ms, plain_ms=plain_ms,
+                               bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(built["smi"], flush=True)
     # Every phase ran on the one card `dev`: the run drove one card, however

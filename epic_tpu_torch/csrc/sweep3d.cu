@@ -41,9 +41,14 @@
 //
 // Volumes beyond 2M cells went to four more TPU kernels (K8-K11:
 // pallas_biggrid3d, pallas_tiled3d, pallas_cycle's 3D cycles). Their port is
-// the temporally blocked tile family of tile3d.cu; solver.update_volume and
-// solve_volume send a volume there past the crossover that
-// epic_tpu_torch/tile_probe.py measures, and keep it here below it.
+// tile3d.cu, a block that marches a column segment along z and runs K
+// sweeps a trip to memory. Beyond the L2 this kernel's z neighbours come
+// back from the L2 only while a few planes fit it: on planes of 1448^2 and
+// more a sweep here costs 5.2-7.2 us a million voxels on an H100, against
+// 4.3-5.4 on cubes and smaller planes (tile_probe.py --volumes, PERF.md).
+// solver.update_volume and solve_volume send the wide-plane volumes past
+// the L2 to tile3d.cu (hopper_tile3d.past_crossover) and keep every other
+// volume here.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -1,7 +1,7 @@
 """The port's solvers: the plain torch version (``core``) and the CUDA
 kernels behind it (``hopper_sweep`` in 2D, ``hopper_tile2d`` for 2D grids
 beyond the card's L2, ``hopper_sweep3d`` in 3D, ``hopper_tile3d`` for
-volumes beyond it), with the library-level entries; the tile families'
+volumes beyond it with wide planes), with the library-level entries; the tile families'
 plain versions (``tiled``, ``tiled3d``); batched scenario solves over
 ``[B, H, W]`` lanes in plain torch (``batched``) and on their CUDA kernels
 (``hopper_batched``)."""
@@ -67,13 +67,13 @@ def update_grid(state, num_steps: int, chunk_depth: int | None = None):
 def solve_volume(state, stagger=None, max_iterations: int = 1_000_000,
                  segment_iterations: int | None = None, chunk_depth: int | None = None):
     """3D solve (``epic_tpu.solver.solve_volume``'s counterpart): the plain
-    version for a volume on the CPU; on the card the tile kernels
+    version for a volume on the CPU; on the card the z-marching tile kernels
     (``hopper_tile3d``, halo depth ``chunk_depth``, by default its
-    ``DEFAULT_DEPTH``) past the measured crossover
-    (``hopper_tile3d.use_tiles``) and the in-place kernels
-    (``hopper_sweep3d``) below it. ``segment_iterations`` runs the tile
-    route's solve as segments; the in-place route's solve is one launch and
-    ignores it, as ``epic_tpu``'s VMEM route does."""
+    ``DEFAULT_DEPTH``) for a volume past the measured crossover (beyond the
+    L2 with wide planes, ``hopper_tile3d.use_tiles``) and the in-place
+    kernels (``hopper_sweep3d``) for every other. ``segment_iterations``
+    runs the tile route's solve as segments; the in-place route's solve is
+    one launch and ignores it, as ``epic_tpu``'s VMEM route does."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
     if hopper_tile3d.use_tiles(state.u.shape, state.u.device):
         k = hopper_tile3d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth

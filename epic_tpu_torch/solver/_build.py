@@ -62,8 +62,10 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libepic_sweep-{digest.hexdigest()[:16]}.so"
 
 
-def _run(cmds: list[list[str]]) -> str:
-    """Run the commands at once; raise with nvcc's output if one fails."""
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; return each one's output (with
+    ``-Xptxas -v``, its kernels' registers and spills); raise with nvcc's
+    output if one fails."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     outs = [p.communicate()[0] for p in procs]
@@ -71,7 +73,7 @@ def _run(cmds: list[list[str]]) -> str:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n{out}")
-    return "".join(outs)
+    return outs
 
 
 def build() -> pathlib.Path:
@@ -86,23 +88,23 @@ def build() -> pathlib.Path:
     tmp = out.with_name(f"{tag}.tmp")
     t0 = time.perf_counter()
     try:
-        log = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(s)] for o, s in zip(objs, SOURCES)])
-        log += _run([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        logs = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(s)] for o, s in zip(objs, SOURCES)])
+        logs += _run([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     os.replace(tmp, out)   # atomic: a concurrent process never loads a half-written file
-    build_info.update(seconds=seconds, nvcc=nvcc, log=log)
+    build_info.update(seconds=seconds, nvcc=nvcc, log="".join(logs))
     return out
 
 
 def set_tile3d_types(lib: ctypes.CDLL) -> None:
     """The argument and result types of ``csrc/tile3d.cu``'s entries in ``lib``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.epic_tile3d_chunk.argtypes = [p, p, p, p, i, i, i, p, i, i, p, i, p, i]
-    lib.epic_tile3d_cycle.argtypes = [p, p, p, i, i, i, p, i, i, i, p, i, p, i]
-    lib.epic_tile3d_solve.argtypes = [p, p, p, p, i, i, i, p, i, i, i, p, p, p, p, i, p, i]
+    lib.epic_tile3d_chunk.argtypes = [p, p, p, p, i, i, i, i, p, i, i, p, i, p, i]
+    lib.epic_tile3d_cycle.argtypes = [p, p, p, i, i, i, i, p, i, i, i, p, i, p, i]
+    lib.epic_tile3d_solve.argtypes = [p, p, p, p, i, i, i, i, p, i, i, i, p, p, p, p, i, p, i]
     for fn in (lib.epic_tile3d_chunk, lib.epic_tile3d_cycle, lib.epic_tile3d_solve):
         fn.restype = i
 

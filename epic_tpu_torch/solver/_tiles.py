@@ -13,12 +13,15 @@ to the kernels or raises. In place: on CUDA the returned state holds the
 caller's ``u`` tensor, relaxed. The chunks ping-pong through a twin grid
 (and a solve's check writes a u1 grid), scratch kept for the last (device,
 shape) seen and allocated when first needed: a tick takes only the twin.
+
+A family whose tile depends on the grid's shape (the 3D column segments)
+passes ``tile_for(shape, device)``: the plain version is handed that tile,
+and the kernels its first extent after the grid's shape.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
@@ -35,38 +38,36 @@ def _check_chunks(num_sweeps: int, n_chunks: int, k: int) -> None:
 
 class TileKernels:
     """The kernels ``<prefix>_{chunk,cycle,solve}`` of one tile family:
-    centre ``tile`` (its rank the grid's), halo depth ``default_depth``
-    unless a call says otherwise, plain version ``plain``. ``launches``
-    counts each kernel's launches; nothing else changes it."""
+    centre ``tile`` (its rank the grid's), ``smem_bytes(k)`` the dynamic
+    shared memory of a block at halo depth k, halo depth ``default_depth``
+    unless a call says otherwise (at most ``max_depth`` when given), plain
+    version ``plain``; ``tile_for(shape, device)``, when given, the tile of
+    each grid in place of ``tile``. ``launches`` counts each kernel's
+    launches; nothing else changes it."""
 
     def __init__(self, prefix: str, plain, tile: tuple[int, ...], default_depth: int,
-                 smem_bytes=None):
+                 smem_bytes, max_depth: int | None = None, tile_for=None):
         self.prefix, self.plain, self.tile = prefix, plain, tuple(tile)
-        self.default_depth = default_depth
-        if smem_bytes is not None:
-            self.smem_bytes = smem_bytes
+        self.default_depth, self.max_depth, self.tile_for = default_depth, max_depth, tile_for
+        self.smem_bytes = smem_bytes   # a block's dynamic shared memory at halo depth k
         self.ndim = len(self.tile)
         self.launches = {f"{prefix}_{e}": 0 for e in ("chunk", "cycle", "solve")}
         self.scratch: dict = {}
 
     # -- shared memory ---------------------------------------------------------------
 
-    def smem_bytes(self, k: int) -> int:
-        """Dynamic shared memory of one block: u (4 B) and a frozen byte for
-        each cell of the halo-extended tile (the 3D family's layout; a
-        family with another layout passes its own formula)."""
-        return math.prod(t + 2 * k for t in self.tile) * 5
-
     def check_depth(self, k: int, smem_limit: int) -> None:
-        """Refuse a halo depth the kernels cannot take: below 1, or one whose
+        """Refuse a halo depth the kernels cannot take: below 1, one whose
         extended tile exceeds ``smem_limit``, the shared memory a block may
-        opt into."""
+        opt into, or one above ``max_depth``."""
         if k < 1:
             raise ValueError(f"the halo depth must be >= 1, got {k}")
         if self.smem_bytes(k) > smem_limit:
             raise ValueError(
                 f"halo depth {k} needs {self.smem_bytes(k)} B of shared memory for a "
                 f"{'x'.join(map(str, self.tile))} tile; a block has {smem_limit}")
+        if self.max_depth is not None and k > self.max_depth:
+            raise ValueError(f"the halo depth must be at most {self.max_depth}, got {k}")
 
     def _depth(self, k: int | None, device: torch.device) -> int:
         """``k`` (the default depth when None), checked against the card's
@@ -74,6 +75,17 @@ class TileKernels:
         k = self.default_depth if k is None else k
         self.check_depth(k, torch.cuda.get_device_properties(device).shared_memory_per_block_optin)
         return k
+
+    def tile_of(self, shape, device) -> tuple[int, ...]:
+        """The tile of a grid of ``shape`` on ``device``."""
+        return self.tile if self.tile_for is None else tuple(self.tile_for(tuple(shape), device))
+
+    def _shape_args(self, u: torch.Tensor) -> tuple[int, ...]:
+        """The grid's extents as the entries take them: the shape, and for a
+        family with ``tile_for`` its tile's first extent."""
+        if self.tile_for is None:
+            return tuple(u.shape)
+        return (*u.shape, self.tile_of(u.shape, u.device)[0])
 
     # -- checks and scratch ----------------------------------------------------------
 
@@ -125,7 +137,8 @@ class TileKernels:
         dev = src.device
         delta = torch.zeros((), dtype=torch.float32, device=dev)
         self._launch("chunk", src.data_ptr(), dst.data_ptr(),
-                     None if u1 is None else u1.data_ptr(), locked.data_ptr(), *src.shape,
+                     None if u1 is None else u1.data_ptr(), locked.data_ptr(),
+                     *self._shape_args(src),
                      it.data_ptr(), t_off, ns, delta.data_ptr(), self._depth(k, dev),
                      _stream(dev), dev.index)
         return delta
@@ -134,7 +147,7 @@ class TileKernels:
                       n_chunks: int, k: int | None) -> torch.Tensor:
         dev = a.device
         deltas = torch.zeros(n_chunks, dtype=torch.float32, device=dev)
-        self._launch("cycle", a.data_ptr(), b.data_ptr(), locked.data_ptr(), *a.shape,
+        self._launch("cycle", a.data_ptr(), b.data_ptr(), locked.data_ptr(), *self._shape_args(a),
                      it.data_ptr(), t_off, total, n_chunks, deltas.data_ptr(),
                      self._depth(k, dev), _stream(dev), dev.index)
         return deltas
@@ -150,8 +163,8 @@ class TileKernels:
         k = self.default_depth if k is None else k
         _check_chunks(num_sweeps, 1, k)
         if src.device.type == "cpu":
-            return self.plain.sweep_chunk(src, locked, iteration, num_sweeps, k=k, tile=self.tile,
-                                          u1=u1)
+            return self.plain.sweep_chunk(src, locked, iteration, num_sweeps, k=k,
+                                          tile=self.tile_of(src.shape, src.device), u1=u1)
         dst = torch.empty_like(src) if out is None else out
         first = torch.empty_like(src) if u1 else None
         self._check_grid(src, locked, dst, *([first] if u1 else []))
@@ -170,7 +183,7 @@ class TileKernels:
         _check_chunks(num_sweeps, n_chunks, k)
         if a.device.type == "cpu":
             return self.plain.sweep_cycle(a, b, locked, iteration, n_chunks, num_sweeps, k=k,
-                                          tile=self.tile)
+                                          tile=self.tile_of(a.shape, a.device))
         self._check_grid(a, locked, b)
         deltas = self._launch_cycle(a, b, locked, _iteration(iteration, a.device), 0, num_sweeps,
                                     n_chunks, k)
@@ -185,7 +198,8 @@ class TileKernels:
             raise ValueError(f"num_steps must be >= 1, got {num_steps}")
         k = self.default_depth if k is None else k
         if state.u.device.type == "cpu":
-            return self.plain.update_n(state, num_steps, k=k, tile=self.tile)
+            return self.plain.update_n(state, num_steps, k=k,
+                                       tile=self.tile_of(state.u.shape, state.u.device))
         _check_cuda_state(state, self.ndim)
         u, locked = state.u, state.locked
         twin = self._scratch_for(u, "twin")
@@ -225,10 +239,11 @@ class TileKernels:
             raise ValueError(f"stagger must be >= 1, got {stagger}")
         k = self.default_depth if k is None else k
         if state.u.device.type == "cpu":
+            tile = self.tile_of(state.u.shape, state.u.device)
             if segment_iterations is None:
-                return self.plain.solve(state, stagger, max_iterations, k=k, tile=self.tile)
+                return self.plain.solve(state, stagger, max_iterations, k=k, tile=tile)
             return self.plain.solve_segments(state, stagger, max_iterations, segment_iterations,
-                                             k=k, tile=self.tile)
+                                             k=k, tile=tile)
         _check_cuda_state(state, self.ndim)
         bounds = ([max_iterations] if segment_iterations is None
                   else self.plain.segment_bounds(stagger, max_iterations, segment_iterations))
@@ -241,7 +256,7 @@ class TileKernels:
         for bound in bounds:
             acc.zero_()
             self._launch("solve", u.data_ptr(), twin.data_ptr(), u1.data_ptr(),
-                         state.locked.data_ptr(), *u.shape, state.epsilon.data_ptr(),
+                         state.locked.data_ptr(), *self._shape_args(u), state.epsilon.data_ptr(),
                          max(u.shape), min(bound, 2**31 - 1 - stagger), stagger, acc.data_ptr(),
                          iteration.data_ptr(), delta.data_ptr(), done.data_ptr(),
                          self._depth(k, dev), _stream(dev), dev.index)

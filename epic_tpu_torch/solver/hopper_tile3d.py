@@ -11,12 +11,20 @@ launches, each resuming where the last stopped. All from
 and cycle entries themselves. A volume on the CPU goes to the plain version
 in :mod:`.tiled3d`; a volume on a CUDA device goes to the kernels or raises.
 
+The kernels' pass marches along z: a block owns a column segment, a
+``TZ x TH x TW`` centre (``COLUMN`` is ``TH x TW``, fixed in the source;
+:func:`tile_for` picks ``TZ`` for a shape), with a K-deep halo in y and x
+and in z only at a segment's ends, and streams the segment's planes
+through a ring of K + 3 planes in shared memory, each voxel loaded once a
+chunk (the note at the head of ``csrc/tile3d.cu``). The plain version is
+handed the same tile; it gives the same bits for any tile.
+
 Routing (:func:`use_tiles`): a volume goes here when its ``u`` and
-``locked`` (5 B a voxel) exceed ``CROSSOVER_L2`` times the card's L2, where
-``tile_probe.py --volumes`` measures the tiles to start winning; below it
-the in-place kernels of :mod:`.hopper_sweep3d` (K7) run it faster. On an
-H100 they won at no measured size, so ``CROSSOVER_L2`` is None and every
-volume on the card stays on K7 (see the constant).
+``locked`` (5 B a voxel) exceed ``CROSSOVER_L2`` times the card's L2 and a
+plane of ``u`` exceeds ``PLANE_L2`` of it: where ``tile_probe.py --volumes``
+measured the tiles to beat the in-place kernels of :mod:`.hopper_sweep3d`
+(K7), which lose the L2's reuse of a plane's z neighbours on wide planes.
+Every other volume runs on K7 (see the constants).
 
 In place, like every other wrapper: on CUDA the returned state holds the
 caller's ``u`` tensor, relaxed, with the twin and u1 scratch volumes that
@@ -33,27 +41,78 @@ import torch
 from . import tiled3d
 from ._tiles import TileKernels
 
-DEFAULT_DEPTH = 3         # sweeps per trip to memory (the halo depth K)
-# The centre a block owns, TD x TH x TW: kTD x kTH x kTW of csrc/tile3d.cu,
-# fixed there (with 512 threads a block) as the fastest shape, at K = 3, of
-# those tile_probe.py --shapes measured at 256³ and 32 x 2048 x 2048 on an
-# H100 (PERF.md). The plain version takes any tile; it is held to the
-# kernels at this one.
-TILE = (8, 16, 64)
-# u and locked past this many L2s go to the tiles. None: on an H100 the
-# tiles ran a 100-sweep tick 1.3x (32 x 2048 x 2048) to 1.9x (256³) slower a
-# sweep than K7 at every volume tile_probe.py --volumes measured, 160³ to
-# 320³ and 32 x 2048 x 2048 (PERF.md). A chunk of K <= 4 sweeps refills its
-# halo-extended tile from memory and recomputes the trapezoid, and that
-# fill plus the lse6 arithmetic costs more instructions than K7's HBM
-# traffic costs time; so no volume goes to them until a design that reads
-# each voxel once per K sweeps without a z halo (ROADMAP: z-marching blocks)
-# measures a crossover.
-CROSSOVER_L2: float | None = None
+DEFAULT_DEPTH = 4         # sweeps per trip to memory (the halo depth K)
+MAX_DEPTH = 5             # kMaxK of csrc/tile3d.cu: the deepest halo an H100's block holds
+# The column a block owns, TH x TW: kTH x kTW of csrc/tile3d.cu, fixed there
+# (a lane a quad of 8 voxels of a plane, one block an SM: kMinBlocks).
+COLUMN = (32, 128)
+MIN_SEGMENT = 8           # the shortest segment tile_for cuts
+H100_SMS = 132            # tile_for's SM count for a volume on the CPU
+# The tile of a 256³ cube on an H100: eight segments of 32 planes over its
+# 16 columns. The CPU tests hand it to the plain version among others.
+TILE = (32, *COLUMN)
+# The routing rule (past_crossover): a volume goes to the tiles when its u
+# and locked (5 B a voxel) exceed CROSSOVER_L2 times the card's L2 and a
+# plane of its u (4 B a voxel) exceeds PLANE_L2 times it. tile_probe.py
+# --volumes on an H100 80GB HBM3 at 700 W (PERF.md), K = 4, ms a sweep, K7
+# against the tiles: every volume with planes of 1024^2 and more ran faster
+# on the tiles (32 / 64 / 96 x 1024^2 0.143 / 0.132, 0.285 / 0.263,
+# 0.435 / 0.394; 32 x 1448^2 0.384 / 0.328, 32 x 1792^2 0.558 / 0.393,
+# 16 / 32 / 64 x 2048^2 0.362 / 0.261, 0.786 / 0.522, 1.649 / 1.046,
+# 128 x 1448^2 1.923 / 1.222, 8 x 4096^2 0.700 / 0.513), the more so as
+# K7's z neighbours stop coming back from the L2. Cubes ran either way
+# (256^3 0.072 / 0.075, 288^3 0.130 / 0.157, 320^3 0.176 / 0.172, 384^3
+# 0.272 / 0.245, 448^3 0.388 / 0.420, 512^3 0.578 / 0.529), and so stay on
+# K7; so do volumes within the L2. 512^3 and 32 x 2048^2 hold the same
+# bytes, so the bytes alone cannot route them.
+CROSSOVER_L2 = 1.0
+PLANE_L2 = 0.0625
 
-_kernels = TileKernels("epic_tile3d", tiled3d, TILE, DEFAULT_DEPTH)
+
+def smem_bytes(k: int) -> int:
+    """Dynamic shared memory of one block at halo depth ``k``: a ring of
+    k + 3 planes of the (TH + 2k) x (TW + 2k) extended column, each x
+    parity's rows padded to whole quads of 4 voxels, with a guard row above
+    and below, 4 B a voxel (``epic_tile3d_smem_bytes``)."""
+    th, tw = COLUMN
+    return (k + 3) * (th + 2 * k + 2) * 2 * -(-(tw + 2 * k) // 8) * 4 * 4
+
+
+def tile_for(shape, device=None) -> tuple[int, int, int]:
+    """The tile ``(TZ, TH, TW)`` of a ``D x H x W`` volume on ``device``'s
+    card (an H100's SMs for a CPU device or None): ``COLUMN``, and the
+    volume's depth cut into the segments that finish soonest
+    (:func:`_segments_tile` at one block an SM)."""
+    device = None if device is None else torch.device(device)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device is not None and device.type == "cuda" else H100_SMS)
+    return _segments_tile(shape, sms, COLUMN)
+
+
+def _segments_tile(shape, slots: int, column) -> tuple[int, int, int]:
+    """The tile of a ``D x H x W`` volume on ``column`` when the card runs
+    ``slots`` blocks at once. A slot marches one segment at a time,
+    ``TZ + 2 * DEFAULT_DEPTH`` steps, and the slots take the segments in
+    rounds: the rule takes the number of segments, none shorter than
+    ``MIN_SEGMENT`` planes unless the volume is, with the fewest rounds
+    times steps (the fewest segments on a tie). A volume whose columns
+    alone fill the slots keeps ``TZ = D``: no z halo. ``tile_probe
+    --shapes`` calls it for other columns and blocks an SM."""
+    d, h, w = shape
+    th, tw = column
+    columns = -(-h // th) * -(-w // tw)
+
+    def steps(segments: int) -> int:
+        tz = -(-d // segments)
+        return -(-segments * columns // slots) * (tz + 2 * DEFAULT_DEPTH)
+
+    best = min(range(1, max(1, d // MIN_SEGMENT) + 1), key=lambda s: (steps(s), s))
+    return (-(-d // best), th, tw)
+
+
+_kernels = TileKernels("epic_tile3d", tiled3d, TILE, DEFAULT_DEPTH, smem_bytes=smem_bytes,
+                       max_depth=MAX_DEPTH, tile_for=tile_for)
 launches = _kernels.launches
-smem_bytes = _kernels.smem_bytes
 check_depth = _kernels.check_depth
 sweep_chunk = _kernels.sweep_chunk
 sweep_cycle = _kernels.sweep_cycle
@@ -64,12 +123,10 @@ solve_segments = _kernels.solve_segments
 
 def past_crossover(shape, l2_bytes: int) -> bool:
     """The routing rule: ``u`` (4 B) and ``locked`` (1 B) of a volume exceed
-    ``CROSSOVER_L2`` times ``l2_bytes``; never while ``CROSSOVER_L2`` is
-    None."""
-    if CROSSOVER_L2 is None:
-        return False
+    ``CROSSOVER_L2`` times ``l2_bytes``, and a plane of ``u`` exceeds
+    ``PLANE_L2`` times it."""
     d, h, w = shape
-    return 5 * d * h * w > CROSSOVER_L2 * l2_bytes
+    return 5 * d * h * w > CROSSOVER_L2 * l2_bytes and 4 * h * w > PLANE_L2 * l2_bytes
 
 
 def use_tiles(shape, device) -> bool:

@@ -22,8 +22,10 @@ it equals ``core.update_n`` bit for bit for any tile shape, ``k`` above the
 tile included. The delta is ``max |u1 - u0|`` over centre voxels: over
 every voxel once, never over fill voxels (ROADMAP R7).
 
-The halo-extended tiles are gathered into one ``[tiles, TD + 2k, TH + 2k,
-TW + 2k]`` batch and swept together. The schedules (``spread``,
+The kernels march each tile along z through a ring of planes instead (no z
+halo but at a segment's ends, ``csrc/tile3d.cu``); the sweeps they run are
+these, so the bits are the same. Here the halo-extended tiles are gathered
+into one ``[tiles, TD + 2k, TH + 2k, TW + 2k]`` batch and swept together. The schedules (``spread``,
 ``tick_schedule``, ``solve_schedule``, ``segment_bounds``) and the runners
 over a chunk are :mod:`.tiled`'s, so the plain and the kernel routes sweep
 the same chunks in 2D and 3D. The CPU tests use these functions, and

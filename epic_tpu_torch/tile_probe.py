@@ -1,7 +1,7 @@
 """Measure the routing crossovers of the tile kernels on one CUDA card.
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
-[--sides ...] [--volumes ...] [--shapes] [--mesh3d] [--compare3d FILE]
+[--sides ...] [--volumes ...] [--shapes] [--ablate3d] [--solve3d] [--mesh3d] [--compare3d FILE]
 [--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--batch] [--sass]``. It prints the card's name
 and power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` runs after one warm-up:
@@ -13,11 +13,15 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
 - ``--volumes`` (3D): the same through K7 (``hopper_sweep3d``) and the 3D
   tile route (``hopper_tile3d``) on volumes given as ``D`` (a cube) or
   ``DxHxW``, beside :func:`hopper_tile3d.use_tiles`;
-- ``--shapes`` (3D): the tile shape of ``csrc/tile3d.cu``. Each candidate
-  centre and block size is built as a copy of that source with its
-  constants replaced (under the build directory; the source keeps its one
-  shape), and its cycle entry runs a 100-sweep tick at each depth that fits
-  shared memory, on the ``--volumes`` shapes;
+- ``--shapes`` (3D): the column of ``csrc/tile3d.cu``. Each candidate
+  column and register budget (``kTH``, ``kTW``, ``kMinBlocks``; a block has
+  a lane a quad of its extended plane) is built as a copy of that source
+  with its constants replaced (under the build directory; the source keeps
+  its one shape),
+  and its cycle entry runs a 100-sweep tick at each depth of ``DEPTHS``
+  (the segments ``hopper_tile3d.tile_for`` picks for that column), held to
+  K7 bit for bit, then the source's shape with the segments of 1..4
+  blocks an SM; on 256^3 and 32 x 2048 x 2048, or the ``--volumes`` shapes;
 - ``--mesh3d`` (3D): the mesh orientation and route. A 100-sweep
   resident tick (``sharded3d.update_n_resident3d``) of each volume on a
   virtual z mesh of 8 shards and on a 2 x 4 plane mesh of the card, each
@@ -76,6 +80,16 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   and on the streamed route; at 128^2 also the solve capped at 1,000, a
   chunk with one lane active, and chip_smoke.py's goal batch (cap 8,000). In turns (each candidate, then the streamed
   route, then the same in reverse), the results held equal bit for bit;
+- ``--ablate3d``: where the 3D tile pass spends its time. Copies of the
+  library whose ``csrc/tile3d.cu`` replaces each lse6 by a max of the six
+  neighbours, or drops the barrier of each step, time a 100-sweep tick
+  beside the source's on 256^3 and 32 x 2048 x 2048 (the copies' bits are
+  not the plain version's; only the source's are checked, against K7);
+- ``--solve3d``: the 3D tile solve kernel with the pass inlined once (the
+  source) and twice (the check chunk and the other chunks at two call
+  sites, ``SOLVE3D``), each built into a whole library, at every depth on
+  ``SOLVE3D_VOLUMES`` (or the ``--volumes`` shapes), capped at 300 sweeps
+  and to convergence, held to K7's solve: the voxels that differ;
 - ``--sass``: the SASS instructions of one ``lse4`` and one ``lse6``
   update (``sweep_common.cuh``), counted with ``cuobjdump -sass`` in a
   kernel that computes one a thread, less a kernel that adds the same
@@ -92,6 +106,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import itertools
 import json
 import pathlib
 import re
@@ -101,14 +116,18 @@ import subprocess
 import torch
 
 from . import grid as G
-from .solver import _build, hopper_sweep, hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled
+from .solver import _build, hopper_sweep, hopper_sweep3d, hopper_tile2d, hopper_tile3d
 
 SIDES = (2048, 3072, 4096, 8192)
-VOLUMES = ("160", "192", "224", "256", "320", "32x2048x2048")
-# (TD, TH, TW, threads) candidates for --shapes.
-SHAPES = ((8, 16, 64, 512), (16, 16, 64, 512), (8, 32, 64, 512), (8, 16, 64, 256),
-          (8, 16, 128, 512), (16, 16, 64, 256))
-DEPTHS = (2, 3, 4)
+VOLUMES = ("160", "192", "224", "256", "320", "384", "448", "512", "64x1024x1024", "32x2048x2048")
+# (TH, TW, blocks an SM) candidates for --shapes: the source's shape first,
+# then other register budgets (blocks an SM; a block has a lane a quad of
+# its plane) and shorter, taller and wider columns (less halo recompute,
+# fewer columns).
+SHAPES = ((32, 128, 1), (32, 64, 1), (32, 64, 2), (16, 64, 2), (16, 64, 3), (24, 64, 2),
+          (32, 96, 1))
+DEPTHS = (2, 3, 4, 5)
+SHAPE_VOLUMES = ("256", "32x2048x2048")
 # --mesh3d's volumes: the two of chip_smoke.py's phases 20-22, and depths of
 # 1024^2, 512^2 and 256^2 planes around the model's switch to the z mesh.
 MESH_VOLUMES = ("256", "64x1024x1024", "128x1024x1024", "256x1024x1024", "384x1024x1024",
@@ -206,15 +225,23 @@ def probe_volumes(dev, reps: int, volumes=VOLUMES) -> None:
         print(json.dumps(dict(probe="crossover3d", shape=list(shape), bytes=5 * n,
                               l2_bytes=torch.cuda.get_device_properties(dev).L2_cache_size,
                               use_tiles=hopper_tile3d.use_tiles(shape, dev),
-                              tile=list(hopper_tile3d.TILE), k=hopper_tile3d.DEFAULT_DEPTH,
+                              tile=list(hopper_tile3d.tile_for(shape, dev)),
+                              k=hopper_tile3d.DEFAULT_DEPTH,
                               sweep3d_ms_per_sweep=k_ms / 100, tile3d_ms_per_sweep=t_ms / 100,
                               same_bits=same)), flush=True)
         del st, k, t
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """The registers and spills of each kernel in an nvcc log."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
 def build_shapes(shapes=SHAPES) -> dict:
     """One library a candidate shape: ``csrc/tile3d.cu`` with its constants
-    replaced, built beside the main library. Returns {shape: CDLL}."""
+    replaced, built beside the main library; prints each one's
+    ``-Xptxas -v`` lines. Returns {shape: CDLL}."""
     src = (_build.CSRC / "tile3d.cu").read_text()
     out_dir = _build.BUILD_DIR / "tile_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -222,7 +249,7 @@ def build_shapes(shapes=SHAPES) -> dict:
     cmds, libs = [], {}
     for shape in shapes:
         text = src
-        for name, value in zip(("kTD", "kTH", "kTW", "kThreads"), shape):
+        for name, value in zip(("kTH", "kTW", "kMinBlocks"), shape):
             text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
                               text)
             if n != 1:
@@ -231,9 +258,11 @@ def build_shapes(shapes=SHAPES) -> dict:
         cu = out_dir / f"tile3d_{tag}.cu"
         cu.write_text(text)
         libs[shape] = out_dir / f"libtile3d_{tag}.so"
-        cmds.append([nvcc, *_build.ARCH_FLAGS, "-shared", "-Xcompiler", "-fPIC",
+        cmds.append([nvcc, *_build.ARCH_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                      "-I", str(_build.CSRC), "-o", str(libs[shape]), str(cu)])
-    _build._run(cmds)
+    for shape, log in zip(shapes, _build._run(cmds)):
+        print(json.dumps(dict(probe="ptxas", shape=list(shape), lines=ptxas_lines(log))),
+              flush=True)
     loaded = {}
     for shape, path in libs.items():
         lib = ctypes.CDLL(str(path))
@@ -242,41 +271,182 @@ def build_shapes(shapes=SHAPES) -> dict:
     return loaded
 
 
-def probe_shapes(dev, reps: int, volumes=VOLUMES, shapes=SHAPES, depths=DEPTHS) -> None:
-    libs = build_shapes(shapes)
-    smem_limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+def cycle_tick3d(lib, st, ref, tz: int, k: int, reps: int) -> tuple[float, bool]:
+    """A 100-sweep tick through ``lib``'s ``epic_tile3d_cycle`` with
+    segments of ``tz`` planes at depth ``k``: (mean ms, whether the first
+    tick gave ``ref``'s bits)."""
+    dev = st.u.device
+    n_chunks = -(-100 // k)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    a, b = st.u.clone(), torch.empty_like(st.u)
+    deltas = torch.zeros(n_chunks, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def tick():
+        deltas.zero_()
+        _build.check(lib.epic_tile3d_cycle(
+            a.data_ptr(), b.data_ptr(), st.locked.data_ptr(), *st.u.shape, tz, it.data_ptr(), 0,
+            100, n_chunks, deltas.data_ptr(), k, stream, dev.index), "epic_tile3d_cycle")
+
+    tick()
+    same = bool(torch.equal(a if n_chunks % 2 == 0 else b, ref))
+    return event_ms(tick, reps), same
+
+
+def probe_shapes(dev, reps: int, volumes=SHAPE_VOLUMES, shapes=SHAPES, depths=DEPTHS) -> None:
+    libs = build_shapes(shapes)
+    props = torch.cuda.get_device_properties(dev)
+    smem_limit, sms = props.shared_memory_per_block_optin, props.multi_processor_count
     for spec in volumes:
         shape = volume_shape(spec)
         st = random_state(shape, dev)
         ref = hopper_sweep3d.update_n(dataclasses.replace(st, u=st.u.clone()), 100).u
-        it = torch.zeros((), dtype=torch.int32, device=dev)
-        for cand, lib in libs.items():
-            td, th, tw, threads = cand
+        for (th, tw, per_sm), lib in libs.items():
+            tz = hopper_tile3d._segments_tile(shape, per_sm * sms, (th, tw))[0]
             for k in depths:
-                smem = (td + 2 * k) * (th + 2 * k) * (tw + 2 * k) * 5
-                if smem > smem_limit:
+                smem = (k + 3) * (th + 2 * k + 2) * 2 * -(-(tw + 2 * k) // 8) * 4 * 4
+                if smem > smem_limit or k > hopper_tile3d.MAX_DEPTH:
                     continue
-                n_chunks = -(-100 // k)
-                a, b = st.u.clone(), torch.empty_like(st.u)
-                deltas = torch.zeros(n_chunks, device=dev)
-
-                def tick():
-                    deltas.zero_()
-                    _build.check(lib.epic_tile3d_cycle(
-                        a.data_ptr(), b.data_ptr(), st.locked.data_ptr(), *shape, it.data_ptr(),
-                        0, 100, n_chunks, deltas.data_ptr(), k, stream, dev.index),
-                        "epic_tile3d_cycle")
-
-                tick()
-                same = bool(torch.equal(a if n_chunks % 2 == 0 else b, ref))
-                ms = event_ms(tick, reps)
-                print(json.dumps(dict(probe="shape3d", shape=list(shape), tile=[td, th, tw],
-                                      threads=threads, k=k, smem_bytes=smem, chunks=n_chunks,
-                                      sweeps=tiled.spread(100, n_chunks)[0],
+                ms, same = cycle_tick3d(lib, st, ref, tz, k, reps)
+                print(json.dumps(dict(probe="shape3d", shape=list(shape), tile=[tz, th, tw],
+                                      blocks_per_sm=per_sm, k=k, smem_bytes=smem,
                                       ms_per_sweep=ms / 100, same_bits=same)), flush=True)
-                del a, b
+        # The segment rule on the source's column at the default depth: the
+        # segments of 1..4 blocks an SM, and the whole depth.
+        th, tw = shapes[0][:2]
+        tzs = {shape[0]}
+        for per_sm in (1, 2, 3, 4):
+            tzs.add(hopper_tile3d._segments_tile(shape, per_sm * sms, (th, tw))[0])
+        for tz in sorted(tzs):
+            ms, same = cycle_tick3d(libs[shapes[0]], st, ref, tz, hopper_tile3d.DEFAULT_DEPTH,
+                                    reps)
+            print(json.dumps(dict(probe="segments3d", shape=list(shape), tile=[tz, th, tw],
+                                  segments=-(-shape[0] // tz), k=hopper_tile3d.DEFAULT_DEPTH,
+                                  ms_per_sweep=ms / 100, same_bits=same)), flush=True)
         del st, ref
+
+
+ABLATE3D = {
+    "source": lambda t: t,
+    "lse6_as_max": lambda t: t.replace(
+        '#include "sweep_common.cuh"\n',
+        '#include "sweep_common.cuh"\n#define lse6(a, b, c, d, e, f) '
+        'fmaxf(fmaxf(fmaxf(a, b), fmaxf(c, d)), fmaxf(e, f))\n', 1),
+    "no_step_barrier": lambda t: t.replace(
+        "      __syncthreads();   // plane p has arrived everywhere", "      // plane p has arrived", 1),
+}
+
+
+def probe_ablate3d(dev, reps: int, volumes=("256", "32x2048x2048")) -> None:
+    text = (_build.CSRC / "tile3d.cu").read_text()
+    variants = {name: edit(text) for name, edit in ABLATE3D.items()}
+    for name, v in variants.items():
+        if name != "source" and v == text:
+            raise RuntimeError(f"tile3d.cu no longer has what --ablate3d edits for {name}")
+    libs = build_libraries(variants, "tile3d.cu")
+    for spec in volumes:
+        shape = volume_shape(spec)
+        st = random_state(shape, dev)
+        ref = hopper_sweep3d.update_n(dataclasses.replace(st, u=st.u.clone()), 100).u
+        tz = hopper_tile3d.tile_for(shape, dev)[0]
+        for name, lib in libs.items():
+            ms, same = cycle_tick3d(lib, st, ref, tz, hopper_tile3d.DEFAULT_DEPTH, reps)
+            print(json.dumps(dict(probe="ablate3d", shape=list(shape), variant=name,
+                                  tile=[tz, *hopper_tile3d.COLUMN], k=hopper_tile3d.DEFAULT_DEPTH,
+                                  ms_per_sweep=ms / 100, same_bits=same)), flush=True)
+        del st, ref
+
+
+# --solve3d: tile3d.cu's solve loop as the source has it (one call site of
+# the pass for every chunk of a cycle), and with the check chunk and the
+# rest chunks at two call sites, the pass inlined twice.
+ONE_CALL_SITE = """    int t = it;
+    for (int c = 0; c <= n_rest; ++c) {
+      const bool check = c == 0;
+      const int ns = check ? depth : spread_at(rest, n_rest, c - 1);
+      all_tiles<K>(cur, oth, check ? u1 : nullptr, g, t, ns, check ? acc + slot : nullptr, smem);
+      grid.sync();
+      if (check) {
+        delta = __uint_as_float(__ldcg(acc + slot));
+        if (grid.thread_rank() == 0) acc[slot ^ 1] = 0u;
+        slot ^= 1;
+        done = delta < eps && it + 1 >= m_max;
+        if (done) {
+          it += 1;
+          cur = u1;
+          break;
+        }
+      }
+      float* tmp = cur;
+      cur = oth;
+      oth = tmp;
+      t += ns;
+    }
+    if (done) break;
+"""
+TWO_CALL_SITES = """    all_tiles<K>(cur, oth, u1, g, it, depth, acc + slot, smem);
+    grid.sync();
+    delta = __uint_as_float(__ldcg(acc + slot));
+    if (grid.thread_rank() == 0) acc[slot ^ 1] = 0u;
+    slot ^= 1;
+    done = delta < eps && it + 1 >= m_max;
+    if (done) {
+      it += 1;
+      cur = u1;
+      break;
+    }
+    float* tmp = cur;
+    cur = oth;
+    oth = tmp;
+    int t = it + depth;
+    for (int c = 0; c < n_rest; ++c) {
+      const int ns = spread_at(rest, n_rest, c);
+      all_tiles<K>(cur, oth, nullptr, g, t, ns, nullptr, smem);
+      grid.sync();
+      tmp = cur;
+      cur = oth;
+      oth = tmp;
+      t += ns;
+    }
+"""
+SOLVE3D = {"source": lambda t: t,
+           "two_call_sites": lambda t: t.replace(ONE_CALL_SITE, TWO_CALL_SITES, 1)}
+SOLVE3D_VOLUMES = ("20x37x150", "70x20x70", "100x33x65", "64", "256", "32x2048x2048")
+
+
+def probe_solve3d(dev, volumes=SOLVE3D_VOLUMES) -> None:
+    """Each variant of ``SOLVE3D`` built into a whole library; at every
+    depth 1..MAX_DEPTH and staggers 100 and 7, its tile solve capped at 300
+    sweeps, and to convergence up to 256^3, held to K7's: the voxels that
+    differ and the largest difference."""
+    text = (_build.CSRC / "tile3d.cu").read_text()
+    variants = {name: edit(text) for name, edit in SOLVE3D.items()}
+    for name, v in variants.items():
+        if name != "source" and v == text:
+            raise RuntimeError(f"tile3d.cu no longer has what --solve3d edits for {name}")
+    libs = build_libraries(variants, "tile3d.cu")
+    for spec in volumes:
+        shape = volume_shape(spec)
+        st = random_state(shape, dev)
+        caps = (300, 1_000_000) if st.u.numel() <= 256**3 else (300,)
+        for stagger, cap in itertools.product((100, 7), caps):
+            ref = hopper_sweep3d.solve(dataclasses.replace(st, u=st.u.clone()), stagger, cap)
+            for name, lib in libs.items():
+                _build._lib = lib
+                for k in range(1, hopper_tile3d.MAX_DEPTH + 1):
+                    out = hopper_tile3d.solve(dataclasses.replace(st, u=st.u.clone()), stagger,
+                                              cap, k)
+                    diff = out.u != ref.u
+                    print(json.dumps(dict(
+                        probe="solve3d", shape=list(shape), variant=name, k=k, stagger=stagger,
+                        cap=cap, tile=list(hopper_tile3d.tile_for(shape, dev)),
+                        differing=int(diff.sum()),
+                        max_abs_err=float((out.u - ref.u).abs().max()),
+                        same_bits=not bool(diff.any()) and int(out.iteration) == int(
+                            ref.iteration) and bool(torch.equal(out.delta, ref.delta)))),
+                        flush=True)
+        del st
+    _build._lib = None
 
 
 def build_libraries(variants: dict, source: str = "tile2d.cu") -> dict:
@@ -288,29 +458,20 @@ def build_libraries(variants: dict, source: str = "tile2d.cu") -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     flags = [*_build.COMPILE_FLAGS, "-I", str(_build.CSRC)]
-    others = [src for src in _build.SOURCES if src.name != source]
-    objs = {src: out_dir / f"{src.stem}.o" for src in others}
-    cus, logs = {}, {}
     stem = pathlib.Path(source).stem
+    cus = {name: out_dir / f"{stem}_{name}.cu" for name in variants}
     for name, text in variants.items():
-        cus[name] = out_dir / f"{stem}_{name}.cu"
         cus[name].write_text(text)
-    procs = {name: subprocess.Popen([nvcc, *flags, "-o", str(cu.with_suffix(".o")), str(cu)],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name, cu in cus.items()}
-    _build._run([[nvcc, *flags, "-o", str(o), str(src)] for src, o in objs.items()])
-    for name, proc in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{logs[name]}")
+    others = {src: out_dir / f"{src.stem}.o" for src in _build.SOURCES if src.name != source}
+    logs = _build._run([[nvcc, *flags, "-o", str(cu.with_suffix(".o")), str(cu)]
+                        for cu in cus.values()]
+                       + [[nvcc, *flags, "-o", str(o), str(src)] for src, o in others.items()])
     _build._run([[nvcc, *_build.LINK_FLAGS, "-o", str(out_dir / f"lib_{name}.so"),
-                  str(cu.with_suffix(".o")), *map(str, objs.values())]
+                  str(cu.with_suffix(".o")), *map(str, others.values())]
                  for name, cu in cus.items()])
     libs = {}
-    for name in variants:
-        ptxas = [ln.strip() for ln in logs[name].splitlines() if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln]
-        print(json.dumps(dict(probe="ptxas", variant=name, lines=ptxas)), flush=True)
+    for name, log in zip(variants, logs):
+        print(json.dumps(dict(probe="ptxas", variant=name, lines=ptxas_lines(log))), flush=True)
         libs[name] = _build.bind(ctypes.CDLL(str(out_dir / f"lib_{name}.so")))
     return libs
 
@@ -916,6 +1077,10 @@ def main() -> None:
                     help="time the 2D tile, shard and resident paths against FILE's tile2d.cu")
     ap.add_argument("--batch", action="store_true",
                     help="time the batched kernels' block candidates and both routes")
+    ap.add_argument("--ablate3d", action="store_true",
+                    help="time the 3D tile pass without its lse6 or its step barrier")
+    ap.add_argument("--solve3d", action="store_true",
+                    help="hold the 3D tile solve, also with the pass at two call sites, to K7")
     ap.add_argument("--sass", action="store_true",
                     help="count the SASS instructions of one lse4 and one lse6 update")
     args = ap.parse_args()
@@ -930,6 +1095,10 @@ def main() -> None:
     volumes = VOLUMES if not args.volumes else args.volumes
     if args.batch:
         probe_batch(dev, args.reps)
+    elif args.ablate3d:
+        probe_ablate3d(dev, args.reps)
+    elif args.solve3d:
+        probe_solve3d(dev, args.volumes or SOLVE3D_VOLUMES)
     elif args.shapes2d:
         probe_shapes2d(dev, args.reps, baseline=args.baseline)
     elif args.compare2d:
@@ -941,7 +1110,7 @@ def main() -> None:
     elif args.mesh2d:
         probe_mesh2d(dev, args.reps, args.sides or MESH_SIDES)
     elif args.shapes:
-        probe_shapes(dev, args.reps, volumes)
+        probe_shapes(dev, args.reps, args.volumes or SHAPE_VOLUMES)
     elif args.volumes is not None:
         probe_volumes(dev, args.reps, volumes)
     else:

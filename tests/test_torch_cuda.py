@@ -669,28 +669,45 @@ def test_tile_wrappers_refuse_what_the_kernels_do_not_take(dev):
     assert hopper_tile2d.launches == launches and tiled.calls == calls
 
 
-# Volumes over the kernels' 8 x 16 x 64 tiles (hopper_tile3d.TILE): ragged on
-# every axis over several tiles, a volume smaller than one tile, one within a
-# tile's halo, and a deep ragged column of tiles.
-TILE_VOLUMES = [(20, 37, 150), (5, 6, 7), (9, 18, 70), (19, 20, 40)]
+# Volumes over the kernels' 32 x 128 columns (hopper_tile3d.COLUMN): ragged on
+# every axis over several columns, a volume smaller than one column, one
+# within a column's halo, a deep ragged column, and two deeper ones. The
+# tile rule cuts z into segments (TZ < D) wherever the card has room for
+# more blocks: 20 and 19 into two of 10, 70 into eight of 9, 100 into twelve
+# of 9, the last segments ragged; 5 and 9 keep TZ = D.
+TILE_VOLUMES = [(20, 37, 150), (5, 6, 7), (9, 18, 70), (19, 20, 40), (70, 20, 70),
+                (100, 33, 65)]
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.fixture(params=["rule", "short"])
+def segments(request, monkeypatch):
+    """The tile rule as it stands, or with segments of 3 planes and more
+    (shorter than the deepest halo: the z halo of a segment reaches past its
+    neighbours)."""
+    if request.param == "short":
+        monkeypatch.setattr(hopper_tile3d, "MIN_SEGMENT", 3)
+    return request.param
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("shape", TILE_VOLUMES, ids=lambda s: "x".join(map(str, s)))
-def test_tile3d_chunk_kernel_gives_the_plain_versions_bits(dev, shape, k):
+def test_tile3d_chunk_kernel_gives_the_plain_versions_bits(dev, shape, k, segments):
     """K8/K10 (T3, and with u1 the K10 check): one chunk at depths 1 and k,
-    from an even and an odd iteration, against the plain tile version and
-    core."""
+    from an even and an odd iteration, against the plain tile version (on
+    the rule's tile) and core."""
+    tile = hopper_tile3d.tile_for(shape, dev)
+    if segments == "short":
+        assert tile[0] < shape[0] or shape[0] < 6
     for t0 in (0, 1):
         st = _volume(shape, 0.1, 3, dev, t0)
-        for ns in sorted({1, k}):
+        for ns in sorted({1, (k + 1) // 2, k}):
             for u1 in (False, True):
                 before = hopper_tile3d.launches["epic_tile3d_chunk"]
                 src = st.u.clone()
                 dst, delta, first = hopper_tile3d.sweep_chunk(src, st.locked, st.iteration, ns,
                                                               k=k, u1=u1)
                 p_dst, p_delta, p_first = tiled3d.sweep_chunk(
-                    st.u, st.locked, st.iteration, ns, k=k, tile=hopper_tile3d.TILE, u1=u1)
+                    st.u, st.locked, st.iteration, ns, k=k, tile=tile, u1=u1)
                 torch.cuda.synchronize()
                 assert hopper_tile3d.launches["epic_tile3d_chunk"] == before + 1
                 assert torch.equal(src, st.u)                      # the source is untouched
@@ -702,18 +719,24 @@ def test_tile3d_chunk_kernel_gives_the_plain_versions_bits(dev, shape, k):
                     assert torch.equal(first, core.update_n(st, 1).u)
 
 
-@pytest.mark.parametrize("n_chunks,num_sweeps", [(1, 2), (2, 4), (3, 5), (3, 6), (4, 7)])
-def test_tile3d_cycle_kernel_gives_the_plain_versions_bits(dev, n_chunks, num_sweeps):
+# An odd and an even chunk count at every depth 1..MAX_DEPTH (each depth is
+# its own kernel instantiation), and more counts at K = 2.
+@pytest.mark.parametrize("n_chunks,num_sweeps,k", [(3, 3, 1), (4, 4, 1), (1, 2, 2), (2, 4, 2),
+                                                   (3, 5, 2), (3, 6, 2), (4, 7, 2), (3, 8, 3),
+                                                   (4, 11, 3), (3, 12, 4), (4, 14, 4),
+                                                   (3, 13, 5), (4, 19, 5)])
+def test_tile3d_cycle_kernel_gives_the_plain_versions_bits(dev, n_chunks, num_sweeps, k,
+                                                           segments):
     """K9/K11: odd and even chunk counts in one launch, per-chunk deltas; the
     state ends in a for an even count and in b for an odd one."""
-    for shape in TILE_VOLUMES[:3]:
+    for shape in TILE_VOLUMES[:3] + TILE_VOLUMES[4:]:
         st = _volume(shape, 0.1, 5, dev, t0=7)
         a, b = st.u.clone(), torch.full_like(st.u, -1e6)
         before = hopper_tile3d.launches["epic_tile3d_cycle"]
         ka, kb, kd = hopper_tile3d.sweep_cycle(a, b, st.locked, st.iteration, n_chunks,
-                                               num_sweeps, k=2)
+                                               num_sweeps, k=k)
         pa, pb, pd = tiled3d.sweep_cycle(st.u, st.u, st.locked, st.iteration, n_chunks,
-                                         num_sweeps, k=2, tile=hopper_tile3d.TILE)
+                                         num_sweeps, k=k, tile=hopper_tile3d.tile_for(shape, dev))
         torch.cuda.synchronize()
         assert hopper_tile3d.launches["epic_tile3d_cycle"] == before + 1
         assert ka is a and kb is b
@@ -723,15 +746,15 @@ def test_tile3d_cycle_kernel_gives_the_plain_versions_bits(dev, n_chunks, num_sw
         assert torch.equal(final, core.update_n(st, num_sweeps).u)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000),
                                          (100, 250), (10, 95)])
-def test_tile3d_solve_kernel_gives_the_plain_versions_bits(dev, stagger, cap, k):
+def test_tile3d_solve_kernel_gives_the_plain_versions_bits(dev, stagger, cap, k, segments):
     """The one-launch protocol: converged and capped solves on ragged
-    volumes (several ragged tiles, and a volume smaller than one tile),
-    core's bits; the segmented solve, resumed at stagger-aligned bounds,
-    gives the same."""
-    for shape in TILE_VOLUMES[:2]:
+    volumes (several ragged columns, a volume smaller than one column, one
+    cut into segments), core's bits; the segmented solve, resumed at
+    stagger-aligned bounds, gives the same."""
+    for shape in (TILE_VOLUMES[0], TILE_VOLUMES[1], TILE_VOLUMES[4]):
         st = _volume(shape, 0.1, 7, dev, t0=5)
         before = dict(hopper_tile3d.launches)
         kern = hopper_tile3d.solve(dataclasses.replace(st, u=st.u.clone()), stagger, cap, k)
@@ -740,8 +763,8 @@ def test_tile3d_solve_kernel_gives_the_plain_versions_bits(dev, stagger, cap, k)
         plain = core.solve(st, stagger, cap)
         _assert_same(kern, plain)
         _assert_same(seg, plain)
-        _assert_same(tiled3d.solve_segments(st, stagger, cap, 37, k=k, tile=hopper_tile3d.TILE),
-                     plain)
+        _assert_same(tiled3d.solve_segments(st, stagger, cap, 37, k=k,
+                                            tile=hopper_tile3d.tile_for(shape, dev)), plain)
         assert hopper_tile3d.launches["epic_tile3d_solve"] > before["epic_tile3d_solve"] + 1
         if cap == 1_000_000:
             assert bool(kern.converged) and int(kern.iteration) % stagger == 1 % stagger
@@ -751,7 +774,7 @@ def test_tile3d_update_n_runs_cycle_and_remainder_chunk(dev):
     """A tick of an even chunk count is one cycle launch; an odd count adds
     the remainder chunk, copied back into the caller's u. The twin is
     scratch kept across calls for the last shape; u1 only a solve takes."""
-    st = _volume(TILE_VOLUMES[0], 0.1, 9, dev, t0=3)
+    st = _volume(TILE_VOLUMES[4], 0.1, 9, dev, t0=3)
     k = hopper_tile3d.DEFAULT_DEPTH
     scratch = hopper_tile3d._kernels.scratch
     scratch.clear()
@@ -773,19 +796,15 @@ def test_tile3d_update_n_runs_cycle_and_remainder_chunk(dev):
     assert scratch["twin"].shape == TILE_VOLUMES[1]
 
 
-def test_router_sends_volumes_past_the_crossover_to_the_tiles(dev, monkeypatch):
-    """With a crossover set, a VolumePlanner whose volume is past it ticks
-    and solves on the tile kernels and gives core's bits, and a small volume
-    stays on sweep3d; without one (CROSSOVER_L2 None, the measured state on
-    an H100) the big volume stays on sweep3d too. Nothing else runs."""
+def test_router_sends_volumes_past_the_crossover_to_the_tiles(dev):
+    """With the measured rule, a VolumePlanner whose volume is past it (wide
+    planes beyond the L2) ticks and solves on the tile kernels and gives
+    core's bits; a cube past the L2 and a small volume stay on sweep3d.
+    Nothing else runs."""
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     side = int((1.5 * l2 / 5) ** (1 / 3)) + 4
-    assert hopper_tile3d.CROSSOVER_L2 is None
-    assert not hopper_tile3d.use_tiles((side, side, side), dev)
-    cases = [((side, side, side), False, None), ((side, side, side), True, 1.5),
-             ((12, 20, 28), False, 1.5)]
-    for shape, tiles, crossover in cases:
-        monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", crossover)
+    wide = (8, 1536, 1536)
+    for shape, tiles in ((wide, True), ((side, side, side), False), ((12, 20, 28), False)):
         assert hopper_tile3d.use_tiles(shape, dev) == tiles
         tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
         tp.state = _volume(shape, 0.1, 2, dev)
@@ -835,9 +854,10 @@ def test_tile3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
         hopper_tile3d.sweep_chunk(u, locked, 0, 2, out=torch.empty_like(u).cpu())
     with pytest.raises(ValueError):
         hopper_tile3d.sweep_chunk(u, locked, 0, hopper_tile3d.DEFAULT_DEPTH + 1)  # > k
-    for call in (lambda: hopper_tile3d.update_n(st, 5, k=8),
-                 lambda: hopper_tile3d.solve(st, 10, 100, k=8),
-                 lambda: hopper_tile3d.sweep_chunk(u, locked, 0, 8, k=8)):
+    deep = hopper_tile3d.MAX_DEPTH + 1
+    for call in (lambda: hopper_tile3d.update_n(st, 5, k=deep),
+                 lambda: hopper_tile3d.solve(st, 10, 100, k=deep),
+                 lambda: hopper_tile3d.sweep_chunk(u, locked, 0, deep, k=deep)):
         with pytest.raises(ValueError, match="shared memory"):     # too deep for a block
             call()
     for exc, fields in ((TypeError, dict(u=st.u.double())), (ValueError, dict(locked=locked.cpu())),
@@ -913,13 +933,13 @@ def test_shard_chunk_kernel_gives_the_plain_versions_bits(dev, shard):
 
 def test_tile_smem_formulas_are_what_the_kernels_ask_for(dev):
     """The wrappers' shared-memory formulas (the 2D class-split layout, the
-    3D 5 B a voxel) equal the bytes each library's launches ask for, and
+    3D ring of K + 3 planes) equal the bytes each library's launches ask for, and
     H100_MAX_DEPTH is the 2D kernels' deepest halo on this card."""
     from epic_tpu_torch.solver import _build
     lib = _build.load()
     for k in range(1, 80):
         assert lib.epic_tile2d_smem_bytes(k) == hopper_tile2d.smem_bytes(k)
-    for k in range(1, 8):
+    for k in range(1, hopper_tile3d.MAX_DEPTH + 1):
         assert lib.epic_tile3d_smem_bytes(k) == hopper_tile3d.smem_bytes(k)
     if torch.cuda.get_device_properties(dev).shared_memory_per_block_optin == 232_448:
         assert hopper_shard2d.max_depth(dev) == H100_MAX_DEPTH

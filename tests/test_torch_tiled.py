@@ -313,7 +313,9 @@ def test_smem_formulas_are_what_the_kernels_allocate(family):
     launches ask for: the tile that the source fixes (which TILE mirrors),
     laid out as the source lays it out. 2D: two class arrays, each of
     kTH + 2K rows of (kTW + 2K) / 2 floats and of their frozen bits in
-    32-bit words; 3D: a float and a frozen byte a voxel. The card tests
+    32-bit words; 3D: a ring of K + 3 planes of the extended column with a
+    guard row above and below, a float a voxel, and the deepest halo the
+    source takes. The card tests
     compare the formulas with the libraries' own."""
     if family == "tile2d":
         text, (th, tw, sth, stw) = _constants("tile2d.cu", ("kTH", "kTW", "kSmallTH", "kSmallTW"))
@@ -330,12 +332,15 @@ def test_smem_formulas_are_what_the_kernels_allocate(family):
             assert hopper_tile2d.smem_bytes(k) == hopper_tile2d.tile_smem_bytes(k)
             assert hopper_tile2d.tile_smem_bytes(k, (sth, stw)) < hopper_tile2d.smem_bytes(k)
     else:
-        text, (td, th, tw) = _constants("tile3d.cu", ("kTD", "kTH", "kTW"))
-        assert hopper_tile3d.TILE == (td, th, tw)
-        assert "static_cast<size_t>(ext_voxels(g.K)) * (sizeof(float) + 1)" in text
-        assert "(kTD + 2 * K) * (kTH + 2 * K) * (kTW + 2 * K)" in text
-        for k in range(1, 8):
-            assert hopper_tile3d.smem_bytes(k) == (td + 2 * k) * (th + 2 * k) * (tw + 2 * k) * 5
+        text, (th, tw, max_k) = _constants("tile3d.cu", ("kTH", "kTW", "kMaxK"))
+        assert hopper_tile3d.COLUMN == (th, tw) and hopper_tile3d.TILE[1:] == (th, tw)
+        assert hopper_tile3d.MAX_DEPTH == max_k
+        assert ("return static_cast<size_t>(K + 3) * (kTH + 2 * K + 2) * 2 * "
+                "(((kTW + 2 * K) / 2 + 3) / 4 * 4);") in text
+        assert "return ring_floats(K) * sizeof(float);" in text
+        for k in range(1, max_k + 1):
+            pitch = -(-((tw + 2 * k) // 2) // 4) * 4        # pairs a row, whole quads
+            assert hopper_tile3d.smem_bytes(k) == (k + 3) * (th + 2 * k + 2) * 2 * pitch * 4
 
 
 def test_planner_on_the_cpu_runs_core():

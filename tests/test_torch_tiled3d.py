@@ -5,7 +5,11 @@ plane-band chunks K8 and T3, pallas_tiled3d's slabs K10 and its check
 variant, pallas_cycle's 3D cycles K9 and K11, and both modules' update_n /
 solve / solve_segments), run in interpret mode as the JAX package's own CPU
 tests run them, with the layouts forced small through ``pad_state(...,
-band=, k=, yt=, wt=)``; ``unpad`` only reads those layouts.
+band=, k=, yt=, wt=)``; ``unpad`` only reads those layouts. The kernels'
+z march (csrc/tile3d.cu) is modelled here in plain torch (``march_chunk``)
+and held to the plain version and core bit for bit; with its levels in
+descending order it gives other bits. The tile rule and the routing rule
+of ``hopper_tile3d`` are checked on shapes.
 
 Tolerances: within the package, the same bits. Across packages fields
 rtol=2e-6, atol=1e-5 and deltas rtol=1e-5, atol=1e-5 (torch's and XLA's CPU
@@ -24,9 +28,11 @@ import torch
 import epic_tpu
 from epic_tpu.solver import pallas_biggrid3d, pallas_cycle, pallas_tiled3d
 import epic_tpu_torch.solver as TS
+from epic_tpu_torch import constants as C
 from epic_tpu_torch import grid as TG
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.solver import core, hopper_sweep3d, hopper_tile3d, tiled3d
+from epic_tpu_torch.solver._sweep_body import lse6
 
 FIELD = dict(rtol=2e-6, atol=1e-5)
 DELTA = dict(rtol=1e-5, atol=1e-5)
@@ -143,6 +149,162 @@ def test_solve_and_segments_equal_core(stagger, cap):
         _same(tiled3d.solve_segments(st, stagger, cap, 37, k=k, tile=tile), ref)
 
 
+# -- the kernels' z march, modelled in plain torch ------------------------------------
+
+def march_chunk(src, locked, t0, ns, k, tile, descending=False, poison=False):
+    """csrc/tile3d.cu's pass, one chunk of ``ns`` sweeps from iteration
+    ``t0``, in plain torch: each column segment's extended planes (y and x
+    halo ``k``, ``ns`` planes in z at a segment's ends that are not the
+    volume's) stream in z order through a ring of ``k + 3`` planes; at step
+    ``p`` the next plane lands in its slot, then levels ``l = 1..ns`` run
+    in place on plane ``p - l`` (ascending, or ``descending``), each inside
+    the xy trapezoid (``l + k - ns`` from the extended plane's edge) and
+    the z range, on the class of sweep ``t0 + l - 1``. Level 1 gives the
+    delta and u1, level ``ns`` the centre plane. ``poison`` fills what lies
+    outside the volume, and every ring slot before its first plane, with
+    NaN: the kernels never load it. Returns ``(dst, delta, u1)``."""
+    d, h, w = src.shape
+    tz, th, tw = tile
+    eh, ew, ring = th + 2 * k, tw + 2 * k, k + 3
+    ny, nx = -(-h // th), -(-w // tw)
+    fill = float("nan") if poison else float(C.LOG_SPACE_OBSTACLE)
+    fixed = locked.clone()
+    for axis in range(3):
+        fixed.select(axis, 0).fill_(True)
+        fixed.select(axis, -1).fill_(True)
+    # Planes padded by k in y and x (to whole columns), so that a column's
+    # extended plane is a window.
+    u_pad = src.new_full((d, ny * th + 2 * k, nx * tw + 2 * k), fill)
+    u_pad[:, k:k + h, k:k + w] = src
+    f_pad = torch.ones(u_pad.shape, dtype=torch.bool)
+    f_pad[:, k:k + h, k:k + w] = fixed
+    dst, u1 = torch.full_like(src, float("nan")), torch.full_like(src, float("nan"))
+    delta = torch.zeros((), dtype=src.dtype)
+    ly = torch.arange(eh)[:, None]
+    lx = torch.arange(ew)[None, :]
+    reach = torch.minimum(torch.minimum(ly, eh - 1 - ly), torch.minimum(lx, ew - 1 - lx))
+    inner = (slice(1, -1), slice(1, -1))
+    for gz0 in range(0, d, tz):
+        cz = min(tz, d - gz0)
+        za, zb = max(0, gz0 - ns), min(d, gz0 + cz + ns)
+        for gy0 in range(0, h, th):
+            for gx0 in range(0, w, tw):
+                ch, cw = min(th, h - gy0), min(tw, w - gx0)
+                win = (slice(gy0, gy0 + eh), slice(gx0, gx0 + ew))
+                cls = (gy0 - k + ly + gx0 - k + lx) % 2
+                centre = (slice(k, k + ch), slice(k, k + cw))
+                slots = [torch.full((eh, ew), float("nan") if poison else 0.0)
+                         for _ in range(ring)]
+                slots[za % ring] = u_pad[za][win].clone()
+                for p in range(za, gz0 + cz + ns):
+                    if p + 1 < zb:
+                        slots[(p + 1) % ring] = u_pad[p + 1][win].clone()
+                    levels = range(max(1, p - zb + 1), min(ns, p - za) + 1)
+                    for lvl in (reversed(levels) if descending else levels):
+                        r = p - lvl
+                        cur = slots[r % ring]
+                        lo = 1 if za == 0 else za + lvl
+                        hi = d - 2 if zb == d else zb - 1 - lvl
+                        if lo <= r <= hi:
+                            below, above = slots[(r - 1) % ring], slots[(r + 1) % ring]
+                            val = lse6(below[inner], above[inner], cur[:-2, 1:-1],
+                                       cur[2:, 1:-1], cur[1:-1, :-2], cur[1:-1, 2:])
+                            upd = ((cls == (r + t0 + lvl - 1) % 2) & ~f_pad[r][win]
+                                   & (reach >= lvl + k - ns))[inner]
+                            old = cur[inner].clone()
+                            cur[inner] = torch.where(upd, val, old)
+                            if lvl == 1 and gz0 <= r < gz0 + cz:
+                                change = torch.zeros_like(cur)
+                                change[inner] = torch.where(upd, (val - old).abs(), 0.0)
+                                delta = torch.maximum(delta, change[centre].max())
+                        if gz0 <= r < gz0 + cz:
+                            out = (r, slice(gy0, gy0 + ch), slice(gx0, gx0 + cw))
+                            if lvl == 1:
+                                u1[out] = cur[centre]
+                            if lvl == ns:
+                                dst[out] = cur[centre]
+    return dst, delta, u1
+
+
+# (shape, tile): ragged on every axis, segments shorter than the volume
+# (several, the last ragged) and one segment (TZ = D and TZ > D), columns
+# narrower than the halo, and the kernels' column.
+MARCH_VOLUMES = [((13, 11, 23), (5, 4, 8)), ((9, 14, 19), (9, 6, 10)),
+                 ((7, 10, 21), (20, 3, 4)), ((11, 18, 70), (4, *hopper_tile3d.COLUMN))]
+
+
+def _random_field(shape, seed):
+    """A seeded volume with random values everywhere (so every update moves
+    its voxel) and 12% locked voxels."""
+    u, locked = _arrays(shape, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    u = np.where(locked & (u < -1e5), u, rng.uniform(-8.0, 0.0, shape)).astype(np.float32)
+    st = TG.make_state(u, locked, 1e-2, device="cpu")
+    return st.u, st.locked
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_march_equals_tiled3d_and_core_bit_for_bit(k):
+    """The z march gives the plain tile version's and core's bits for every
+    depth 1..8, chunk depth 1..k, both start parities, segments shorter and
+    longer than the volume, ragged volumes; and with the fill outside the
+    volume poisoned, the same bits."""
+    for vi, (shape, tile) in enumerate(MARCH_VOLUMES):
+        u, locked = _random_field(shape, seed=vi)
+        for t0 in (0, 1):
+            st = dataclasses.replace(_torch_state(shape), u=u, locked=locked,
+                                     iteration=torch.tensor(t0, dtype=torch.int32))
+            for ns in sorted({1, (k + 1) // 2, k}):
+                if ns > 1 and vi % 2 != t0:
+                    continue                    # half the deep chunks: the suite's time
+                ref = core.update_n(st, ns)
+                dst, delta, u1 = march_chunk(u, locked, t0, ns, k, tile, poison=t0 == 1)
+                p_dst, p_delta, p_u1 = tiled3d.sweep_chunk(u, locked, t0, ns, k=k, tile=tile,
+                                                           u1=True)
+                assert torch.equal(dst, ref.u) and torch.equal(delta, ref.delta)
+                assert torch.equal(dst, p_dst) and torch.equal(delta, p_delta)
+                assert torch.equal(u1, core.update_n(st, 1).u) and torch.equal(u1, p_u1)
+
+
+@pytest.mark.parametrize("shape,tile,k", [((13, 11, 23), (5, 4, 8), 3),
+                                          ((9, 14, 19), (9, 6, 10), 2)])
+def test_march_with_descending_levels_differs(shape, tile, k):
+    """Levels in descending order within a step read plane p - l + 1 before
+    its level l - 1: other bits. So the ascending order is what makes the
+    march equal core, and the test above can fail."""
+    u, locked = _random_field(shape, seed=7)
+    ref = core.update_n(TG.make_state(u.numpy(), locked.numpy(), 1e-2, device="cpu"), k)
+    asc, _, _ = march_chunk(u, locked, 0, k, k, tile)
+    desc, _, _ = march_chunk(u, locked, 0, k, k, tile, descending=True)
+    assert torch.equal(asc, ref.u)
+    assert not torch.equal(desc, ref.u)
+
+
+def test_tile_rule_cuts_z_to_fill_the_card():
+    """tile_for: the column fixed, the depth cut into the segments whose
+    rounds over the card's block slots take the fewest steps, none shorter
+    than MIN_SEGMENT; volumes whose columns fill the slots keep TZ = D."""
+    th, tw = hopper_tile3d.COLUMN
+    assert hopper_tile3d.tile_for((256, 256, 256)) == hopper_tile3d.TILE == (32, th, tw)
+    assert hopper_tile3d.tile_for((32, 2048, 2048)) == (32, th, tw)    # 1024 columns
+    assert hopper_tile3d.tile_for((512, 512, 512)) == (256, th, tw)    # 128 tiles in 1 round
+    assert hopper_tile3d.tile_for((30, 256, 256)) == (10, th, tw)      # 48 tiles in 1 round
+    assert hopper_tile3d.tile_for((320, 320, 320)) == (80, th, tw)     # 120 tiles in 1 round
+    assert hopper_tile3d.tile_for((5, 6, 7)) == (5, th, tw)
+    slots = hopper_tile3d.H100_SMS
+    for shape in ((256, 256, 256), (160, 160, 160), (999, 70, 70), (40, 37, 150),
+                  (448, 448, 448), (64, 1024, 1024)):
+        d = shape[0]
+        tz, _, _ = hopper_tile3d.tile_for(shape)
+        assert tz >= min(d, hopper_tile3d.MIN_SEGMENT)
+        columns = -(-shape[1] // th) * -(-shape[2] // tw)
+
+        def cost(tz_):
+            return -(-(-(-d // tz_)) * columns // slots) * (tz_ + 2 * hopper_tile3d.DEFAULT_DEPTH)
+
+        assert all(cost(tz) <= cost(-(-d // s)) for s in range(1, d // hopper_tile3d.MIN_SEGMENT + 1))
+
+
 # -- against epic_tpu's kernels in interpret mode ------------------------------------
 
 def _banded(j, band, k):
@@ -225,7 +387,7 @@ def test_cycle_matches_tiled_cycles(n_chunks):
     a, b, deltas = pallas_cycle.sweep_cycle_tiled3d(g.u, jnp.copy(g.u), g.frozen, jnp.int32(0),
                                                     n_chunks, k, band, yt, wt, g.hp2, True)
     pa, pb, pd = tiled3d.sweep_cycle(t.u, t.u, t.locked, 0, n_chunks, k=k,
-                                     tile=hopper_tile3d.TILE)
+                                     tile=hopper_tile3d.tile_for(shape))
     final, theirs = (pb, b) if n_chunks % 2 else (pa, a)
     _close(final, _read_tiled(g, theirs))
     _close(pd.numpy(), np.asarray(deltas), DELTA)
@@ -279,12 +441,18 @@ def test_solve_segments_match_epic_tpu(module):
 # -- routing ---------------------------------------------------------------------------
 
 def test_use_tiles_is_a_rule_on_bytes_and_l2(monkeypatch):
-    """Tiles past CROSSOVER_L2 L2s of u and locked (5 B a voxel); none while
-    it is None, as it is since the tiles won at no size measured on an
-    H100."""
+    """Tiles past CROSSOVER_L2 L2s of u and locked (5 B a voxel) with a
+    plane of u past PLANE_L2 of the L2 (4 B a voxel), as tile_probe.py
+    --volumes measured them to win on an H100."""
     l2 = 50 * 2**20
-    assert hopper_tile3d.CROSSOVER_L2 is None
-    for shape in ((256, 256, 256), (320, 320, 320), (32, 2048, 2048), (1000, 1000, 1000)):
+    assert (hopper_tile3d.CROSSOVER_L2, hopper_tile3d.PLANE_L2) == (1.0, 0.0625)
+    # Measured faster on the tiles: planes of 1024^2 and more beyond the L2.
+    for shape in ((32, 2048, 2048), (32, 1448, 1448), (16, 2048, 2048), (8, 4096, 4096),
+                  (128, 1448, 1448), (32, 1024, 1024), (64, 1024, 1024), (96, 1024, 1024)):
+        assert hopper_tile3d.past_crossover(shape, l2)
+    # Cubes, which ran either way, and any volume within the L2.
+    for shape in ((256, 256, 256), (320, 320, 320), (448, 448, 448), (512, 512, 512),
+                  (30, 256, 256), (2, 2048, 2048)):
         assert not hopper_tile3d.past_crossover(shape, l2)
     monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", 1.5)
     voxels = int(hopper_tile3d.CROSSOVER_L2 * l2 // 5)
@@ -293,18 +461,29 @@ def test_use_tiles_is_a_rule_on_bytes_and_l2(monkeypatch):
     assert not hopper_tile3d.past_crossover((30, 256, 256), l2)
     assert hopper_tile3d.past_crossover((32, 2048, 2048), l2)
     assert not hopper_tile3d.past_crossover((32, 2048, 2048), 1000 * l2)
+    plane = int(hopper_tile3d.PLANE_L2 * l2 // 4)
+    assert not hopper_tile3d.past_crossover((1000, 1, plane), l2)
+    assert hopper_tile3d.past_crossover((1000, 1, plane + 1), l2)
     # A volume on the CPU never goes to the tiles, whatever its size.
     assert not hopper_tile3d.use_tiles((32, 2048, 2048), "cpu")
     assert not hopper_tile3d.use_tiles((8192, 8192), "cuda")      # not a volume
 
 
 def test_depth_is_checked_against_shared_memory():
+    """A block's ring of K + 3 extended planes with their guard rows, 4 B a
+    voxel, against the card's shared memory; every depth up to the kernels'
+    deepest fits an H100's, the next does not, and none above the deepest
+    is taken whatever the shared memory."""
     h100 = 232_448                                  # an H100 block's opt-in shared memory
-    td, th, tw = hopper_tile3d.TILE
-    assert hopper_tile3d.smem_bytes(2) == (td + 4) * (th + 4) * (tw + 4) * 5
-    hopper_tile3d.check_depth(hopper_tile3d.DEFAULT_DEPTH, h100)
-    with pytest.raises(ValueError, match="shared memory"):
-        hopper_tile3d.check_depth(16, h100)
+    th, tw = hopper_tile3d.COLUMN
+    assert hopper_tile3d.smem_bytes(2) == 5 * (th + 6) * 2 * (-(-(tw + 4) // 8) * 4) * 4
+    for k in range(1, hopper_tile3d.MAX_DEPTH + 1):
+        hopper_tile3d.check_depth(k, h100)
+    for k in (hopper_tile3d.MAX_DEPTH + 1, 16):
+        with pytest.raises(ValueError, match="shared memory"):
+            hopper_tile3d.check_depth(k, h100)
+    with pytest.raises(ValueError, match="at most"):
+        hopper_tile3d.check_depth(hopper_tile3d.MAX_DEPTH + 1, 100 * h100)
     with pytest.raises(ValueError, match=">= 1"):
         hopper_tile3d.check_depth(0, h100)
 
