@@ -73,16 +73,29 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 lane converged; both batch kernels must have run, on the
                 resident route only, and the plain versions must not. Two
                 lanes re-solved solo: the same bits;
- 24. batch_big (run after phase 11) — the streamed route of
+ 24. batch_big (run after phase 11) — the cluster route of
                 csrc/batched2d.cu: 256 lanes of 384^2 (BATCH_BIG; a lane beyond
-                a block's shared memory, the batch 4x the L2), built as phase 10's with lane 0
+                a block's shared memory, held by a thread-block cluster; the
+                batch 4x the L2), built as phase 10's with lane 0
                 goalless. The main path, counts zeroed just before and read
                 just after: update_n_batch of 100 sweeps from an even and an
                 odd iteration, solve_batch_device and the host-driven
                 solve_batch capped at BATCH_BIG_CAP; both batch kernels must
-                have run, on the streamed route only, the plain versions must
-                not. Each against the plain version, the same bits; the
+                have run, on the cluster route only, the plain versions must
+                not. Each against the plain version, the same bits, the
+                goalless lane retired at its first check past 384 sweeps; the
                 chunk's mean of 10 and the solves' times;
+ 25. batch_huge (run after phase 24) — the streamed route: 32 lanes of
+                1024^2 (BATCH_HUGE; beyond the largest cluster, 134 MB of u,
+                2.7x the L2), phase 24's checks with a cap of
+                BATCH_HUGE_CAP, so that the goalless lane retires at 1,101;
+ 26. batch_few (run after phase 25) — both sides of the rule's batch-size
+                choice (a planner's few goals on a large map): lanes of
+                BATCH_FEW_SIDE^2, as many as fill half the SMs with the
+                clusters the rule picks for them (8 lanes of 512^2 on an
+                H100 SXM: the streamed route), then twice as many (the
+                cluster route), each with phase 24's checks and a cap of
+                BATCH_FEW_CAP;
  12. biggrid  — an 8192 x 8192 maps.random_obstacles grid (seed 0) with
                 configs/maze.yaml's settings: 268 MB of u and 67 MB of
                 locked, beyond the L2. The main path, counts zeroed just
@@ -293,8 +306,12 @@ BATCH_EPS = 1e-2          # tools/probe.py's batched-solve and batched-goals
 BATCH_CAP = 1000          # the capped three-route solve
 BATCH_SOLVE_CAP = 2000    # tools/probe.py batched-solve's cap
 BATCH_WIDE = (132, 224)   # resident lanes too large for three an SM: the 512-thread block
-BATCH_BIG = (256, 384)    # lanes x side beyond a block's shared memory, 4x the L2: the streamed route
+BATCH_BIG = (256, 384)    # lanes x side beyond a block's shared memory, 4x the L2: the cluster route
 BATCH_BIG_CAP = 1000
+BATCH_HUGE = (32, 1024)   # lanes x side beyond the largest cluster, 2.7x the L2: the streamed route
+BATCH_HUGE_CAP = 1200     # past the goalless lane's first check beyond 1024 sweeps
+BATCH_FEW_SIDE = 512      # lanes in clusters of 8; few of them stream
+BATCH_FEW_CAP = 700       # past the goalless lane's first check beyond 512 sweeps
 GOALS_CAP = 8000          # tools/probe.py batched-goals' cap (a long tail of late lanes)
 BIG_SIDE = 8192           # 268 MB of u + 67 MB of locked: 6.7x the L2
 BIG_CAP = 2000
@@ -317,9 +334,12 @@ SOURCES = {
     "epic_sweep2d_solve": "epic_tpu_torch/csrc/sweep2d.cu",
     "epic_sweep3d_chunk": "epic_tpu_torch/csrc/sweep3d.cu",
     "epic_sweep3d_solve": "epic_tpu_torch/csrc/sweep3d.cu",
-    # One row an entry and route (hopper_batched.lane_resident picks the route).
+    # One row an entry and route (hopper_batched.lane_resident and lane_cluster
+    # pick the route).
     "epic_batched2d_chunk/resident": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_batched2d_solve/resident": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_batched2d_chunk/cluster": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_batched2d_solve/cluster": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_batched2d_chunk/streamed": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_batched2d_solve/streamed": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_tile2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
@@ -342,9 +362,11 @@ REPLACES = {
     "epic_sweep3d_chunk": "epic_tpu/solver/pallas_sweep3d.py:88",
     "epic_sweep3d_solve": "epic_tpu/solver/pallas_sweep3d.py:88",
     # K12 via sweep_chunk_blocks (:86 -> :99); K13 via _sweep_chunk_gated (:238 -> :249),
-    # driven by _solve_collage_device (:275); each on both routes
+    # driven by _solve_collage_device (:275); each on all three routes
     "epic_batched2d_chunk/resident": "epic_tpu/solver/pallas_batched.py:65",
     "epic_batched2d_solve/resident": "epic_tpu/solver/pallas_batched.py:214",
+    "epic_batched2d_chunk/cluster": "epic_tpu/solver/pallas_batched.py:65",
+    "epic_batched2d_solve/cluster": "epic_tpu/solver/pallas_batched.py:214",
     "epic_batched2d_chunk/streamed": "epic_tpu/solver/pallas_batched.py:65",
     "epic_batched2d_solve/streamed": "epic_tpu/solver/pallas_batched.py:214",
     # K3 (and T2 :100), K5, and with u1 T1
@@ -1662,7 +1684,7 @@ def phase_batch(dev) -> dict:
                                  f"{ws}^2 lanes: solve capped at {BATCH_CAP}"))
     require(wide_err == 0.0, f"{ws}^2 lanes: kernel and plain differ by {wide_err}")
     routes = dict(hopper_batched.routes)
-    require(routes["streamed"] == 0 and routes["resident"] > 0,
+    require(routes["streamed"] == routes["cluster"] == 0 and routes["resident"] > 0,
             f"batch: a launch left the resident route: {routes}")
     pick = [0, lanes - 1, *np.random.default_rng(1).choice(np.arange(1, lanes - 1), 2, replace=False)]
     solo = solo_lanes(dev, u0, locked, full, pick, BATCH_SOLVE_CAP, "batch")
@@ -1729,7 +1751,7 @@ def phase_batch_goals(dev) -> dict:
     plain = {**{f"batched.{k}": v for k, v in batched.calls.items()},
              **{f"core.{k}": v for k, v in core.calls.items()}}
     require(all(v > 0 for v in launches.values()), f"a batch kernel never ran on the main path: {launches}")
-    require(routes == {"resident": sum(launches.values()), "streamed": 0},
+    require(routes == {"resident": sum(launches.values()), "cluster": 0, "streamed": 0},
             f"goal batch: a launch left the resident route: {routes}")
     require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
 
@@ -1755,12 +1777,15 @@ def phase_batch_goals(dev) -> dict:
     return {"launches": {f"{k}/resident": v for k, v in launches.items()}, "err": err}
 
 
-def phase_batch_big(dev) -> dict:
-    """The streamed route: lanes beyond a block's shared memory."""
+def big_lanes(dev, phase: str, shape, cap: int, route: str) -> dict:
+    """Lanes beyond a block's shared memory on one route ("cluster" or
+    "streamed"), which the rule must pick: phases batch_big, batch_huge
+    and batch_few."""
     from epic_tpu_torch.solver import batched, core, hopper_batched
 
-    lanes, side = BATCH_BIG
-    require(not hopper_batched.lane_resident(side, side, dev), f"{side}^2 lanes fit shared memory")
+    lanes, side = shape
+    blocks = hopper_batched._blocks(lanes, side, side, dev)
+    require(blocks[1] == route, f"{side}^2 lanes take the {blocks[1]} route, not the {route} one")
     u_np, l_np = batch_arrays(lanes, side, seed=2)
     u_np[0] = -1e6    # lane 0 goalless: it retires at its first check past `side` sweeps
     u0, locked = batched.batch_from_numpy(u_np, l_np, device=dev)
@@ -1773,18 +1798,18 @@ def phase_batch_big(dev) -> dict:
             f"k{it0}", hopper_batched.update_n_batch(ku, locked, it0, 100)))
     x = u0.clone()
     ms["device"] = event_ms(lambda: res.__setitem__("device", hopper_batched.solve_batch_device(
-        x, locked, BATCH_EPS, STAGGER, BATCH_BIG_CAP)))
+        x, locked, BATCH_EPS, STAGGER, cap)))
     y = u0.clone()
     ms["host"] = event_ms(lambda: res.__setitem__("host", hopper_batched.solve_batch(
-        y, locked, BATCH_EPS, STAGGER, BATCH_BIG_CAP)))
+        y, locked, BATCH_EPS, STAGGER, cap)))
     torch.cuda.synchronize()
     launches = dict(hopper_batched.launches)
     routes = dict(hopper_batched.routes)
     plain = {**{f"batched.{k}": v for k, v in batched.calls.items()},
              **{f"core.{k}": v for k, v in core.calls.items()}}
     require(all(v > 0 for v in launches.values()), f"a batch kernel never ran on the main path: {launches}")
-    require(routes == {"resident": 0, "streamed": sum(launches.values())},
-            f"big lanes: a launch left the streamed route: {routes}")
+    require(routes == {r: sum(launches.values()) if r == route else 0 for r in routes},
+            f"{side}^2 lanes: a launch left the {route} route: {routes}")
     require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
 
     chunk_errs = []
@@ -1792,25 +1817,27 @@ def phase_batch_big(dev) -> dict:
         ms[f"chunk_plain{it0}"] = event_ms(lambda: res.__setitem__(
             "p", batched.update_n_batch(u0, locked, it0, 100)))
         k, p = res[f"k{it0}"], res["p"]
-        require(bool(torch.isfinite(k[0]).all()), "big-lane chunk: non-finite values")
+        require(bool(torch.isfinite(k[0]).all()), f"{side}^2 chunk: non-finite values")
         err = max(max_abs(k[0], p[0]), max_abs(k[1], p[1]))
-        require(err == 0.0, f"big-lane 100-sweep chunk from iteration {it0}: kernel and plain differ by {err}")
+        require(err == 0.0, f"{side}^2 100-sweep chunk from iteration {it0}: kernel and plain differ by {err}")
         chunk_errs.append(err)
     ms["plain"] = event_ms(lambda: res.__setitem__("plain", batched.solve_batch(
-        u0, locked, BATCH_EPS, STAGGER, BATCH_BIG_CAP)))
-    solve_err = max(compare_batch(res["device"], res["plain"], f"big-lane solve capped at {BATCH_BIG_CAP}"),
-                    compare_batch(res["host"], res["plain"], "big-lane host-driven solve"))
+        u0, locked, BATCH_EPS, STAGGER, cap)))
+    solve_err = max(compare_batch(res["device"], res["plain"], f"{side}^2 solve capped at {cap}"),
+                    compare_batch(res["host"], res["plain"], f"{side}^2 host-driven solve"))
     iters = res["device"][1].cpu().numpy()
     first = -(-(side - 1) // STAGGER) * STAGGER + 1    # the first check past `side` sweeps
     require(bool(res["device"][3][0]) and int(iters[0]) == first,
-            f"big lanes: the goalless lane retired at {int(iters[0])}, not {first}")
+            f"{side}^2 lanes: the goalless lane retired at {int(iters[0])}, not {first}")
     ku = res["k0"][0]
     chunk_ms10 = event_ms(lambda: hopper_batched.update_n_batch(ku, locked, 0, 100), reps=10)
     bounds = {"chunk": bound(locked, 0, 100, lanes=True),
               "capped_solve": bound(locked, 0, res["device"][1].cpu(), lanes=True)}
-    emit(phase="batch_big", lanes=lanes, shape=[side, side], eps=BATCH_EPS, stagger=STAGGER,
-         cap=BATCH_BIG_CAP, smem_bytes=hopper_batched.lane_smem_bytes(side, side),
+    emit(phase=phase, lanes=lanes, shape=[side, side], eps=BATCH_EPS, stagger=STAGGER, cap=cap,
+         route=route, blocks=blocks[0], resident_smem_bytes=hopper_batched.lane_smem_bytes(side, side),
+         cluster_smem_bytes=hopper_batched.cluster_smem_bytes(side, side, blocks[0]) if blocks[0] else None,
          smem_limit=torch.cuda.get_device_properties(dev).shared_memory_per_block_optin,
+         max_cluster=hopper_batched.max_cluster(dev),
          chunk_max_abs_err=max(chunk_errs), chunk_kernel_ms=ms["chunk0"],
          chunk_kernel_ms_odd=ms["chunk1"], chunk_kernel_ms_mean10=chunk_ms10,
          chunk_plain_ms=ms["chunk_plain0"], chunk_plain_ms_odd=ms["chunk_plain1"],
@@ -1818,10 +1845,24 @@ def phase_batch_big(dev) -> dict:
          capped_plain_ms=ms["plain"], capped_retired=int(res["device"][3].sum()),
          mean_iterations=float(iters.mean()), launches=launches, routes=routes,
          plain_calls=plain, bounds=bounds)
-    return {"launches": {f"{k}/streamed": v for k, v in launches.items()},
+    return {"launches": {f"{k}/{route}": v for k, v in launches.items()},
             "chunk_err": max(chunk_errs), "solve_err": solve_err,
             "chunk": (chunk_ms10, ms["chunk_plain0"], bounds["chunk"]),
             "solve": (ms["device"], ms["plain"], bounds["capped_solve"])}
+
+
+def phase_batch_few(dev) -> list[dict]:
+    """Both sides of lane_cluster's batch-size choice on BATCH_FEW_SIDE^2
+    lanes: as many lanes as fill half the SMs with the rule's clusters
+    (streamed), then twice as many (clusters)."""
+    from epic_tpu_torch.solver import hopper_batched
+
+    side = BATCH_FEW_SIDE
+    c = hopper_batched.lane_cluster(side, side, dev)
+    require(c > 0, f"{side}^2 lanes take no cluster")
+    few = torch.cuda.get_device_properties(dev).multi_processor_count // (2 * c)
+    return [big_lanes(dev, "batch_few", (n, side), BATCH_FEW_CAP, route)
+            for n, route in ((few, "streamed"), (2 * few, "cluster"))]
 
 
 def mesh_counts(ran: dict, what: str, drive) -> dict:
@@ -2741,8 +2782,13 @@ def main() -> None:
     b = phase_batch(dev)
     goals = phase_batch_goals(dev)
     launches.update(goals["launches"])
-    bb = phase_batch_big(dev)
+    bb = big_lanes(dev, "batch_big", BATCH_BIG, BATCH_BIG_CAP, "cluster")
     launches.update(bb["launches"])
+    bh = big_lanes(dev, "batch_huge", BATCH_HUGE, BATCH_HUGE_CAP, "streamed")
+    launches.update(bh["launches"])
+    bf = phase_batch_few(dev)
+    for r in bf:
+        add_counts(launches, r["launches"])
     big = phase_biggrid(dev)
     wide = phase_wide(dev)
     small = phase_tile_small(dev, maze, m["maze_solved"])
@@ -2773,8 +2819,10 @@ def main() -> None:
         "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
         "epic_batched2d_chunk/resident": b["chunk_err"],
         "epic_batched2d_solve/resident": max(b["solve_err"], goals["err"]),
-        "epic_batched2d_chunk/streamed": bb["chunk_err"],
-        "epic_batched2d_solve/streamed": bb["solve_err"],
+        "epic_batched2d_chunk/cluster": max(bb["chunk_err"], bf[1]["chunk_err"]),
+        "epic_batched2d_solve/cluster": max(bb["solve_err"], bf[1]["solve_err"]),
+        "epic_batched2d_chunk/streamed": max(bh["chunk_err"], bf[0]["chunk_err"]),
+        "epic_batched2d_solve/streamed": max(bh["solve_err"], bf[0]["solve_err"]),
         "epic_tile2d_chunk": tile_err,
         "epic_tile2d_cycle": tile_err,
         "epic_tile2d_solve": tile_err,
@@ -2790,7 +2838,7 @@ def main() -> None:
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
     # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2 (the resident batch
-    # route), 256 x 384^2 (the streamed one), 8192^2, 32 x 2048 x 2048 (the
+    # route), 256 x 384^2 (the cluster one), 32 x 1024^2 (the streamed one), 8192^2, 32 x 2048 x 2048 (the
     # volume the router sends to the 3D tiles; 256^3 beside it, under
     # "cube"), one 8192 x 4096 shard of the 16384^2 mesh, one 64 x 512 x 256 shard of the
     # 64 x 1024 x 1024 mesh, all eight shards of the 16384^2 mesh (the cycle
@@ -2803,8 +2851,10 @@ def main() -> None:
         "epic_sweep3d_solve": (v["solve_kernel_ms"], v["solve_plain_ms"], v["bounds"]["solve"]),
         "epic_batched2d_chunk/resident": (b["chunk_ms"], b["chunk_plain_ms"], b["chunk_bound"]),
         "epic_batched2d_solve/resident": (b["solve_ms"], b["solve_plain_ms"], b["solve_bound"]),
-        "epic_batched2d_chunk/streamed": bb["chunk"],
-        "epic_batched2d_solve/streamed": bb["solve"],
+        "epic_batched2d_chunk/cluster": bb["chunk"],
+        "epic_batched2d_solve/cluster": bb["solve"],
+        "epic_batched2d_chunk/streamed": bh["chunk"],
+        "epic_batched2d_solve/streamed": bh["solve"],
         "epic_tile2d_chunk": big["chunk"],
         "epic_tile2d_cycle": big["cycle"],
         "epic_tile2d_solve": big["solve"],

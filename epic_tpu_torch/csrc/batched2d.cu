@@ -18,8 +18,9 @@
 // iteration t is (y + x) % 2 != t % 2 in the lane's own coordinates. Lanes
 // never exchange data, and the lockstep protocol decides each lane on its
 // own delta (batched.py lockstep), so a lane can run its whole chunk, or its
-// whole solve, alone. Each entry has two routes, which the caller names
-// (solver/hopper_batched.py lane_resident; the entry never picks one).
+// whole solve, alone. Each entry has three routes, which the caller names
+// by the blocks a lane takes (solver/hopper_batched.py lane_resident and
+// lane_cluster; the entry never picks one).
 //
 // The resident route (a lane that fits a block's shared memory). The TPU
 // kernels keep a VMEM block of lanes for all num_sweeps sweeps; here one
@@ -47,7 +48,23 @@
 // eps[lane] and t + 1 >= m_max (iterations t + 1), else run stagger - 1
 // plain sweeps (iterations t + stagger).
 //
-// The streamed route (a lane too large for a block's shared memory). One
+// The cluster route (a lane too large for a block's shared memory that a
+// thread-block cluster of c = 2..16 blocks holds). One cluster owns one lane,
+// in an ordinary launch of B * c blocks with the cluster dimension as a
+// launch attribute (not cooperative: a cluster whose lane is done frees its
+// SMs for the next lane's cluster at once). Block `rank` keeps a band of
+// the lane's rows plus one halo row above and one below in the resident
+// layout (Band: the band is a small lane of its own, whose class flips where
+// its first kept row is odd) and walks it as a resident block walks its
+// lane. After each sweep it copies the cells its edge rows just updated into
+// the neighbouring bands' halo rows (DSMEM stores), then the cluster barrier
+// (barrier.cluster.arrive.release / wait.acquire): one barrier a sweep, and
+// HBM sees each cell once a chunk or a solve. Each block reduces its band's
+// delta with shuffles and an atomicMax on the float bits into a word of rank
+// 0's shared memory; the solve's verdict is read there by every block after
+// the checked sweep's barrier, so the cluster leaves its loop together.
+//
+// The streamed route (a lane too large for any cluster). One
 // persistent cooperative kernel strides its warps over the B * (H-2)
 // (lane, row) units, a sweep at a time, with
 // cooperative_groups::this_grid().sync() between sweeps; each warp reduces
@@ -57,7 +74,7 @@
 // skipped. u and the flags are read with __ldcg (L2, not L1): other blocks
 // write them during the launch.
 //
-// Numerics. lse4 from sweep_common.cuh, no --use_fast_math: both routes give
+// Numerics. lse4 from sweep_common.cuh, no --use_fast_math: every route gives
 // the plain version's bits on the card.
 //
 // Bound on this card. At 4096 lanes of 128^2 the batch holds 67M cells: 268
@@ -69,7 +86,9 @@
 // each cell through HBM once (0.18 ms for the batch at 3.35 TB/s), so the
 // route is bound by the instructions the SMs issue: an accurate lse4 is 71
 // SASS instructions (chip_smoke.py's issue_bound_ms) and the walk a dozen
-// more. PERF.md holds both routes' times beside the bounds.
+// more. The cluster route is bound the same way, plus a cluster barrier and
+// 2 (W + 1) / 2 DSMEM stores a block a sweep. PERF.md holds every route's
+// times beside the bounds.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -98,6 +117,13 @@ constexpr int kBigLaneThreads = 512;
 constexpr int kBigLaneMinBlocks = 2;
 constexpr int kSmallLanesPerSM = 3;
 constexpr int kDeltaSlots = 3;  // the solve's rotating delta words (lane_solve_kernel)
+
+// The cluster route's block (one band of a lane each). Measured with
+// `tile_probe --batch` on an H100 80GB HBM3 at 700 W (PERF.md): 1024
+// threads a block gained at most 4% at each batch's best size, lost up to 12%.
+constexpr int kClusterThreads = 512;
+constexpr int kClusterMinBlocks = 1;
+constexpr int kMaxCluster = 16;  // the largest cluster Hopper allows (non-portable past 8)
 
 // ---------------------------------------------------------------- streamed
 
@@ -508,6 +534,220 @@ cudaError_t launch_lanes(const void* small, const void* big, int B, int H, int W
   reinterpret_cast<const void*>(name<kSmallLaneThreads, kSmallLaneMinBlocks>),        \
       reinterpret_cast<const void*>(name<kBigLaneThreads, kBigLaneMinBlocks>)
 
+// ---------------------------------------------------------------- cluster
+
+// Block `rank` of a cluster of c cuts the lane's n = H - 2 interior rows into
+// c bands of n / c or n / c + 1 rows, the longer first (a rank past n gets
+// none): its first interior row r0 and its row count. The block keeps rows
+// r0 - 1 .. r0 + rows, its band and one halo row above and one below, as
+// the resident route keeps a lane of rows + 2 rows (LaneSmem, load_lane,
+// store_lane, sweep_lane), in the band's own coordinates: its halo rows are
+// that lane's ring (frozen), and its class-split arrays hold local class
+// (ly + x) & 1. Lane class q is local class q ^ ((r0 - 1) & 1): a band whose
+// first kept row is odd flips it.
+struct Band {
+  int r0, rows;
+  __host__ __device__ Band(int n, int c, int rank)
+      : r0(1 + rank * (n / c) + (rank < n % c ? rank : n % c)),
+        rows(n / c + (rank < n % c ? 1 : 0)) {}
+  __device__ LaneSmem smem(int W) const { return LaneSmem(rows + 2, W); }
+  __host__ __device__ int local(int q) const { return q ^ ((r0 - 1) & 1); }
+};
+
+// The largest band's layout: every block of a cluster launch gets it.
+size_t cluster_smem_bytes(int H, int W, int c) {
+  const int n = H > 2 ? H - 2 : 0;
+  return lane_smem_bytes(Band(n, c, 0).rows + 2, W);
+}
+
+// The cluster barrier: every thread of every block of the cluster arrives
+// (release: its shared and DSMEM stores before it are seen by any thread
+// past the wait) and waits (acquire).
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One block of a lane's cluster: its band, its layout, and where the band
+// of each neighbour keeps the halo row this band's edge row feeds.
+struct ClusterBlock {
+  cg::cluster_group cluster;
+  int n, c, rank, W;
+  Band band;
+  LaneSmem m;
+  __device__ ClusterBlock(int H, int w)
+      : cluster(cg::this_cluster()),
+        n(H - 2),
+        c(static_cast<int>(cluster.num_blocks())),
+        rank(static_cast<int>(cluster.block_rank())),
+        W(w),
+        band(n, c, rank),
+        m(band.rows + 2, w) {}
+  // Rank 0's delta word `slot`, where every block of the cluster reduces.
+  __device__ unsigned int* delta(int slot) const {
+    return cluster.map_shared_rank(Band(n, c, 0).smem(W).delta(slot), 0);
+  }
+  // The cells of lane class q in this band's first and last rows, copied
+  // into the bottom halo row of the band above and the top halo row of the
+  // band below (DSMEM stores; neighbour ranks without rows get nothing).
+  template <int kThreads>
+  __device__ void push_edges(int q) const {
+    if (band.rows == 0) return;
+    const int P = m.P;
+    const float* top = m.a(band.local(q)) + P;
+    const float* bottom = m.a(band.local(q)) + band.rows * P;
+    float* up = nullptr;
+    float* down = nullptr;
+    if (rank > 0) {
+      const Band b(n, c, rank - 1);
+      up = cluster.map_shared_rank(b.smem(W).a(b.local(q)) + (b.rows + 1) * P, rank - 1);
+    }
+    const Band below(n, c, rank + 1);
+    if (rank + 1 < c && below.rows > 0)
+      down = cluster.map_shared_rank(below.smem(W).a(below.local(q)), rank + 1);
+    for (int i = threadIdx.x; i < 2 * P; i += kThreads) {
+      if (i < P) {
+        if (up != nullptr) up[i] = top[i];
+      } else if (down != nullptr) {
+        down[i - P] = bottom[i - P];
+      }
+    }
+  }
+};
+
+// One sweep of lane class q over the block's band, then the push of its
+// edge rows and the cluster barrier. With kFirst the band's max |u1 - u0|
+// goes into `word` (rank 0's).
+template <bool kFirst, int kThreads>
+__device__ __forceinline__ void cluster_sweep(const ClusterBlock& cb, int q, unsigned int* word) {
+  const float local = sweep_lane<kFirst, kThreads>(cb.m, cb.band.local(q), 0.0f);
+  if (kFirst) reduce_delta(local, word);
+  __syncthreads();
+  cb.push_edges<kThreads>(q);
+  cluster_barrier();
+}
+
+// K12 on the cluster route: cluster L (c blocks) takes lane L. A lane whose
+// active flag is 0 returns at once in every block, before any DSMEM
+// access, with delta 0; else each block loads its band, a cluster barrier
+// (every block started, rank 0's delta words zeroed), num_sweeps sweeps
+// from iteration *it, delta[L] the sweep-0 delta, and each block writes
+// its band back. The last sweep's barrier is the last DSMEM access.
+template <int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cluster_chunk_kernel(float* u, const uint8_t* locked, int H, int W, const int* it,
+                     int num_sweeps, const uint8_t* active, float* delta) {
+  const ClusterBlock cb(H, W);
+  const int L = blockIdx.x / cb.c;
+  if (active != nullptr && active[L] == 0) {
+    if (cb.rank == 0 && threadIdx.x == 0) delta[L] = 0.0f;
+    return;
+  }
+  const size_t off = (static_cast<size_t>(L) * H + cb.band.r0 - 1) * W;
+  load_lane<kThreads>(u + off, locked + off, cb.m);
+  cb.cluster.sync();
+  const int t0 = *it;
+  cluster_sweep<true, kThreads>(cb, (t0 & 1) ^ 1, cb.delta(0));
+  for (int s = 1; s < num_sweeps; ++s)
+    cluster_sweep<false, kThreads>(cb, ((t0 + s) & 1) ^ 1, nullptr);
+  if (cb.rank == 0 && threadIdx.x == 0) delta[L] = __uint_as_float(*cb.m.delta(0));
+  store_lane<kThreads>(u + off, cb.m);
+}
+
+// K13 and _solve_collage_device's loop on the cluster route: cluster L runs
+// lane_solve_kernel's protocol for lane L. Cycle k reduces into rank 0's
+// delta slot k % 3 and, after the checked sweep's whole barrier, every
+// thread of the cluster reads it and takes the same verdict. Rank 0's
+// thread 0 clears slot (k + 1) % 3 before that barrier: every block read it
+// in cycle k - 2, before arriving at a barrier that rank 0 has passed, and
+// reduces into it only after this one. A last barrier keeps rank 0's words
+// alive until every block has read them; rank 0 writes the results.
+template <int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cluster_solve_kernel(float* u, const uint8_t* locked, int H, int W, const float* eps,
+                     int m_max, int max_iterations, int stagger, uint8_t* retired, int* iters,
+                     float* deltas) {
+  const ClusterBlock cb(H, W);
+  const int L = blockIdx.x / cb.c;
+  const size_t off = (static_cast<size_t>(L) * H + cb.band.r0 - 1) * W;
+  load_lane<kThreads>(u + off, locked + off, cb.m);
+  cb.cluster.sync();
+  const float e = eps[L];
+  float d = 0.0f;
+  bool done = false;
+  int t = 0;
+  for (int k = 0; t < max_iterations; t += stagger, ++k) {
+    unsigned int* word = cb.delta(k % kDeltaSlots);
+    if (cb.rank == 0 && threadIdx.x == 0) *cb.m.delta((k + 1) % kDeltaSlots) = 0u;
+    cluster_sweep<true, kThreads>(cb, (t & 1) ^ 1, word);
+    d = __uint_as_float(*word);
+    done = d < e && t + 1 >= m_max;
+    if (done) break;
+    for (int s = 1; s < stagger; ++s)
+      cluster_sweep<false, kThreads>(cb, ((t + s) & 1) ^ 1, nullptr);
+  }
+  cb.cluster.sync();
+  if (cb.rank == 0 && threadIdx.x == 0 && max_iterations > 0) {
+    deltas[L] = d;
+    iters[L] = done ? t + 1 : t;
+    retired[L] = done;
+  }
+  store_lane<kThreads>(u + off, cb.m);
+}
+
+// A launch of a cluster kernel for c blocks a lane: B * c blocks of
+// kClusterThreads, clusters of c, each block with cluster_smem_bytes. A c
+// outside 2..kMaxCluster, a lane under 3 x 3, a band beyond the device's
+// opt-in shared memory a block, or a cluster the occupancy query cannot
+// place is refused (cudaErrorInvalidValue, cudaErrorInvalidConfiguration)
+// with no launch: the caller names the route, and no other is taken.
+cudaError_t cluster_config(const void* kernel, int B, int H, int W, int c, int device,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  if (c < 2 || c > kMaxCluster || H < 3 || W < 3) return cudaErrorInvalidValue;
+  int limit = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                           device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = cluster_smem_bytes(H, W, c);
+  if (smem > static_cast<size_t>(limit)) return cudaErrorInvalidValue;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (c > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned int>(B > 0 ? B : 1) * c);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, cfg);
+  if (err != cudaSuccess) return err;
+  return clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+cudaError_t launch_clusters(const void* kernel, int B, int H, int W, int c, void** args,
+                            int device, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, B, H, W, c, device, stream, &cfg, &attr);
+  if (err != cudaSuccess || B == 0) return err;
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+#define CLUSTER_KERNEL(name) \
+  reinterpret_cast<const void*>(name<kClusterThreads, kClusterMinBlocks>)
+
 }  // namespace
 
 extern "C" {
@@ -515,19 +755,64 @@ extern "C" {
 // Each entry launches on `stream` (PyTorch's current stream, as a pointer),
 // does not synchronise, allocates nothing, and returns the cudaError_t of the
 // launch (0 on success). u is f32[B, H, W] and locked u8[B, H, W], contiguous.
-// `resident` names the route: 1 the resident kernels (refused with
-// cudaErrorInvalidValue for a lane beyond epic_batched2d_smem_bytes' fit), 0
-// the streamed ones.
+// `blocks` names the route by the blocks a lane takes: 0 the streamed
+// kernels, 1 the resident ones (refused with cudaErrorInvalidValue for a lane
+// beyond epic_batched2d_smem_bytes' fit), c >= 2 the cluster kernels with
+// clusters of c (refused as cluster_config says).
 
 // The resident route's dynamic shared memory for an H x W lane.
 long long epic_batched2d_smem_bytes(int H, int W) {
   return static_cast<long long>(lane_smem_bytes(H, W));
 }
 
+// The cluster route's dynamic shared memory a block for an H x W lane in
+// clusters of c: the largest band's layout.
+long long epic_batched2d_cluster_smem_bytes(int H, int W, int c) {
+  return c < 1 ? -1 : static_cast<long long>(cluster_smem_bytes(H, W, c));
+}
+
+// *largest: the largest c <= kMaxCluster for which the occupancy query
+// places at least one cluster of the cluster chunk kernel, each block with
+// the device's whole opt-in shared memory (so any lane's band fits), or 0.
+int epic_batched2d_max_cluster(int device, int* largest) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int limit = 0;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const void* kernel = CLUSTER_KERNEL(cluster_chunk_kernel);
+  err = allow_smem(kernel, limit);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *largest = 0;
+  for (int c = kMaxCluster; c >= 2; --c) {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = c;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = limit;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters > 0) {
+      *largest = c;
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
 // delta is f32[B]: the streamed route max-accumulates into it (the caller
-// zeroes it), the resident route writes every lane's.
+// zeroes it), the resident and cluster routes write every lane's.
 int epic_batched2d_chunk(void* u, const void* locked, int B, int H, int W, const void* it,
-                         int num_sweeps, const void* active, void* delta, int resident,
+                         int num_sweeps, const void* active, void* delta, int blocks,
                          void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -536,28 +821,30 @@ int epic_batched2d_chunk(void* u, const void* locked, int B, int H, int W, const
   const int* it_i = static_cast<const int*>(it);
   const uint8_t* active_b = static_cast<const uint8_t*>(active);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident) {
+  if (blocks != 0) {
     float* delta_f = static_cast<float*>(delta);
     void* args[] = {&u_f, &locked_b, &H, &W, &it_i, &num_sweeps, &active_b, &delta_f};
-    return launch_lanes(LANE_KERNELS(lane_chunk_kernel), B, H, W, args, device, s);
+    if (blocks == 1) return launch_lanes(LANE_KERNELS(lane_chunk_kernel), B, H, W, args, device, s);
+    return launch_clusters(CLUSTER_KERNEL(cluster_chunk_kernel), B, H, W, blocks, args, device, s);
   }
-  int blocks = 0;
-  err = batch_blocks(reinterpret_cast<const void*>(stream_chunk_kernel), device, B, H, &blocks);
+  int nb = 0;
+  err = batch_blocks(reinterpret_cast<const void*>(stream_chunk_kernel), device, B, H, &nb);
   if (err != cudaSuccess) return err;
   unsigned int* delta_bits = static_cast<unsigned int*>(delta);
   void* args[] = {&u_f, &locked_b, &B, &H, &W, &it_i, &num_sweeps, &active_b, &delta_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(stream_chunk_kernel),
-                                    dim3(blocks), dim3(kThreadsB), args, 0, s);
+                                    dim3(nb), dim3(kThreadsB), args, 0, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // retired u8[B], iters i32[B] and deltas f32[B] hold the caller's starting
 // values (0, 0, eps + 1). acc (u32[2B]) and count (i32[2]), zeroed, are the
-// streamed route's scratch; the resident route reads neither (null).
+// streamed route's scratch; the resident and cluster routes read neither
+// (null).
 int epic_batched2d_solve(void* u, const void* locked, int B, int H, int W, const void* eps,
                          int m_max, int max_iterations, int stagger, void* acc, void* count,
-                         void* retired, void* iters, void* deltas, int resident, void* stream,
+                         void* retired, void* iters, void* deltas, int blocks, void* stream,
                          int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -568,20 +855,21 @@ int epic_batched2d_solve(void* u, const void* locked, int B, int H, int W, const
   int* iters_i = static_cast<int*>(iters);
   float* deltas_f = static_cast<float*>(deltas);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident) {
+  if (blocks != 0) {
     void* args[] = {&u_f, &locked_b, &H, &W, &eps_f, &m_max, &max_iterations, &stagger,
                     &retired_b, &iters_i, &deltas_f};
-    return launch_lanes(LANE_KERNELS(lane_solve_kernel), B, H, W, args, device, s);
+    if (blocks == 1) return launch_lanes(LANE_KERNELS(lane_solve_kernel), B, H, W, args, device, s);
+    return launch_clusters(CLUSTER_KERNEL(cluster_solve_kernel), B, H, W, blocks, args, device, s);
   }
-  int blocks = 0;
-  err = batch_blocks(reinterpret_cast<const void*>(stream_solve_kernel), device, B, H, &blocks);
+  int nb = 0;
+  err = batch_blocks(reinterpret_cast<const void*>(stream_solve_kernel), device, B, H, &nb);
   if (err != cudaSuccess) return err;
   unsigned int* acc_u = static_cast<unsigned int*>(acc);
   int* count_i = static_cast<int*>(count);
   void* args[] = {&u_f, &locked_b, &B, &H, &W, &eps_f, &m_max, &max_iterations, &stagger,
                   &acc_u, &count_i, &retired_b, &iters_i, &deltas_f};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(stream_solve_kernel),
-                                    dim3(blocks), dim3(kThreadsB), args, 0, s);
+                                    dim3(nb), dim3(kThreadsB), args, 0, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

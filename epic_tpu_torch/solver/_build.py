@@ -121,6 +121,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.epic_batched2d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i, p, i]
     lib.epic_batched2d_smem_bytes.argtypes = [i, i]
     lib.epic_batched2d_smem_bytes.restype = ll
+    lib.epic_batched2d_cluster_smem_bytes.argtypes = [i, i, i]
+    lib.epic_batched2d_cluster_smem_bytes.restype = ll
+    lib.epic_batched2d_max_cluster.argtypes = [i, p]
+    lib.epic_batched2d_max_cluster.restype = i
     lib.epic_tile2d_chunk.argtypes = [p, p, p, p, i, i, p, i, i, p, i, p, i]
     lib.epic_tile2d_cycle.argtypes = [p, p, p, i, i, p, i, i, i, p, i, p, i]
     lib.epic_tile2d_solve.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, p, p, i, p, i]

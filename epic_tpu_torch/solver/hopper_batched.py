@@ -14,13 +14,19 @@ VMEM-sized blocks; any height works. A batch on the CPU goes to the plain
 version in :mod:`.batched`; a batch on a CUDA device goes to the kernels or
 raises.
 
-Two routes, one rule. A lane whose layout (:func:`lane_smem_bytes`) fits
+Three routes, one rule. A lane whose layout (:func:`lane_smem_bytes`) fits
 the device's opt-in shared memory a block (:func:`lane_resident`; lanes up
 to about 236 x 236 on an H100) takes the resident route: a block a lane,
 which stays in shared memory for the whole chunk or the whole solve. A
-larger lane takes the streamed route: one cooperative kernel over (lane,
-row) units, a grid barrier a sweep. The wrapper names the route to the C
-entry, which refuses a resident lane that does not fit; nothing retries.
+larger lane that a thread-block cluster can hold (:func:`lane_cluster`;
+up to 930 x 930 on an H100, clusters of 16) takes the cluster route: a
+cluster of C blocks a lane, each block a band of its rows
+(:func:`bands`, :func:`cluster_smem_bytes`), also for the whole chunk or
+solve. A lane beyond any cluster, and a batch too small to fill half the
+SMs with its clusters, takes the streamed route: one cooperative kernel
+over (lane, row) units, a grid barrier a sweep. The wrapper names
+the route to the C entry by the blocks a lane takes (0 streamed, 1
+resident, C); the entry refuses a lane that does not fit; nothing retries.
 
 In place: on CUDA the kernels relax ``u`` in place and the returned ``u``
 is the same tensor; keep only what a call returns. The solves return
@@ -33,6 +39,8 @@ launch; nothing else changes them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import constants as C
@@ -40,10 +48,17 @@ from . import _build, batched
 from .hopper_sweep import _iteration, _stream
 
 launches = {"epic_batched2d_chunk": 0, "epic_batched2d_solve": 0}
-routes = {"resident": 0, "streamed": 0}
+routes = {"resident": 0, "cluster": 0, "streamed": 0}
 
 # csrc/batched2d.cu's resident layout: the delta words after the lane.
 DELTA_SLOTS = 3
+# The cluster sizes lane_cluster takes, the smallest whose band fits. Measured
+# with `tile_probe --batch` on an H100 80GB HBM3 at 700 W (PERF.md): at 256
+# lanes the smallest fitting size of these was the fastest or within 3% of
+# it from 240^2 to 930^2, while clusters of 6 lost 22% to clusters of 8 at
+# 512^2 (blocks of a cluster share a GPC, whose SMs clusters of 2, 4, 8 and
+# 16 fill evenly).
+CLUSTER_SIZES = (2, 3, 4, 8, 16)
 
 
 def lane_smem_bytes(h: int, w: int) -> int:
@@ -60,6 +75,72 @@ def lane_resident(h: int, w: int, device: torch.device) -> bool:
     layout fits its opt-in shared memory a block."""
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     return h >= 1 and w >= 1 and lane_smem_bytes(h, w) <= limit
+
+
+def bands(h: int, c: int) -> list[tuple[int, int]]:
+    """Each block's band of an ``h``-row lane in a cluster of ``c``, as
+    ``csrc/batched2d.cu``'s ``Band`` cuts the ``h - 2`` interior rows: its
+    first interior row and its row count, ``n // c`` or ``n // c + 1``
+    rows, the longer first (a rank past ``n`` gets none)."""
+    n = max(h - 2, 0)
+    q, rem = divmod(n, c)
+    return [(1 + r * q + min(r, rem), q + (r < rem)) for r in range(c)]
+
+
+def cluster_smem_bytes(h: int, w: int, c: int) -> int:
+    """The cluster route's shared memory a block for ``h x w`` lanes in
+    clusters of ``c`` (``epic_batched2d_cluster_smem_bytes``): the resident
+    layout of the largest band and its two halo rows."""
+    return lane_smem_bytes(bands(h, c)[0][1] + 2, w)
+
+
+_largest_cluster: dict[int, int] = {}
+
+
+def max_cluster(device: torch.device) -> int:
+    """The largest cluster (2..16, or 0) that ``device`` co-schedules for
+    the cluster kernels with its whole opt-in shared memory a block, as the
+    occupancy query answers it (``epic_batched2d_max_cluster``); asked once a
+    device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _largest_cluster:
+        largest = ctypes.c_int(0)
+        _build.check(_build.load().epic_batched2d_max_cluster(index, ctypes.byref(largest)),
+                     "epic_batched2d_max_cluster")
+        _largest_cluster[index] = largest.value
+    return _largest_cluster[index]
+
+
+def lane_cluster(h: int, w: int, device: torch.device, lanes: int | None = None) -> int:
+    """The cluster size for ``h x w`` lanes on ``device``: 0 where
+    :func:`lane_resident` admits them, else the smallest of
+    ``CLUSTER_SIZES`` up to :func:`max_cluster` whose largest band fits the
+    device's opt-in shared memory a block; 0 (the streamed route) if none
+    does. Given the batch's ``lanes``, also 0 where the batch's clusters
+    would fill at most half the device's SMs: a few large lanes (a planner's
+    few goals on a large map) sweep faster streamed, every SM on the batch
+    while it sits in the L2 (measured with `tile_probe --batch` at 8 to 256
+    lanes; PERF.md)."""
+    if h < 3 or w < 3 or lane_resident(h, w, device):
+        return 0
+    props = torch.cuda.get_device_properties(device)
+    largest = max_cluster(device)
+    fits = [c for c in CLUSTER_SIZES
+            if c <= largest and cluster_smem_bytes(h, w, c) <= props.shared_memory_per_block_optin]
+    if not fits or (lanes and 2 * lanes * fits[0] <= props.multi_processor_count):
+        return 0
+    return fits[0]
+
+
+def _blocks(b: int, h: int, w: int, device: torch.device) -> tuple[int, str]:
+    """The blocks a lane of a ``b``-lane batch takes, as the C entries name
+    the route (1 resident, C >= 2 a cluster of C, 0 streamed), and the
+    route's name."""
+    if lane_resident(h, w, device):
+        return 1, "resident"
+    c = lane_cluster(h, w, device, b)
+    return c, "cluster" if c else "streamed"
 
 
 def _check_cuda_batch(u: torch.Tensor, locked: torch.Tensor) -> None:
@@ -95,16 +176,16 @@ def _launch_chunk(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: i
     dev = u.device
     it = _iteration(iteration, dev)
     flags = None if active is None else _lane_flags(active, u)
-    resident = lane_resident(*u.shape[1:], dev)
-    # The streamed route max-accumulates into zeroed slots; the resident one writes each.
-    delta = (torch.empty if resident else torch.zeros)(u.shape[0], dtype=torch.float32, device=dev)
+    blocks, route = _blocks(*u.shape, dev)
+    # The streamed route max-accumulates into zeroed slots; the others write each.
+    delta = (torch.empty if blocks else torch.zeros)(u.shape[0], dtype=torch.float32, device=dev)
     err = _build.load().epic_batched2d_chunk(
         u.data_ptr(), locked.data_ptr(), *u.shape, it.data_ptr(), num_steps,
-        None if flags is None else flags.data_ptr(), delta.data_ptr(), int(resident),
+        None if flags is None else flags.data_ptr(), delta.data_ptr(), blocks,
         _stream(dev), dev.index)
     _build.check(err, "epic_batched2d_chunk")
     launches["epic_batched2d_chunk"] += 1
-    routes["resident" if resident else "streamed"] += 1
+    routes[route] += 1
     return u, delta
 
 
@@ -157,19 +238,19 @@ def solve_batch_device(u: torch.Tensor, locked: torch.Tensor, epsilon=C.DEFAULT_
     retired = torch.zeros(b, dtype=torch.uint8, device=dev)
     iters = torch.zeros(b, dtype=torch.int32, device=dev)
     deltas = eps + 1.0
-    resident = lane_resident(h, w, dev)
+    blocks, route = _blocks(b, h, w, dev)
     # The streamed route's scratch: two [B] delta halves and two lane counts.
-    acc = None if resident else torch.zeros(2 * b, dtype=torch.int32, device=dev)
-    count = None if resident else torch.zeros(2, dtype=torch.int32, device=dev)
+    acc = None if blocks else torch.zeros(2 * b, dtype=torch.int32, device=dev)
+    count = None if blocks else torch.zeros(2, dtype=torch.int32, device=dev)
     err = _build.load().epic_batched2d_solve(
         u.data_ptr(), locked.data_ptr(), b, h, w, eps.data_ptr(), max(h, w),
         min(max_iterations, 2**31 - 1 - stagger), stagger,
         None if acc is None else acc.data_ptr(), None if count is None else count.data_ptr(),
-        retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), int(resident), _stream(dev),
+        retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), blocks, _stream(dev),
         dev.index)
     _build.check(err, "epic_batched2d_solve")
     launches["epic_batched2d_solve"] += 1
-    routes["resident" if resident else "streamed"] += 1
+    routes[route] += 1
     return u, iters, deltas, retired.bool()
 
 

@@ -2,7 +2,8 @@
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
 [--sides ...] [--volumes ...] [--shapes] [--ablate3d] [--solve3d] [--mesh3d] [--compare3d FILE]
-[--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--batch] [--sass]``. It prints the card's name
+[--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--batch] [--batch-small]
+[--ablate-batch] [--sass]``. It prints the card's name
 and power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` runs after one warm-up:
 
@@ -79,7 +80,22 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   128^2 cells, a 100-sweep chunk on the resident route under each candidate
   and on the streamed route; at 128^2 also the solve capped at 1,000, a
   chunk with one lane active, and chip_smoke.py's goal batch (cap 8,000). In turns (each candidate, then the streamed
-  route, then the same in reverse), the results held equal bit for bit;
+  route, then the same in reverse), the results held equal bit for bit.
+  Then the cluster route: each ``CLUSTER_VARIANTS`` copy at each cluster
+  size of ``CLUSTER_SIZES`` that fits, for square lanes of each side of
+  ``CLUSTER_SIDES`` (or ``--sides``, which also skips the resident part)
+  and the largest :func:`hopper_batched.lane_cluster` admits, at each
+  batch of ``CLUSTER_LANES``, a 100-sweep chunk beside the streamed route
+  (at ``CLUSTER_SOLVE`` also the capped solve), in turns, the same bits;
+  each row names the cluster the rule picks;
+- ``--batch-small``: each cluster variant on small lanes at clusters of
+  2, 3, 4 and 8, a gated chunk and a capped solve held to the plain
+  version bit for bit; small enough to run under ``compute-sanitizer``;
+- ``--ablate-batch``: where the cluster route spends its time. Copies of
+  the library whose ``csrc/batched2d.cu`` drops the cluster barrier after
+  each sweep, or the edge pushes, time a 100-sweep chunk of 256 lanes
+  beside the source's (``ABLATE_BATCH_CASES``); only the source's bits are
+  checked;
 - ``--ablate3d``: where the 3D tile pass spends its time. Copies of the
   library whose ``csrc/tile3d.cu`` replaces each lse6 by a max of the six
   neighbours, or drops the barrier of each step, time a 100-sweep tick
@@ -161,6 +177,33 @@ LANE_BLOCKS = {
 }
 BATCH_SIDES = (32, 64, 96, 128, 160, 192, 224)
 BATCH_CELLS = 4096 * 128 * 128
+# --batch's cluster candidates: csrc/batched2d.cu as it is and with 1024
+# threads a block; each at every cluster size of CLUSTER_SIZES whose band
+# fits, at each side of CLUSTER_SIDES (and the largest lane_cluster admits)
+# and each batch of CLUSTER_LANES lanes, beside the streamed route.
+CLUSTER_VARIANTS = {
+    "source": {},
+    "t1024": {"kClusterThreads": 1024},
+}
+CLUSTER_SIZES = (2, 3, 4, 6, 8, 16)
+CLUSTER_SIDES = (240, 300, 384, 512, 640, 900)
+CLUSTER_LANES = (8, 16, 32, 64, 256)
+CLUSTER_SOLVE = (384, 256, 1000)   # side, lanes, cap of the capped solve also timed
+BATCH_SMALL = ((3, 41, 37), (2, 3, 131), (2, 9, 20))   # --batch-small's lanes x H x W
+# --ablate-batch: csrc/batched2d.cu without the cluster barrier after each
+# sweep (a whole barrier kept before the chunk ends) or without the edge
+# pushes (text edits; their bits are not the plain version's), timed beside
+# the source on 256 lanes of these (side, cluster size).
+ABLATE_BATCH = {
+    "no_barrier": (("  cb.push_edges<kThreads>(q);\n  cluster_barrier();",
+                    "  cb.push_edges<kThreads>(q);\n  __syncthreads();"),
+                   ("  if (cb.rank == 0 && threadIdx.x == 0) delta[L] = __uint_as_float",
+                    "  cb.cluster.sync();\n"
+                    "  if (cb.rank == 0 && threadIdx.x == 0) delta[L] = __uint_as_float")),
+    "no_push": (("    if (band.rows == 0) return;\n    const int P = m.P;",
+                 "    return;\n    const int P = m.P;"),),
+}
+ABLATE_BATCH_CASES = ((384, 3), (384, 8), (640, 8), (930, 16))
 
 
 def random_state(shape, dev: torch.device, seed: int = 0) -> G.GridState:
@@ -797,7 +840,8 @@ def probe_batch(dev, reps: int, sides=BATCH_SIDES) -> None:
     fit = 3
     while hopper_batched.lane_resident(fit + 1, fit + 1, dev):
         fit += 1
-    rule = hopper_batched.lane_resident
+    rule, cluster_rule = hopper_batched.lane_resident, hopper_batched.lane_cluster
+    hopper_batched.lane_cluster = lambda h, w, d, lanes=None: 0   # past resident: streamed
     order = [*libs, "streamed"]
     try:
         for side in (*sides, fit):
@@ -834,7 +878,135 @@ def probe_batch(dev, reps: int, sides=BATCH_SIDES) -> None:
                 print(json.dumps(dict(probe="batch", side=side, lanes=lanes, variant=name, **{
                     k: [r[k] for r in rows] for k in rows[0]})), flush=True)
     finally:
-        hopper_batched.lane_resident = rule
+        hopper_batched.lane_resident, hopper_batched.lane_cluster = rule, cluster_rule
+        _build._lib = None
+
+
+def probe_clusters(dev, reps: int, sides=CLUSTER_SIDES) -> None:
+    """The cluster route's candidates (variant, cluster size) and the
+    streamed route on the same lanes, in turns, the same bits required."""
+    from .solver import hopper_batched
+
+    libs = build_libraries({name: lane_variant(c) for name, c in CLUSTER_VARIANTS.items()},
+                           "batched2d.cu")
+    _build._lib = libs["source"]
+    largest = hopper_batched.max_cluster(dev)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    top = 237
+    while hopper_batched.lane_cluster(top + 1, top + 1, dev):
+        top += 1
+    rules = hopper_batched.lane_resident, hopper_batched.lane_cluster
+    print(json.dumps(dict(probe="cluster_rule", max_cluster=largest, smem_limit=limit,
+                          largest_side=top)), flush=True)
+    try:
+        hopper_batched.lane_resident = lambda h, w, d: False
+        for side, lanes in itertools.product((*sides, top), CLUSTER_LANES):
+            u0, locked = random_batch(lanes, side, dev)
+            order = [(name, c) for name in libs for c in CLUSTER_SIZES
+                     if c <= largest and hopper_batched.cluster_smem_bytes(side, side, c) <= limit]
+            order.append(("streamed", 0))
+            work = {"chunk": lambda u: hopper_batched.update_n_batch(u, locked, 0, 100)}
+            if (side, lanes) == CLUSTER_SOLVE[:2]:
+                work["solve"] = lambda u: hopper_batched.solve_batch_device(
+                    u, locked, 1e-2, 100, CLUSTER_SOLVE[2])
+            times = {key: [] for key in order}
+            outs = {}
+            for name, c in order + order[::-1]:
+                _build._lib = libs.get(name, libs["source"])
+                hopper_batched.lane_cluster = lambda h, w, d, lanes=None, c=c: c
+                row = {}
+                for what, fn in work.items():
+                    x = u0.clone()
+                    row[f"{what}_ms"] = event_ms(
+                        (lambda: fn(x.copy_(u0))) if what == "solve" else (lambda: fn(x)), reps)
+                    out = fn(x.copy_(u0))
+                    torch.cuda.synchronize()
+                    ref = outs.setdefault(what, [t.clone() for t in out])
+                    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                        raise RuntimeError(f"--batch {lanes} x {side}^2 {what}: {name} c={c} differs")
+                times[(name, c)].append(row)
+            for (name, c), rows in times.items():
+                print(json.dumps(dict(probe="cluster", side=side, lanes=lanes, variant=name,
+                                      blocks=c, rule=rules[1](side, side, dev, lanes), **{
+                                          k: [r[k] for r in rows] for k in rows[0]})), flush=True)
+            del u0, locked, outs
+    finally:
+        hopper_batched.lane_resident, hopper_batched.lane_cluster = rules
+        _build._lib = None
+
+
+def probe_batch_small(dev) -> None:
+    """Each ``CLUSTER_VARIANTS`` copy on small lanes (``BATCH_SMALL``) at
+    clusters of 2, 3, 4 and 8: a gated 7-sweep chunk from an odd iteration
+    and a solve capped at 300 (stagger 7, a goalless lane), held to the
+    plain version bit for bit. Small enough to run under compute-sanitizer."""
+    from .solver import batched, hopper_batched
+
+    libs = build_libraries({name: lane_variant(c) for name, c in CLUSTER_VARIANTS.items()},
+                           "batched2d.cu")
+    rules = hopper_batched.lane_resident, hopper_batched.lane_cluster
+    try:
+        hopper_batched.lane_resident = lambda h, w, d: False
+        for (lanes, h, w), (name, lib), c in itertools.product(BATCH_SMALL, libs.items(),
+                                                               (2, 3, 4, 8)):
+            _build._lib = lib
+            hopper_batched.lane_cluster = lambda hh, ww, d, lanes=None, c=c: c
+            u, locked = random_batch(lanes, max(h, w), dev, seed=c)
+            u, locked = u[:, :h, :w].contiguous(), locked[:, :h, :w].contiguous()
+            locked[:, -1] = True
+            locked[:, :, -1] = True
+            u[0] = -1e6   # a goalless lane
+            gate = torch.arange(lanes, device=dev) % 3 != 1
+            chunk = hopper_batched.update_n_batch(u.clone(), locked, 1, 7, gate)
+            solve = hopper_batched.solve_batch_device(u.clone(), locked, 1e-2, 7, 300)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in (
+                *zip(chunk, batched.update_n_batch(u, locked, 1, 7, gate)),
+                *zip(solve, batched.solve_batch(u, locked, 1e-2, 7, 300))))
+            print(json.dumps(dict(probe="batch_small", shape=[lanes, h, w], variant=name,
+                                  blocks=c, same_bits=same)), flush=True)
+    finally:
+        hopper_batched.lane_resident, hopper_batched.lane_cluster = rules
+        _build._lib = None
+
+
+def probe_ablate_batch(dev, reps: int) -> None:
+    """The cluster chunk's time with its barrier or its pushes taken out,
+    beside the source's, in turns; only the source's bits are checked
+    (against the plain version)."""
+    from .solver import batched, hopper_batched
+
+    text = (_build.CSRC / "batched2d.cu").read_text()
+    variants = {"source": text}
+    for name, edits in ABLATE_BATCH.items():
+        v = text
+        for old, new in edits:
+            if v.count(old) != 1:
+                raise RuntimeError(f"batched2d.cu no longer has what --ablate-batch edits for {name}")
+            v = v.replace(old, new)
+        variants[name] = v
+    libs = build_libraries(variants, "batched2d.cu")
+    rules = hopper_batched.lane_resident, hopper_batched.lane_cluster
+    try:
+        hopper_batched.lane_resident = lambda h, w, d: False
+        for side, c in ABLATE_BATCH_CASES:
+            hopper_batched.lane_cluster = lambda h, w, d, lanes=None, c=c: c
+            u0, locked = random_batch(256, side, dev)
+            times = {name: [] for name in libs}
+            for name in [*libs, *reversed(libs)]:
+                _build._lib = libs[name]
+                x = u0.clone()
+                times[name].append(event_ms(
+                    lambda: hopper_batched.update_n_batch(x, locked, 0, 100), reps))
+            _build._lib = libs["source"]
+            out = hopper_batched.update_n_batch(u0.clone(), locked, 0, 100)
+            ref = batched.update_n_batch(u0, locked, 0, 100)
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(json.dumps(dict(probe="ablate_batch", side=side, lanes=256, blocks=c,
+                                  source_same_bits=same, chunk_ms=times)), flush=True)
+            del u0, locked, out, ref
+    finally:
+        hopper_batched.lane_resident, hopper_batched.lane_cluster = rules
         _build._lib = None
 
 
@@ -1058,7 +1230,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sides", type=int, nargs="*", default=None,
-                    help="2D grid sides to probe (the default mode)")
+                    help="2D grid sides to probe (the default mode), or --batch's cluster sides")
     ap.add_argument("--volumes", nargs="*", default=None,
                     help="3D volumes to probe, each D (a cube) or DxHxW")
     ap.add_argument("--shapes", action="store_true",
@@ -1076,7 +1248,11 @@ def main() -> None:
     ap.add_argument("--compare2d", default=None, metavar="FILE",
                     help="time the 2D tile, shard and resident paths against FILE's tile2d.cu")
     ap.add_argument("--batch", action="store_true",
-                    help="time the batched kernels' block candidates and both routes")
+                    help="time the batched kernels' block and cluster candidates and the routes")
+    ap.add_argument("--batch-small", action="store_true",
+                    help="hold the cluster route's variants to the plain version on small lanes")
+    ap.add_argument("--ablate-batch", action="store_true",
+                    help="time the cluster chunk without its barrier or its edge pushes")
     ap.add_argument("--ablate3d", action="store_true",
                     help="time the 3D tile pass without its lse6 or its step barrier")
     ap.add_argument("--solve3d", action="store_true",
@@ -1093,8 +1269,14 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     volumes = VOLUMES if not args.volumes else args.volumes
-    if args.batch:
-        probe_batch(dev, args.reps)
+    if args.batch_small:
+        probe_batch_small(dev)
+    elif args.ablate_batch:
+        probe_ablate_batch(dev, args.reps)
+    elif args.batch:
+        if not args.sides:
+            probe_batch(dev, args.reps)
+        probe_clusters(dev, args.reps, args.sides or CLUSTER_SIDES)
     elif args.ablate3d:
         probe_ablate3d(dev, args.reps)
     elif args.solve3d:

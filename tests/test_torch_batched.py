@@ -15,6 +15,7 @@ whole (3.8e-6 near u = -30). On the card the CUDA kernels must give the plain
 version's bits exactly: tests/test_torch_cuda.py.
 """
 
+import itertools
 import types
 
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from epic_tpu.solver import pallas_batched
 import epic_tpu_torch.solver as TS
 from epic_tpu_torch import grid as TG
 from epic_tpu_torch.solver import batched, core, hopper_batched
+from epic_tpu_torch.solver._sweep_body import lse4
 
 CHUNK = dict(rtol=2e-6, atol=1e-4)
 SOLVE = dict(rtol=2e-6, atol=1e-3)
@@ -328,6 +330,175 @@ def test_lane_resident_rule(monkeypatch):
         assert all(fits(h - 1, w) for w in sides if h > 1 and fits(h, w))
     assert hopper_batched.lane_smem_bytes(236, 236) <= limit < hopper_batched.lane_smem_bytes(
         237, 237)
+
+
+def test_cluster_smem_bytes_is_the_band_layout():
+    """The cluster route's shared memory a block: the resident layout of the
+    largest band (n // c or n // c + 1 of the n = H - 2 interior rows, the
+    longer first) with its two halo rows. A 384^2 lane fits a cluster of 4
+    (and of 3) on an H100 (232,448 bytes a block), not one of 2."""
+    limit = 232_448
+    assert hopper_batched.bands(384, 4) == [(1, 96), (97, 96), (193, 95), (288, 95)]
+    assert hopper_batched.cluster_smem_bytes(384, 384, 4) == 4 * (2 * 98 * 192 + 2 * 98 * 6 + 3)
+    assert hopper_batched.cluster_smem_bytes(384, 384, 4) == 155_244 <= limit
+    assert hopper_batched.cluster_smem_bytes(384, 384, 3) == 4 * (2 * 130 * 192 + 2 * 130 * 6 + 3)
+    assert hopper_batched.cluster_smem_bytes(384, 384, 3) <= limit
+    assert hopper_batched.cluster_smem_bytes(384, 384, 2) == 305_724 > limit
+    # A band of one row keeps three; ranks past the interior keep their two halo rows.
+    assert hopper_batched.bands(5, 8) == [(1, 1), (2, 1), (3, 1)] + [(4, 0)] * 5
+    assert hopper_batched.cluster_smem_bytes(5, 131, 8) == hopper_batched.lane_smem_bytes(3, 131)
+    assert hopper_batched.cluster_smem_bytes(384, 384, 1) == hopper_batched.lane_smem_bytes(384, 384)
+    for h in (3, 4, 5, 24, 239, 384, 1001):
+        for c in (1, 2, 3, 4, 7, 8, 16):
+            cut = hopper_batched.bands(h, c)
+            assert len(cut) == c and sum(rows for _, rows in cut) == h - 2
+            assert [r0 for r0, _ in cut] == [1 + sum(rows for _, rows in cut[:k]) for k in range(c)]
+            assert max(rows for _, rows in cut) == cut[0][1]
+
+
+@pytest.mark.parametrize("largest", [8, 16])
+def test_lane_cluster_rule(monkeypatch, largest):
+    """lane_cluster on a device with an H100's opt-in shared memory a block
+    (232,448 bytes) and 132 SMs, whose occupancy query admits clusters up to
+    ``largest``: 0 wherever lane_resident admits the lane, then the
+    smallest of 2, 3, 4, 8 and 16 whose largest band fits, 0 past the
+    largest cluster and for a lane whose one row outgrows a block; monotone
+    in H and in W. Given the batch's lanes, 0 (streamed) exactly where its
+    clusters fill at most 66 SMs: 8 and 16 lanes of 384^2 and 8 of 512^2
+    and 640^2, where `tile_probe --batch` measured the streamed route
+    ahead; 16 lanes of 512^2 and 8 of 900^2 stay on clusters."""
+    limit = 232_448
+    dev = torch.device("cuda", 0)
+
+    def props(device):
+        assert device == dev
+        return types.SimpleNamespace(shared_memory_per_block_optin=limit,
+                                     multi_processor_count=132)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    monkeypatch.setattr(hopper_batched, "max_cluster", lambda device: largest)
+
+    def c(h, w, lanes=None):
+        return hopper_batched.lane_cluster(h, w, dev, lanes)
+
+    assert c(128, 128) == c(236, 236) == c(3, 9999) == 0      # resident
+    assert c(237, 237) == 2 and c(239, 235) == 2 and c(332, 332) == 2 and c(333, 333) == 3
+    assert c(384, 384) == 3 and c(407, 407) == 3 and c(408, 408) == 4
+    assert c(470, 470) == 4 and c(471, 471) == 8 and c(660, 660) == 8   # 5 to 7 are skipped
+    if largest == 8:
+        assert c(661, 661) == 0
+    else:
+        assert c(661, 661) == 16 and c(930, 930) == 16 and c(931, 931) == 0
+    assert c(5, 60_000) == 0 and c(1, 1000) == c(2, 1000) == c(1000, 2) == 0
+    sides = range(3, 1100, 7)
+    for h in sides:
+        row = [c(h, w) for w in sides]
+        col = [c(w, h) for w in sides]
+        for seq in (row, col):
+            fits = [hopper_batched.lane_resident(*((h, w) if seq is row else (w, h)), dev)
+                    for w in sides]
+            routed = [k for k, res in zip(seq, fits) if not res]
+            past = routed.index(0) if 0 in routed else len(routed)
+            assert routed[:past] == sorted(routed[:past])   # larger lanes, larger clusters
+            assert not any(routed[past:])                     # once streamed, streamed for larger
+            assert all(k <= largest for k in seq)
+
+    # The batch's size: the same cluster, or the streamed route for few lanes.
+    assert c(240, 240, 1) == c(240, 240, 33) == c(236, 236, 1) == 0
+    assert c(240, 240, 34) == c(240, 240, 256) == 2
+    assert c(384, 384, 8) == c(384, 384, 16) == c(384, 384, 22) == 0
+    assert c(384, 384, 23) == c(384, 384, 32) == c(384, 384, 256) == 3
+    assert c(512, 512, 8) == c(640, 640, 8) == 0
+    assert c(512, 512, 9) == c(512, 512, 16) == c(640, 640, 16) == 8
+    assert c(900, 900, 4) == 0 and c(900, 900, 5) == c(900, 900, 8) == (16 if largest == 16 else 0)
+    for h, w, lanes in itertools.product(range(3, 1100, 41), range(3, 1100, 53),
+                                         (1, 4, 5, 8, 9, 16, 33, 34, 256)):
+        alone = c(h, w)
+        assert c(h, w, lanes) == (alone if 2 * lanes * alone > 132 else 0)
+
+
+def _band_model(u, locked, t0, num_steps, c, flip=True):
+    """``csrc/batched2d.cu``'s cluster schedule in plain torch: each of the
+    ``c`` bands of ``hopper_batched.bands`` keeps its rows and one halo row
+    above and one below as a small lane of its own (halo rows frozen) and
+    sweeps the cells of its own class ``q ^ ((r0 - 1) & 1)`` (``flip``;
+    without it, lane class q), and after every sweep each band copies the
+    cells of the class it just updated in its first and last rows into its
+    neighbours' halo rows. Returns ``(u, delta [B])`` as update_n_batch."""
+    b, h, w = u.shape
+    cut = hopper_batched.bands(h, c)
+    frozen = batched._frozen_batch(locked)
+    x = torch.arange(w).view(1, w)
+    band_u, band_f = [], []
+    for r0, rows in cut:
+        band_u.append(u[:, r0 - 1:r0 + rows + 1].clone())
+        f = frozen[:, r0 - 1:r0 + rows + 1].clone()
+        f[:, 0] = f[:, -1] = True
+        band_f.append(f)
+
+    def cls(k, q):   # the cells of band k's class for lane class q, in its own rows
+        r0, rows = cut[k]
+        ly = torch.arange(rows + 2).view(-1, 1)
+        return ((ly + x) & 1) == (q ^ ((r0 - 1) & 1) if flip else q)
+
+    delta = torch.zeros(b)
+    for s in range(num_steps):
+        q = ((t0 + s) & 1) ^ 1
+        for k, (r0, rows) in enumerate(cut):
+            if rows == 0:
+                continue
+            lu = band_u[k]
+            val = lse4(lu[:, :-2, 1:-1], lu[:, 2:, 1:-1], lu[:, 1:-1, :-2], lu[:, 1:-1, 2:])
+            upd = (cls(k, q) & ~band_f[k])[:, 1:-1, 1:-1]
+            old = lu[:, 1:-1, 1:-1]
+            new = torch.where(upd, val, old)
+            if s == 0:
+                delta = torch.maximum(delta, (new - old).abs().amax(dim=(1, 2)))
+            lu[:, 1:-1, 1:-1] = new
+        for k, (r0, rows) in enumerate(cut):
+            if rows == 0:
+                continue
+            src = cls(k, q)   # the columns of the class just updated in rows 1 and `rows`
+            if k > 0:
+                assert not flip or torch.equal(cls(k - 1, q)[-1], src[1])
+                band_u[k - 1][:, -1, src[1]] = band_u[k][:, 1, src[1]]
+            if k + 1 < c and cut[k + 1][1] > 0:
+                assert not flip or torch.equal(cls(k + 1, q)[0], src[rows])
+                band_u[k + 1][:, 0, src[rows]] = band_u[k][:, rows, src[rows]]
+    out = u.clone()
+    for (r0, rows), lu in zip(cut, band_u):
+        out[:, r0:r0 + rows] = lu[:, 1:rows + 1]
+    return out, delta
+
+
+@pytest.mark.parametrize("t0", [0, 1])
+@pytest.mark.parametrize("b,h,w,c", [
+    (3, 24, 32, 4),    # bands of 6, 6, 5, 5: the last keeps rows from 17, odd
+    (2, 23, 27, 3),    # H not divisible by C; bands kept from rows 0, 7, 14
+    (2, 7, 9, 4),      # bands of one row
+    (2, 5, 11, 8),     # ranks past the interior keep no rows
+    (2, 3, 131, 2),    # a one-row interior
+    (2, 41, 17, 16),   # bands of three and two rows
+])
+def test_band_schedule_gives_update_n_batch_bits(b, h, w, c, t0):
+    """The cluster route's schedule (bands with one halo row, the class
+    flipped where a band's first kept row is odd, the just-updated class
+    pushed after every sweep) gives the plain chunk's bits; without the
+    flip it does not, wherever a band's first kept row is odd."""
+    rng = np.random.default_rng(h * w + c)
+    u = np.full((b, h, w), -1e6, np.float32)
+    locked = rng.random((b, h, w)) < 0.1
+    locked[:, [0, -1]] = True
+    locked[:, :, [0, -1]] = True
+    u[:, h // 2, w // 2] = 0.0
+    locked[:, h // 2, w // 2] = True
+    tu, tl = _port(u, locked)
+    for steps in (1, 2, 9):
+        ref_u, ref_d = batched.update_n_batch(tu, tl, t0, steps)
+        out_u, out_d = _band_model(tu, tl, t0, steps, c)
+        assert torch.equal(out_u, ref_u) and torch.equal(out_d, ref_d)
+    if any((r0 - 1) & 1 and rows for r0, rows in hopper_batched.bands(h, c)):
+        assert not torch.equal(_band_model(tu, tl, t0, 9, c, flip=False)[0], ref_u)
 
 
 def test_uneven_retirement_matches_pallas():

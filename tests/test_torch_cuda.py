@@ -316,13 +316,16 @@ def _assert_same_solve(k, p):
 
 # (lanes, H, W, obstacle density, seed): odd H and W, a lane wider than a
 # warp's two strides, lanes with a one-cell interior, one-row interiors of
-# odd widths beyond 128, and "fit" / "over": the largest odd square lane
-# that lane_resident admits on the card and the smallest it refuses.
+# odd widths beyond 128, "fit" / "over": the largest odd square lane that
+# lane_resident admits on the card and the smallest it refuses, and a lane
+# just past the resident limit with an odd height.
 BATCHES = [(6, 24, 32, 0.1, 0), (5, 23, 27, 0.15, 1), (3, 9, 131, 0.05, 2), (4, 3, 3, 0.0, 3),
            (3, 3, 131, 0.05, 5), (2, 3, 257, 0.0, 6), (2, "fit", "fit", 0.1, 7),
-           (2, "over", "over", 0.1, 8)]
-SOLVE_BATCHES = BATCHES[:3] + BATCHES[-2:]
-LANE_RESIDENT = hopper_batched.lane_resident   # the rule, whatever a test patches
+           (2, "over", "over", 0.1, 8), (2, 239, 235, 0.1, 10)]
+SOLVE_BATCHES = BATCHES[:3] + BATCHES[-3:]
+LANE_RESIDENT = hopper_batched.lane_resident   # the rules, whatever a test patches
+LANE_CLUSTER = hopper_batched.lane_cluster
+ROUTES = ("resident", "cluster", "streamed")
 
 
 def _batch_shape(shape, dev):
@@ -336,21 +339,33 @@ def _batch_shape(shape, dev):
     return lanes, h, w, density, seed
 
 
-@pytest.fixture(params=["resident", "streamed"])
+def _past_clusters(dev):
+    """The smallest odd square side that neither the resident nor the
+    cluster route takes on ``dev``."""
+    side = 237
+    while LANE_RESIDENT(side, side, dev) or LANE_CLUSTER(side, side, dev):
+        side += 2
+    return side
+
+
+@pytest.fixture(params=["resident", "streamed", "cluster2", "cluster3", "cluster4", "cluster8"])
 def route(request, monkeypatch):
-    """The route a test's launches take: "resident" follows lane_resident,
-    and "streamed" makes it refuse every lane, so that small lanes go through
-    the streamed kernels too. Returns the route each lane shape takes."""
-    if request.param == "streamed":
+    """The route a test's launches take: "resident" follows the rule
+    (lane_resident, then lane_cluster), "streamed" makes both refuse every
+    lane, so that small lanes go through the streamed kernels too, and
+    "clusterC" sends every lane to clusters of C blocks. Returns the route
+    each batch shape (lanes, H, W) takes."""
+    if request.param != "resident":
+        c = 0 if request.param == "streamed" else int(request.param[len("cluster"):])
         monkeypatch.setattr(hopper_batched, "lane_resident", lambda h, w, device: False)
-    return lambda h, w, dev: "resident" if hopper_batched.lane_resident(h, w, dev) else "streamed"
+        monkeypatch.setattr(hopper_batched, "lane_cluster", lambda h, w, device, lanes=None: c)
+    return lambda b, h, w, dev: hopper_batched._blocks(b, h, w, dev)[1]
 
 
 def _took(before, route_name, n=1):
     """``n`` launches since ``before`` (a copy of ``routes``), all on ``route_name``."""
-    other = "streamed" if route_name == "resident" else "resident"
-    return (hopper_batched.routes[route_name] == before[route_name] + n
-            and hopper_batched.routes[other] == before[other])
+    return all(hopper_batched.routes[r] == before[r] + (n if r == route_name else 0)
+               for r in ROUTES)
 
 
 @pytest.mark.parametrize("t0", [0, 1])
@@ -361,7 +376,7 @@ def test_batch_chunk_kernel_gives_the_plain_versions_bits(dev, route, shape, t0)
     0), and with only the last lane active."""
     shape = _batch_shape(shape, dev)
     u, locked = _batch(*shape, dev)
-    taken = route(*shape[1:3], dev)
+    taken = route(*shape[:3], dev)
     active = torch.arange(u.shape[0], device=dev) % 3 != 1
     last = torch.zeros(u.shape[0], dtype=torch.bool, device=dev)
     last[-1] = True
@@ -389,7 +404,7 @@ def test_batch_solve_kernels_give_the_plain_versions_bits(dev, route, shape, sta
     and capped solves."""
     shape = _batch_shape(shape, dev)
     u, locked = _batch(*shape, dev, goalless=(0,))
-    taken = route(*shape[1:3], dev)
+    taken = route(*shape[:3], dev)
     before = dict(hopper_batched.launches)
     plain = batched.solve_batch(u, locked, 1e-2, stagger, cap)
     routes = dict(hopper_batched.routes)
@@ -442,6 +457,87 @@ def test_batch_entries_refuse_a_resident_lane_that_does_not_fit(dev):
             _build.check(err, name)
     assert torch.equal(u, start) and bool((delta == 0).all()) and bool((iters == 0).all())
     assert bool((retired == 0).all()) and torch.equal(deltas, eps + 1.0)
+
+
+@pytest.mark.parametrize("stagger,cap", [(100, 250), (10, 95)])
+def test_batch_solve_past_the_largest_cluster_streams(dev, stagger, cap):
+    """Lanes just past the largest cluster take the streamed route under
+    the rule; capped solves (one launch and host-driven) and a chunk give
+    the plain version's bits."""
+    side = _past_clusters(dev)
+    u, locked = _batch(2, side, side, 0.1, 11, dev, goalless=(0,))
+    routes = dict(hopper_batched.routes)
+    one = hopper_batched.solve_batch_device(u.clone(), locked, 1e-2, stagger, cap)
+    assert _took(routes, "streamed")
+    host = hopper_batched.solve_batch(u.clone(), locked, 1e-2, stagger, cap)
+    _assert_same_solve(one, batched.solve_batch(u, locked, 1e-2, stagger, cap))
+    _assert_same_solve(host, one)
+    routes = dict(hopper_batched.routes)
+    _assert_same_solve(hopper_batched.update_n_batch(u.clone(), locked, 1, 3),
+                       batched.update_n_batch(u, locked, 1, 3))
+    assert _took(routes, "streamed")
+
+
+def test_batch_cluster_rule_on_the_card(dev):
+    """The card co-schedules clusters of 8 at least; a 384^2 lane takes a
+    cluster whose band fits, unless its batch fills at most half the SMs
+    with such clusters, and the C entry's layout size is the wrapper's."""
+    from epic_tpu_torch.solver import _build
+
+    lib = _build.load()
+    largest = hopper_batched.max_cluster(dev)
+    assert 8 <= largest <= 16
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    c = LANE_CLUSTER(384, 384, dev)
+    assert 2 <= c <= largest and hopper_batched.cluster_smem_bytes(384, 384, c) <= limit
+    few = torch.cuda.get_device_properties(dev).multi_processor_count // (2 * c)
+    assert LANE_CLUSTER(384, 384, dev, few) == 0 and LANE_CLUSTER(384, 384, dev, few + 1) == c
+    assert hopper_batched._blocks(few, 384, 384, dev) == (0, "streamed")
+    assert hopper_batched._blocks(few + 1, 384, 384, dev) == (c, "cluster")
+    side = _past_clusters(dev)
+    assert all(hopper_batched.cluster_smem_bytes(side, side, k) > limit
+               for k in range(2, largest + 1))
+    for h, w in ((384, 384), (3, 131), (5, 60_000), (side, side), (239, 235), (1000, 7)):
+        for k in (1, 2, 3, 4, 8, 16):
+            assert lib.epic_batched2d_cluster_smem_bytes(h, w, k) == \
+                hopper_batched.cluster_smem_bytes(h, w, k)
+
+
+def test_batch_entries_refuse_a_cluster_that_does_not_fit(dev):
+    """Asked for a cluster whose band does not fit, a cluster beyond 16 or a
+    negative block count, both C entries return an error and launch
+    nothing: no other route is taken."""
+    from epic_tpu_torch.solver import _build
+
+    lib = _build.load()
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    side = _past_clusters(dev)
+    cases = [(384, 2), (384, 17), (384, -1), (side, 16)]
+    assert hopper_batched.cluster_smem_bytes(384, 384, 2) > limit
+    for lanes_side, c in cases:
+        u, locked = _batch(2, lanes_side, lanes_side, 0.1, 9, dev)
+        start = u.clone()
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        delta = torch.zeros(2, dtype=torch.float32, device=dev)
+        eps = torch.full((2,), 1e-2, device=dev)
+        retired = torch.zeros(2, dtype=torch.uint8, device=dev)
+        iters = torch.zeros(2, dtype=torch.int32, device=dev)
+        deltas = eps + 1.0
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        errs = [lib.epic_batched2d_chunk(u.data_ptr(), locked.data_ptr(), 2, lanes_side,
+                                         lanes_side, it.data_ptr(), 10, None, delta.data_ptr(),
+                                         c, stream, dev.index),
+                lib.epic_batched2d_solve(u.data_ptr(), locked.data_ptr(), 2, lanes_side,
+                                         lanes_side, eps.data_ptr(), lanes_side, 1000, 10, None,
+                                         None, retired.data_ptr(), iters.data_ptr(),
+                                         deltas.data_ptr(), c, stream, dev.index)]
+        torch.cuda.synchronize()
+        for name, err in zip(("epic_batched2d_chunk", "epic_batched2d_solve"), errs):
+            assert err != 0, (lanes_side, c, name)
+            with pytest.raises(RuntimeError, match=name):
+                _build.check(err, name)
+        assert torch.equal(u, start) and bool((delta == 0).all()) and bool((iters == 0).all())
+        assert bool((retired == 0).all()) and torch.equal(deltas, eps + 1.0)
 
 
 def test_batch_solve_per_lane_epsilon_and_solo_lanes(dev):
