@@ -85,17 +85,19 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 not. Each against the plain version, the same bits, the
                 goalless lane retired at its first check past 384 sweeps; the
                 chunk's mean of 10 and the solves' times;
- 25. batch_huge (run after phase 24) — the streamed route: 32 lanes of
+ 25. batch_huge (run after phase 24) — the tiled route (csrc/tile2d.cu's
+                tile pass over every (lane, tile) pair): 32 lanes of
                 1024^2 (BATCH_HUGE; beyond the largest cluster, 134 MB of u,
                 2.7x the L2), phase 24's checks with a cap of
                 BATCH_HUGE_CAP, so that the goalless lane retires at 1,101;
- 26. batch_few (run after phase 25) — both sides of the rule's batch-size
-                choice (a planner's few goals on a large map): lanes of
-                BATCH_FEW_SIDE^2, as many as fill half the SMs with the
-                clusters the rule picks for them (8 lanes of 512^2 on an
-                H100 SXM: the streamed route), then twice as many (the
-                cluster route), each with phase 24's checks and a cap of
-                BATCH_FEW_CAP;
+ 26. batch_few (run after phase 25) — few lanes (a planner's few goals
+                on a large map), each batch on the route the rule picks,
+                with phase 24's checks: both sides of the rule's
+                batch-size choice, BATCH_FEW_LANES lanes of
+                BATCH_FEW_SIDE^2 on the clusters it widens for them (8 of
+                384^2 on clusters of 8 on an H100 SXM) and four times as
+                many on its smallest fitting cluster (3), and 8 lanes of
+                512^2 (clusters of 8), each capped at BATCH_FEW_CAP;
  12. biggrid  — an 8192 x 8192 maps.random_obstacles grid (seed 0) with
                 configs/maze.yaml's settings: 268 MB of u and 67 MB of
                 locked, beyond the L2. The main path, counts zeroed just
@@ -308,9 +310,10 @@ BATCH_SOLVE_CAP = 2000    # tools/probe.py batched-solve's cap
 BATCH_WIDE = (132, 224)   # resident lanes too large for three an SM: the 512-thread block
 BATCH_BIG = (256, 384)    # lanes x side beyond a block's shared memory, 4x the L2: the cluster route
 BATCH_BIG_CAP = 1000
-BATCH_HUGE = (32, 1024)   # lanes x side beyond the largest cluster, 2.7x the L2: the streamed route
+BATCH_HUGE = (32, 1024)   # lanes x side beyond the largest cluster, 2.7x the L2: the tiled route
 BATCH_HUGE_CAP = 1200     # past the goalless lane's first check beyond 1024 sweeps
-BATCH_FEW_SIDE = 512      # lanes in clusters of 8; few of them stream
+BATCH_FEW_SIDE = 384      # lanes in clusters of 3; few of them on wider ones
+BATCH_FEW_LANES = 8
 BATCH_FEW_CAP = 700       # past the goalless lane's first check beyond 512 sweeps
 GOALS_CAP = 8000          # tools/probe.py batched-goals' cap (a long tail of late lanes)
 BIG_SIDE = 8192           # 268 MB of u + 67 MB of locked: 6.7x the L2
@@ -340,8 +343,8 @@ SOURCES = {
     "epic_batched2d_solve/resident": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_batched2d_chunk/cluster": "epic_tpu_torch/csrc/batched2d.cu",
     "epic_batched2d_solve/cluster": "epic_tpu_torch/csrc/batched2d.cu",
-    "epic_batched2d_chunk/streamed": "epic_tpu_torch/csrc/batched2d.cu",
-    "epic_batched2d_solve/streamed": "epic_tpu_torch/csrc/batched2d.cu",
+    "epic_batched2d_chunk/tiled": "epic_tpu_torch/csrc/tile2d.cu",
+    "epic_batched2d_solve/tiled": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_tile2d_chunk": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_tile2d_cycle": "epic_tpu_torch/csrc/tile2d.cu",
     "epic_tile2d_solve": "epic_tpu_torch/csrc/tile2d.cu",
@@ -367,8 +370,8 @@ REPLACES = {
     "epic_batched2d_solve/resident": "epic_tpu/solver/pallas_batched.py:214",
     "epic_batched2d_chunk/cluster": "epic_tpu/solver/pallas_batched.py:65",
     "epic_batched2d_solve/cluster": "epic_tpu/solver/pallas_batched.py:214",
-    "epic_batched2d_chunk/streamed": "epic_tpu/solver/pallas_batched.py:65",
-    "epic_batched2d_solve/streamed": "epic_tpu/solver/pallas_batched.py:214",
+    "epic_batched2d_chunk/tiled": "epic_tpu/solver/pallas_batched.py:65",
+    "epic_batched2d_solve/tiled": "epic_tpu/solver/pallas_batched.py:214",
     # K3 (and T2 :100), K5, and with u1 T1
     "epic_tile2d_chunk": ["epic_tpu/solver/pallas_biggrid.py:199",
                           "epic_tpu/solver/pallas_tiled2d.py:120",
@@ -1684,7 +1687,7 @@ def phase_batch(dev) -> dict:
                                  f"{ws}^2 lanes: solve capped at {BATCH_CAP}"))
     require(wide_err == 0.0, f"{ws}^2 lanes: kernel and plain differ by {wide_err}")
     routes = dict(hopper_batched.routes)
-    require(routes["streamed"] == routes["cluster"] == 0 and routes["resident"] > 0,
+    require(routes["resident"] == sum(routes.values()) > 0,
             f"batch: a launch left the resident route: {routes}")
     pick = [0, lanes - 1, *np.random.default_rng(1).choice(np.arange(1, lanes - 1), 2, replace=False)]
     solo = solo_lanes(dev, u0, locked, full, pick, BATCH_SOLVE_CAP, "batch")
@@ -1751,7 +1754,7 @@ def phase_batch_goals(dev) -> dict:
     plain = {**{f"batched.{k}": v for k, v in batched.calls.items()},
              **{f"core.{k}": v for k, v in core.calls.items()}}
     require(all(v > 0 for v in launches.values()), f"a batch kernel never ran on the main path: {launches}")
-    require(routes == {"resident": sum(launches.values()), "cluster": 0, "streamed": 0},
+    require(routes == {r: sum(launches.values()) if r == "resident" else 0 for r in routes},
             f"goal batch: a launch left the resident route: {routes}")
     require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
 
@@ -1779,9 +1782,9 @@ def phase_batch_goals(dev) -> dict:
 
 def big_lanes(dev, phase: str, shape, cap: int, route: str) -> dict:
     """Lanes beyond a block's shared memory on one route ("cluster" or
-    "streamed"), which the rule must pick: phases batch_big, batch_huge
+    "tiled"), which the rule must pick: phases batch_big, batch_huge
     and batch_few."""
-    from epic_tpu_torch.solver import batched, core, hopper_batched
+    from epic_tpu_torch.solver import batched, core, hopper_batched, tiled
 
     lanes, side = shape
     blocks = hopper_batched._blocks(lanes, side, side, dev)
@@ -1806,7 +1809,8 @@ def big_lanes(dev, phase: str, shape, cap: int, route: str) -> dict:
     launches = dict(hopper_batched.launches)
     routes = dict(hopper_batched.routes)
     plain = {**{f"batched.{k}": v for k, v in batched.calls.items()},
-             **{f"core.{k}": v for k, v in core.calls.items()}}
+             **{f"core.{k}": v for k, v in core.calls.items()},
+             **{f"tiled.{k}": v for k, v in tiled.calls.items()}}
     require(all(v > 0 for v in launches.values()), f"a batch kernel never ran on the main path: {launches}")
     require(routes == {r: sum(launches.values()) if r == route else 0 for r in routes},
             f"{side}^2 lanes: a launch left the {route} route: {routes}")
@@ -1852,17 +1856,19 @@ def big_lanes(dev, phase: str, shape, cap: int, route: str) -> dict:
 
 
 def phase_batch_few(dev) -> list[dict]:
-    """Both sides of lane_cluster's batch-size choice on BATCH_FEW_SIDE^2
-    lanes: as many lanes as fill half the SMs with the rule's clusters
-    (streamed), then twice as many (clusters)."""
+    """Few lanes on the routes the rule picks: BATCH_FEW_LANES lanes of
+    BATCH_FEW_SIDE^2 on the wider clusters lane_cluster gives so few, four
+    times as many on the smallest fitting cluster, and 8 lanes of 512^2 on
+    clusters."""
     from epic_tpu_torch.solver import hopper_batched
 
-    side = BATCH_FEW_SIDE
-    c = hopper_batched.lane_cluster(side, side, dev)
-    require(c > 0, f"{side}^2 lanes take no cluster")
-    few = torch.cuda.get_device_properties(dev).multi_processor_count // (2 * c)
-    return [big_lanes(dev, "batch_few", (n, side), BATCH_FEW_CAP, route)
-            for n, route in ((few, "streamed"), (2 * few, "cluster"))]
+    side, few = BATCH_FEW_SIDE, BATCH_FEW_LANES
+    narrow = hopper_batched.lane_cluster(side, side, dev)
+    wide = hopper_batched.lane_cluster(side, side, dev, few)
+    require(wide > narrow == hopper_batched.lane_cluster(side, side, dev, 4 * few) > 0,
+            f"{side}^2 lanes: clusters of {wide} for {few} lanes, {narrow} alone")
+    return [big_lanes(dev, "batch_few", shape, BATCH_FEW_CAP, "cluster")
+            for shape in ((few, side), (4 * few, side), (8, 512))]
 
 
 def mesh_counts(ran: dict, what: str, drive) -> dict:
@@ -2784,7 +2790,7 @@ def main() -> None:
     launches.update(goals["launches"])
     bb = big_lanes(dev, "batch_big", BATCH_BIG, BATCH_BIG_CAP, "cluster")
     launches.update(bb["launches"])
-    bh = big_lanes(dev, "batch_huge", BATCH_HUGE, BATCH_HUGE_CAP, "streamed")
+    bh = big_lanes(dev, "batch_huge", BATCH_HUGE, BATCH_HUGE_CAP, "tiled")
     launches.update(bh["launches"])
     bf = phase_batch_few(dev)
     for r in bf:
@@ -2819,10 +2825,10 @@ def main() -> None:
         "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
         "epic_batched2d_chunk/resident": b["chunk_err"],
         "epic_batched2d_solve/resident": max(b["solve_err"], goals["err"]),
-        "epic_batched2d_chunk/cluster": max(bb["chunk_err"], bf[1]["chunk_err"]),
-        "epic_batched2d_solve/cluster": max(bb["solve_err"], bf[1]["solve_err"]),
-        "epic_batched2d_chunk/streamed": max(bh["chunk_err"], bf[0]["chunk_err"]),
-        "epic_batched2d_solve/streamed": max(bh["solve_err"], bf[0]["solve_err"]),
+        "epic_batched2d_chunk/cluster": max(bb["chunk_err"], *(r["chunk_err"] for r in bf)),
+        "epic_batched2d_solve/cluster": max(bb["solve_err"], *(r["solve_err"] for r in bf)),
+        "epic_batched2d_chunk/tiled": bh["chunk_err"],
+        "epic_batched2d_solve/tiled": bh["solve_err"],
         "epic_tile2d_chunk": tile_err,
         "epic_tile2d_cycle": tile_err,
         "epic_tile2d_solve": tile_err,
@@ -2838,7 +2844,7 @@ def main() -> None:
     }
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
     # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2 (the resident batch
-    # route), 256 x 384^2 (the cluster one), 32 x 1024^2 (the streamed one), 8192^2, 32 x 2048 x 2048 (the
+    # route), 256 x 384^2 (the cluster one), 32 x 1024^2 (the tiled one), 8192^2, 32 x 2048 x 2048 (the
     # volume the router sends to the 3D tiles; 256^3 beside it, under
     # "cube"), one 8192 x 4096 shard of the 16384^2 mesh, one 64 x 512 x 256 shard of the
     # 64 x 1024 x 1024 mesh, all eight shards of the 16384^2 mesh (the cycle
@@ -2853,8 +2859,8 @@ def main() -> None:
         "epic_batched2d_solve/resident": (b["solve_ms"], b["solve_plain_ms"], b["solve_bound"]),
         "epic_batched2d_chunk/cluster": bb["chunk"],
         "epic_batched2d_solve/cluster": bb["solve"],
-        "epic_batched2d_chunk/streamed": bh["chunk"],
-        "epic_batched2d_solve/streamed": bh["solve"],
+        "epic_batched2d_chunk/tiled": bh["chunk"],
+        "epic_batched2d_solve/tiled": bh["solve"],
         "epic_tile2d_chunk": big["chunk"],
         "epic_tile2d_cycle": big["cycle"],
         "epic_tile2d_solve": big["solve"],

@@ -18,9 +18,11 @@
 // iteration t is (y + x) % 2 != t % 2 in the lane's own coordinates. Lanes
 // never exchange data, and the lockstep protocol decides each lane on its
 // own delta (batched.py lockstep), so a lane can run its whole chunk, or its
-// whole solve, alone. Each entry has three routes, which the caller names
-// by the blocks a lane takes (solver/hopper_batched.py lane_resident and
-// lane_cluster; the entry never picks one).
+// whole solve, alone. Each entry has two routes, which the caller names by
+// the blocks a lane takes (solver/hopper_batched.py lane_resident and
+// lane_cluster; the entry never picks one). Lanes past every cluster take a
+// third, the tiled route, whose entries (epic_lanes2d_chunk and
+// epic_lanes2d_solve) live in tile2d.cu beside the tile pass they run.
 //
 // The resident route (a lane that fits a block's shared memory). The TPU
 // kernels keep a VMEM block of lanes for all num_sweeps sweeps; here one
@@ -64,25 +66,11 @@
 // 0's shared memory; the solve's verdict is read there by every block after
 // the checked sweep's barrier, so the cluster leaves its loop together.
 //
-// The streamed route (a lane too large for any cluster). One
-// persistent cooperative kernel strides its warps over the B * (H-2)
-// (lane, row) units, a sweep at a time, with
-// cooperative_groups::this_grid().sync() between sweeps; each warp reduces
-// its row's delta with shuffles and one atomicMax on the float bits into
-// its lane's slot (the values are >= 0, so the bits order like unsigned
-// ints and max is exact in any order). A retired or inactive lane is
-// skipped. u and the flags are read with __ldcg (L2, not L1): other blocks
-// write them during the launch.
-//
 // Numerics. lse4 from sweep_common.cuh, no --use_fast_math: every route gives
 // the plain version's bits on the card.
 //
 // Bound on this card. At 4096 lanes of 128^2 the batch holds 67M cells: 268
-// MB of u and 67 MB of locked, 5x the 50 MB L2. Streamed, a sweep moves about
-// 9 B a cell through HBM, so that route is HBM bound (a full sweep took 0.316
-// ms, about 1.9 TB/s, on an H100 80GB HBM3 at a 700 W power limit) and pays a
-// grid barrier a sweep and a flag read a (lane, row) unit for every retired
-// lane (a sweep with one lane active took 76 us). Resident, a chunk moves
+// MB of u and 67 MB of locked, 5x the 50 MB L2. Resident, a chunk moves
 // each cell through HBM once (0.18 ms for the batch at 3.35 TB/s), so the
 // route is bound by the instructions the SMs issue: an accurate lse4 is 71
 // SASS instructions (chip_smoke.py's issue_bound_ms) and the walk a dozen
@@ -99,10 +87,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-// The streamed route: a warp a (lane, row) unit.
-constexpr int kThreadsB = 256;
-constexpr int kWarpsB = kThreadsB / 32;
 
 // The resident route's two blocks (one lane each): threads, and the blocks
 // an SM the register budget is held to. A launch takes the small block where
@@ -124,127 +108,6 @@ constexpr int kDeltaSlots = 3;  // the solve's rotating delta words (lane_solve_
 constexpr int kClusterThreads = 512;
 constexpr int kClusterMinBlocks = 1;
 constexpr int kMaxCluster = 16;  // the largest cluster Hopper allows (non-portable past 8)
-
-// ---------------------------------------------------------------- streamed
-
-// Lane `lane` runs unless a gate is given and its flag is not `run`.
-__device__ __forceinline__ bool lane_runs(const uint8_t* gate, uint8_t run, int lane) {
-  return gate == nullptr || __ldcg(gate + lane) == run;
-}
-
-// One sweep of the class (y + x) % 2 != t % 2 over every running lane. Warps
-// stride over the (lane, row) units; a warp's threads over the row's cells of
-// the class, x = x0(y) + 2k, so neighbouring threads touch neighbouring pairs
-// of floats. With kCheck, each row's max |u1 - u0| goes into acc[lane].
-template <bool kCheck>
-__device__ void sweep_batch(float* u, const uint8_t* locked, int B, int H, int W, int t,
-                            const uint8_t* gate, uint8_t run, unsigned int* acc) {
-  const int q = (t & 1) ^ 1;  // the class updated: (y + x) & 1 == q
-  const int lane_id = threadIdx.x & 31;
-  const long long rows = H - 2;
-  const long long units = static_cast<long long>(B) * rows;
-  const long long n_warps = (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  for (long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-       r < units; r += n_warps) {
-    const int L = static_cast<int>(r / rows);
-    const int y = 1 + static_cast<int>(r - L * rows);
-    if (!lane_runs(gate, run, L)) continue;  // warp-uniform
-    const size_t row = (static_cast<size_t>(L) * H + y) * W;
-    float local = 0.0f;
-    for (int x = 1 + ((y + 1 + q) & 1) + 2 * lane_id; x <= W - 2; x += 64) {
-      const size_t idx = row + x;
-      if (locked[idx]) continue;
-      const float v = lse4(__ldcg(u + idx - W), __ldcg(u + idx + W),
-                           __ldcg(u + idx - 1), __ldcg(u + idx + 1));
-      if (kCheck) local = fmaxf(local, fabsf(v - __ldcg(u + idx)));
-      u[idx] = v;
-    }
-    if (kCheck) {
-      for (int off = 16; off > 0; off >>= 1)
-        local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
-      if (lane_id == 0 && local > 0.0f) atomicMax(acc + L, __float_as_uint(local));
-    }
-  }
-}
-
-// K12: num_sweeps sweeps from iteration *it over the lanes whose active flag
-// is 1 (all lanes when active is null); each lane's sweep-0 delta is
-// max-accumulated into delta_bits[lane], which the caller zeroed.
-__global__ void __launch_bounds__(kThreadsB)
-stream_chunk_kernel(float* u, const uint8_t* locked, int B, int H, int W, const int* it,
-                    int num_sweeps, const uint8_t* active, unsigned int* delta_bits) {
-  cg::grid_group grid = cg::this_grid();
-  const int t0 = *it;
-  sweep_batch<true>(u, locked, B, H, W, t0, active, 1, delta_bits);
-  for (int k = 1; k < num_sweeps; ++k) {
-    grid.sync();
-    sweep_batch<false>(u, locked, B, H, W, t0 + k, active, 1, nullptr);
-  }
-}
-
-// K13 and _solve_collage_device (pallas_batched.py:275-359): the lockstep
-// protocol of epic_tpu/solver/batched.py:110-132 for every lane at once. Each
-// cycle: a checked sweep of the active lanes into acc[slot]; a barrier; each
-// lane's owner thread records its delta and iteration count, retires it when
-// delta < eps[lane] and t + 1 >= m_max, clears the lane's other slot and
-// counts the lanes still active into count[slot]; a barrier, after which
-// every thread reads the same count and the same retired flags; exit if no
-// lane is active, else stagger - 1 plain sweeps of the active lanes. Each of
-// acc's two [B] halves and count's two slots is cleared one cycle before its
-// next use, with at least one barrier between the clear and the next atomics
-// (the plain sweeps' barriers, or the extra one when stagger == 1). The
-// caller zeroes acc, count, retired and iters and sets deltas to eps + 1, the
-// values a lane keeps if it never runs a check.
-__global__ void __launch_bounds__(kThreadsB)
-stream_solve_kernel(float* u, const uint8_t* locked, int B, int H, int W, const float* eps,
-                    int m_max, int max_iterations, int stagger, unsigned int* acc, int* count,
-                    uint8_t* retired, int* iters, float* deltas) {
-  cg::grid_group grid = cg::this_grid();
-  const long long me = grid.thread_rank();
-  const long long n_threads = grid.size();
-  int slot = 0;
-  for (int t = 0; t < max_iterations; t += stagger) {
-    unsigned int* acc_now = acc + static_cast<size_t>(slot) * B;
-    unsigned int* acc_next = acc + static_cast<size_t>(slot ^ 1) * B;
-    sweep_batch<true>(u, locked, B, H, W, t, retired, 0, acc_now);
-    grid.sync();
-    int still = 0;
-    for (long long L = me; L < B; L += n_threads) {
-      if (__ldcg(retired + L) == 0) {
-        const float d = __uint_as_float(__ldcg(acc_now + L));
-        const bool done = d < eps[L] && t + 1 >= m_max;
-        deltas[L] = d;
-        // A lane that stays active runs the cycle's stagger - 1 plain sweeps.
-        iters[L] = done ? t + 1 : t + stagger;
-        if (done) {
-          retired[L] = 1;
-        } else {
-          ++still;
-        }
-      }
-      acc_next[L] = 0u;
-    }
-    for (int off = 16; off > 0; off >>= 1) still += __shfl_xor_sync(0xffffffffu, still, off);
-    if ((threadIdx.x & 31) == 0 && still > 0) atomicAdd(count + slot, still);
-    grid.sync();
-    if (__ldcg(count + slot) == 0) break;
-    if (me == 0) count[slot ^ 1] = 0;
-    for (int s = 1; s < stagger; ++s) {
-      sweep_batch<false>(u, locked, B, H, W, t + s, retired, 0, nullptr);
-      grid.sync();
-    }
-    if (stagger == 1) grid.sync();
-    slot ^= 1;
-  }
-}
-
-// Blocks for a cooperative launch: one warp to a (lane, row) unit, at most
-// what the card holds at once.
-cudaError_t batch_blocks(const void* kernel, int device, int B, int H, int* blocks) {
-  const long long units = static_cast<long long>(B) * (H - 2);
-  return grid_blocks(kernel, kThreadsB, device, (units + kWarpsB - 1) / kWarpsB, blocks,
-                     0);
-}
 
 // ---------------------------------------------------------------- resident
 
@@ -755,10 +618,12 @@ extern "C" {
 // Each entry launches on `stream` (PyTorch's current stream, as a pointer),
 // does not synchronise, allocates nothing, and returns the cudaError_t of the
 // launch (0 on success). u is f32[B, H, W] and locked u8[B, H, W], contiguous.
-// `blocks` names the route by the blocks a lane takes: 0 the streamed
-// kernels, 1 the resident ones (refused with cudaErrorInvalidValue for a lane
-// beyond epic_batched2d_smem_bytes' fit), c >= 2 the cluster kernels with
-// clusters of c (refused as cluster_config says).
+// `blocks` names the route by the blocks a lane takes: 1 the resident
+// kernels (refused with cudaErrorInvalidValue for a lane beyond
+// epic_batched2d_smem_bytes' fit), c >= 2 the cluster kernels with clusters
+// of c (refused as cluster_config says); any other value is refused
+// (cudaErrorInvalidValue): lanes past every cluster go to tile2d.cu's
+// epic_lanes2d_* entries.
 
 // The resident route's dynamic shared memory for an H x W lane.
 long long epic_batched2d_smem_bytes(int H, int W) {
@@ -809,44 +674,30 @@ int epic_batched2d_max_cluster(int device, int* largest) {
   return cudaSuccess;
 }
 
-// delta is f32[B]: the streamed route max-accumulates into it (the caller
-// zeroes it), the resident and cluster routes write every lane's.
+// delta is f32[B]: every lane's is written (0 for a lane whose active flag
+// is 0).
 int epic_batched2d_chunk(void* u, const void* locked, int B, int H, int W, const void* it,
                          int num_sweeps, const void* active, void* delta, int blocks,
                          void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);
   const int* it_i = static_cast<const int*>(it);
   const uint8_t* active_b = static_cast<const uint8_t*>(active);
+  float* delta_f = static_cast<float*>(delta);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks != 0) {
-    float* delta_f = static_cast<float*>(delta);
-    void* args[] = {&u_f, &locked_b, &H, &W, &it_i, &num_sweeps, &active_b, &delta_f};
-    if (blocks == 1) return launch_lanes(LANE_KERNELS(lane_chunk_kernel), B, H, W, args, device, s);
-    return launch_clusters(CLUSTER_KERNEL(cluster_chunk_kernel), B, H, W, blocks, args, device, s);
-  }
-  int nb = 0;
-  err = batch_blocks(reinterpret_cast<const void*>(stream_chunk_kernel), device, B, H, &nb);
-  if (err != cudaSuccess) return err;
-  unsigned int* delta_bits = static_cast<unsigned int*>(delta);
-  void* args[] = {&u_f, &locked_b, &B, &H, &W, &it_i, &num_sweeps, &active_b, &delta_bits};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(stream_chunk_kernel),
-                                    dim3(nb), dim3(kThreadsB), args, 0, s);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  void* args[] = {&u_f, &locked_b, &H, &W, &it_i, &num_sweeps, &active_b, &delta_f};
+  if (blocks == 1) return launch_lanes(LANE_KERNELS(lane_chunk_kernel), B, H, W, args, device, s);
+  return launch_clusters(CLUSTER_KERNEL(cluster_chunk_kernel), B, H, W, blocks, args, device, s);
 }
 
 // retired u8[B], iters i32[B] and deltas f32[B] hold the caller's starting
-// values (0, 0, eps + 1). acc (u32[2B]) and count (i32[2]), zeroed, are the
-// streamed route's scratch; the resident and cluster routes read neither
-// (null).
+// values (0, 0, eps + 1).
 int epic_batched2d_solve(void* u, const void* locked, int B, int H, int W, const void* eps,
-                         int m_max, int max_iterations, int stagger, void* acc, void* count,
-                         void* retired, void* iters, void* deltas, int blocks, void* stream,
-                         int device) {
-  cudaError_t err = cudaSetDevice(device);
+                         int m_max, int max_iterations, int stagger, void* retired, void* iters,
+                         void* deltas, int blocks, void* stream, int device) {
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   float* u_f = static_cast<float*>(u);
   const uint8_t* locked_b = static_cast<const uint8_t*>(locked);
@@ -855,23 +706,10 @@ int epic_batched2d_solve(void* u, const void* locked, int B, int H, int W, const
   int* iters_i = static_cast<int*>(iters);
   float* deltas_f = static_cast<float*>(deltas);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks != 0) {
-    void* args[] = {&u_f, &locked_b, &H, &W, &eps_f, &m_max, &max_iterations, &stagger,
-                    &retired_b, &iters_i, &deltas_f};
-    if (blocks == 1) return launch_lanes(LANE_KERNELS(lane_solve_kernel), B, H, W, args, device, s);
-    return launch_clusters(CLUSTER_KERNEL(cluster_solve_kernel), B, H, W, blocks, args, device, s);
-  }
-  int nb = 0;
-  err = batch_blocks(reinterpret_cast<const void*>(stream_solve_kernel), device, B, H, &nb);
-  if (err != cudaSuccess) return err;
-  unsigned int* acc_u = static_cast<unsigned int*>(acc);
-  int* count_i = static_cast<int*>(count);
-  void* args[] = {&u_f, &locked_b, &B, &H, &W, &eps_f, &m_max, &max_iterations, &stagger,
-                  &acc_u, &count_i, &retired_b, &iters_i, &deltas_f};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(stream_solve_kernel),
-                                    dim3(nb), dim3(kThreadsB), args, 0, s);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  void* args[] = {&u_f, &locked_b, &H, &W, &eps_f, &m_max, &max_iterations, &stagger,
+                  &retired_b, &iters_i, &deltas_f};
+  if (blocks == 1) return launch_lanes(LANE_KERNELS(lane_solve_kernel), B, H, W, args, device, s);
+  return launch_clusters(CLUSTER_KERNEL(cluster_solve_kernel), B, H, W, blocks, args, device, s);
 }
 
 }  // extern "C"

@@ -37,6 +37,17 @@
 //                            resident_tiled.py:315 _solve_resident (the whole
 //                            solve inside shard_map over K16/K17's chunks)
 // with the plain versions in epic_tpu_torch/parallel/hopper_resident2d.py.
+// And the tiled route of the batched scenario solves, B independent H x W
+// lanes of one [B, H, W] batch (lanes beyond the clusters of batched2d.cu):
+//   epic_lanes2d_chunk <- epic_tpu/solver/pallas_batched.py:65 _block_kernel
+//                         (K12: K sweeps of a collage of lanes, a delta a
+//                         block), with the gating of _block_kernel_gated
+//   epic_lanes2d_solve <- pallas_batched.py:214 _block_kernel_gated (K13)
+//                         and the while_loop of _solve_collage_device
+//                         (:275) that drives it: the lockstep protocol with
+//                         per-lane retirement, in one launch
+// with the plain version lanes_update_n / lanes_solve in
+// epic_tpu_torch/solver/tiled.py (see "The lanes" below).
 //
 // Design. A full-width band never fits shared memory here (8192 columns x 48
 // rows x 4 B is 1.6 MB), so one layout answers both TPU layouts: a block owns
@@ -136,6 +147,25 @@
 // regions (left halo, centre, right halo), whose row addresses it computes
 // from the table before its cells, so a cell only picks one of three.
 //
+// The lanes. A lane of the batch is a grid of its own with the same class
+// rule ((y + x) % 2 != t % 2 in lane coordinates) and the same frozen ring,
+// so a lane's tile is a GridTile of that grid: its source, locked and
+// output pointers are the batch's offset by L * H * W, and its trapezoid,
+// parity and delta cells are the lane's own. A cell beyond the lane (below
+// a ragged last row, past the last column) is LOG_SPACE_OBSTACLE and
+// frozen, never a cell of the next lane. A job is a (lane, tile) pair;
+// blocks stride over the jobs of the lanes that run, as all_tiles strides
+// over tiles, and sweep 0's delta goes as float bits through atomicMax into
+// the lane's slot. A chunk of num_sweeps runs as ceil(num_sweeps / K)
+// chunks of the pass that ping-pong between u and a twin batch, a grid
+// barrier between them: HBM sees a lane's cell once per K sweeps, not once
+// a sweep. A lane whose gate is off is neither read nor written.
+// The solve runs every lane in lockstep on one iteration t: a checked
+// chunk that writes u1, a barrier, then each lane's verdict (retire when
+// delta < eps[L] and t + 1 >= m_max, its state its slice of u1, which no
+// later chunk writes), then the rest of the cycle over the lanes still
+// active. At the end each lane is copied into u from where its state is.
+//
 // Numerics. lse4 from sweep_common.cuh, no --use_fast_math: the kernels give
 // the plain version's (and solver/core.py's) bits.
 //
@@ -153,6 +183,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "sweep_common.cuh"
@@ -883,6 +914,159 @@ resident_solve_kernel(Plan p, const float* eps_ptr, int m_max, int bound, int st
   }
 }
 
+// A batch of B lanes (K12/K13's tiled route): `one` tiles a single H x W
+// lane, its `locked` the batch's first lane.
+struct Lanes {
+  Tiling one;
+  int B;
+};
+
+// Which lanes a chunk sweeps: not one whose flag (when flags is given)
+// equals `stop`, nor, when d is given, one whose delta d[L] is below eps[L]
+// (the lanes that just passed the exit rule). Every thread of a block
+// reads the same answer.
+struct LaneGate {
+  const uint8_t* flags;
+  uint8_t stop;
+  const unsigned int* d;
+  const float* eps;
+  __device__ __forceinline__ bool runs(int L) const {
+    if (flags != nullptr && __ldcg(flags + L) == stop) return false;
+    return d == nullptr || !(__uint_as_float(__ldcg(d + L)) < eps[L]);
+  }
+};
+
+// Every (lane, tile) job of one chunk over the lanes the gate runs, strided
+// over the blocks: lane L's tile is a GridTile of the lane on the batch's
+// pointers offset by L * H * W, its sweep-0 delta into deltas[L] (when
+// given).
+template <class S, bool kStash>
+__device__ void all_lane_jobs(const float* src, float* dst, float* u1, const Lanes& b,
+                              const LaneGate& gate, int t0, int ns, unsigned int* deltas) {
+  const int n_tiles = b.one.n_tiles;
+  const int jobs = b.B * n_tiles;
+  for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+    const int L = job / n_tiles;
+    if (!gate.runs(L)) continue;
+    const size_t off = static_cast<size_t>(L) * b.one.H * b.one.W;
+    Tiling lane = b.one;
+    lane.locked += off;
+    tile_chunk<S, kStash>(src + off, dst + off, u1 == nullptr ? nullptr : u1 + off, lane,
+                          job - L * n_tiles, t0, ns, deltas == nullptr ? nullptr : deltas + L);
+  }
+}
+
+// Lane L of `from` into the same lane of `to`, by the whole grid.
+__device__ void copy_lane(const float* from, float* to, const Lanes& b, int L,
+                          cg::grid_group& grid) {
+  const size_t n = static_cast<size_t>(b.one.H) * b.one.W;
+  const size_t off = static_cast<size_t>(L) * n;
+  for (size_t i = grid.thread_rank(); i < n; i += grid.size()) to[off + i] = __ldcg(from + off + i);
+}
+
+// K12 on the tiled route: num_sweeps sweeps from iteration *it over the
+// lanes whose active flag is 1 (every lane when active is null), as
+// ceil(num_sweeps / K) chunks spread as tiled.spread spreads them, u ->
+// twin -> u ...; chunk 0's delta max-accumulated into delta_bits[L] (zeroed
+// by the caller: a lane that does not run keeps 0). After an odd count the
+// running lanes are copied back into u. One call site of the pass.
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+lanes_tile_chunk_kernel(float* u, float* twin, Lanes b, const int* it, int num_sweeps,
+                        const uint8_t* active, unsigned int* delta_bits) {
+  cg::grid_group grid = cg::this_grid();
+  const LaneGate gate{active, 0, nullptr, nullptr};
+  const int n_chunks = (num_sweeps + b.one.K - 1) / b.one.K;
+  int t = *it;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int ns = spread_at(num_sweeps, n_chunks, c);
+    if (c > 0) grid.sync();
+    all_lane_jobs<S, false>((c & 1) ? twin : u, (c & 1) ? u : twin, nullptr, b, gate, t, ns,
+                            c == 0 ? delta_bits : nullptr);
+    t += ns;
+  }
+  if (n_chunks & 1) {
+    grid.sync();
+    for (int L = 0; L < b.B; ++L)
+      if (gate.runs(L)) copy_lane(twin, u, b, L, grid);
+  }
+}
+
+// K13 and _solve_collage_device's loop on the tiled route: the lockstep
+// protocol of solver/batched.py lockstep for every lane at once, from t = 0
+// while t < max_iterations. A cycle: the checked chunk of depth
+// min(K, stagger) over the lanes not retired, writing u1 too, its deltas
+// into acc's half `slot`; a barrier; each lane's owner thread records its
+// delta and iteration count, retires it when delta < eps[L] and t + 1 >=
+// m_max (its state is then its u1 slice, which no later chunk writes),
+// clears its word of the other half and counts the lanes still active into
+// count[slot]; then the remaining stagger - depth sweeps as further chunks
+// over the lanes the gate runs: not retired before the cycle, nor passing
+// the exit rule on this cycle's delta (so a block never waits for the
+// owners' flags, whichever value of a flag being written it reads), a
+// barrier after each (one more when there is none). Then every thread reads
+// the same count and exits at 0. Each of acc's two [B] halves and count's
+// two slots is cleared one cycle before its next use, with at least one
+// barrier between the clear and the next atomics. The chunk count `flips`
+// says where an active lane's state is (twin when odd); at the end each
+// lane is copied into u from u1 or the twin. The caller zeroes acc, count,
+// retired and iters and sets deltas to eps + 1, the values a lane keeps if
+// it never runs a check. One call site of the pass (see tile3d.cu's solve).
+template <class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+lanes_tile_solve_kernel(float* u, float* twin, float* u1, Lanes b, const float* eps,
+                        int m_max, int max_iterations, int stagger, unsigned int* acc,
+                        int* count, uint8_t* retired, int* iters, float* deltas) {
+  cg::grid_group grid = cg::this_grid();
+  const int depth = min(b.one.K, stagger);
+  const int rest = stagger - depth;
+  const int n_rest = (rest + b.one.K - 1) / b.one.K;
+  int flips = 0;
+  int slot = 0;
+  for (int t = 0; t < max_iterations; t += stagger) {
+    unsigned int* now = acc + static_cast<size_t>(slot) * b.B;
+    int ts = t;
+    for (int c = 0; c <= n_rest; ++c) {
+      const bool check = c == 0;
+      const int ns = check ? depth : spread_at(rest, n_rest, c - 1);
+      const LaneGate gate{retired, 1, !check && t + 1 >= m_max ? now : nullptr, eps};
+      all_lane_jobs<S, true>((flips & 1) ? twin : u, (flips & 1) ? u : twin,
+                             check ? u1 : nullptr, b, gate, ts, ns, check ? now : nullptr);
+      grid.sync();
+      ++flips;
+      ts += ns;
+      if (check) {
+        int still = 0;
+        for (long long L = grid.thread_rank(); L < b.B; L += grid.size()) {
+          if (__ldcg(retired + L) == 0) {
+            const float d = __uint_as_float(__ldcg(now + L));
+            const bool done = d < eps[L] && t + 1 >= m_max;
+            deltas[L] = d;
+            iters[L] = done ? t + 1 : t + stagger;
+            if (done) {
+              retired[L] = 1;
+            } else {
+              ++still;
+            }
+          }
+          acc[static_cast<size_t>(slot ^ 1) * b.B + L] = 0u;
+        }
+        for (int off = 16; off > 0; off >>= 1) still += __shfl_xor_sync(0xffffffffu, still, off);
+        if ((threadIdx.x & 31) == 0 && still > 0) atomicAdd(count + slot, still);
+      }
+    }
+    if (n_rest == 0) grid.sync();
+    if (__ldcg(count + slot) == 0) break;
+    if (grid.thread_rank() == 0) count[slot ^ 1] = 0;
+    slot ^= 1;
+  }
+  const float* cur = (flips & 1) ? twin : u;
+  for (int L = 0; L < b.B; ++L) {
+    const float* from = __ldcg(retired + L) ? u1 : cur;
+    if (from != u) copy_lane(from, u, b, L, grid);
+  }
+}
+
 // Tiles of shape S across w columns, and over an h x w centre.
 template <class S>
 int tiles_across(int w) {
@@ -1020,6 +1204,37 @@ int resident2d_solve(const void* plan, int n_shards, int h, int w, int H, long l
                             static_cast<cudaStream_t>(stream));
 }
 
+// Whether the tiled route takes B lanes of H x W at depth K: a lane of at
+// least one cell, a depth of at least one sweep, and a job count that fits
+// an int.
+bool lanes_ok(int B, int H, int W, int K) {
+  return B >= 0 && H >= 1 && W >= 1 && K >= 1 && B * tile_count<Small>(H, W) <= INT_MAX;
+}
+
+template <class S>
+int lanes2d_chunk(float* u, float* twin, const void* locked, int B, int H, int W, const int* it,
+                  int num_sweeps, const uint8_t* active, unsigned int* delta, int K, void* stream,
+                  int device) {
+  Lanes b{make_tiling<S>(locked, H, W, K), B};
+  void* args[] = {&u, &twin, &b, &it, &num_sweeps, &active, &delta};
+  return launch_cooperative(reinterpret_cast<const void*>(lanes_tile_chunk_kernel<S>),
+                            kThreads, B * b.one.n_tiles, smem_bytes<S>(K), args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+template <class S>
+int lanes2d_solve(float* u, float* twin, float* u1, const void* locked, int B, int H, int W,
+                  const float* eps, int m_max, int max_iterations, int stagger,
+                  unsigned int* acc, int* count, uint8_t* retired, int* iters, float* deltas,
+                  int K, void* stream, int device) {
+  Lanes b{make_tiling<S>(locked, H, W, K), B};
+  void* args[] = {&u, &twin, &u1, &b, &eps, &m_max, &max_iterations, &stagger,
+                  &acc, &count, &retired, &iters, &deltas};
+  return launch_cooperative(reinterpret_cast<const void*>(lanes_tile_solve_kernel<S>),
+                            kThreads, B * b.one.n_tiles, smem_bytes<S>(K), args, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1142,6 +1357,67 @@ int epic_resident2d_solve(const void* plan, int n_shards, int h, int w, int H, l
                                      acc, it_io, delta_io, done_io, stream, device)
              : resident2d_solve<Small>(plan, n_shards, h, w, H, ld, K, eps, m_max, bound,
                                        stagger, acc, it_io, delta_io, done_io, stream, device);
+}
+
+// The batched entries' tiled route (K12, K13): u, twin and u1 are f32[B, H,
+// W] and locked u8[B, H, W], contiguous and distinct; any B, H and W (odd
+// ones too); K the halo depth. Both pick the tile shape by use_big over the
+// jobs of every lane and refuse (cudaErrorInvalidValue, no launch) a lane
+// or depth lanes_ok does not take; B = 0 launches nothing.
+
+// num_sweeps (>= 1) sweeps from iteration *it of the lanes whose active flag
+// (u8[B], or null for all) is 1, u updated in place (twin is scratch); each
+// running lane's sweep-0 delta max-accumulated into delta[L] (f32[B],
+// zeroed by the caller).
+int epic_lanes2d_chunk(void* u, void* twin, const void* locked, int B, int H, int W,
+                       const void* it, int num_sweeps, const void* active, void* delta, int K,
+                       void* stream, int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!lanes_ok(B, H, W, K) || num_sweeps < 1) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  float* u_f = static_cast<float*>(u);
+  float* twin_f = static_cast<float*>(twin);
+  const int* it_i = static_cast<const int*>(it);
+  const uint8_t* active_b = static_cast<const uint8_t*>(active);
+  unsigned int* delta_u = static_cast<unsigned int*>(delta);
+  return use_big(B * tile_count<Big>(H, W), device)
+             ? lanes2d_chunk<Big>(u_f, twin_f, locked, B, H, W, it_i, num_sweeps, active_b,
+                                  delta_u, K, stream, device)
+             : lanes2d_chunk<Small>(u_f, twin_f, locked, B, H, W, it_i, num_sweeps, active_b,
+                                    delta_u, K, stream, device);
+}
+
+// The lockstep solve of every lane from t = 0 while t < max_iterations, in
+// one launch, u updated in place (twin and u1 are scratch). retired u8[B],
+// iters i32[B] and deltas f32[B] hold the caller's starting values (0, 0,
+// eps + 1) and get each lane's result; acc (u32[2B]) and count (i32[2]),
+// zeroed, are the protocol's scratch. eps is f32[B], m_max the iteration a
+// lane may first retire after (max(H, W)).
+int epic_lanes2d_solve(void* u, void* twin, void* u1, const void* locked, int B, int H, int W,
+                       const void* eps, int m_max, int max_iterations, int stagger, void* acc,
+                       void* count, void* retired, void* iters, void* deltas, int K,
+                       void* stream, int device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!lanes_ok(B, H, W, K) || stagger < 1) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  float* u_f = static_cast<float*>(u);
+  float* twin_f = static_cast<float*>(twin);
+  float* u1_f = static_cast<float*>(u1);
+  const float* eps_f = static_cast<const float*>(eps);
+  unsigned int* acc_u = static_cast<unsigned int*>(acc);
+  int* count_i = static_cast<int*>(count);
+  uint8_t* retired_b = static_cast<uint8_t*>(retired);
+  int* iters_i = static_cast<int*>(iters);
+  float* deltas_f = static_cast<float*>(deltas);
+  return use_big(B * tile_count<Big>(H, W), device)
+             ? lanes2d_solve<Big>(u_f, twin_f, u1_f, locked, B, H, W, eps_f, m_max,
+                                  max_iterations, stagger, acc_u, count_i, retired_b, iters_i,
+                                  deltas_f, K, stream, device)
+             : lanes2d_solve<Small>(u_f, twin_f, u1_f, locked, B, H, W, eps_f, m_max,
+                                    max_iterations, stagger, acc_u, count_i, retired_b, iters_i,
+                                    deltas_f, K, stream, device);
 }
 
 }  // extern "C"

@@ -118,7 +118,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.epic_sweep3d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, i]
     lib.epic_sweep3d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i]
     lib.epic_batched2d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, i, p, i]
-    lib.epic_batched2d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i, p, i]
+    lib.epic_batched2d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, i, p, i]
     lib.epic_batched2d_smem_bytes.argtypes = [i, i]
     lib.epic_batched2d_smem_bytes.restype = ll
     lib.epic_batched2d_cluster_smem_bytes.argtypes = [i, i, i]
@@ -146,6 +146,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               p, p, i]
         lib.epic_resident3d_cycle.restype = i
         lib.epic_resident3d_solve.restype = i
+    if hasattr(lib, "epic_lanes2d_chunk"):   # an earlier tile2d.cu lacks the batch entries
+        lib.epic_lanes2d_chunk.argtypes = [p, p, p, i, i, i, p, i, p, p, i, p, i]
+        lib.epic_lanes2d_solve.argtypes = [p, p, p, p, i, i, i, p, i, i, i, p, p, p, p, p, i, p,
+                                           i]
+        lib.epic_lanes2d_chunk.restype = i
+        lib.epic_lanes2d_solve.restype = i
     for name in ("epic_tile2d_smem_bytes", "epic_tile3d_smem_bytes"):
         if hasattr(lib, name):   # an earlier design of a tile family may lack it
             getattr(lib, name).argtypes = [i]

@@ -31,6 +31,18 @@ from . import _build
 from .hopper_sweep import _check_cuda_state, _iteration, _stream
 
 
+def scratch_for(cache: dict, u: torch.Tensor, name: str) -> torch.Tensor:
+    """The scratch tensor ``name`` ("twin" or "u1") of u's device and shape
+    in ``cache``, which keeps those of the last (device, shape) only."""
+    key = (u.device, tuple(u.shape))
+    if cache.get("key") != key:
+        cache.clear()
+        cache["key"] = key
+    if name not in cache:
+        cache[name] = torch.empty_like(u)
+    return cache[name]
+
+
 def _check_chunks(num_sweeps: int, n_chunks: int, k: int) -> None:
     if n_chunks < 1 or not n_chunks <= num_sweeps <= n_chunks * k:
         raise ValueError(f"{num_sweeps} sweeps over {n_chunks} chunks of 1..{k} sweeps")
@@ -88,17 +100,6 @@ class TileKernels:
         return (*u.shape, self.tile_of(u.shape, u.device)[0])
 
     # -- checks and scratch ----------------------------------------------------------
-
-    def _scratch_for(self, u: torch.Tensor, name: str) -> torch.Tensor:
-        """The scratch grid ``name`` ("twin" or "u1") for u's device and
-        shape, kept for the last (device, shape) only."""
-        key = (u.device, tuple(u.shape))
-        if self.scratch.get("key") != key:
-            self.scratch.clear()
-            self.scratch["key"] = key
-        if name not in self.scratch:
-            self.scratch[name] = torch.empty_like(u)
-        return self.scratch[name]
 
     def _check_grid(self, u: torch.Tensor, locked: torch.Tensor, *others: torch.Tensor) -> None:
         """What the entries take: contiguous float32 grids of the family's
@@ -202,7 +203,7 @@ class TileKernels:
                                        tile=self.tile_of(state.u.shape, state.u.device))
         _check_cuda_state(state, self.ndim)
         u, locked = state.u, state.locked
-        twin = self._scratch_for(u, "twin")
+        twin = scratch_for(self.scratch, u, "twin")
         cycle_sweeps, n_chunks, tail = self.plain.tick_schedule(num_steps, k)
         delta = None
         if n_chunks:
@@ -248,7 +249,7 @@ class TileKernels:
         bounds = ([max_iterations] if segment_iterations is None
                   else self.plain.segment_bounds(stagger, max_iterations, segment_iterations))
         u, dev = state.u, state.u.device
-        twin, u1 = self._scratch_for(u, "twin"), self._scratch_for(u, "u1")
+        twin, u1 = scratch_for(self.scratch, u, "twin"), scratch_for(self.scratch, u, "u1")
         acc = torch.zeros(2, dtype=torch.int32, device=dev)
         iteration = torch.zeros((), dtype=torch.int32, device=dev)
         delta = state.epsilon + 1.0

@@ -5,7 +5,9 @@ launches ``epic_batched2d_chunk`` (for ``_block_kernel``), the host-driven
 ``solve_batch`` drives it through the lockstep protocol, and
 ``solve_batch_device`` runs the whole protocol in one launch of
 ``epic_batched2d_solve`` (for ``_block_kernel_gated`` and
-``_solve_collage_device``), all from ``csrc/batched2d.cu``.
+``_solve_collage_device``), from ``csrc/batched2d.cu``; on the tiled route
+the two launches are ``epic_lanes2d_chunk`` and ``epic_lanes2d_solve`` of
+``csrc/tile2d.cu`` instead.
 ``make_goal_batch`` and ``solve_batch_goals`` build B lanes on the device
 from one base map and index arrays.
 
@@ -22,11 +24,16 @@ larger lane that a thread-block cluster can hold (:func:`lane_cluster`;
 up to 930 x 930 on an H100, clusters of 16) takes the cluster route: a
 cluster of C blocks a lane, each block a band of its rows
 (:func:`bands`, :func:`cluster_smem_bytes`), also for the whole chunk or
-solve. A lane beyond any cluster, and a batch too small to fill half the
-SMs with its clusters, takes the streamed route: one cooperative kernel
-over (lane, row) units, a grid barrier a sweep. The wrapper names
-the route to the C entry by the blocks a lane takes (0 streamed, 1
-resident, C); the entry refuses a lane that does not fit; nothing retries.
+solve; a batch of few lanes gets wider clusters. Lanes beyond any
+cluster take the tiled route: ``csrc/tile2d.cu``'s
+temporally blocked tile pass over every (lane, tile) pair, K sweeps
+(``DEPTH``) a trip through memory, ping-pong through a twin batch (and the
+solve's check through a u1 batch), scratch kept for the last (device,
+shape) as ``_tiles.scratch_for`` keeps it; its plain model is
+``tiled.lanes_update_n`` / ``tiled.lanes_solve``. The wrapper names the
+other routes to ``csrc/batched2d.cu``'s entries by the blocks a lane takes
+(1 resident, C a cluster); an entry refuses a lane that does not fit;
+nothing retries.
 
 In place: on CUDA the kernels relax ``u`` in place and the returned ``u``
 is the same tensor; keep only what a call returns. The solves return
@@ -44,11 +51,17 @@ import ctypes
 import torch
 
 from .. import constants as C
-from . import _build, batched
+from . import _build, batched, hopper_tile2d
+from ._tiles import scratch_for
 from .hopper_sweep import _iteration, _stream
 
+# K12's and K13's launches on every route, and each launch's route.
 launches = {"epic_batched2d_chunk": 0, "epic_batched2d_solve": 0}
-routes = {"resident": 0, "cluster": 0, "streamed": 0}
+routes = {"resident": 0, "cluster": 0, "tiled": 0}
+# The tiled route's halo depth: the sweeps a chunk runs on a trip through
+# memory (the grid tiles' default; `tile_probe --batch` times 8, 16, 24).
+DEPTH = hopper_tile2d.DEFAULT_DEPTH
+_scratch: dict = {}   # the tiled route's twin and u1 batches
 
 # csrc/batched2d.cu's resident layout: the delta words after the lane.
 DELTA_SLOTS = 3
@@ -116,31 +129,45 @@ def lane_cluster(h: int, w: int, device: torch.device, lanes: int | None = None)
     """The cluster size for ``h x w`` lanes on ``device``: 0 where
     :func:`lane_resident` admits them, else the smallest of
     ``CLUSTER_SIZES`` up to :func:`max_cluster` whose largest band fits the
-    device's opt-in shared memory a block; 0 (the streamed route) if none
-    does. Given the batch's ``lanes``, also 0 where the batch's clusters
-    would fill at most half the device's SMs: a few large lanes (a planner's
-    few goals on a large map) sweep faster streamed, every SM on the batch
-    while it sits in the L2 (measured with `tile_probe --batch` at 8 to 256
-    lanes; PERF.md)."""
+    device's opt-in shared memory a block; 0 (the tiled route) if none
+    does. Given the batch's ``lanes``, the largest of those sizes whose
+    clusters fill at most half the device's SMs (2 x lanes x C <= SMs)
+    where one does: a few lanes (a planner's few goals on a large map) get
+    wider clusters, so that more SMs sweep them. Measured with `tile_probe
+    --batch` at 8 to 256 lanes of 240^2 to 930^2 on an H100 80GB HBM3 at
+    700 W (PERF.md), a 100-sweep chunk: the widened cluster beat the
+    smallest fitting one and the tiles at 8 and 16 lanes of 240^2 to 384^2
+    (8 x 384^2: 0.544 ms at C = 8, 1.129 at C = 3, 0.775 tiled); the
+    rule's cluster is within 1% of the tiles or faster at every batch
+    measured but 16 x 640^2 (2.47 against 2.24 ms tiled), 8 x 900^2 and
+    8 x 930^2 (2.95 against 2.24)."""
     if h < 3 or w < 3 or lane_resident(h, w, device):
         return 0
     props = torch.cuda.get_device_properties(device)
     largest = max_cluster(device)
     fits = [c for c in CLUSTER_SIZES
             if c <= largest and cluster_smem_bytes(h, w, c) <= props.shared_memory_per_block_optin]
-    if not fits or (lanes and 2 * lanes * fits[0] <= props.multi_processor_count):
+    if not fits:
         return 0
-    return fits[0]
+    wide = [c for c in fits if lanes and 2 * lanes * c <= props.multi_processor_count]
+    return wide[-1] if wide else fits[0]
 
 
 def _blocks(b: int, h: int, w: int, device: torch.device) -> tuple[int, str]:
-    """The blocks a lane of a ``b``-lane batch takes, as the C entries name
-    the route (1 resident, C >= 2 a cluster of C, 0 streamed), and the
-    route's name."""
+    """The blocks a lane of a ``b``-lane batch takes, as the batched2d.cu
+    entries name the route (1 resident, C >= 2 a cluster of C; 0 for the
+    tiled route, which the tile2d.cu entries take), and the route's name."""
     if lane_resident(h, w, device):
         return 1, "resident"
     c = lane_cluster(h, w, device, b)
-    return c, "cluster" if c else "streamed"
+    return (c, "cluster") if c else (0, "tiled")
+
+
+def _depth(device: torch.device) -> int:
+    """:data:`DEPTH`, checked against the card's shared memory a block."""
+    hopper_tile2d.check_depth(DEPTH, torch.cuda.get_device_properties(device)
+                              .shared_memory_per_block_optin)
+    return DEPTH
 
 
 def _check_cuda_batch(u: torch.Tensor, locked: torch.Tensor) -> None:
@@ -172,18 +199,26 @@ def _lane_flags(active: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def _launch_chunk(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: int,
                   active: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``epic_batched2d_chunk`` on a checked batch."""
+    """One launch of K12 on a checked batch, on the route the rule picks:
+    ``epic_batched2d_chunk``, or ``epic_lanes2d_chunk`` on the tiled route."""
     dev = u.device
     it = _iteration(iteration, dev)
     flags = None if active is None else _lane_flags(active, u)
     blocks, route = _blocks(*u.shape, dev)
-    # The streamed route max-accumulates into zeroed slots; the others write each.
+    flag_ptr = None if flags is None else flags.data_ptr()
+    # The tiled route max-accumulates into zeroed slots; the others write each.
     delta = (torch.empty if blocks else torch.zeros)(u.shape[0], dtype=torch.float32, device=dev)
-    err = _build.load().epic_batched2d_chunk(
-        u.data_ptr(), locked.data_ptr(), *u.shape, it.data_ptr(), num_steps,
-        None if flags is None else flags.data_ptr(), delta.data_ptr(), blocks,
-        _stream(dev), dev.index)
-    _build.check(err, "epic_batched2d_chunk")
+    if route == "tiled":
+        err = _build.load().epic_lanes2d_chunk(
+            u.data_ptr(), scratch_for(_scratch, u, "twin").data_ptr(), locked.data_ptr(),
+            *u.shape, it.data_ptr(), num_steps, flag_ptr, delta.data_ptr(), _depth(dev),
+            _stream(dev), dev.index)
+        _build.check(err, "epic_lanes2d_chunk")
+    else:
+        err = _build.load().epic_batched2d_chunk(
+            u.data_ptr(), locked.data_ptr(), *u.shape, it.data_ptr(), num_steps, flag_ptr,
+            delta.data_ptr(), blocks, _stream(dev), dev.index)
+        _build.check(err, "epic_batched2d_chunk")
     launches["epic_batched2d_chunk"] += 1
     routes[route] += 1
     return u, delta
@@ -239,16 +274,24 @@ def solve_batch_device(u: torch.Tensor, locked: torch.Tensor, epsilon=C.DEFAULT_
     iters = torch.zeros(b, dtype=torch.int32, device=dev)
     deltas = eps + 1.0
     blocks, route = _blocks(b, h, w, dev)
-    # The streamed route's scratch: two [B] delta halves and two lane counts.
-    acc = None if blocks else torch.zeros(2 * b, dtype=torch.int32, device=dev)
-    count = None if blocks else torch.zeros(2, dtype=torch.int32, device=dev)
-    err = _build.load().epic_batched2d_solve(
-        u.data_ptr(), locked.data_ptr(), b, h, w, eps.data_ptr(), max(h, w),
-        min(max_iterations, 2**31 - 1 - stagger), stagger,
-        None if acc is None else acc.data_ptr(), None if count is None else count.data_ptr(),
-        retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), blocks, _stream(dev),
-        dev.index)
-    _build.check(err, "epic_batched2d_solve")
+    cap = min(max_iterations, 2**31 - 1 - stagger)
+    if route == "tiled":
+        # The protocol's scratch: two [B] delta halves and two lane counts.
+        acc = torch.zeros(2 * b, dtype=torch.int32, device=dev)
+        count = torch.zeros(2, dtype=torch.int32, device=dev)
+        err = _build.load().epic_lanes2d_solve(
+            u.data_ptr(), scratch_for(_scratch, u, "twin").data_ptr(),
+            scratch_for(_scratch, u, "u1").data_ptr(), locked.data_ptr(), b, h, w,
+            eps.data_ptr(), max(h, w), cap, stagger, acc.data_ptr(), count.data_ptr(),
+            retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), _depth(dev),
+            _stream(dev), dev.index)
+        _build.check(err, "epic_lanes2d_solve")
+    else:
+        err = _build.load().epic_batched2d_solve(
+            u.data_ptr(), locked.data_ptr(), b, h, w, eps.data_ptr(), max(h, w), cap, stagger,
+            retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), blocks, _stream(dev),
+            dev.index)
+        _build.check(err, "epic_batched2d_solve")
     launches["epic_batched2d_solve"] += 1
     routes[route] += 1
     return u, iters, deltas, retired.bool()

@@ -31,7 +31,10 @@ main path never comes here.
 The chunk schedules of the wrappers (``hopper_tile2d``, ``hopper_tile3d``)
 live here too, so the plain and the kernel routes sweep the same chunks, and
 so do the runners over a chunk function (``cycle``, ``tick``,
-``protocol_solve``) that ``tiled3d`` shares.
+``protocol_solve``) that ``tiled3d`` shares. ``lanes_update_n`` and
+``lanes_solve`` model the batched entries' tiled route (``hopper_batched``
+on lanes past the clusters): the same tile sweep on each lane of a ``[B,
+H, W]`` batch, in the kernels' chunks, gating and copies.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from .. import constants as C
 from ..grid import GridState
 from ._sweep_body import lse4
 
-calls = {"update_n": 0, "solve": 0}
+calls = {"update_n": 0, "solve": 0, "lanes_update_n": 0, "lanes_solve": 0}
 
 
 def spread(num_sweeps: int, n_chunks: int) -> list[int]:
@@ -282,6 +285,92 @@ def protocol_solve(chunk, state: GridState, stagger: int, max_iterations: int,
     return dataclasses.replace(
         state, u=u, iteration=torch.tensor(it, dtype=torch.int32, device=dev), delta=delta,
         converged=torch.tensor(done, dtype=torch.bool, device=dev))
+
+
+def lanes_update_n(u: torch.Tensor, locked: torch.Tensor, iteration, num_sweeps: int,
+                   active: torch.Tensor | None = None, *, k: int, tile):
+    """The schedule of ``epic_lanes2d_chunk`` (the batched chunk's tiled
+    route) on a ``[B, H, W]`` batch, each lane a grid of its own:
+    ``ceil(num_sweeps / k)`` chunks spread as :func:`spread` spreads them,
+    ping-pong between u and a twin, a lane's delta its chunk 0's; after an
+    odd count the running lanes are copied back from the twin. A lane whose
+    optional ``active`` flag is False is neither read nor written and
+    reports delta 0. The twin starts as NaN, so a lane read from where the
+    kernel never wrote shows. Returns ``(u, delta [B])``, equal to
+    ``batched.update_n_batch`` bit for bit; ``u`` is not modified."""
+    _check_layout(k, tile)
+    if num_sweeps < 1:
+        raise ValueError(f"num_sweeps must be >= 1, got {num_sweeps}")
+    calls["lanes_update_n"] += 1
+    runs = [lane for lane in range(u.shape[0]) if active is None or bool(active[lane])]
+    bufs = [u.clone(), torch.full_like(u, float("nan"))]
+    delta = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+    per = spread(num_sweeps, -(-num_sweeps // k))
+    t = iteration
+    for c, ns in enumerate(per):
+        src, dst = bufs[c % 2], bufs[1 - c % 2]
+        for lane in runs:
+            dst[lane], d, _ = sweep_chunk(src[lane], locked[lane], t, ns, k=k, tile=tile)
+            if c == 0:
+                delta[lane] = d
+        t = t + ns
+    if len(per) % 2:
+        bufs[0][runs] = bufs[1][runs]
+    return bufs[0], delta
+
+
+def lanes_solve(u: torch.Tensor, locked: torch.Tensor, epsilon, stagger: int,
+                max_iterations: int, *, k: int, tile):
+    """The schedule of ``epic_lanes2d_solve`` (the batched solve's tiled
+    route): every lane in lockstep on one iteration t. A cycle is the checked
+    chunk of depth ``min(k, stagger)`` over the lanes not retired, which
+    keeps each lane's state after sweep 0 in a u1 batch; each lane's
+    verdict (retire when delta < eps and t + 1 >= max(H, W), its state its
+    u1 slice, never written again); the rest of the cycle
+    (:func:`solve_schedule`) over the lanes still active. At the end a
+    retired lane is taken from u1, the others from u or the twin by the
+    parity of the chunks run. The twin and u1 start as NaN. Returns ``(u,
+    iterations int32[B], deltas float32[B], converged bool[B])``, equal to
+    ``batched.solve_batch`` bit for bit; ``u`` is not modified."""
+    _check_layout(k, tile)
+    if stagger < 1:
+        raise ValueError(f"stagger must be >= 1, got {stagger}")
+    calls["lanes_solve"] += 1
+    from .batched import epsilon_lanes
+
+    b, h, w = u.shape
+    m_max = max(h, w)
+    eps = epsilon_lanes(epsilon, b, u.device)
+    iters = torch.zeros(b, dtype=torch.int32, device=u.device)
+    deltas = eps + 1.0
+    retired = torch.zeros(b, dtype=torch.bool, device=u.device)
+    bufs = [u.clone(), torch.full_like(u, float("nan"))]
+    first = torch.full_like(u, float("nan"))
+    depth, rest = solve_schedule(stagger, k)
+    flips, t = 0, 0
+    while t < max_iterations:
+        live = [lane for lane in range(b) if not retired[lane]]
+        src, dst = bufs[flips % 2], bufs[1 - flips % 2]
+        for lane in live:
+            dst[lane], d, first[lane] = sweep_chunk(src[lane], locked[lane], t, depth, k=k,
+                                                    tile=tile, u1=True)
+            done = bool(d < eps[lane]) and t + 1 >= m_max
+            deltas[lane] = d
+            iters[lane] = t + 1 if done else t + stagger
+            retired[lane] = done
+        flips += 1
+        ts = t + depth
+        live = [lane for lane in live if not retired[lane]]
+        for ns in rest:
+            src, dst = bufs[flips % 2], bufs[1 - flips % 2]
+            for lane in live:
+                dst[lane], _, _ = sweep_chunk(src[lane], locked[lane], ts, ns, k=k, tile=tile)
+            flips += 1
+            ts += ns
+        if not live:
+            break
+        t += stagger
+    return torch.where(retired.view(b, 1, 1), first, bufs[flips % 2]), iters, deltas, retired
 
 
 def segment_bounds(stagger: int, max_iterations: int, segment_iterations: int) -> list[int]:

@@ -2,7 +2,8 @@
 
 Run from the repository root: ``python -m epic_tpu_torch.tile_probe
 [--sides ...] [--volumes ...] [--shapes] [--ablate3d] [--solve3d] [--mesh3d] [--compare3d FILE]
-[--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--batch] [--batch-small]
+[--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--batch] [--lane-depths]
+[--batch-small]
 [--ablate-batch] [--sass]``. It prints the card's name
 and power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` runs after one warm-up:
@@ -70,7 +71,8 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   entries, ticks and solves through the wrappers with one library loaded
   and then the other, in turns (FILE, source, source, FILE) for each in
   a row, the results of the two held equal bit for bit;
-- ``--batch``: the batched scenario kernels (``csrc/batched2d.cu``). Each
+- ``--batch``: the batched scenario kernels (``csrc/batched2d.cu``, and
+  the tiled route's ``epic_lanes2d_*`` in ``csrc/tile2d.cu``). Each
   candidate of ``LANE_BLOCKS`` (one block for every lane, or the source's
   rule) is built as a copy of the library with those constants replaced
   (under the build directory), and each of its ``-Xptxas -v`` lines is
@@ -78,16 +80,23 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   lanes of each side in ``BATCH_SIDES`` and the largest that
   :func:`hopper_batched.lane_resident` admits, as many lanes as fill 4096 x
   128^2 cells, a 100-sweep chunk on the resident route under each candidate
-  and on the streamed route; at 128^2 also the solve capped at 1,000, a
-  chunk with one lane active, and chip_smoke.py's goal batch (cap 8,000). In turns (each candidate, then the streamed
+  and on the tiled route; at 128^2 also the solve capped at 1,000, a
+  chunk with one lane active, and chip_smoke.py's goal batch (cap 8,000). In turns (each candidate, then the tiled
   route, then the same in reverse), the results held equal bit for bit.
   Then the cluster route: each ``CLUSTER_VARIANTS`` copy at each cluster
   size of ``CLUSTER_SIZES`` that fits, for square lanes of each side of
   ``CLUSTER_SIDES`` (or ``--sides``, which also skips the resident part)
   and the largest :func:`hopper_batched.lane_cluster` admits, at each
-  batch of ``CLUSTER_LANES``, a 100-sweep chunk beside the streamed route
+  batch of ``CLUSTER_LANES``, a 100-sweep chunk beside the tiled route
   (at ``CLUSTER_SOLVE`` also the capped solve), in turns, the same bits;
-  each row names the cluster the rule picks;
+  each row names the cluster the rule picks, and a ``rule_fit`` row each
+  (side, lanes) the source's time at the rule's cluster without the batch
+  test beside the tiled route's: the data of ``lane_cluster``'s
+  batch-size threshold. Last the tiled route's depth: a 100-sweep chunk
+  and a capped solve of each ``LANE_DEPTH_CASES`` batch (chip_smoke.py's
+  phase 25, few lanes past every cluster, and batches that clusters
+  hold) at each depth of ``LANE_DEPTHS``, in turns, the same bits
+  (``--lane-depths`` runs this part alone);
 - ``--batch-small``: each cluster variant on small lanes at clusters of
   2, 3, 4 and 8, a gated chunk and a capped solve held to the plain
   version bit for bit; small enough to run under ``compute-sanitizer``;
@@ -180,7 +189,7 @@ BATCH_CELLS = 4096 * 128 * 128
 # --batch's cluster candidates: csrc/batched2d.cu as it is and with 1024
 # threads a block; each at every cluster size of CLUSTER_SIZES whose band
 # fits, at each side of CLUSTER_SIDES (and the largest lane_cluster admits)
-# and each batch of CLUSTER_LANES lanes, beside the streamed route.
+# and each batch of CLUSTER_LANES lanes, beside the tiled route.
 CLUSTER_VARIANTS = {
     "source": {},
     "t1024": {"kClusterThreads": 1024},
@@ -189,6 +198,12 @@ CLUSTER_SIZES = (2, 3, 4, 6, 8, 16)
 CLUSTER_SIDES = (240, 300, 384, 512, 640, 900)
 CLUSTER_LANES = (8, 16, 32, 64, 256)
 CLUSTER_SOLVE = (384, 256, 1000)   # side, lanes, cap of the capped solve also timed
+# --batch's depth cases for the tiled route (lanes, side, solve cap; lane 0
+# goalless): chip_smoke.py's batch_huge, few lanes of 1024^2, one lane,
+# and two batches that clusters hold (forced onto the tiles).
+LANE_DEPTH_CASES = ((32, 1024, 1200), (4, 1024, 1200), (1, 1024, 1200), (8, 512, 700),
+                    (16, 930, 1000))
+LANE_DEPTHS = (8, 16, 24)
 BATCH_SMALL = ((3, 41, 37), (2, 3, 131), (2, 9, 20))   # --batch-small's lanes x H x W
 # --ablate-batch: csrc/batched2d.cu without the cluster barrier after each
 # sweep (a whole barrier kept before the chunk ends) or without the edge
@@ -830,8 +845,31 @@ def lane_variant(consts: dict) -> str:
     return text
 
 
+def in_turns(order, work: dict, u0, reps: int, setup, what_failed: str) -> dict:
+    """Each name of ``order``, then the same in reverse: ``setup(name)``,
+    then each ``work`` item timed (a solve from ``u0`` afresh, a chunk on a
+    copy it keeps relaxing) and its result held to the first name's, bit
+    for bit. Returns {name: [row of times, row of times]}."""
+    times = {name: [] for name in order}
+    outs = {}
+    for name in [*order, *order[::-1]]:
+        setup(name)
+        row = {}
+        for what, fn in work.items():
+            x = u0.clone()
+            row[f"{what}_ms"] = event_ms(
+                (lambda: fn(x.copy_(u0))) if "solve" in what else (lambda: fn(x)), reps)
+            out = fn(x.copy_(u0))
+            torch.cuda.synchronize()
+            ref = outs.setdefault(what, [t.clone() for t in out])
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise RuntimeError(f"--batch {what_failed} {what}: {name} differs")
+        times[name].append(row)
+    return times
+
+
 def probe_batch(dev, reps: int, sides=BATCH_SIDES) -> None:
-    """The resident route's block candidates and the streamed route on the
+    """The resident route's block candidates and the tiled route on the
     same lanes, in turns, the same bits required."""
     from .solver import hopper_batched
 
@@ -840,9 +878,14 @@ def probe_batch(dev, reps: int, sides=BATCH_SIDES) -> None:
     fit = 3
     while hopper_batched.lane_resident(fit + 1, fit + 1, dev):
         fit += 1
-    rule, cluster_rule = hopper_batched.lane_resident, hopper_batched.lane_cluster
-    hopper_batched.lane_cluster = lambda h, w, d, lanes=None: 0   # past resident: streamed
-    order = [*libs, "streamed"]
+    rules = hopper_batched.lane_resident, hopper_batched.lane_cluster
+    hopper_batched.lane_cluster = lambda h, w, d, lanes=None: 0   # past resident: no cluster
+    order = [*libs, "tiled"]
+
+    def setup(name):
+        _build._lib = libs.get(name, libs["rule"])
+        hopper_batched.lane_resident = (lambda h, w, d: False) if name == "tiled" else rules[0]
+
     try:
         for side in (*sides, fit):
             lanes = max(1, BATCH_CELLS // (side * side))
@@ -857,34 +900,19 @@ def probe_batch(dev, reps: int, sides=BATCH_SIDES) -> None:
                 gu, gl = goal_batch(lanes, side, dev)
                 work["goals"] = lambda u: hopper_batched.solve_batch_device(
                     u.copy_(gu), gl, 1e-2, 100, 8000)
-            times = {name: [] for name in order}
-            outs = {}
-            for name in order + order[::-1]:
-                _build._lib = libs.get(name, libs[order[0]])
-                hopper_batched.lane_resident = (lambda h, w, d: False) if name == "streamed" \
-                    else rule
-                row = {}
-                for what, fn in work.items():
-                    x = u0.clone()   # a chunk relaxes it further each call; a solve starts afresh
-                    row[f"{what}_ms"] = event_ms(
-                        (lambda: fn(x.copy_(u0))) if what == "solve" else (lambda: fn(x)), reps)
-                    out = fn(x.copy_(u0))
-                    torch.cuda.synchronize()
-                    ref = outs.setdefault(what, [t.clone() for t in out])
-                    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-                        raise RuntimeError(f"--batch {side}^2 {what}: {name} differs")
-                times[name].append(row)
+            times = in_turns(order, work, u0, reps, setup, f"{side}^2")
             for name, rows in times.items():
                 print(json.dumps(dict(probe="batch", side=side, lanes=lanes, variant=name, **{
                     k: [r[k] for r in rows] for k in rows[0]})), flush=True)
     finally:
-        hopper_batched.lane_resident, hopper_batched.lane_cluster = rule, cluster_rule
+        hopper_batched.lane_resident, hopper_batched.lane_cluster = rules
         _build._lib = None
 
 
 def probe_clusters(dev, reps: int, sides=CLUSTER_SIDES) -> None:
-    """The cluster route's candidates (variant, cluster size) and the
-    streamed route on the same lanes, in turns, the same bits required."""
+    """The cluster route's candidates (variant, cluster size) and the tiled
+    route on the same lanes, in turns, the same bits required; then each
+    (side, lanes)'s ``rule_fit`` row."""
     from .solver import hopper_batched
 
     libs = build_libraries({name: lane_variant(c) for name, c in CLUSTER_VARIANTS.items()},
@@ -898,41 +926,69 @@ def probe_clusters(dev, reps: int, sides=CLUSTER_SIDES) -> None:
     rules = hopper_batched.lane_resident, hopper_batched.lane_cluster
     print(json.dumps(dict(probe="cluster_rule", max_cluster=largest, smem_limit=limit,
                           largest_side=top)), flush=True)
+
+    def setup(key):
+        name, c = key
+        _build._lib = libs.get(name, libs["source"])
+        hopper_batched.lane_cluster = lambda h, w, d, lanes=None, c=c: c
+
     try:
         hopper_batched.lane_resident = lambda h, w, d: False
         for side, lanes in itertools.product((*sides, top), CLUSTER_LANES):
             u0, locked = random_batch(lanes, side, dev)
             order = [(name, c) for name in libs for c in CLUSTER_SIZES
                      if c <= largest and hopper_batched.cluster_smem_bytes(side, side, c) <= limit]
-            order.append(("streamed", 0))
+            order.append(("tiled", 0))
             work = {"chunk": lambda u: hopper_batched.update_n_batch(u, locked, 0, 100)}
             if (side, lanes) == CLUSTER_SOLVE[:2]:
                 work["solve"] = lambda u: hopper_batched.solve_batch_device(
                     u, locked, 1e-2, 100, CLUSTER_SOLVE[2])
-            times = {key: [] for key in order}
-            outs = {}
-            for name, c in order + order[::-1]:
-                _build._lib = libs.get(name, libs["source"])
-                hopper_batched.lane_cluster = lambda h, w, d, lanes=None, c=c: c
-                row = {}
-                for what, fn in work.items():
-                    x = u0.clone()
-                    row[f"{what}_ms"] = event_ms(
-                        (lambda: fn(x.copy_(u0))) if what == "solve" else (lambda: fn(x)), reps)
-                    out = fn(x.copy_(u0))
-                    torch.cuda.synchronize()
-                    ref = outs.setdefault(what, [t.clone() for t in out])
-                    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-                        raise RuntimeError(f"--batch {lanes} x {side}^2 {what}: {name} c={c} differs")
-                times[(name, c)].append(row)
+            times = in_turns(order, work, u0, reps, setup, f"{lanes} x {side}^2")
+            rule = rules[1](side, side, dev, lanes)
             for (name, c), rows in times.items():
                 print(json.dumps(dict(probe="cluster", side=side, lanes=lanes, variant=name,
-                                      blocks=c, rule=rules[1](side, side, dev, lanes), **{
+                                      blocks=c, rule=rule, **{
                                           k: [r[k] for r in rows] for k in rows[0]})), flush=True)
-            del u0, locked, outs
+            alone = rules[1](side, side, dev)
+            mean = {key: sum(r["chunk_ms"] for r in rows) / len(rows)
+                    for key, rows in times.items()}
+            print(json.dumps(dict(probe="rule_fit", side=side, lanes=lanes, cluster=alone,
+                                  cluster_ms=mean.get(("source", alone)),
+                                  tiled_ms=mean[("tiled", 0)], rule=rule)), flush=True)
+            del u0, locked
     finally:
         hopper_batched.lane_resident, hopper_batched.lane_cluster = rules
         _build._lib = None
+
+
+def probe_lane_depths(dev, reps: int, cases=LANE_DEPTH_CASES, depths=LANE_DEPTHS) -> None:
+    """The tiled route at each depth of ``depths`` on each batch of
+    ``cases`` (lanes, side, solve cap; lane 0 goalless): a 100-sweep chunk
+    and the capped solve, in turns, the same bits required."""
+    from .solver import hopper_batched
+
+    rules = hopper_batched.lane_resident, hopper_batched.lane_cluster, hopper_batched.DEPTH
+
+    def setup(depth):
+        hopper_batched.DEPTH = depth
+
+    try:
+        hopper_batched.lane_resident = lambda h, w, d: False
+        hopper_batched.lane_cluster = lambda h, w, d, lanes=None: 0
+        for lanes, side, cap in cases:
+            u0, locked = random_batch(lanes, side, dev, seed=2)
+            u0[0] = -1e6   # goalless: it retires at its first check past `side` sweeps
+            work = {"chunk": lambda u: hopper_batched.update_n_batch(u, locked, 0, 100),
+                    "solve": lambda u: hopper_batched.solve_batch_device(u, locked, 1e-2, 100,
+                                                                         cap)}
+            times = in_turns(depths, work, u0, reps, setup, f"{lanes} x {side}^2")
+            for name, rows in times.items():
+                print(json.dumps(dict(probe="lane_depth", side=side, lanes=lanes, cap=cap,
+                                      depth=name, **{k: [r[k] for r in rows] for k in rows[0]})),
+                      flush=True)
+            del u0, locked
+    finally:
+        hopper_batched.lane_resident, hopper_batched.lane_cluster, hopper_batched.DEPTH = rules
 
 
 def probe_batch_small(dev) -> None:
@@ -1249,6 +1305,8 @@ def main() -> None:
                     help="time the 2D tile, shard and resident paths against FILE's tile2d.cu")
     ap.add_argument("--batch", action="store_true",
                     help="time the batched kernels' block and cluster candidates and the routes")
+    ap.add_argument("--lane-depths", action="store_true",
+                    help="only --batch's last part: the tiled route's depths")
     ap.add_argument("--batch-small", action="store_true",
                     help="hold the cluster route's variants to the plain version on small lanes")
     ap.add_argument("--ablate-batch", action="store_true",
@@ -1273,10 +1331,14 @@ def main() -> None:
         probe_batch_small(dev)
     elif args.ablate_batch:
         probe_ablate_batch(dev, args.reps)
+    elif args.lane_depths:
+        probe_lane_depths(dev, args.reps)
     elif args.batch:
         if not args.sides:
             probe_batch(dev, args.reps)
         probe_clusters(dev, args.reps, args.sides or CLUSTER_SIDES)
+        if not args.sides:
+            probe_lane_depths(dev, args.reps)
     elif args.ablate3d:
         probe_ablate3d(dev, args.reps)
     elif args.solve3d:

@@ -363,10 +363,12 @@ def test_lane_cluster_rule(monkeypatch, largest):
     ``largest``: 0 wherever lane_resident admits the lane, then the
     smallest of 2, 3, 4, 8 and 16 whose largest band fits, 0 past the
     largest cluster and for a lane whose one row outgrows a block; monotone
-    in H and in W. Given the batch's lanes, 0 (streamed) exactly where its
-    clusters fill at most 66 SMs: 8 and 16 lanes of 384^2 and 8 of 512^2
-    and 640^2, where `tile_probe --batch` measured the streamed route
-    ahead; 16 lanes of 512^2 and 8 of 900^2 stay on clusters."""
+    in H and in W. Given the batch's lanes, the widest of those sizes whose
+    clusters fill at most 66 SMs, where one fits: 8 lanes of 240^2 to
+    640^2 on clusters of 8, 16 lanes of 240^2 and 384^2 on clusters of 4,
+    32 of 240^2 on 2, where `tile_probe --batch` measured the widened
+    clusters ahead of the tiled route; 16 lanes of 512^2 stay on 8, 32 of
+    384^2 on 3, 8 of 900^2 on 16; never 0 where a cluster fits."""
     limit = 232_448
     dev = torch.device("cuda", 0)
 
@@ -400,21 +402,25 @@ def test_lane_cluster_rule(monkeypatch, largest):
             routed = [k for k, res in zip(seq, fits) if not res]
             past = routed.index(0) if 0 in routed else len(routed)
             assert routed[:past] == sorted(routed[:past])   # larger lanes, larger clusters
-            assert not any(routed[past:])                     # once streamed, streamed for larger
+            assert not any(routed[past:])                     # once tiled, tiled for larger
             assert all(k <= largest for k in seq)
 
-    # The batch's size: the same cluster, or the streamed route for few lanes.
-    assert c(240, 240, 1) == c(240, 240, 33) == c(236, 236, 1) == 0
-    assert c(240, 240, 34) == c(240, 240, 256) == 2
-    assert c(384, 384, 8) == c(384, 384, 16) == c(384, 384, 22) == 0
-    assert c(384, 384, 23) == c(384, 384, 32) == c(384, 384, 256) == 3
-    assert c(512, 512, 8) == c(640, 640, 8) == 0
+    # The batch's size: the same cluster, or a wider one for few lanes.
+    assert c(236, 236, 1) == 0
+    assert c(240, 240, 1) == c(240, 240, 4) == largest
+    assert c(240, 240, 8) == 8 and c(240, 240, 16) == 4 and c(240, 240, 17) == 3
+    assert c(240, 240, 32) == c(240, 240, 33) == c(240, 240, 34) == c(240, 240, 256) == 2
+    assert c(384, 384, 8) == 8 and c(384, 384, 16) == 4
+    assert c(384, 384, 22) == c(384, 384, 23) == c(384, 384, 32) == c(384, 384, 256) == 3
+    assert c(512, 512, 4) == largest and c(512, 512, 8) == c(640, 640, 8) == 8
     assert c(512, 512, 9) == c(512, 512, 16) == c(640, 640, 16) == 8
-    assert c(900, 900, 4) == 0 and c(900, 900, 5) == c(900, 900, 8) == (16 if largest == 16 else 0)
+    assert c(900, 900, 4) == c(900, 900, 8) == (16 if largest == 16 else 0)
     for h, w, lanes in itertools.product(range(3, 1100, 41), range(3, 1100, 53),
                                          (1, 4, 5, 8, 9, 16, 33, 34, 256)):
         alone = c(h, w)
-        assert c(h, w, lanes) == (alone if 2 * lanes * alone > 132 else 0)
+        wide = [k for k in (2, 3, 4, 8, 16)
+                if alone and alone <= k <= largest and 2 * lanes * k <= 132]
+        assert c(h, w, lanes) == (wide[-1] if wide else alone)
 
 
 def _band_model(u, locked, t0, num_steps, c, flip=True):

@@ -2,7 +2,8 @@
 the card: the 2D kernels (csrc/sweep2d.cu), the 2D tile kernels for grids
 beyond the L2 (csrc/tile2d.cu), the 3D kernels (csrc/sweep3d.cu), the 3D
 tile kernels for volumes beyond it (csrc/tile3d.cu), the batched scenario
-kernels (csrc/batched2d.cu), the shard chunk of the 2D mesh and the
+kernels (csrc/batched2d.cu, and their tiled route's entries in
+csrc/tile2d.cu), the shard chunk of the 2D mesh and the
 resident route's cycle and solve entries (in csrc/tile2d.cu) and the mesh
 solver and MeshPlanner on a virtual mesh of eight shards on the one card,
 the shard chunk of the 3D mesh
@@ -325,7 +326,7 @@ BATCHES = [(6, 24, 32, 0.1, 0), (5, 23, 27, 0.15, 1), (3, 9, 131, 0.05, 2), (4, 
 SOLVE_BATCHES = BATCHES[:3] + BATCHES[-3:]
 LANE_RESIDENT = hopper_batched.lane_resident   # the rules, whatever a test patches
 LANE_CLUSTER = hopper_batched.lane_cluster
-ROUTES = ("resident", "cluster", "streamed")
+ROUTES = ("resident", "cluster", "tiled")
 
 
 def _batch_shape(shape, dev):
@@ -348,15 +349,15 @@ def _past_clusters(dev):
     return side
 
 
-@pytest.fixture(params=["resident", "streamed", "cluster2", "cluster3", "cluster4", "cluster8"])
+@pytest.fixture(params=["resident", "tiled", "cluster2", "cluster3", "cluster4", "cluster8"])
 def route(request, monkeypatch):
     """The route a test's launches take: "resident" follows the rule
-    (lane_resident, then lane_cluster), "streamed" makes both refuse every
-    lane, so that small lanes go through the streamed kernels too, and
-    "clusterC" sends every lane to clusters of C blocks. Returns the route
-    each batch shape (lanes, H, W) takes."""
+    (lane_resident, then lane_cluster), "tiled" makes both refuse every
+    lane, so that small lanes go through the lane tiles too, and "clusterC"
+    sends every lane to clusters of C blocks. Returns the route each batch
+    shape (lanes, H, W) takes."""
     if request.param != "resident":
-        c = 0 if request.param == "streamed" else int(request.param[len("cluster"):])
+        c = int(request.param[len("cluster"):]) if request.param.startswith("cluster") else 0
         monkeypatch.setattr(hopper_batched, "lane_resident", lambda h, w, device: False)
         monkeypatch.setattr(hopper_batched, "lane_cluster", lambda h, w, device, lanes=None: c)
     return lambda b, h, w, dev: hopper_batched._blocks(b, h, w, dev)[1]
@@ -447,9 +448,8 @@ def test_batch_entries_refuse_a_resident_lane_that_does_not_fit(dev):
     errs = [lib.epic_batched2d_chunk(u.data_ptr(), locked.data_ptr(), 2, side, side, it.data_ptr(),
                                      10, None, delta.data_ptr(), 1, stream, dev.index),
             lib.epic_batched2d_solve(u.data_ptr(), locked.data_ptr(), 2, side, side,
-                                     eps.data_ptr(), side, 1000, 10, None, None,
-                                     retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), 1,
-                                     stream, dev.index)]
+                                     eps.data_ptr(), side, 1000, 10, retired.data_ptr(),
+                                     iters.data_ptr(), deltas.data_ptr(), 1, stream, dev.index)]
     torch.cuda.synchronize()
     for name, err in zip(("epic_batched2d_chunk", "epic_batched2d_solve"), errs):
         assert err != 0
@@ -459,29 +459,92 @@ def test_batch_entries_refuse_a_resident_lane_that_does_not_fit(dev):
     assert bool((retired == 0).all()) and torch.equal(deltas, eps + 1.0)
 
 
+@pytest.mark.parametrize("lanes", [1, 2, 7])
 @pytest.mark.parametrize("stagger,cap", [(100, 250), (10, 95)])
-def test_batch_solve_past_the_largest_cluster_streams(dev, stagger, cap):
-    """Lanes just past the largest cluster take the streamed route under
-    the rule; capped solves (one launch and host-driven) and a chunk give
-    the plain version's bits."""
+def test_batch_solve_past_the_largest_cluster_takes_the_tiles(dev, stagger, cap, lanes):
+    """Lanes just past the largest cluster take the tiled route under the
+    rule, whatever the batch's size; capped solves (one launch and
+    host-driven) and a chunk give the plain version's bits."""
     side = _past_clusters(dev)
-    u, locked = _batch(2, side, side, 0.1, 11, dev, goalless=(0,))
+    taken = hopper_batched._blocks(lanes, side, side, dev)[1]
+    assert taken == "tiled"
+    u, locked = _batch(lanes, side, side, 0.1, 11, dev, goalless=(0,))
     routes = dict(hopper_batched.routes)
     one = hopper_batched.solve_batch_device(u.clone(), locked, 1e-2, stagger, cap)
-    assert _took(routes, "streamed")
+    assert _took(routes, taken)
     host = hopper_batched.solve_batch(u.clone(), locked, 1e-2, stagger, cap)
     _assert_same_solve(one, batched.solve_batch(u, locked, 1e-2, stagger, cap))
     _assert_same_solve(host, one)
     routes = dict(hopper_batched.routes)
     _assert_same_solve(hopper_batched.update_n_batch(u.clone(), locked, 1, 3),
                        batched.update_n_batch(u, locked, 1, 3))
-    assert _took(routes, "streamed")
+    assert _took(routes, taken)
+
+
+@pytest.fixture()
+def tiled_route(monkeypatch):
+    """Every lane on the tiled route: lane_resident and lane_cluster
+    refuse each one."""
+    monkeypatch.setattr(hopper_batched, "lane_resident", lambda h, w, device: False)
+    monkeypatch.setattr(hopper_batched, "lane_cluster", lambda h, w, device, lanes=None: 0)
+
+
+# (lanes, H, W, seed) for the tiled route at each depth: lanes on the small
+# tile (too few jobs for two big tiles an SM), with odd H and a ragged last
+# tile, and lanes on the big tile with odd W.
+LANE_TILE_BATCHES = [(3, 101, 150, 12), (40, 200, 331, 13)]
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_lane_tiles_give_the_models_bits_at_every_depth(dev, tiled_route, monkeypatch, k):
+    """The tiled route's chunk at every depth 1..16, each its own call
+    pattern of the pass (F3 repeated its two call sites): an odd and an
+    even chunk count, with and without gating, against tiled's model of the
+    lane tiles and the plain version, bit for bit; then a solve whose lanes
+    retire at different cycles, against the model on the small tile and the
+    plain version on the big one."""
+    monkeypatch.setattr(hopper_batched, "DEPTH", k)
+    tile = hopper_tile2d.TILE
+    for lanes, h, w, seed in LANE_TILE_BATCHES:
+        u, locked = _batch(lanes, h, w, 0.1, seed, dev, goalless=(1,))
+        gate = torch.arange(lanes, device=dev) % 3 != 2
+        for num_steps, active in ((2 * k + 1, None), (2 * k, gate), (1, None)):
+            routes = dict(hopper_batched.routes)
+            got = hopper_batched.update_n_batch(u.clone(), locked, 1, num_steps, active)
+            assert _took(routes, "tiled")
+            model = tiled.lanes_update_n(u, locked, 1, num_steps, active, k=k, tile=tile)
+            _assert_same_solve(got, model)
+            _assert_same_solve(got, batched.update_n_batch(u, locked, 1, num_steps, active))
+        cap = 3 * max(h, w)
+        got = hopper_batched.solve_batch_device(u.clone(), locked, 1e-2, 7, cap)
+        _assert_same_solve(got, tiled.lanes_solve(u, locked, 1e-2, 7, cap, k=k, tile=tile)
+                           if lanes < 10 else batched.solve_batch(u, locked, 1e-2, 7, cap))
+        assert len(set(got[1].tolist())) > 1   # the lanes retired at different cycles
+
+
+@pytest.mark.parametrize("stagger,cap", [(1, 400), (7, 403), (100, 550), (100, 1_000_000),
+                                         (7, 1_000_000)])
+def test_lane_tiles_retire_lanes_unevenly(dev, tiled_route, stagger, cap):
+    """The tiled route's solve, one launch and host-driven, on lanes that
+    retire at different cycles (a goalless lane first, lanes whose goal
+    lies far from most cells later, some never under the cap), capped
+    mid-cycle too: the plain version's bits in u, iterations, deltas and
+    converged."""
+    u, locked = _batch(6, 48, 77, 0.1, 14, dev, goalless=(0, 3))
+    eps = torch.tensor([1e-2, 1e-3, 5e-2, 2e-3, 1e-2, 1e-4], device=dev)
+    plain = batched.solve_batch(u, locked, eps, stagger, cap)
+    one = hopper_batched.solve_batch_device(u.clone(), locked, eps, stagger, cap)
+    host = hopper_batched.solve_batch(u.clone(), locked, eps, stagger, cap)
+    _assert_same_solve(one, plain)
+    _assert_same_solve(host, plain)
+    assert len(set(one[1].tolist())) > 2
 
 
 def test_batch_cluster_rule_on_the_card(dev):
     """The card co-schedules clusters of 8 at least; a 384^2 lane takes a
-    cluster whose band fits, unless its batch fills at most half the SMs
-    with such clusters, and the C entry's layout size is the wrapper's."""
+    cluster whose band fits, a wider one where its batch's clusters would
+    fill at most half the SMs, lanes past every cluster the tiles, and the C
+    entry's layout size is the wrapper's."""
     from epic_tpu_torch.solver import _build
 
     lib = _build.load()
@@ -490,11 +553,16 @@ def test_batch_cluster_rule_on_the_card(dev):
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     c = LANE_CLUSTER(384, 384, dev)
     assert 2 <= c <= largest and hopper_batched.cluster_smem_bytes(384, 384, c) <= limit
-    few = torch.cuda.get_device_properties(dev).multi_processor_count // (2 * c)
-    assert LANE_CLUSTER(384, 384, dev, few) == 0 and LANE_CLUSTER(384, 384, dev, few + 1) == c
-    assert hopper_batched._blocks(few, 384, 384, dev) == (0, "streamed")
-    assert hopper_batched._blocks(few + 1, 384, 384, dev) == (c, "cluster")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for lanes in (1, 8, 16, 32, sms // (2 * c), sms // (2 * c) + 1, 256):
+        wide = [k for k in hopper_batched.CLUSTER_SIZES
+                if c <= k <= largest and 2 * lanes * k <= sms]
+        assert LANE_CLUSTER(384, 384, dev, lanes) == (wide[-1] if wide else c)
+        assert hopper_batched._blocks(lanes, 384, 384, dev) == (wide[-1] if wide else c,
+                                                                  "cluster")
     side = _past_clusters(dev)
+    assert hopper_batched._blocks(1, side, side, dev) == (0, "tiled")
+    assert hopper_batched._blocks(2, side, side, dev) == (0, "tiled")
     assert all(hopper_batched.cluster_smem_bytes(side, side, k) > limit
                for k in range(2, largest + 1))
     for h, w in ((384, 384), (3, 131), (5, 60_000), (side, side), (239, 235), (1000, 7)):
@@ -504,15 +572,15 @@ def test_batch_cluster_rule_on_the_card(dev):
 
 
 def test_batch_entries_refuse_a_cluster_that_does_not_fit(dev):
-    """Asked for a cluster whose band does not fit, a cluster beyond 16 or a
-    negative block count, both C entries return an error and launch
-    nothing: no other route is taken."""
+    """Asked for a cluster whose band does not fit, a cluster beyond 16, no
+    blocks or a negative block count, both C entries return an error and
+    launch nothing: no other route is taken."""
     from epic_tpu_torch.solver import _build
 
     lib = _build.load()
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     side = _past_clusters(dev)
-    cases = [(384, 2), (384, 17), (384, -1), (side, 16)]
+    cases = [(384, 2), (384, 17), (384, 0), (384, -1), (side, 16)]
     assert hopper_batched.cluster_smem_bytes(384, 384, 2) > limit
     for lanes_side, c in cases:
         u, locked = _batch(2, lanes_side, lanes_side, 0.1, 9, dev)
@@ -528,8 +596,8 @@ def test_batch_entries_refuse_a_cluster_that_does_not_fit(dev):
                                          lanes_side, it.data_ptr(), 10, None, delta.data_ptr(),
                                          c, stream, dev.index),
                 lib.epic_batched2d_solve(u.data_ptr(), locked.data_ptr(), 2, lanes_side,
-                                         lanes_side, eps.data_ptr(), lanes_side, 1000, 10, None,
-                                         None, retired.data_ptr(), iters.data_ptr(),
+                                         lanes_side, eps.data_ptr(), lanes_side, 1000, 10,
+                                         retired.data_ptr(), iters.data_ptr(),
                                          deltas.data_ptr(), c, stream, dev.index)]
         torch.cuda.synchronize()
         for name, err in zip(("epic_batched2d_chunk", "epic_batched2d_solve"), errs):
