@@ -5,10 +5,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
 
   1. build    — the card's name and power limit, the nvcc build time;
-  2. maze     — each 2D kernel against its plain torch version on the maze
-                demo map (tests/goldens/maze.npz): a 50-sweep tick at an even
-                and an odd start iteration, and a full solve. Tolerance: the
-                same bits (max abs diff 0.0);
+  2. maze     — K1 and K2 (csrc/sweep2d.cu) against their plain torch
+                version on the maze demo map (tests/goldens/maze.npz),
+                through a Planner with the counts zeroed around it: a
+                50-sweep tick at an even and an odd start iteration and a
+                full solve (K1 twice, K2 once, nothing else); then the
+                tick's mean of 50. Tolerance: the same bits (max abs diff
+                0.0); then the same on umass 310 x 940 (phase "umass");
   3. goldens  — the 2D kernels on maze and umass against the reference
                 binary's goldens, by tests/test_goldens.py's rules: 300
                 sweeps within 1e-3 of the recorded field; the solve's
@@ -27,6 +30,12 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 called directly (comparable with earlier runs), and through
                 a planner, which sends a grid beyond the L2 to the tile
                 kernels; kernel against plain, same bits, with the times;
+                then grid2048 — a 2048 x 2048 grid within two thirds of
+                the L2, which the planner keeps on K1/K2: counted
+                Planner ticks of 100 sweeps from an even and an odd
+                iteration and a solve capped at 2000 (K1 and K2 must run,
+                the tiles and the plain versions must not), against core,
+                same bits, the tick's mean of 10;
   6. volume   — the 3D kernels against the plain version on a 30 x 256 x 256
                 volume (numpy default_rng(0), 10% obstacle voxels, the shell
                 locked, one goal voxel, as tests/test_pallas3d.py builds
@@ -288,6 +297,7 @@ EPS = 1e-3                 # configs/maze.yaml and the goldens' epsilon
 # tests/test_goldens.py; the converged fields are held to FIELD_TOL.
 FIELD_TOL = 1e-2
 SIZE_SIDE = 4096          # 67 MB of u: beyond the 50 MB L2, all 132 SMs busy
+GRID_SIDE = 2048          # 21 MB of u and locked: within two thirds of the L2, K1/K2
 VOLUME = (30, 256, 256)   # 1.97M cells, 7.9 MB of u: the VMEM-resident regime's full width
 VOLUME_CAP = 3000         # the capped kernel-vs-plain solve
 SIZE3D = (256, 256, 256)  # 67 MB of u: beyond L2
@@ -583,44 +593,68 @@ def phase_build() -> dict:
     return {"smi": smi}
 
 
-def phase_maze(dev, maze) -> dict:
+def phase_demo(dev, g, name: str) -> dict:
+    """K1 and K2 on a reference demo map (``g``, a golden) against core.
+    The main path, counts zeroed just before and read just after: a Planner
+    (configs/maze.yaml: 50 sweeps a tick, eps 1e-3, stagger 100) ticks from
+    the map's 300-sweep field at an even and an odd iteration and solves it
+    in full; K1 must run twice and K2 once, the tiles and the plain versions
+    never. Then, outside the count, the tick's mean of 50 on ``hopper_sweep``
+    and the plain versions' times."""
     import epic_tpu_torch as T
-    from epic_tpu_torch.solver import core, hopper_sweep
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
 
-    locked = T.from_occupancy_image(maze["img"], EPS, device="cpu").locked.numpy()
-    errs = []
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    require(cfg.solver.epsilon == EPS and cfg.solver.stagger == STAGGER
+            and cfg.service.steps_per_update == 50, f"{name}: configs/maze.yaml changed")
+    locked = T.from_occupancy_image(g["img"], EPS, device="cpu").locked.numpy()
+    arrays = {t0: dict(u=g["ref_u300"], locked=locked, iteration=np.int32(t0),
+                       delta=np.float32(1.0), converged=np.bool_(False),
+                       epsilon=np.float32(EPS)) for t0 in (300, 301)}
+    planner = T.Planner(cfg, device=dev)
+    got, out = {}, {}
+    zero_counts()
     for t0 in (300, 301):
-        arrays = dict(u=maze["ref_u300"], locked=locked, iteration=np.int32(t0),
-                      delta=np.float32(1.0), converged=np.bool_(False),
-                      epsilon=np.float32(EPS))
-        k = hopper_sweep.update_n(T.state_from_numpy(arrays, device=dev), 50)
-        p = core.update_n(T.state_from_numpy(arrays, device=dev), 50)
-        errs.append(compare(k, p, f"maze 50-sweep tick from iteration {t0}"))
+        planner.state = T.state_from_numpy(arrays[t0], device=dev)
+        planner.update()
+        got[t0] = copy_state(planner.state)
+    planner.state = T.from_occupancy_image(g["img"], EPS, device=dev)
+    solve_k_ms = event_ms(lambda: planner.solve())
+    out["k"] = planner.state
+    torch.cuda.synchronize()
+    launches = dict(hopper_sweep.launches)
+    others = {**hopper_tile2d.launches, **{f"core.{k}": v for k, v in core.calls.items()},
+              **{f"tiled.{k}": v for k, v in tiled.calls.items()}}
+    require(launches == {"epic_sweep2d_chunk": 2, "epic_sweep2d_solve": 1},
+            f"{name}: K1/K2 launches {launches}")
+    require(all(v == 0 for v in others.values()),
+            f"{name}: another kernel or the plain version ran on the main path: {others}")
+    errs = [compare(got[t0], core.update_n(T.state_from_numpy(arrays[t0], device=dev), 50),
+                    f"{name} 50-sweep tick from iteration {t0}") for t0 in (300, 301)]
 
-    state = {"k": k, "p": p}
+    state = {"k": T.state_from_numpy(arrays[300], device=dev),
+             "p": T.state_from_numpy(arrays[300], device=dev)}
 
     def tick(which, fn):
         state[which] = fn(state[which], 50)
 
     tick_k_ms = event_ms(lambda: tick("k", hopper_sweep.update_n), reps=50)
     tick_p_ms = event_ms(lambda: tick("p", core.update_n), reps=10)
-
-    out = {}
-    solve_k_ms = event_ms(lambda: out.__setitem__(
-        "k", hopper_sweep.solve(T.from_occupancy_image(maze["img"], EPS, device=dev), STAGGER)))
     solve_p_ms = event_ms(lambda: out.__setitem__(
-        "p", core.solve(T.from_occupancy_image(maze["img"], EPS, device=dev), STAGGER)))
-    solve_err = compare(out["k"], out["p"], "maze full solve")
+        "p", core.solve(T.from_occupancy_image(g["img"], EPS, device=dev), STAGGER)))
+    solve_err = compare(out["k"], out["p"], f"{name} full solve")
     locked_t = out["k"].locked
     bounds = {"tick": bound(locked_t, 0, 50), "solve": bound(locked_t, 0, int(out["k"].iteration))}
-    emit(phase="maze", shape=list(maze["img"].shape), tick_sweeps=50,
+    emit(phase=name, shape=list(g["img"].shape), launches=launches, tick_sweeps=50,
          tick_max_abs_err=max(errs), tick_kernel_ms=tick_k_ms, tick_plain_ms=tick_p_ms,
          solve_iterations=int(out["k"].iteration), solve_delta=float(out["k"].delta),
          solve_max_abs_err=solve_err, solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms,
          bounds=bounds)
     return {"tick_err": max(errs), "tick_ms": tick_k_ms, "tick_plain_ms": tick_p_ms,
             "solve_err": solve_err, "solve_ms": solve_k_ms, "solve_plain_ms": solve_p_ms,
-            "maze_solved": out["k"], "tick_bound": bounds["tick"], "solve_bound": bounds["solve"]}
+            "solved": out["k"], "tick_bound": bounds["tick"], "solve_bound": bounds["solve"],
+            "launches": launches}
 
 
 def check_golden(name: str, g, solved, u300) -> dict:
@@ -647,21 +681,16 @@ def check_golden(name: str, g, solved, u300) -> dict:
                 converged=bool(solved.converged))
 
 
-def phase_goldens(dev, maze, maze_solved) -> None:
+def phase_goldens(dev, maze, maze_solved, umass, umass_solved) -> None:
     import epic_tpu_torch as T
     from epic_tpu_torch.solver import hopper_sweep
 
     def u300(g):
         return hopper_sweep.update_n(T.from_occupancy_image(g["img"], EPS, device=dev), 300).u
 
-    umass = np.load(GOLDENS / "umass.npz")
-    t0 = time.perf_counter()
-    umass_solved = hopper_sweep.solve(T.from_occupancy_image(umass["img"], EPS, device=dev), STAGGER)
-    torch.cuda.synchronize()
-    umass_s = time.perf_counter() - t0
     emit(phase="goldens", field_tol=FIELD_TOL,
          maze=check_golden("maze", maze, maze_solved, u300(maze)),
-         umass=dict(check_golden("umass", umass, umass_solved, u300(umass)), solve_s=umass_s))
+         umass=check_golden("umass", umass, umass_solved, u300(umass)))
 
 
 def golden_goal_starts(g) -> list[tuple[float, float]]:
@@ -858,6 +887,62 @@ def phase_size(dev) -> dict:
                  "solve": bound(base.locked, 0, solve_iterations)})
     return {"tick_err": tick_err, "solve_err": solve_err,
             "tile_err": max(tile_tick_err, tile_solve_err)}
+
+
+def phase_grid2048(dev) -> dict:
+    """2048^2 (21 MB of u and locked): within two thirds of the L2,
+    where the planner keeps K1/K2. The main path, counts zeroed just before and read just after: Planner.update
+    of 100 sweeps from an even and an odd iteration and Planner.solve capped
+    at 2000; K1 and K2 must run, the tiles and the plain versions must not.
+    Each against core, the same bits; the tick's mean of 10."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch import maps
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
+
+    side = GRID_SIDE
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    base = T.from_occupancy_image(maps.random_obstacles(side, side, seed=0), cfg.solver.epsilon,
+                                  device=dev)
+    require(not hopper_tile2d.use_tiles((side, side), dev), f"{side}^2 is routed to the tiles")
+    starts = {t: at_iteration(base, t) for t in (0, 1)}
+    plain = {t: core.update_n(starts[t], 100) for t in (0, 1)}
+    res = {}
+    tick_p_ms = event_ms(lambda: core.update_n(starts[0], 100))
+    solve_p_ms = event_ms(lambda: res.__setitem__("ps", core.solve(base, STAGGER, BIG_CAP)))
+    planner = T.Planner(cfg, device=dev)
+    got, times = {}, {}
+    zero_counts()
+    for t in (0, 1):
+        planner.state = copy_state(starts[t])
+        planner.update(100)
+        got[t] = copy_state(planner.state)
+    planner.state = copy_state(base)
+    times["solve"] = event_ms(lambda: planner.solve(max_iterations=BIG_CAP))
+    res["ks"] = planner.state
+    torch.cuda.synchronize()
+    launches = dict(hopper_sweep.launches)
+    others = {**hopper_tile2d.launches, **{f"core.{k}": v for k, v in core.calls.items()},
+              **{f"tiled.{k}": v for k, v in tiled.calls.items()}}
+    require(launches == {"epic_sweep2d_chunk": 2, "epic_sweep2d_solve": 1},
+            f"{side}^2: K1/K2 launches {launches}")
+    require(all(v == 0 for v in others.values()),
+            f"{side}^2: another kernel or the plain version ran on the main path: {others}")
+    tick_err = max(compare(got[t], plain[t], f"{side}^2 100-sweep tick from iteration {t}")
+                   for t in (0, 1))
+    solve_err = compare(res["ks"], res["ps"], f"{side}^2 solve capped at {BIG_CAP}")
+    planner.state = copy_state(starts[0])
+    times["tick10"] = event_ms(lambda: planner.update(100), reps=10)
+    iters = int(res["ks"].iteration)
+    bounds = {"tick": bound(base.locked, 0, 100), "solve": bound(base.locked, 0, iters)}
+    emit(phase="grid2048", shape=[side, side], launches=launches,
+         tick_max_abs_err=tick_err, tick_kernel_ms_mean10=times["tick10"],
+         tick_plain_ms=tick_p_ms, solve_cap=BIG_CAP, solve_iterations=iters,
+         solve_max_abs_err=solve_err, solve_kernel_ms=times["solve"], solve_plain_ms=solve_p_ms,
+         cell_updates_per_s=(side - 2) ** 2 / 2 * 100 / (times["tick10"] / 1e3), bounds=bounds)
+    return {"launches": launches, "tick_err": tick_err, "solve_err": solve_err,
+            "tick": (times["tick10"], tick_p_ms, bounds["tick"]),
+            "solve": (times["solve"], solve_p_ms, bounds["solve"])}
 
 
 def counted_main_path(what: str, drive) -> dict:
@@ -2776,11 +2861,14 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     maze = np.load(GOLDENS / "maze.npz")
+    umass = np.load(GOLDENS / "umass.npz")
     built = phase_build()
-    m = phase_maze(dev, maze)
-    phase_goldens(dev, maze, m["maze_solved"])
+    m = phase_demo(dev, maze, "maze")
+    um = phase_demo(dev, umass, "umass")
+    phase_goldens(dev, maze, m["solved"], umass, um["solved"])
     launches, session = phase_session(dev, maze)
     z = phase_size(dev)
+    g2 = phase_grid2048(dev)
     v = phase_volume(dev)
     phase_golden3d(dev)
     launches.update(phase_session3d(dev, session, maze, v["volume"]))
@@ -2797,7 +2885,7 @@ def main() -> None:
         add_counts(launches, r["launches"])
     big = phase_biggrid(dev)
     wide = phase_wide(dev)
-    small = phase_tile_small(dev, maze, m["maze_solved"])
+    small = phase_tile_small(dev, maze, m["solved"])
     big3 = phase_biggrid3d(dev)
     wide3 = phase_wide3d(dev)
     small3 = phase_tile3d_small(dev, v["volume"], v["solved"])
@@ -2819,8 +2907,8 @@ def main() -> None:
     tile_err = max(z["tile_err"], big["err"], wide["err"], small["err"])
     tile3d_err = max(big3["err"], wide3["err"], small3["err"])
     errs = {
-        "epic_sweep2d_chunk": max(m["tick_err"], z["tick_err"]),
-        "epic_sweep2d_solve": max(m["solve_err"], z["solve_err"]),
+        "epic_sweep2d_chunk": max(m["tick_err"], um["tick_err"], z["tick_err"], g2["tick_err"]),
+        "epic_sweep2d_solve": max(m["solve_err"], um["solve_err"], z["solve_err"], g2["solve_err"]),
         "epic_sweep3d_chunk": max(v["tick_max_abs_err"], z3["tick_max_abs_err"]),
         "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
         "epic_batched2d_chunk/resident": b["chunk_err"],
@@ -2881,6 +2969,23 @@ def main() -> None:
                     issue_bound_ms=issue_bound_ms(times[name][2], big["sm_clock_mhz"]),
                     library_ms=None)
                for name in SOURCES]
+    # K1 and K2 on umass and 2048^2 beside the maze's row: each its time,
+    # plain time, bounds, error and the launches of its own run.
+    demo_rows = {
+        "epic_sweep2d_chunk": {"umass": (um, "tick_err", (um["tick_ms"], um["tick_plain_ms"],
+                                                          um["tick_bound"])),
+                               "grid2048": (g2, "tick_err", g2["tick"])},
+        "epic_sweep2d_solve": {"umass": (um, "solve_err", (um["solve_ms"], um["solve_plain_ms"],
+                                                           um["solve_bound"])),
+                               "grid2048": (g2, "solve_err", g2["solve"])},
+    }
+    shapes = {"umass": list(umass["img"].shape), "grid2048": [GRID_SIDE, GRID_SIDE]}
+    for row in kernels:
+        for key, (ph, err, (ms, plain_ms, bnd)) in demo_rows.get(row["name"], {}).items():
+            row[key] = dict(shape=shapes[key], ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                            bound_by=bnd["bound_by"],
+                            issue_bound_ms=issue_bound_ms(bnd, big["sm_clock_mhz"]),
+                            max_abs_err=ph[err], launches=ph["launches"][row["name"]])
     for row in kernels:
         if row["name"] in big3["rows"]:
             ms, plain_ms, bnd = big3["rows"][row["name"]]

@@ -36,8 +36,11 @@
 // per cell (the other class in full, the updated half once) plus half a byte
 // of the lock mask, and pays one grid barrier. A grid that fits the 50 MB L2
 // (maze 482^2, 0.93 MB) is bound by the barrier and launch latency; a grid
-// beyond it (4096^2, 67 MB) by HBM bandwidth. Keeping K sweeps of a tile in
-// shared memory (temporal blocking) would cut both, and is later work.
+// beyond it (4096^2, 67 MB) by HBM bandwidth, and goes to the tile kernels
+// (tile2d.cu). Holding the grid in the shared memory of thread-block
+// clusters instead, with a cluster barrier a sweep and neighbour flags every
+// K sweeps, was measured and lost to this kernel on the maze and umass; the
+// measurements, and where that design's source is kept, are in PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

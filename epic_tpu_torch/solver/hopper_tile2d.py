@@ -12,11 +12,17 @@ and cycle entries themselves. A grid on the CPU goes to the plain version in
 :mod:`.tiled`; a grid on a CUDA device goes to the kernels or raises.
 
 Routing (:func:`use_tiles`): a grid goes here when its ``u`` and ``locked``
-(5 B a cell) exceed three quarters of the card's L2; below that the
-in-place kernels of :mod:`.hopper_sweep` run it from L2 faster. On an H100
-(50 MB of L2) the measured crossover lies between 2560² (32.8 MB, where the
-in-place kernel is 20% faster) and 2816² (39.6 MB, where the tiles are 2%
-faster): ``tile_probe.py``, PERF.md.
+(5 B a cell) exceed two thirds of the card's L2; below that the in-place
+kernels of :mod:`.hopper_sweep` run it from L2 faster. Two thirds of the
+50 MiB L2 of an H100 80GB HBM3 fall at about 2644². There, at 700 W,
+``tile_probe --sweep2d`` timed a 100-sweep tick and a solve capped at
+2,000 sweeps, in place against the tiles (ms, the mean of two turns):
+2560² 2.06 / 43.0 against 2.23 / 45.2; 2624² 2.26 / 51.1 against 2.24 /
+45.7, a tie on the tick; 2688² 2.61 / 48.9 against 2.24 / 45.2; 2736² 2.97
+/ 58.0 against 2.27 / 45.8. At 2816² the tiles lead by only 4% (3.31
+against 3.19 ms), likely because its 540 tiles of 96 × 160 need a third
+wave over the 264 an H100 runs at once, where 2736²'s 522 fill two.
+PERF.md holds the readings.
 
 In place, like every other wrapper: on CUDA the returned state holds the
 caller's ``u`` tensor, relaxed, with the twin and u1 scratch grids that
@@ -69,9 +75,9 @@ solve_segments = _kernels.solve_segments
 
 def past_crossover(shape, l2_bytes: int) -> bool:
     """The routing rule: ``u`` (4 B) and ``locked`` (1 B) of a 2D grid
-    exceed three quarters of ``l2_bytes``, where the tiles start to win."""
+    exceed two thirds of ``l2_bytes``, where the tiles start to win."""
     h, w = shape
-    return 4 * 5 * h * w > 3 * l2_bytes
+    return 3 * 5 * h * w > 2 * l2_bytes
 
 
 def use_tiles(shape, device) -> bool:

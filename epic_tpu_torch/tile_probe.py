@@ -4,7 +4,7 @@ Run from the repository root: ``python -m epic_tpu_torch.tile_probe
 [--sides ...] [--volumes ...] [--shapes] [--ablate3d] [--solve3d] [--mesh3d] [--compare3d FILE]
 [--mesh2d] [--shapes2d [--baseline FILE]] [--compare2d FILE] [--batch] [--lane-depths]
 [--batch-small]
-[--ablate-batch] [--sass]``. It prints the card's name
+[--ablate-batch] [--sweep2d] [--sass]``. It prints the card's name
 and power limit, then one JSON line per measurement, CUDA events, mean of
 ``--reps`` runs after one warm-up:
 
@@ -115,6 +115,11 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   sites, ``SOLVE3D``), each built into a whole library, at every depth on
   ``SOLVE3D_VOLUMES`` (or the ``--volumes`` shapes), capped at 300 sweeps
   and to convergence, held to K7's solve: the voxels that differ;
+- ``--sweep2d``: where K1's sweep goes, a 1,000-sweep maze tick on
+  ``csrc/sweep2d.cu`` and on copies without its grid barrier or with only
+  the barrier (``ABLATE_INPLACE``); then squares of ``SWEEP2D_SIDES``
+  around the L2 crossover, a tick and a capped solve on K1/K2 and on the
+  tiles, in turns, the same bits (the source of ``past_crossover``);
 - ``--sass``: the SASS instructions of one ``lse4`` and one ``lse6``
   update (``sweep_common.cuh``), counted with ``cuobjdump -sass`` in a
   kernel that computes one a thread, less a kernel that adds the same
@@ -219,6 +224,19 @@ ABLATE_BATCH = {
                  "    return;\n    const int P = m.P;"),),
 }
 ABLATE_BATCH_CASES = ((384, 3), (384, 8), (640, 8), (930, 16))
+# --sweep2d: K1/K2's in-place kernel (csrc/sweep2d.cu, a grid barrier a
+# sweep) beside copies of it without the grid barrier, or with only the
+# barrier (text edits; their bits are not the plain version's), and the
+# sides of the size sweep against the tiles (2624 and 2688 on each side of
+# the two-thirds-of-L2 crossover, past_crossover).
+ABLATE_INPLACE = {
+    "no_grid_barrier": (("grid.sync();", ";"),),
+    "barrier_only": (("for (int y = 1 + blockIdx.x; y <= H - 2; y += gridDim.x) {",
+                      "for (int y = H; y <= H - 2; y += gridDim.x) {"),),
+}
+SWEEP2D_SIDES = (768, 1024, 1280, 1536, 1792, 2048, 2304, 2432, 2560, 2624, 2688, 2736, 2816)
+SWEEP2D_TICK = 100
+SWEEP2D_CAP = 2000
 
 
 def random_state(shape, dev: torch.device, seed: int = 0) -> G.GridState:
@@ -1282,6 +1300,71 @@ def probe_mesh2d(dev, reps: int, sides=MESH_SIDES, shape=(2, 4)) -> None:
         del st, fields
 
 
+def edited(text: str, edits, what: str) -> str:
+    """``text`` with each (old, new) of ``edits`` replaced; raises where
+    ``old`` is missing."""
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{what} no longer has {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def probe_sweep2d(dev, reps: int) -> None:
+    """Where K1's sweep goes, and where the tiles overtake K1/K2: a
+    1,000-sweep maze tick on the source and on each ABLATE_INPLACE copy, in
+    turns (the source's bits held to core); then squares of SWEEP2D_SIDES,
+    a SWEEP2D_TICK-sweep tick and a solve capped at SWEEP2D_CAP on the
+    in-place kernels and on the tiles, in turns, the same bits, with the
+    route ``solver.update_grid`` takes."""
+    import numpy as np
+
+    from .grid import from_occupancy_image
+    from .solver import core
+
+    text = (_build.CSRC / "sweep2d.cu").read_text()
+    libs = build_libraries({"inplace": text, **{
+        f"inplace_{name}": edited(text, edits, f"sweep2d.cu ({name})")
+        for name, edits in ABLATE_INPLACE.items()}}, "sweep2d.cu")
+    try:
+        g = np.load(pathlib.Path(__file__).resolve().parents[1] / "tests" / "goldens" / "maze.npz")
+        st = from_occupancy_image(g["img"], 1e-3, device=dev)
+        ref = core.update_n(st, 1000)
+        times = {name: [] for name in libs}
+        for name in [*libs, *reversed(libs)]:
+            _build._lib = libs[name]
+            x = dataclasses.replace(st, u=st.u.clone())
+            times[name].append(event_ms(lambda: hopper_sweep.update_n(x, 1000), reps))
+        _build._lib = libs["inplace"]
+        out = hopper_sweep.update_n(dataclasses.replace(st, u=st.u.clone()), 1000)
+        torch.cuda.synchronize()
+        print(json.dumps(dict(probe="sweep2d_ablate", shape=list(st.u.shape), sweeps=1000,
+                              us_per_sweep={n: [t / 1000 * 1e3 for t in ts] for n, ts in times.items()},
+                              same_bits=bool(torch.equal(out.u, ref.u))
+                              and bool(torch.equal(out.delta, ref.delta)))), flush=True)
+        for s in SWEEP2D_SIDES:
+            st = random_state((s, s), dev)
+            names = ["inplace", "tiles"]
+            times = {name: [] for name in names}
+            outs = {}
+            for name in [*names, *reversed(names)]:
+                mod = hopper_tile2d if name == "tiles" else hopper_sweep
+                x = dataclasses.replace(st, u=st.u.clone())
+                t_ms = event_ms(lambda: mod.update_n(x, SWEEP2D_TICK), reps)
+                s_ms = event_ms(lambda: outs.__setitem__(name, mod.solve(
+                    dataclasses.replace(st, u=st.u.clone()), 100, SWEEP2D_CAP)), 1)
+                times[name].append((t_ms, s_ms))
+            torch.cuda.synchronize()
+            same = bool(torch.equal(outs["tiles"].u, outs["inplace"].u)) and \
+                int(outs["tiles"].iteration) == int(outs["inplace"].iteration)
+            print(json.dumps(dict(probe="sweep2d_sizes", side=s, tick_sweeps=SWEEP2D_TICK,
+                                  solve_cap=SWEEP2D_CAP, use_tiles=hopper_tile2d.use_tiles((s, s), dev),
+                                  tick_and_solve_ms=times, same_bits=same)), flush=True)
+            del st, outs
+    finally:
+        _build._lib = None
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -1315,6 +1398,9 @@ def main() -> None:
                     help="time the 3D tile pass without its lse6 or its step barrier")
     ap.add_argument("--solve3d", action="store_true",
                     help="hold the 3D tile solve, also with the pass at two call sites, to K7")
+    ap.add_argument("--sweep2d", action="store_true",
+                    help="time K1 without its grid barrier or with only it, and K1/K2 against the"
+                         " tiles on squares around the crossover")
     ap.add_argument("--sass", action="store_true",
                     help="count the SASS instructions of one lse4 and one lse6 update")
     args = ap.parse_args()
@@ -1327,7 +1413,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     volumes = VOLUMES if not args.volumes else args.volumes
-    if args.batch_small:
+    if args.sweep2d:
+        probe_sweep2d(dev, args.reps)
+    elif args.batch_small:
         probe_batch_small(dev)
     elif args.ablate_batch:
         probe_ablate_batch(dev, args.reps)

@@ -772,9 +772,9 @@ def test_tile_update_n_runs_cycle_and_remainder_chunk(dev):
 
 
 def test_planner_beyond_l2_runs_the_tile_kernels(dev):
-    """A Planner whose grid is past the routing crossover (three quarters of
-    the card's L2) ticks and solves on the tile kernels, and gives core's
-    bits; a small grid stays on sweep2d."""
+    """A Planner whose grid is past the routing crossover (two thirds of the
+    card's L2; this one is past three quarters) ticks and solves on the tile
+    kernels, and gives core's bits; a small grid stays on sweep2d."""
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     side = int((0.75 * l2 / 5) ** 0.5) + 64
     assert hopper_tile2d.use_tiles((side, side), dev)
@@ -796,6 +796,28 @@ def test_planner_beyond_l2_runs_the_tile_kernels(dev):
     replay = core.update_n(core.update_n(replay, 25), 100)
     _assert_same(tp.state, core.solve(replay, 100, 300))
     assert tp.state.u is u                 # relaxed in place, like every wrapper
+
+
+def test_planner_between_two_thirds_and_three_quarters_of_l2_runs_the_tiles(dev):
+    """The band the crossover moved: a grid just past two thirds of the L2
+    (and under three quarters) ticks and solves on the tile kernels with
+    core's bits; one just under two thirds stays on sweep2d."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    side = int((2 * l2 / 15) ** 0.5) + 16
+    assert 15 * side * side > 2 * l2 and 20 * side * side < 3 * l2
+    assert hopper_tile2d.use_tiles((side, side), dev)
+    assert not hopper_tile2d.use_tiles((side - 32, side - 32), dev)
+    tp = Planner(PlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+    tp.state = TG.from_occupancy_image(maps.random_obstacles(side, side, seed=3), 1e-2,
+                                       device=dev)
+    replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
+    launches, sweep = dict(hopper_tile2d.launches), dict(hopper_sweep.launches)
+    tp.update()
+    tp.solve(max_iterations=300)
+    assert hopper_tile2d.launches["epic_tile2d_solve"] == launches["epic_tile2d_solve"] + 1
+    assert sum(hopper_tile2d.launches.values()) >= sum(launches.values()) + 2
+    assert hopper_sweep.launches == sweep
+    _assert_same(tp.state, core.solve(core.update_n(replay, 25), 100, 300))
 
 
 def test_tile_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -260,14 +260,15 @@ def test_solve_segments_match_epic_tpu(module):
 # -- routing and configuration -------------------------------------------------------
 
 def test_use_tiles_is_a_rule_on_bytes_and_l2():
-    """Tiles past three quarters of the L2: the crossover measured on an
-    H100 (50 MB of L2) lies between 2560² and 2816²."""
+    """Tiles past two thirds of the L2: the crossover measured on an H100
+    (50 MB of L2) lies between 2560² and 2736²."""
     l2 = 50 * 2**20
     assert not hopper_tile2d.past_crossover((2560, 2560), l2)
+    assert hopper_tile2d.past_crossover((2736, 2736), l2)
     assert hopper_tile2d.past_crossover((2816, 2816), l2)
     assert hopper_tile2d.past_crossover((4096, 4096), l2)
     assert hopper_tile2d.past_crossover((2000, 33_333), l2)
-    cells = 3 * l2 // 20                            # 5 B a cell, 3/4 of the L2
+    cells = 2 * l2 // 15                            # 5 B a cell, 2/3 of the L2
     assert not hopper_tile2d.past_crossover((1, cells), l2)
     assert hopper_tile2d.past_crossover((1, cells + 1), l2)
     assert not hopper_tile2d.past_crossover((4096, 4096), 200 * 2**20)
