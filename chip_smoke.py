@@ -135,8 +135,8 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 an odd start iteration and an uncapped VolumePlanner.solve;
                 the 3D family the routing rule picks
                 (hopper_tile3d.use_tiles: K7 for this cube, where the tiles
-                measured slower) must have run, the other and the plain
-                versions must not. The ticks against core.update_n and
+                measured slower; asserted) must have run, the other and the
+                plain versions must not. The ticks against core.update_n and
                 the solve against core.solve and K7's one-launch solve
                 (1,301 iterations), same bits. Then the tile route through
                 hopper_tile3d's own entries (update_n, solve), counted the
@@ -148,7 +148,8 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
  16. wide3d   — a 32 x 2048 x 2048 volume, a building floor 102.4 m square
                 and 1.6 m high at 5 cm (537 MB of u), built as phase 6's: the
                 same main path and count rule (the router sends this
-                wide-plane volume to the tiles: they must run, K7 must not)
+                wide-plane volume to K7, whose z walk measured faster than
+                the tiles: asserted; K7 must run, the tiles must not)
                 with 100-sweep ticks from both parities, a solve capped at
                 500 and solve_volume in segments of 200; then the tile route
                 (update_n of 100 sweeps from both parities and of 50, solve,
@@ -251,7 +252,9 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
 Each phase prints one JSON line and raises on failure (phase 23 runs last).
 Then come the kernels' JSON line (each entry with its time, its plain
 version's, its bound and its launches on the main path; the batch entries
-once for each route, named ``entry/route``), the nvidia-smi
+once for each route, named ``entry/route``; K7's two rows also with the
+bytes bound of one in-place pass a sweep, ``pass_bytes_bound_ms``, and
+phase 9's 256^3 run as "cube"), the nvidia-smi
 line, and last
 ``{"ok": true, "device": ...}``.
 
@@ -548,6 +551,14 @@ def bound(locked: torch.Tensor, t0: int, sweeps, lse6: bool = False,
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 updates=n_updates, lse6=lse6)
+
+
+def pass_bytes_bound_ms(shape, sweeps: int) -> float:
+    """The least time for ``sweeps`` in-place passes over a volume of
+    ``shape``, each reading u and locked and writing u once (9 B a cell a
+    sweep), at the HBM rate: the bytes bound of a kernel that keeps nothing
+    on chip between sweeps, as K7 does."""
+    return sweeps * int(np.prod(shape)) * BYTES_PER_CELL / PEAK_BYTES_PER_S * 1e3
 
 
 def issue_bound_ms(b: dict, sm_clock_mhz: float) -> float:
@@ -1175,6 +1186,7 @@ def phase_biggrid3d(dev) -> dict:
     lt = torch.from_numpy(locked)
     del u
     tiles = hopper_tile3d.use_tiles(SIZE3D, dev)
+    require(not tiles, "256^3 is routed to the tiles: K7 measured faster (tile_probe --volumes)")
     k, tile = hopper_tile3d.DEFAULT_DEPTH, hopper_tile3d.tile_for(SIZE3D, dev)
 
     # The references, before the counted windows.
@@ -1281,6 +1293,8 @@ def phase_wide3d(dev) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     tiles = hopper_tile3d.use_tiles(WIDE3D, dev)
+    require(not tiles, "32x2048x2048 is routed to the tiles: K7's z walk measured faster "
+            "(tile_probe --volumes)")
     k = hopper_tile3d.DEFAULT_DEPTH
     starts = {t: at_iteration(base, t) for t in (0, 1)}
     plain, res, got, times = {}, {}, {}, {}
@@ -2986,6 +3000,22 @@ def main() -> None:
                             bound_by=bnd["bound_by"],
                             issue_bound_ms=issue_bound_ms(bnd, big["sm_clock_mhz"]),
                             max_abs_err=ph[err], launches=ph["launches"][row["name"]])
+    # K7 beside the bytes one in-place pass a sweep moves (9 B a cell a
+    # sweep, the bound of a kernel that keeps nothing on chip between
+    # sweeps), on the 3D session's volume and on 256^3 ("cube").
+    k7 = {"epic_sweep3d_chunk": ("tick", "tick_sweeps"),
+          "epic_sweep3d_solve": ("solve", "solve_iterations")}
+    for row in kernels:
+        if row["name"] in k7:
+            key, sweeps = k7[row["name"]]
+            row["pass_bytes_bound_ms"] = pass_bytes_bound_ms(VOLUME, v[sweeps])
+            bnd = z3["bounds"][key]
+            row["cube"] = dict(shape=list(SIZE3D), ms=z3[f"{key}_kernel_ms"],
+                               plain_ms=z3[f"{key}_plain_ms"], bound_ms=bnd["bound_ms"],
+                               bound_by=bnd["bound_by"],
+                               issue_bound_ms=issue_bound_ms(bnd, big["sm_clock_mhz"]),
+                               pass_bytes_bound_ms=pass_bytes_bound_ms(SIZE3D, z3[sweeps]),
+                               max_abs_err=z3[f"{key}_max_abs_err"])
     for row in kernels:
         if row["name"] in big3["rows"]:
             ms, plain_ms, bnd = big3["rows"][row["name"]]

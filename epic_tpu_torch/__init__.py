@@ -30,6 +30,7 @@ from .grid import (
 )
 from .planner import Planner, PlannerConfig
 from .planner3d import VolumePlanner, VolumePlannerConfig
+from .planner_mesh import MeshPlanner
 from .solver import core as solver_core
 from .solver import solve_volume, update_volume
 
@@ -37,6 +38,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "GridState",
+    "MeshPlanner",
     "Planner",
     "PlannerConfig",
     "VolumePlanner",

@@ -113,10 +113,12 @@
 // voxels, 3.8-4.0 where the columns are whole and fill the card, at K = 4
 // on this 32 x 128 column, one block an SM (the fastest of the columns and
 // register budgets --shapes tried; with a lane a pair instead of a quad,
-// 4.1-4.9). K7 takes 4.2-5.4 on cubes and smaller planes and 5.2-7.2 on
-// planes of 1448^2 and more, where its z neighbours no longer come back
-// from the L2; the router sends the volumes with planes of 1024^2 and more
-// here (hopper_tile3d.past_crossover). With each lse6 replaced by a max
+// 4.1-4.9). K7's per-row design took 4.2-5.4 on cubes and smaller planes
+// and 5.2-7.2 on planes of 1448^2 and more, where its z neighbours no
+// longer came back from the L2, and the router sent the volumes with
+// planes of 1024^2 and more here; K7's z walk (sweep3d.cu) keeps them in
+// registers and measured as fast or faster on every volume, so the router
+// sends none here (hopper_tile3d.past_crossover). With each lse6 replaced by a max
 // the pass keeps 55-57% of its time, and without the step barrier it
 // loses 10%: the time goes to the instructions around each update (the
 // level's predicates and set-up, the per-step copies and frozen bits), to

@@ -1,7 +1,8 @@
 """The port's solvers: the plain torch version (``core``) and the CUDA
 kernels behind it (``hopper_sweep`` in 2D, ``hopper_tile2d`` for 2D grids
 beyond the card's L2, ``hopper_sweep3d`` in 3D, ``hopper_tile3d`` for
-volumes beyond it with wide planes), with the library-level entries; the tile families'
+volumes past its routing rule, which none is on an H100), with the
+library-level entries; the tile families'
 plain versions (``tiled``, ``tiled3d``); batched scenario solves over
 ``[B, H, W]`` lanes in plain torch (``batched``) and on their CUDA kernels
 (``hopper_batched``)."""
@@ -69,9 +70,9 @@ def solve_volume(state, stagger=None, max_iterations: int = 1_000_000,
     """3D solve (``epic_tpu.solver.solve_volume``'s counterpart): the plain
     version for a volume on the CPU; on the card the z-marching tile kernels
     (``hopper_tile3d``, halo depth ``chunk_depth``, by default its
-    ``DEFAULT_DEPTH``) for a volume past the measured crossover (beyond the
-    L2 with wide planes, ``hopper_tile3d.use_tiles``) and the in-place
-    kernels (``hopper_sweep3d``) for every other. ``segment_iterations``
+    ``DEFAULT_DEPTH``) for a volume past the measured crossover
+    (``hopper_tile3d.use_tiles``; since K7's z walk, no volume on an H100)
+    and the in-place kernels (``hopper_sweep3d``) for every other. ``segment_iterations``
     runs the tile route's solve as segments; the in-place route's solve is
     one launch and ignores it, as ``epic_tpu``'s VMEM route does."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger

@@ -140,6 +140,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.epic_shard2d_chunk, lib.epic_shard3d_chunk,
                lib.epic_resident2d_cycle, lib.epic_resident2d_solve):
         fn.restype = i
+    if hasattr(lib, "epic_sweep3d_plan"):   # an earlier sweep3d.cu lacks the plan entries
+        lib.epic_sweep3d_plan.argtypes = [i, i, i, i, p]
+        lib.epic_sweep3d_slots.argtypes = [i, p]
+        lib.epic_sweep3d_plan.restype = i
+        lib.epic_sweep3d_slots.restype = i
     if hasattr(lib, "epic_resident3d_cycle"):   # an earlier shard3d.cu lacks the device entries
         lib.epic_resident3d_cycle.argtypes = [p, i, i, i, i, i, i, i, ll, ll, p, i, i, i, p, p, i]
         lib.epic_resident3d_solve.argtypes = [p, i, i, i, i, i, i, i, ll, ll, p, i, i, i, p, p, p,

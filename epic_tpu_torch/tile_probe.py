@@ -149,7 +149,9 @@ from . import grid as G
 from .solver import _build, hopper_sweep, hopper_sweep3d, hopper_tile2d, hopper_tile3d
 
 SIDES = (2048, 3072, 4096, 8192)
-VOLUMES = ("160", "192", "224", "256", "320", "384", "448", "512", "64x1024x1024", "32x2048x2048")
+VOLUMES = ("30x256x256", "64x256x256", "160", "192", "224", "256", "320", "384", "448", "512",
+           "640", "64x1024x1024", "32x2048x2048", "32x1448x1448", "128x1448x1448",
+           "1024x512x512", "2048x256x256")
 # (TH, TW, blocks an SM) candidates for --shapes: the source's shape first,
 # then other register budgets (blocks an SM; a block has a lane a quad of
 # its plane) and shorter, taller and wider columns (less halo recompute,
@@ -237,6 +239,47 @@ ABLATE_INPLACE = {
 SWEEP2D_SIDES = (768, 1024, 1280, 1536, 1792, 2048, 2304, 2432, 2560, 2624, 2688, 2736, 2816)
 SWEEP2D_TICK = 100
 SWEEP2D_CAP = 2000
+# --sweep3d: K7's in-place kernels (csrc/sweep3d.cu) and, with --baseline, an
+# earlier sweep3d.cu (the per-row design before the z walk: ``git show
+# cd16244:epic_tpu_torch/csrc/sweep3d.cu``), each beside copies without the
+# grid barrier, with only it, or without the locked loads (text edits;
+# their bits are not the plain version's), and the source's design choices
+# as copies that keep its bits: u through L2 only (__ldcg), segments of at
+# least 4 or 8 planes, 1024 lanes a block or two blocks an SM (64
+# registers), patches of at most 16, 64 or 8 quads, no prefetch of the next
+# plane. Each is timed on a SWEEP3D_SWEEPS-sweep tick of each
+# SWEEP3D_SHAPES volume.
+SWEEP3D_ABLATE = {
+    "no_grid_barrier": (("    grid.sync();\n    sweep<false>(u, locked, g, t0 + k);",
+                         "    sweep<false>(u, locked, g, t0 + k);"),),
+    "barrier_only": (("for (long long unit = blockIdx.x; unit < p.units;",
+                      "for (long long unit = p.units; unit < p.units;"),),
+    "no_locked": (("const unsigned upd = ~(locked_bits<kVec>(locked, q.at, q.lim) | q.shell)",
+                   "const unsigned upd = ~(q.shell)"),),
+}
+SWEEP3D_DESIGN = {
+    "ldcg": (("constexpr bool kL1Reads = true;", "constexpr bool kL1Reads = false;"),),
+    "seg4": (("constexpr int kMinSegment = 1;", "constexpr int kMinSegment = 4;"),),
+    "seg8": (("constexpr int kMinSegment = 1;", "constexpr int kMinSegment = 8;"),),
+    "t1024": (("constexpr int kThreads3d = 512;", "constexpr int kThreads3d = 1024;"),),
+    "b2": (("constexpr int kMinBlocks3d = 1;", "constexpr int kMinBlocks3d = 2;"),),
+    "band16": (("constexpr int kMaxBand = 32;", "constexpr int kMaxBand = 16;"),),
+    "band64": (("constexpr int kMaxBand = 32;", "constexpr int kMaxBand = 64;"),),
+    "band8": (("constexpr int kMaxBand = 32;", "constexpr int kMaxBand = 8;"),),
+    "no_prefetch": (("constexpr bool kPrefetch = true;", "constexpr bool kPrefetch = false;"),),
+}
+SWEEP3D_BASELINE_ABLATE = {
+    "no_grid_barrier": (("    grid.sync();\n    sweep<false>(u, locked, D, H, W, t0 + k);",
+                         "    sweep<false>(u, locked, D, H, W, t0 + k);"),),
+    "barrier_only": (("for (long long r = blockIdx.x; r < rows; r += gridDim.x) {",
+                      "for (long long r = rows; r < rows; r += gridDim.x) {"),),
+}
+SWEEP3D_SHAPES = ("30x256x256", "256")
+SWEEP3D_SWEEPS = 1000
+# --sweep3d's comparison of the baseline and the source: (volume, tick sweeps,
+# solve cap) as chip_smoke.py runs them (the session volume, 256^3, the floor).
+SWEEP3D_COMPARE = (("30x256x256", 50, 1_000_000), ("256", 100, 1_000_000),
+                   ("32x2048x2048", 100, 500))
 
 
 def random_state(shape, dev: torch.device, seed: int = 0) -> G.GridState:
@@ -1084,6 +1127,15 @@ def probe_ablate_batch(dev, reps: int) -> None:
         _build._lib = None
 
 
+def sass_of(path) -> str:
+    """``cuobjdump -sass`` of an object or library (cuobjdump on PATH or
+    beside nvcc)."""
+    cuobjdump = (shutil.which("cuobjdump")
+                 or str(pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")))
+    return subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def probe_sass() -> None:
     out_dir = _build.BUILD_DIR / "tile_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1091,10 +1143,7 @@ def probe_sass() -> None:
     cu.write_text(SASS_PROBE)
     _build._run([[_build.find_nvcc(), *_build.ARCH_FLAGS, "-c", "-I", str(_build.CSRC),
                   "-o", str(obj), str(cu)]])
-    cuobjdump = (shutil.which("cuobjdump")
-                 or str(pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")))
-    sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True,
-                          check=True).stdout
+    sass = sass_of(obj)
     counts = sass_counts(sass)
     (out_dir / "sass_probe.sass").write_text(sass)
     for name, base, adds in (("lse4", "probe_add4", 3), ("lse6", "probe_add6", 5)):
@@ -1365,6 +1414,99 @@ def probe_sweep2d(dev, reps: int) -> None:
         _build._lib = None
 
 
+def sass_ops(lib_path, kernels=("chunk3d_kernel", "solve3d_kernel"),
+             ops=("CCTL.IVALL", "LDG.E.128", "STG.E.128", "LDL", "STL")) -> dict:
+    """Counts of ``ops`` in the SASS of each kernel of ``kernels`` in a
+    library (cuobjdump -sass), with the device functions it calls."""
+    counts, name = {}, None
+    for line in sass_of(lib_path).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((k for k in kernels if k in m.group(1) and "sweep3d" in m.group(1)), None)
+            continue
+        if name:
+            row = counts.setdefault(name, dict.fromkeys(ops, 0))
+            for op in ops:
+                row[op] += len(re.findall(rf"\b{re.escape(op)}\b", line))
+    return counts
+
+
+def probe_sweep3d(dev, reps: int, baseline: str | None, shapes=SWEEP3D_SHAPES,
+                  sweeps: int = SWEEP3D_SWEEPS, compare=SWEEP3D_COMPARE) -> None:
+    """Where K7's sweep goes, and the redesign against a baseline: a
+    SWEEP3D_SWEEPS-sweep tick of each SWEEP3D_SHAPES volume on the source,
+    its ablated and design copies, and (with ``baseline``, another
+    sweep3d.cu) the baseline and its ablated copies, in turns; the source's,
+    its design copies' and the baseline's bits held to core. Then
+    SWEEP3D_COMPARE's ticks and solves on the baseline and the source in
+    turns, the same bits; and the SASS op counts of the source's kernels
+    (CCTL.IVALL at each grid barrier: its L1 reads are safe)."""
+    from .solver import core
+
+    text = (_build.CSRC / "sweep3d.cu").read_text()
+    variants = {"source": text}
+    for name, edits in {**SWEEP3D_ABLATE, **SWEEP3D_DESIGN}.items():
+        variants[f"source_{name}"] = edited(text, edits, f"sweep3d.cu ({name})")
+    if baseline:
+        old = pathlib.Path(baseline).read_text()
+        variants["baseline"] = old
+        for name, edits in SWEEP3D_BASELINE_ABLATE.items():
+            variants[f"baseline_{name}"] = edited(old, edits, f"{baseline} ({name})")
+    libs = build_libraries(variants, "sweep3d.cu")
+    exact = ["source", *(f"source_{n}" for n in SWEEP3D_DESIGN), *(["baseline"] * bool(baseline))]
+    lib_dir = _build.BUILD_DIR / "tile_probe"
+    print(json.dumps(dict(probe="sweep3d_sass", source=sass_ops(lib_dir / "lib_source.so"),
+                          baseline=sass_ops(lib_dir / "lib_baseline.so") if baseline else None)),
+          flush=True)
+    try:
+        for spec in shapes:
+            shape = volume_shape(spec)
+            st = random_state(shape, dev)
+            ref = core.update_n(dataclasses.replace(st, u=st.u.clone()), sweeps)
+            times = {name: [] for name in libs}
+            for name in [*libs, *reversed(libs)]:
+                _build._lib = libs[name]
+                x = dataclasses.replace(st, u=st.u.clone())
+                ms = event_ms(lambda: hopper_sweep3d.update_n(x, sweeps), reps)
+                times[name].append(ms / sweeps * 1e3)
+            same = {}
+            for name in exact:
+                _build._lib = libs[name]
+                out = hopper_sweep3d.update_n(dataclasses.replace(st, u=st.u.clone()), sweeps)
+                torch.cuda.synchronize()
+                same[name] = bool(torch.equal(out.u, ref.u)) and bool(torch.equal(out.delta,
+                                                                                   ref.delta))
+            print(json.dumps(dict(probe="sweep3d_ablate", shape=list(shape), sweeps=sweeps,
+                                  plan=dataclasses.asdict(hopper_sweep3d.plan(
+                                      shape, hopper_sweep3d.H100_SLOTS)),
+                                  us_per_sweep=times, same_bits=same)), flush=True)
+            del st, ref
+        names = ["baseline", "source"] if baseline else ["source"]
+        for spec, tick, cap in compare:
+            shape = volume_shape(spec)
+            st = random_state(shape, dev)
+            times = {name: [] for name in names}
+            outs = {}
+            for name in [*names, *reversed(names)]:
+                _build._lib = libs[name]
+                x = dataclasses.replace(st, u=st.u.clone())
+                t_ms = event_ms(lambda: hopper_sweep3d.update_n(x, tick), reps * 2)
+                s_ms = event_ms(lambda: outs.__setitem__(name, hopper_sweep3d.solve(
+                    dataclasses.replace(st, u=st.u.clone()), 100, cap)), 1)
+                times[name].append((t_ms, s_ms))
+            torch.cuda.synchronize()
+            a, b = outs[names[0]], outs[names[-1]]
+            print(json.dumps(dict(probe="sweep3d_compare", shape=list(shape), tick_sweeps=tick,
+                                  solve_cap=cap, solve_iterations=int(b.iteration),
+                                  tick_and_solve_ms=times,
+                                  same_bits=bool(torch.equal(a.u, b.u))
+                                  and int(a.iteration) == int(b.iteration)
+                                  and bool(torch.equal(a.delta, b.delta)))), flush=True)
+            del st, outs
+    finally:
+        _build._lib = None
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -1383,7 +1525,8 @@ def main() -> None:
     ap.add_argument("--shapes2d", action="store_true",
                     help="probe the 2D tile shapes at 8192^2 and on a 16384^2 mesh's shard")
     ap.add_argument("--baseline", default=None,
-                    help="with --shapes2d: another tile2d.cu to time in turns with the source")
+                    help="with --shapes2d: another tile2d.cu to time in turns with the source;"
+                         " with --sweep3d: another sweep3d.cu")
     ap.add_argument("--compare2d", default=None, metavar="FILE",
                     help="time the 2D tile, shard and resident paths against FILE's tile2d.cu")
     ap.add_argument("--batch", action="store_true",
@@ -1401,6 +1544,9 @@ def main() -> None:
     ap.add_argument("--sweep2d", action="store_true",
                     help="time K1 without its grid barrier or with only it, and K1/K2 against the"
                          " tiles on squares around the crossover")
+    ap.add_argument("--sweep3d", action="store_true",
+                    help="time K7 without its grid barrier or with only it, its design copies,"
+                         " and (with --baseline) an earlier sweep3d.cu")
     ap.add_argument("--sass", action="store_true",
                     help="count the SASS instructions of one lse4 and one lse6 update")
     args = ap.parse_args()
@@ -1415,6 +1561,10 @@ def main() -> None:
     volumes = VOLUMES if not args.volumes else args.volumes
     if args.sweep2d:
         probe_sweep2d(dev, args.reps)
+    elif args.sweep3d and args.volumes:
+        probe_sweep3d(dev, args.reps, args.baseline, args.volumes, SWEEP3D_SWEEPS // 5, ())
+    elif args.sweep3d:
+        probe_sweep3d(dev, args.reps, args.baseline)
     elif args.batch_small:
         probe_batch_small(dev)
     elif args.ablate_batch:

@@ -23,6 +23,7 @@ walkers use only IEEE-exact ops (+, -, *, /, sqrt) and gathers.
 """
 
 import copy
+import ctypes
 import dataclasses
 import pathlib
 
@@ -40,8 +41,9 @@ from epic_tpu_torch.planner_mesh import MeshPlanner, MeshVolumePlanner
 from epic_tpu_torch.parallel import (hopper_resident2d, hopper_resident3d, hopper_shard2d,
                                      hopper_shard3d, make_mesh, make_mesh3d, sharded, sharded3d)
 from epic_tpu_torch.parallel.sharded import Mesh
-from epic_tpu_torch.solver import (batched, batched_path3d, core, hopper_batched, hopper_sweep,
-                                   hopper_sweep3d, hopper_tile2d, hopper_tile3d, tiled, tiled3d)
+from epic_tpu_torch.solver import (_build, batched, batched_path3d, core, hopper_batched,
+                                   hopper_sweep, hopper_sweep3d, hopper_tile2d, hopper_tile3d,
+                                   tiled, tiled3d)
 
 pytestmark = pytest.mark.cuda
 
@@ -198,6 +200,53 @@ def test_solve3d_kernel_gives_the_plain_versions_bits(dev, vol, stagger, cap):
     assert hopper_sweep3d.launches["epic_sweep3d_solve"] == before + 1
     if cap == 1_000_000:
         assert bool(k.converged) and int(k.iteration) % stagger == 1 % stagger
+
+
+# K7 (csrc/sweep3d.cu) on every kind of row: rows of 3..8 voxels, a half
+# quad at a row end (W % 8 == 4), whole quads, the voxel-by-voxel walk of
+# W % 4 != 0; the 3D session's volume; planes past 1448^2 (4 x 1448 x 1452).
+SWEEP3D_WIDTHS = [((6, 11, w), 0.1, w) for w in (3, 4, 5, 8, 9, 16, 17, 131, 256)]
+SWEEP3D_VOLUMES = SWEEP3D_WIDTHS + [((30, 256, 256), 0.1, 7), ((4, 1448, 1452), 0.1, 8)]
+
+
+@pytest.mark.parametrize("vol", SWEEP3D_VOLUMES, ids=lambda v: "x".join(map(str, v[0])))
+def test_sweep3d_widths_give_the_plain_versions_bits(dev, vol):
+    for t0 in (0, 1):
+        for num_steps in (1, 2, 7):
+            k = hopper_sweep3d.update_n(_volume(*vol, dev, t0), num_steps)
+            _assert_same(k, core.update_n(_volume(*vol, dev, t0), num_steps))
+    before = hopper_sweep3d.launches["epic_sweep3d_solve"]
+    k = hopper_sweep3d.solve(_volume(*vol, dev), 7, 300)
+    _assert_same(k, core.solve(_volume(*vol, dev), 7, 300))
+    assert hopper_sweep3d.launches["epic_sweep3d_solve"] == before + 1
+
+
+def test_sweep3d_plan_matches_its_model(dev):
+    """The C entries' plan on this card equals hopper_sweep3d.plan at the
+    card's slots (the CPU tests hold plan's walk to the interior)."""
+    lib = _build.load()
+    chunk_slots, solve_slots = hopper_sweep3d.slots(dev)
+    assert chunk_slots >= torch.cuda.get_device_properties(dev).multi_processor_count
+    assert solve_slots >= torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in [(30, 256, 256), (64, 256, 256), (256, 256, 256), (32, 2048, 2048),
+                  (4, 1448, 1452), (6, 11, 131), (3, 3, 3), (2, 9, 9), (300, 17, 5)]:
+        for slots in (chunk_slots, solve_slots):
+            out = (ctypes.c_int * 7)()
+            assert lib.epic_sweep3d_plan(*shape, slots, ctypes.addressof(out)) == 0
+            p = hopper_sweep3d.plan(shape, slots)
+            assert list(out) == [p.segments, p.tz, p.pw, p.rb, p.nb, p.nrb, p.units], shape
+
+
+def test_sweep3d_refuses_a_misaligned_volume(dev):
+    """u 4 bytes past a 16-byte boundary: both entries raise before any
+    launch, and nothing falls back to the plain version."""
+    st = _volume((6, 7, 8), 0.1, 1, dev)
+    u = torch.empty(st.u.numel() + 1, device=dev)[1:].view(st.u.shape).copy_(st.u)
+    launches, calls = dict(hopper_sweep3d.launches), dict(core.calls)
+    for call in (lambda s: hopper_sweep3d.update_n(s, 3), lambda s: hopper_sweep3d.solve(s)):
+        with pytest.raises(ValueError, match="aligned to 16"):
+            call(dataclasses.replace(st, u=u))
+    assert hopper_sweep3d.launches == launches and core.calls == calls
 
 
 def test_volume_planner_session_runs_the_kernels(dev):
@@ -982,37 +1031,42 @@ def test_tile3d_update_n_runs_cycle_and_remainder_chunk(dev):
     assert scratch["twin"].shape == TILE_VOLUMES[1]
 
 
-def test_router_sends_volumes_past_the_crossover_to_the_tiles(dev):
-    """With the measured rule, a VolumePlanner whose volume is past it (wide
-    planes beyond the L2) ticks and solves on the tile kernels and gives
-    core's bits; a cube past the L2 and a small volume stay on sweep3d.
-    Nothing else runs."""
+def test_router_sends_volumes_past_the_crossover_to_the_tiles(dev, monkeypatch):
+    """The measured rule sends no volume to the tiles (K7's z walk measured
+    as fast or faster everywhere): a wide-plane volume beyond the L2, a cube
+    past it and a small volume tick and solve on sweep3d. With a finite
+    crossover (the earlier rule's, CROSSOVER_L2 = 1), a VolumePlanner whose
+    volume is past it ticks and solves on the tile kernels. Each gives
+    core's bits, and nothing else runs."""
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     side = int((1.5 * l2 / 5) ** (1 / 3)) + 4
     wide = (8, 1536, 1536)
-    for shape, tiles in ((wide, True), ((side, side, side), False), ((12, 20, 28), False)):
-        assert hopper_tile3d.use_tiles(shape, dev) == tiles
-        tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
-        tp.state = _volume(shape, 0.1, 2, dev)
-        replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
-        u = tp.state.u
-        t3, s3, calls = dict(hopper_tile3d.launches), dict(hopper_sweep3d.launches), \
-            dict(core.calls)
-        tp.update()
-        tp.update(100)
-        tp.solve(max_iterations=300)
-        moved = {n: hopper_tile3d.launches[n] - t3[n] for n in t3}
-        moved_k7 = {n: hopper_sweep3d.launches[n] - s3[n] for n in s3}
-        if tiles:
-            assert moved["epic_tile3d_cycle"] >= 2 and moved["epic_tile3d_solve"] == 1
-            assert not any(moved_k7.values())
-        else:
-            assert moved_k7 == {"epic_sweep3d_chunk": 2, "epic_sweep3d_solve": 1}
-            assert not any(moved.values())
-        assert core.calls == calls
-        replay = core.update_n(core.update_n(replay, 25), 100)
-        _assert_same(tp.state, core.solve(replay, 100, 300))
-        assert tp.state.u is u                 # relaxed in place, like every wrapper
+    for crossover in (hopper_tile3d.CROSSOVER_L2, 1.0):
+        monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", crossover)
+        for shape, tiles in ((wide, crossover == 1.0), ((side, side, side), False),
+                             ((12, 20, 28), False)):
+            assert hopper_tile3d.use_tiles(shape, dev) == tiles
+            tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+            tp.state = _volume(shape, 0.1, 2, dev)
+            replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
+            u = tp.state.u
+            t3, s3, calls = dict(hopper_tile3d.launches), dict(hopper_sweep3d.launches), \
+                dict(core.calls)
+            tp.update()
+            tp.update(100)
+            tp.solve(max_iterations=300)
+            moved = {n: hopper_tile3d.launches[n] - t3[n] for n in t3}
+            moved_k7 = {n: hopper_sweep3d.launches[n] - s3[n] for n in s3}
+            if tiles:
+                assert moved["epic_tile3d_cycle"] >= 2 and moved["epic_tile3d_solve"] == 1
+                assert not any(moved_k7.values())
+            else:
+                assert moved_k7 == {"epic_sweep3d_chunk": 2, "epic_sweep3d_solve": 1}
+                assert not any(moved.values())
+            assert core.calls == calls
+            replay = core.update_n(core.update_n(replay, 25), 100)
+            _assert_same(tp.state, core.solve(replay, 100, 300))
+            assert tp.state.u is u                 # relaxed in place, like every wrapper
 
 
 def test_tile3d_wrappers_refuse_what_the_kernels_do_not_take(dev):

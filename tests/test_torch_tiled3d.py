@@ -19,6 +19,7 @@ bits: tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -442,17 +443,18 @@ def test_solve_segments_match_epic_tpu(module):
 
 def test_use_tiles_is_a_rule_on_bytes_and_l2(monkeypatch):
     """Tiles past CROSSOVER_L2 L2s of u and locked (5 B a voxel) with a
-    plane of u past PLANE_L2 of the L2 (4 B a voxel), as tile_probe.py
-    --volumes measured them to win on an H100."""
+    plane of u past PLANE_L2 of the L2 (4 B a voxel). tile_probe.py
+    --volumes measured K7's z walk as fast or faster than the tiles on every
+    volume on an H100, so CROSSOVER_L2 is infinite and no volume goes to the
+    tiles; the rule itself is held with a finite crossover."""
     l2 = 50 * 2**20
-    assert (hopper_tile3d.CROSSOVER_L2, hopper_tile3d.PLANE_L2) == (1.0, 0.0625)
-    # Measured faster on the tiles: planes of 1024^2 and more beyond the L2.
-    for shape in ((32, 2048, 2048), (32, 1448, 1448), (16, 2048, 2048), (8, 4096, 4096),
-                  (128, 1448, 1448), (32, 1024, 1024), (64, 1024, 1024), (96, 1024, 1024)):
-        assert hopper_tile3d.past_crossover(shape, l2)
-    # Cubes, which ran either way, and any volume within the L2.
-    for shape in ((256, 256, 256), (320, 320, 320), (448, 448, 448), (512, 512, 512),
-                  (30, 256, 256), (2, 2048, 2048)):
+    assert (hopper_tile3d.CROSSOVER_L2, hopper_tile3d.PLANE_L2) == (math.inf, 0.0625)
+    # Measured: K7 faster within the L2, on cubes, deep volumes and wide
+    # planes (where the per-row kernel before it lost); 640^3 a tie.
+    for shape in ((30, 256, 256), (64, 256, 256), (160, 160, 160), (256, 256, 256),
+                  (384, 384, 384), (512, 512, 512), (640, 640, 640), (768, 768, 768),
+                  (1024, 512, 512), (2048, 256, 256), (32, 1448, 1448), (128, 1448, 1448),
+                  (64, 1024, 1024), (32, 2048, 2048), (512, 1024, 1024), (8, 4096, 4096)):
         assert not hopper_tile3d.past_crossover(shape, l2)
     monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", 1.5)
     voxels = int(hopper_tile3d.CROSSOVER_L2 * l2 // 5)
