@@ -133,10 +133,9 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 L2). The main path, counts zeroed just before and read just
                 after: VolumePlanner.update(50) then (100) from an even and
                 an odd start iteration and an uncapped VolumePlanner.solve;
-                the 3D family the routing rule picks
-                (hopper_tile3d.use_tiles: K7 for this cube, where the tiles
-                measured slower; asserted) must have run, the other and the
-                plain versions must not. The ticks against core.update_n and
+                K7 (the route of every volume: the tiles measured slower)
+                must have run, the tile kernels and the plain versions must
+                not. The ticks against core.update_n and
                 the solve against core.solve and K7's one-launch solve
                 (1,301 iterations), same bits. Then the tile route through
                 hopper_tile3d's own entries (update_n, solve), counted the
@@ -147,9 +146,9 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 the same state, and both solves;
  16. wide3d   — a 32 x 2048 x 2048 volume, a building floor 102.4 m square
                 and 1.6 m high at 5 cm (537 MB of u), built as phase 6's: the
-                same main path and count rule (the router sends this
-                wide-plane volume to K7, whose z walk measured faster than
-                the tiles: asserted; K7 must run, the tiles must not)
+                same main path and count rule (every volume runs on K7,
+                whose z walk measured faster than the tiles on this
+                wide-plane volume too: K7 must run, the tiles must not)
                 with 100-sweep ticks from both parities, a solve capped at
                 500 and solve_volume in segments of 200; then the tile route
                 (update_n of 100 sweeps from both parities and of 50, solve,
@@ -252,9 +251,10 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
 Each phase prints one JSON line and raises on failure (phase 23 runs last).
 Then come the kernels' JSON line (each entry with its time, its plain
 version's, its bound and its launches on the main path; the batch entries
-once for each route, named ``entry/route``; K7's two rows also with the
-bytes bound of one in-place pass a sweep, ``pass_bytes_bound_ms``, and
-phase 9's 256^3 run as "cube"), the nvidia-smi
+once for each route, named ``entry/route``; K7's two rows also with
+phase 9's 256^3 run as "cube", which carries the bytes bound of one
+in-place pass a sweep, ``pass_bytes_bound_ms``: that volume is past the
+L2, where the bound holds), the nvidia-smi
 line, and last
 ``{"ok": true, "device": ...}``.
 
@@ -1185,8 +1185,6 @@ def phase_biggrid3d(dev) -> dict:
     starts = {t: volume_state(dev, u, locked, t) for t in (0, 1)}
     lt = torch.from_numpy(locked)
     del u
-    tiles = hopper_tile3d.use_tiles(SIZE3D, dev)
-    require(not tiles, "256^3 is routed to the tiles: K7 measured faster (tile_probe --volumes)")
     k, tile = hopper_tile3d.DEFAULT_DEPTH, hopper_tile3d.tile_for(SIZE3D, dev)
 
     # The references, before the counted windows.
@@ -1214,7 +1212,7 @@ def phase_biggrid3d(dev) -> dict:
         times["planner_solve"] = event_ms(planner.solve)
         res["planner"] = planner.state
 
-    main = counted_3d("256^3 VolumePlanner", drive_planner, tiles)
+    main = counted_3d("256^3 VolumePlanner", drive_planner, False)
     errs = [compare(got[key], plain[key], f"256^3 VolumePlanner tick to iteration {sum(key)}")
             for key in sorted(plain)]
     errs.append(compare(res["planner"], res["ps"], "256^3 VolumePlanner solve vs plain"))
@@ -1264,7 +1262,7 @@ def phase_biggrid3d(dev) -> dict:
     require(cycle_err == 0.0, f"256^3 cycle entry vs plain: {cycle_err}")
     bounds = {"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True),
               "chunk": bound(lt, 0, k, lse6=True), "cycle": bound(lt, 0, cycle_sweeps, lse6=True)}
-    emit(phase="biggrid3d", shape=list(SIZE3D), tile=list(tile), k=k, routed_to_tiles=tiles,
+    emit(phase="biggrid3d", shape=list(SIZE3D), tile=list(tile), k=k,
          launches=main, tile_route_launches=tile_launches, tick_max_abs_err=max(errs),
          tile_tick_ms_mean10=tile_ms10, sweep3d_tick_ms_mean10=k7_ms10,
          tick_plain_ms=tick_p_ms, solve_iterations=iters, solve_converged=bool(res["ts"].converged),
@@ -1273,7 +1271,7 @@ def phase_biggrid3d(dev) -> dict:
          chunk_sweeps=k, chunk_kernel_ms_mean10=chunk_ms, chunk_plain_ms=chunk_p_ms,
          cycle_sweeps=cycle_sweeps, cycle_chunks=cycle_chunks, cycle_kernel_ms_mean10=cycle_ms,
          cycle_plain_ms=cycle_p_ms, bounds=bounds)
-    return {"main": main, "tiles": tiles, "tile_launches": tile_launches,
+    return {"main": main, "tile_launches": tile_launches,
             "err": max(errs + [chunk_err, cycle_err]),
             "rows": {"epic_tile3d_chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
                      "epic_tile3d_cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
@@ -1292,9 +1290,6 @@ def phase_wide3d(dev) -> dict:
     del u, locked
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    tiles = hopper_tile3d.use_tiles(WIDE3D, dev)
-    require(not tiles, "32x2048x2048 is routed to the tiles: K7's z walk measured faster "
-            "(tile_probe --volumes)")
     k = hopper_tile3d.DEFAULT_DEPTH
     starts = {t: at_iteration(base, t) for t in (0, 1)}
     plain, res, got, times = {}, {}, {}, {}
@@ -1315,7 +1310,7 @@ def phase_wide3d(dev) -> dict:
             copy_state(base), STAGGER, WIDE3D_CAP, segment_iterations=WIDE3D_SEGMENT)))
 
     what = "32x2048x2048"
-    main = counted_3d(f"{what} VolumePlanner", drive, tiles)
+    main = counted_3d(f"{what} VolumePlanner", drive, False)
     errs = [compare(got[t], plain[t], f"{what} 100-sweep tick from iteration {t}") for t in (0, 1)]
     errs.append(compare(planner.state, res["ps"], f"{what} solve capped at {WIDE3D_CAP}"))
     errs.append(compare(res["seg"], planner.state, f"{what} solve_volume segments vs one launch"))
@@ -1371,7 +1366,7 @@ def phase_wide3d(dev) -> dict:
     del res["y"], res["py"], a, b
     bounds = {"tick": bound(lt, 0, 100, lse6=True), "solve": bound(lt, 0, iters, lse6=True),
               "chunk": bound(lt, 0, k, lse6=True), "cycle": bound(lt, 0, cycle_sweeps, lse6=True)}
-    emit(phase="wide3d", shape=list(WIDE3D), setup_s=setup_s, routed_to_tiles=tiles,
+    emit(phase="wide3d", shape=list(WIDE3D), setup_s=setup_s,
          tile=list(tile), k=k,
          launches=main, tile_route_launches=tile_launches, max_abs_err=max(errs),
          planner_tick_ms=[times[0], times[1]], planner_solve_ms=times["solve"],
@@ -1383,8 +1378,10 @@ def phase_wide3d(dev) -> dict:
          solve_iterations=iters, solve_plain_ms=solve_p_ms,
          chunk_sweeps=k, chunk_kernel_ms_mean5=chunk_ms, chunk_plain_ms=chunk_p_ms,
          cycle_sweeps=cycle_sweeps, cycle_chunks=cycle_chunks, cycle_kernel_ms_mean5=cycle_ms,
-         cycle_plain_ms=cycle_p_ms, bounds=bounds)
-    return {"main": main, "tiles": tiles, "tile_launches": tile_launches,
+         cycle_plain_ms=cycle_p_ms, bounds=bounds,
+         pass_bytes_bound_ms={"tick": pass_bytes_bound_ms(WIDE3D, 100),
+                              "solve": pass_bytes_bound_ms(WIDE3D, iters)})
+    return {"main": main, "tile_launches": tile_launches,
             "err": max(errs + [chunk_err, cycle_err]),
             "chunk": (chunk_ms, chunk_p_ms, bounds["chunk"]),
             "cycle": (cycle_ms, cycle_p_ms, bounds["cycle"]),
@@ -3000,15 +2997,15 @@ def main() -> None:
                             bound_by=bnd["bound_by"],
                             issue_bound_ms=issue_bound_ms(bnd, big["sm_clock_mhz"]),
                             max_abs_err=ph[err], launches=ph["launches"][row["name"]])
-    # K7 beside the bytes one in-place pass a sweep moves (9 B a cell a
-    # sweep, the bound of a kernel that keeps nothing on chip between
-    # sweeps), on the 3D session's volume and on 256^3 ("cube").
+    # K7 on 256^3 ("cube"), beside the bytes one in-place pass a sweep
+    # moves through HBM (9 B a cell a sweep, the bound of a kernel that
+    # keeps nothing on chip between sweeps). Only there: the 3D session's
+    # volume stays in the L2, which that bound does not see.
     k7 = {"epic_sweep3d_chunk": ("tick", "tick_sweeps"),
           "epic_sweep3d_solve": ("solve", "solve_iterations")}
     for row in kernels:
         if row["name"] in k7:
             key, sweeps = k7[row["name"]]
-            row["pass_bytes_bound_ms"] = pass_bytes_bound_ms(VOLUME, v[sweeps])
             bnd = z3["bounds"][key]
             row["cube"] = dict(shape=list(SIZE3D), ms=z3[f"{key}_kernel_ms"],
                                plain_ms=z3[f"{key}_plain_ms"], bound_ms=bnd["bound_ms"],

@@ -52,7 +52,7 @@
 //   to 2,112), with the registers of one block an SM (no spills). Patches
 //   are 32, 16 or 8 quads wide, so a warp never spans rows of both class
 //   offsets (a warp that does runs both walks one after the other).
-// - The next plane's row is loaded a step ahead (kPrefetch).
+// - The next plane's row is loaded a step ahead.
 // - Alignment: a row starts on a 16-byte boundary only when W % 4 == 0. Then
 //   u and locked are read as above (the wrapper checks that u is 16-byte and
 //   locked 4-byte aligned, and raises otherwise); for any other W the same
@@ -64,7 +64,7 @@
 //   every value a lane reads from another lane's voxels is of the class the
 //   sweep leaves alone, so no line goes stale between barriers; the grid
 //   barrier invalidates L1 (CCTL.IVALL in this kernel's SASS, counted by
-//   tile_probe.py --sweep3d; kL1Reads = false builds the __ldcg form).
+//   tile_probe.py --sweep3d, which also builds the __ldcg form).
 //
 // Parity. 3D updates (z + y + x) % 2 == t % 2, the other class than 2D
 // (the reference's x1-even offset negation, harmonic_cpu.cpp:96-99; pinned
@@ -90,8 +90,9 @@
 // Volumes beyond 2M cells went to four more TPU kernels (K8-K11). Their port
 // is tile3d.cu, a block that marches a column segment along z and runs K
 // sweeps a trip to memory. This kernel measured as fast or faster on every
-// volume from 30 x 256^2 to 768^3 and 32 x 2048^2, so solver.update_volume
-// and solve_volume keep every volume here (hopper_tile3d.past_crossover).
+// volume tried, from 30 x 256^2 to 768^3, 2048 x 384^2 and 8 x 4096^2
+// (640^3 a tie within 1%), so solver.update_volume and solve_volume send
+// every volume here.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -107,9 +108,6 @@ constexpr int kThreads3d = 512;    // lanes a block
 constexpr int kMinBlocks3d = 1;    // blocks an SM, which the registers are held to
 constexpr int kMaxBand = 32;       // quads across a patch, at most
 constexpr int kMinBand = 8;        // and at least, unless the row has fewer
-constexpr int kMinSegment = 1;     // the shortest segment make_plan cuts
-constexpr bool kL1Reads = true;    // u through L1 (safe: see the head note)
-constexpr bool kPrefetch = true;   // load row z + 2 a step ahead
 
 // A launch's plan, the same on the host and the device (hopper_sweep3d.plan
 // mirrors make_plan).
@@ -130,8 +128,7 @@ inline int band_cost(int pw) { return pw >= 32 ? 100 : pw >= 16 ? 103 : 110; }
 
 // The plan of a D x H x W volume on `slots` blocks: patches as above, and
 // the segment count whose rounds x (tz + 2) steps (a lane loads tz + 2
-// planes) is least, the fewest segments on a tie, no segment shorter than
-// kMinSegment planes unless the volume is. No interior: no units.
+// planes) is least, the fewest segments on a tie. No interior: no units.
 inline Plan make_plan(int D, int H, int W, int slots) {
   Plan p{0, 0, 1, 1, 1, 1, 0};
   if (D < 3 || H < 3 || W < 3) return p;
@@ -152,7 +149,6 @@ inline Plan make_plan(int D, int H, int W, int slots) {
   long long best = -1;
   for (int want = 1; want <= n; ++want) {
     const int tz = cdiv(n, want);
-    if (want > 1 && tz < kMinSegment) break;
     const int segments = cdiv(n, tz);
     const long long cost = (segments * patches + s - 1) / s * (tz + 2);
     if (best < 0 || cost < best) {
@@ -206,12 +202,12 @@ struct Lanes {
         first(blockIdx.x, p_), step(gridDim.x, p_) {}
 };
 
+// u through L1 (safe: see the head note).
 __device__ __forceinline__ float4 ld4(const float* p) {
-  if (kL1Reads) return *reinterpret_cast<const float4*>(p);
-  return __ldcg(reinterpret_cast<const float4*>(p));
+  return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float ld1(const float* p) { return kL1Reads ? *p : __ldcg(p); }
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
 
 // The quad's voxels at offset `at` of u (lim of them in the row): two
 // 16-byte loads (kVec), or voxel by voxel. Voxels past the row are 0.
@@ -258,18 +254,16 @@ struct Quad {
 
 // One plane z of the walk: the class voxels at offsets O, O + 2, O + 4, O + 6
 // of row B, with A = row z - 1 and C = row z + 1, updated in B and stored;
-// then A <- B, B <- C. With kPrefetch, C came a step ago and row z + 2 is
-// loaded into N here, before this step's stores, when there is a next step
-// (`more`): a lane writes only its own voxels, and their values are the
-// ones it loads, so the early load reads what a later one would; else C is
-// loaded here.
+// then A <- B, B <- C. C came a step ago and row z + 2 is loaded into N
+// here, before this step's stores, when there is a next step (`more`): a
+// lane writes only its own voxels, and their values are the ones it loads,
+// so the early load reads what a later one would.
 template <bool kVec, bool kCheck, int O>
 __device__ __forceinline__ void step(float* u, const uint8_t* locked, Quad& q, bool more,
                                      float (&A)[8], float (&B)[8], float (&C)[8], float (&N)[8],
                                      float& local) {
   float ym[8], yp[8];
-  if (!kPrefetch) load8<kVec>(u, q.at + q.plane, q.lim, C);
-  else if (more) load8<kVec>(u, q.at + 2 * q.plane, q.lim, N);   // the next step's row z + 2
+  if (more) load8<kVec>(u, q.at + 2 * q.plane, q.lim, N);   // the next step's row z + 2
   load8<kVec>(u, q.at - q.W, q.lim, ym);
   load8<kVec>(u, q.at + q.W, q.lim, yp);
   const unsigned upd = ~(locked_bits<kVec>(locked, q.at, q.lim) | q.shell) & (O ? 0xAAu : 0x55u);
@@ -302,7 +296,7 @@ __device__ __forceinline__ void step(float* u, const uint8_t* locked, Quad& q, b
   for (int k = 0; k < 8; ++k) {
     A[k] = B[k];
     B[k] = C[k];
-    if (kPrefetch) C[k] = N[k];
+    C[k] = N[k];
   }
   q.at += q.plane;
 }
@@ -315,7 +309,7 @@ __device__ __noinline__ float walk(float* u, const uint8_t* locked, Quad q, int 
   float A[8], B[8], C[8], N[8] = {};
   load8<kVec>(u, q.at - q.plane, q.lim, A);
   load8<kVec>(u, q.at, q.lim, B);
-  if (kPrefetch) load8<kVec>(u, q.at + q.plane, q.lim, C);
+  load8<kVec>(u, q.at + q.plane, q.lim, C);
   for (int z = z0; z < z1; z += 2) {
     step<kVec, kCheck, O>(u, locked, q, z + 1 < z1, A, B, C, N, local);
     if (z + 1 == z1) break;

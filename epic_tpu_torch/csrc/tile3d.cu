@@ -117,8 +117,8 @@
 // and 5.2-7.2 on planes of 1448^2 and more, where its z neighbours no
 // longer came back from the L2, and the router sent the volumes with
 // planes of 1024^2 and more here; K7's z walk (sweep3d.cu) keeps them in
-// registers and measured as fast or faster on every volume, so the router
-// sends none here (hopper_tile3d.past_crossover). With each lse6 replaced by a max
+// registers and measured as fast or faster on every volume, so no volume
+// is routed here (solver.update_volume). With each lse6 replaced by a max
 // the pass keeps 55-57% of its time, and without the step barrier it
 // loses 10%: the time goes to the instructions around each update (the
 // level's predicates and set-up, the per-step copies and frozen bits), to

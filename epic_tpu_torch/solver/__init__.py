@@ -1,7 +1,7 @@
 """The port's solvers: the plain torch version (``core``) and the CUDA
 kernels behind it (``hopper_sweep`` in 2D, ``hopper_tile2d`` for 2D grids
-beyond the card's L2, ``hopper_sweep3d`` in 3D, ``hopper_tile3d`` for
-volumes past its routing rule, which none is on an H100), with the
+beyond the card's L2, ``hopper_sweep3d`` for every 3D volume, and
+``hopper_tile3d``, the 3D tile kernels, when called), with the
 library-level entries; the tile families'
 plain versions (``tiled``, ``tiled3d``); batched scenario solves over
 ``[B, H, W]`` lanes in plain torch (``batched``) and on their CUDA kernels
@@ -68,26 +68,18 @@ def update_grid(state, num_steps: int, chunk_depth: int | None = None):
 def solve_volume(state, stagger=None, max_iterations: int = 1_000_000,
                  segment_iterations: int | None = None, chunk_depth: int | None = None):
     """3D solve (``epic_tpu.solver.solve_volume``'s counterpart): the plain
-    version for a volume on the CPU; on the card the z-marching tile kernels
-    (``hopper_tile3d``, halo depth ``chunk_depth``, by default its
-    ``DEFAULT_DEPTH``) for a volume past the measured crossover
-    (``hopper_tile3d.use_tiles``; since K7's z walk, no volume on an H100)
-    and the in-place kernels (``hopper_sweep3d``) for every other. ``segment_iterations``
-    runs the tile route's solve as segments; the in-place route's solve is
-    one launch and ignores it, as ``epic_tpu``'s VMEM route does."""
+    version for a volume on the CPU, the in-place kernels (``hopper_sweep3d``,
+    K7's z walk) for every volume on the card. ``tile_probe.py --volumes``
+    measured K7 as fast or faster than the z-marching tile kernels on every
+    volume it ran on an H100 (PERF.md), so no volume goes to those. The
+    solve is one launch: ``segment_iterations`` and ``chunk_depth``, which
+    only a tile route would use, are ignored, as ``epic_tpu``'s VMEM route
+    does."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
-    if hopper_tile3d.use_tiles(state.u.shape, state.u.device):
-        k = hopper_tile3d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
-        if segment_iterations is not None:
-            return hopper_tile3d.solve_segments(state, stagger, max_iterations,
-                                                segment_iterations, k)
-        return hopper_tile3d.solve(state, stagger, max_iterations, k)
     return hopper_sweep3d.solve(state, stagger, max_iterations)
 
 
 def update_volume(state, num_steps: int, chunk_depth: int | None = None):
-    """The 3D anytime stepper; routes as :func:`solve_volume`."""
-    if hopper_tile3d.use_tiles(state.u.shape, state.u.device):
-        k = hopper_tile3d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
-        return hopper_tile3d.update_n(state, num_steps, k)
+    """The 3D anytime stepper: ``hopper_sweep3d`` for every volume, as
+    :func:`solve_volume`; ``chunk_depth`` is ignored."""
     return hopper_sweep3d.update_n(state, num_steps)

@@ -32,15 +32,12 @@ from .hopper_sweep import _check_cuda_state, launch_chunk, launch_solve
 
 launches = {"epic_sweep3d_chunk": 0, "epic_sweep3d_solve": 0}
 
-# The constants of csrc/sweep3d.cu: lanes a block (kThreads3d), blocks an SM
-# (kMinBlocks3d), quads across a patch at most (kMaxBand), the shortest
-# segment the plan cuts (kMinSegment).
+# The constants of csrc/sweep3d.cu: lanes a block (kThreads3d), quads across
+# a patch at most (kMaxBand) and at least (kMinBand).
 THREADS = 512
-BLOCKS_PER_SM = 1
 MAX_BAND = 32
 MIN_BAND = 8
-MIN_SEGMENT = 1
-H100_SLOTS = 132 * BLOCKS_PER_SM   # the slots of an H100, for a plan on the CPU
+H100_SLOTS = 132   # the slots of an H100 (one block an SM), for a plan on the CPU
 # Alignment the kernels take: u 16-byte (the quads' 16-byte loads), locked
 # 4-byte (the quads' locked bytes, 4 at a time).
 U_ALIGN, LOCKED_ALIGN = 16, 4
@@ -80,8 +77,7 @@ def plan(shape, slots: int = H100_SLOTS) -> Plan:
     one class offset; the width whose lanes, padded and weighted by
     ``_band_cost``, are fewest), a power of two up to 8 on shorter rows, and the
     segment count whose rounds x (tz + 2) steps is least (the fewest
-    segments on a tie; no segment shorter than ``MIN_SEGMENT`` unless the
-    volume is). A volume with no interior has no units (and one idle block)."""
+    segments on a tie). A volume with no interior has no units (and one idle block)."""
     d, h, w = shape
     if d < 3 or h < 3 or w < 3:
         return Plan(0, 0, 1, 1, 1, 1, 0, 1)
@@ -105,8 +101,6 @@ def plan(shape, slots: int = H100_SLOTS) -> Plan:
     best = None
     for want in range(1, n + 1):
         tz = _cdiv(n, want)
-        if want > 1 and tz < MIN_SEGMENT:
-            break
         segments = _cdiv(n, tz)
         cost = _cdiv(segments * patches, slots) * (tz + 2)
         if best is None or cost < best[0]:

@@ -19,14 +19,13 @@ through a ring of K + 3 planes in shared memory, each voxel loaded once a
 chunk (the note at the head of ``csrc/tile3d.cu``). The plain version is
 handed the same tile; it gives the same bits for any tile.
 
-Routing (:func:`use_tiles`): a volume would go here when its ``u`` and
-``locked`` (5 B a voxel) exceed ``CROSSOVER_L2`` times the card's L2 and a
-plane of ``u`` exceeds ``PLANE_L2`` of it, where ``tile_probe.py
---volumes`` measures the tiles against the in-place kernels of
-:mod:`.hopper_sweep3d` (K7). K7's z walk keeps a voxel's z neighbours in
-registers, and since then it has been as fast or faster on every volume
-measured, so ``CROSSOVER_L2`` is infinite and every volume runs on K7 (see
-the constants); the tile kernels run when called here directly.
+No router sends a volume here: ``tile_probe.py --volumes`` times these
+kernels against the in-place kernels of :mod:`.hopper_sweep3d` (K7), and
+since K7's z walk keeps a voxel's z neighbours in registers it has measured
+as fast or faster on every volume run on an H100, within the L2 and past
+it, cubes, deep volumes and wide planes (PERF.md), so
+``solver.update_volume`` and ``solve_volume`` take K7 for every volume.
+The tile entries run when called here directly.
 
 In place, like every other wrapper: on CUDA the returned state holds the
 caller's ``u`` tensor, relaxed, with the twin and u1 scratch volumes that
@@ -37,8 +36,6 @@ caller's ``u`` tensor, relaxed, with the twin and u1 scratch volumes that
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -55,25 +52,6 @@ H100_SMS = 132            # tile_for's SM count for a volume on the CPU
 # The tile of a 256³ cube on an H100: eight segments of 32 planes over its
 # 16 columns. The CPU tests hand it to the plain version among others.
 TILE = (32, *COLUMN)
-# The routing rule (past_crossover): a volume goes to the tiles when its u
-# and locked (5 B a voxel) exceed CROSSOVER_L2 times the card's L2 and a
-# plane of its u (4 B a voxel) exceeds PLANE_L2 times it. tile_probe.py
-# --volumes on an H100 80GB HBM3 at 700 W (PERF.md), K = 4, ms a sweep, K7's
-# z walk against the tiles, K7 faster on every volume but one tie: within
-# the L2 30 x 256^2 0.0098 / 0.0304, 64 x 256^2 0.0166 / 0.0267; cubes
-# 160^3 0.0210 / 0.0367, 192^3 0.0277 / 0.0465, 224^3 0.0490 / 0.0609,
-# 256^3 0.0661 / 0.0758, 320^3 0.1386 / 0.1735, 384^3 0.2193 / 0.2464,
-# 448^3 0.3768 / 0.4207, 512^3 0.5002 / 0.5312, 640^3 1.0713 / 1.0735 (a
-# tie: 1.0766 / 1.0737 and 1.0753 / 1.0674 in two earlier runs), 768^3
-# 1.7128 / 1.8276; deep 1024 x 512^2 0.9979 / 1.0499, 2048 x 256^2 0.4985
-# / 0.5254; wide planes, where the per-row kernel before the z walk lost
-# to the tiles, 64 x 1024^2 0.2480 / 0.2632, 32 x 1448^2 0.2843 / 0.3285,
-# 128 x 1448^2 1.1311 / 1.2220, 16 x 2048^2 0.2367 / 0.2617, 32 x 2048^2
-# 0.4870 / 0.5228, 8 x 4096^2 0.4143 / 0.5121. So no volume goes to the
-# tiles: CROSSOVER_L2 is infinite. PLANE_L2 keeps the plane rule's place
-# for a card where the tiles win again.
-CROSSOVER_L2 = math.inf
-PLANE_L2 = 0.0625
 
 
 def smem_bytes(k: int) -> int:
@@ -127,21 +105,3 @@ update_n = _kernels.update_n
 solve = _kernels.solve
 solve_segments = _kernels.solve_segments
 
-
-def past_crossover(shape, l2_bytes: int) -> bool:
-    """The routing rule: ``u`` (4 B) and ``locked`` (1 B) of a volume exceed
-    ``CROSSOVER_L2`` times ``l2_bytes``, and a plane of ``u`` exceeds
-    ``PLANE_L2`` times it."""
-    d, h, w = shape
-    return 5 * d * h * w > CROSSOVER_L2 * l2_bytes and 4 * h * w > PLANE_L2 * l2_bytes
-
-
-def use_tiles(shape, device) -> bool:
-    """Whether a volume of ``shape`` on ``device`` runs on the tile
-    kernels: on a CUDA device, past the crossover of its L2
-    (:func:`past_crossover`). A volume on the CPU never does (it runs
-    ``core``)."""
-    device = torch.device(device)
-    if device.type != "cuda" or len(shape) != 3:
-        return False
-    return past_crossover(shape, torch.cuda.get_device_properties(device).L2_cache_size)

@@ -14,7 +14,7 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   :func:`hopper_tile2d.use_tiles` sends that grid to the tiles;
 - ``--volumes`` (3D): the same through K7 (``hopper_sweep3d``) and the 3D
   tile route (``hopper_tile3d``) on volumes given as ``D`` (a cube) or
-  ``DxHxW``, beside :func:`hopper_tile3d.use_tiles`;
+  ``DxHxW`` (the measurement behind sending every volume to K7);
 - ``--shapes`` (3D): the column of ``csrc/tile3d.cu``. Each candidate
   column and register budget (``kTH``, ``kTW``, ``kMinBlocks``; a block has
   a lane a quad of its extended plane) is built as a copy of that source
@@ -125,7 +125,8 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   kernel that computes one a thread, less a kernel that adds the same
   loaded values (chip_smoke.py's ``LSE4_SASS`` and ``LSE6_SASS``).
 
-Each routing rule's threshold is set where the tile route starts to win.
+Each 2D routing rule's threshold is set where the tile route starts to win;
+in 3D the tiles won on no volume, so every volume runs on K7.
 States are built on the card from a seed (10% locked cells, the shell
 locked, one goal cell); the times do not depend on the map. Each result is
 checked against the in-place route bit for bit.
@@ -151,7 +152,7 @@ from .solver import _build, hopper_sweep, hopper_sweep3d, hopper_tile2d, hopper_
 SIDES = (2048, 3072, 4096, 8192)
 VOLUMES = ("30x256x256", "64x256x256", "160", "192", "224", "256", "320", "384", "448", "512",
            "640", "64x1024x1024", "32x2048x2048", "32x1448x1448", "128x1448x1448",
-           "1024x512x512", "2048x256x256")
+           "1024x512x512", "2048x256x256", "2048x384x384", "768")
 # (TH, TW, blocks an SM) candidates for --shapes: the source's shape first,
 # then other register budgets (blocks an SM; a block has a lane a quad of
 # its plane) and shorter, taller and wider columns (less halo recompute,
@@ -258,15 +259,25 @@ SWEEP3D_ABLATE = {
                    "const unsigned upd = ~(q.shell)"),),
 }
 SWEEP3D_DESIGN = {
-    "ldcg": (("constexpr bool kL1Reads = true;", "constexpr bool kL1Reads = false;"),),
-    "seg4": (("constexpr int kMinSegment = 1;", "constexpr int kMinSegment = 4;"),),
-    "seg8": (("constexpr int kMinSegment = 1;", "constexpr int kMinSegment = 8;"),),
+    "ldcg": (("  return *reinterpret_cast<const float4*>(p);",
+              "  return __ldcg(reinterpret_cast<const float4*>(p));"),
+             ("float ld1(const float* p) { return *p; }",
+              "float ld1(const float* p) { return __ldcg(p); }")),
+    "seg4": (("    const int tz = cdiv(n, want);\n",
+              "    const int tz = cdiv(n, want);\n    if (want > 1 && tz < 4) break;\n"),),
+    "seg8": (("    const int tz = cdiv(n, want);\n",
+              "    const int tz = cdiv(n, want);\n    if (want > 1 && tz < 8) break;\n"),),
     "t1024": (("constexpr int kThreads3d = 512;", "constexpr int kThreads3d = 1024;"),),
     "b2": (("constexpr int kMinBlocks3d = 1;", "constexpr int kMinBlocks3d = 2;"),),
     "band16": (("constexpr int kMaxBand = 32;", "constexpr int kMaxBand = 16;"),),
     "band64": (("constexpr int kMaxBand = 32;", "constexpr int kMaxBand = 64;"),),
     "band8": (("constexpr int kMaxBand = 32;", "constexpr int kMaxBand = 8;"),),
-    "no_prefetch": (("constexpr bool kPrefetch = true;", "constexpr bool kPrefetch = false;"),),
+    "no_prefetch": (("  if (more) load8<kVec>(u, q.at + 2 * q.plane, q.lim, N);"
+                     "   // the next step's row z + 2",
+                     "  load8<kVec>(u, q.at + q.plane, q.lim, C);"),
+                    ("    C[k] = N[k];\n", ""),
+                    ("  load8<kVec>(u, q.at + q.plane, q.lim, C);\n  for (int z",
+                     "  for (int z")),
 }
 SWEEP3D_BASELINE_ABLATE = {
     "no_grid_barrier": (("    grid.sync();\n    sweep<false>(u, locked, D, H, W, t0 + k);",
@@ -343,7 +354,6 @@ def probe_volumes(dev, reps: int, volumes=VOLUMES) -> None:
         n = shape[0] * shape[1] * shape[2]
         print(json.dumps(dict(probe="crossover3d", shape=list(shape), bytes=5 * n,
                               l2_bytes=torch.cuda.get_device_properties(dev).L2_cache_size,
-                              use_tiles=hopper_tile3d.use_tiles(shape, dev),
                               tile=list(hopper_tile3d.tile_for(shape, dev)),
                               k=hopper_tile3d.DEFAULT_DEPTH,
                               sweep3d_ms_per_sweep=k_ms / 100, tile3d_ms_per_sweep=t_ms / 100,

@@ -1031,42 +1031,32 @@ def test_tile3d_update_n_runs_cycle_and_remainder_chunk(dev):
     assert scratch["twin"].shape == TILE_VOLUMES[1]
 
 
-def test_router_sends_volumes_past_the_crossover_to_the_tiles(dev, monkeypatch):
-    """The measured rule sends no volume to the tiles (K7's z walk measured
-    as fast or faster everywhere): a wide-plane volume beyond the L2, a cube
-    past it and a small volume tick and solve on sweep3d. With a finite
-    crossover (the earlier rule's, CROSSOVER_L2 = 1), a VolumePlanner whose
-    volume is past it ticks and solves on the tile kernels. Each gives
-    core's bits, and nothing else runs."""
+def test_router_sends_every_volume_to_the_z_walk(dev):
+    """Every volume runs on K7 (its z walk measured as fast or faster than
+    the tiles everywhere, tile_probe.py --volumes): a VolumePlanner on a
+    wide-plane volume beyond the L2, a cube past it and a small volume ticks
+    and solves on sweep3d and gives core's bits; the tile kernels and the
+    plain version do not run."""
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     side = int((1.5 * l2 / 5) ** (1 / 3)) + 4
-    wide = (8, 1536, 1536)
-    for crossover in (hopper_tile3d.CROSSOVER_L2, 1.0):
-        monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", crossover)
-        for shape, tiles in ((wide, crossover == 1.0), ((side, side, side), False),
-                             ((12, 20, 28), False)):
-            assert hopper_tile3d.use_tiles(shape, dev) == tiles
-            tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
-            tp.state = _volume(shape, 0.1, 2, dev)
-            replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
-            u = tp.state.u
-            t3, s3, calls = dict(hopper_tile3d.launches), dict(hopper_sweep3d.launches), \
-                dict(core.calls)
-            tp.update()
-            tp.update(100)
-            tp.solve(max_iterations=300)
-            moved = {n: hopper_tile3d.launches[n] - t3[n] for n in t3}
-            moved_k7 = {n: hopper_sweep3d.launches[n] - s3[n] for n in s3}
-            if tiles:
-                assert moved["epic_tile3d_cycle"] >= 2 and moved["epic_tile3d_solve"] == 1
-                assert not any(moved_k7.values())
-            else:
-                assert moved_k7 == {"epic_sweep3d_chunk": 2, "epic_sweep3d_solve": 1}
-                assert not any(moved.values())
-            assert core.calls == calls
-            replay = core.update_n(core.update_n(replay, 25), 100)
-            _assert_same(tp.state, core.solve(replay, 100, 300))
-            assert tp.state.u is u                 # relaxed in place, like every wrapper
+    for shape in ((8, 1536, 1536), (side, side, side), (12, 20, 28)):
+        tp = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, steps_per_update=25), device=dev)
+        tp.state = _volume(shape, 0.1, 2, dev)
+        replay = dataclasses.replace(tp.state, u=tp.state.u.clone())
+        u = tp.state.u
+        t3, s3, calls = dict(hopper_tile3d.launches), dict(hopper_sweep3d.launches), \
+            dict(core.calls)
+        tp.update()
+        tp.update(100)
+        tp.solve(max_iterations=300)
+        moved = {n: hopper_tile3d.launches[n] - t3[n] for n in t3}
+        moved_k7 = {n: hopper_sweep3d.launches[n] - s3[n] for n in s3}
+        assert moved_k7 == {"epic_sweep3d_chunk": 2, "epic_sweep3d_solve": 1}
+        assert not any(moved.values())
+        assert core.calls == calls
+        replay = core.update_n(core.update_n(replay, 25), 100)
+        _assert_same(tp.state, core.solve(replay, 100, 300))
+        assert tp.state.u is u                 # relaxed in place, like every wrapper
 
 
 def test_tile3d_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -9,7 +9,7 @@ band=, k=, yt=, wt=)``; ``unpad`` only reads those layouts. The kernels'
 z march (csrc/tile3d.cu) is modelled here in plain torch (``march_chunk``)
 and held to the plain version and core bit for bit; with its levels in
 descending order it gives other bits. The tile rule and the routing rule
-of ``hopper_tile3d`` are checked on shapes.
+of ``solver`` (every volume to K7) are checked on shapes.
 
 Tolerances: within the package, the same bits. Across packages fields
 rtol=2e-6, atol=1e-5 and deltas rtol=1e-5, atol=1e-5 (torch's and XLA's CPU
@@ -19,7 +19,7 @@ bits: tests/test_torch_cuda.py.
 """
 
 import dataclasses
-import math
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -441,34 +441,45 @@ def test_solve_segments_match_epic_tpu(module):
 
 # -- routing ---------------------------------------------------------------------------
 
-def test_use_tiles_is_a_rule_on_bytes_and_l2(monkeypatch):
-    """Tiles past CROSSOVER_L2 L2s of u and locked (5 B a voxel) with a
-    plane of u past PLANE_L2 of the L2 (4 B a voxel). tile_probe.py
-    --volumes measured K7's z walk as fast or faster than the tiles on every
-    volume on an H100, so CROSSOVER_L2 is infinite and no volume goes to the
-    tiles; the rule itself is held with a finite crossover."""
-    l2 = 50 * 2**20
-    assert (hopper_tile3d.CROSSOVER_L2, hopper_tile3d.PLANE_L2) == (math.inf, 0.0625)
-    # Measured: K7 faster within the L2, on cubes, deep volumes and wide
-    # planes (where the per-row kernel before it lost); 640^3 a tie.
-    for shape in ((30, 256, 256), (64, 256, 256), (160, 160, 160), (256, 256, 256),
-                  (384, 384, 384), (512, 512, 512), (640, 640, 640), (768, 768, 768),
-                  (1024, 512, 512), (2048, 256, 256), (32, 1448, 1448), (128, 1448, 1448),
-                  (64, 1024, 1024), (32, 2048, 2048), (512, 1024, 1024), (8, 4096, 4096)):
-        assert not hopper_tile3d.past_crossover(shape, l2)
-    monkeypatch.setattr(hopper_tile3d, "CROSSOVER_L2", 1.5)
-    voxels = int(hopper_tile3d.CROSSOVER_L2 * l2 // 5)
-    assert not hopper_tile3d.past_crossover((1, 1, voxels), l2)
-    assert hopper_tile3d.past_crossover((1, 1, voxels + 1), l2)
-    assert not hopper_tile3d.past_crossover((30, 256, 256), l2)
-    assert hopper_tile3d.past_crossover((32, 2048, 2048), l2)
-    assert not hopper_tile3d.past_crossover((32, 2048, 2048), 1000 * l2)
-    plane = int(hopper_tile3d.PLANE_L2 * l2 // 4)
-    assert not hopper_tile3d.past_crossover((1000, 1, plane), l2)
-    assert hopper_tile3d.past_crossover((1000, 1, plane + 1), l2)
-    # A volume on the CPU never goes to the tiles, whatever its size.
-    assert not hopper_tile3d.use_tiles((32, 2048, 2048), "cpu")
-    assert not hopper_tile3d.use_tiles((8192, 8192), "cuda")      # not a volume
+# Every volume tile_probe.py --volumes ran on an H100 80GB HBM3 at 700 W
+# (PERF.md): K7's z walk as fast or faster than the tiles on each (640^3 a
+# tie within 1%), within the L2, cubes, deep volumes and wide planes.
+MEASURED_VOLUMES = ((30, 256, 256), (64, 256, 256), (160, 160, 160), (192, 192, 192),
+                    (224, 224, 224), (256, 256, 256), (320, 320, 320), (384, 384, 384),
+                    (448, 448, 448), (512, 512, 512), (640, 640, 640), (768, 768, 768),
+                    (1024, 384, 384), (1536, 384, 384), (2048, 320, 320), (2048, 384, 384),
+                    (2048, 448, 448), (1024, 512, 512), (2048, 256, 256), (64, 1024, 1024),
+                    (32, 1448, 1448), (128, 1448, 1448), (16, 2048, 2048), (32, 2048, 2048),
+                    (8, 4096, 4096), (576, 576, 576), (1024, 768, 768), (512, 1024, 1024))
+
+
+def test_every_volume_runs_on_the_z_walk(monkeypatch):
+    """The 3D rule: solver.update_volume and solve_volume (and the grid
+    entries for rank 3) hand every volume on the card to hopper_sweep3d
+    (K7), whatever its shape and whatever chunk_depth or segment_iterations
+    ask; the tile entries run only when called. The volume is a stand-in
+    with a shape on a CUDA device and no storage."""
+    calls = []
+    monkeypatch.setattr(hopper_sweep3d, "update_n",
+                        lambda st, n: calls.append(("update_n", st.u.shape, n)) or st)
+    monkeypatch.setattr(hopper_sweep3d, "solve",
+                        lambda st, stagger, cap: calls.append(("solve", st.u.shape, cap)) or st)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a volume went to the 3D tiles")
+
+    for name in ("update_n", "solve", "solve_segments", "sweep_chunk", "sweep_cycle"):
+        monkeypatch.setattr(hopper_tile3d, name, refuse)
+    base = _torch_state((3, 3, 3), seed=0)
+    for shape in MEASURED_VOLUMES:
+        u = types.SimpleNamespace(shape=shape, ndim=3, device=torch.device("cuda"))
+        st = dataclasses.replace(base, u=u)
+        calls.clear()
+        assert TS.update_volume(st, 9, chunk_depth=3) is st
+        assert TS.update_grid(st, 9, 3) is st
+        assert TS.solve_volume(st, 10, 500, segment_iterations=100, chunk_depth=3) is st
+        assert TS.solve_grid(st, 10, 500, segment_iterations=100) is st
+        assert calls == [("update_n", shape, 9)] * 2 + [("solve", shape, 500)] * 2
 
 
 def test_depth_is_checked_against_shared_memory():
