@@ -248,7 +248,43 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 same bits: a 3-chunk cycle with u1 on the 16384^2 mesh, and
                 a solve capped at 1,000 on the maze mesh.
 
-Each phase prints one JSON line and raises on failure (phase 23 runs last).
+ 27. native (run after phase 23) — the g++ build of epic_tpu_torch.native
+                (its flags, the compiler and its output, whether with
+                OpenMP; the library is required), then path.compute_path
+                with impl="native" and impl="numpy" on phase 2's K2-solved
+                maze field from 20 seeded free cells (step 0.2, precision
+                0.4, 5,000 points at most): the same points or the same
+                error, both walkers' host times;
+ 28. cascade  — Planner(PlannerConfig(cascade=True)).solve() on maze and
+                umass, counted (the coarse levels on the native library, K2
+                once on the fine level, nothing else), held bit for bit to
+                the same cascade with core.solve as its fine solver on the
+                card, each level's iterations and time beside phase 2's cold
+                K2 solve; solve_cascade with the auto solver on a 3072^2
+                maps.random_obstacles grid (density 0.1, seed 0; 47 MB at 5 B
+                a cell, past two thirds of the L2), each level capped at
+                20,000 sweeps, counted (K2 on every coarse level, the tile
+                solve once on the fine one); and on a 128 x 256 x 256 volume
+                built as phase 6's (one coarse level of 64 x 128 x 128, K7 on
+                both), each against the plain cascade on the card, the same
+                bits;
+ 29. nav_core — EpicNavCorePlugin on the card (recursive_maze(128, 128,
+                seed=7)), two make_plan calls, counted (K2 once a plan,
+                nothing else), the plans equal to a plugin's whose solve is
+                the plain core.solve on the card; the make_plan latency;
+ 30. modules  — a 16^4 grid with two seeded goals through solver.solve_grid
+                on the card (the plain core: no kernel may run) against the
+                CPU plain solve (equal iterations, fields within rtol 2e-6,
+                atol 1e-3); legacy.sor_red_black on the card against
+                sor_numpy (atol 1e-4); a checkpoint of a Planner holding the
+                maze field, saved on the card and loaded on the card and on
+                the CPU, the same bits; profiling.timed_solve on the card,
+                the same bits as phase 2's solve;
+ 31. sampling — the sampling_* verbs on an in-process server over a socket:
+                sampling_occupancy with the maze, a goal, compute_path, 20
+                ticks of its anytime budget, and the info block.
+
+Each phase prints one JSON line and raises on failure.
 Then come the kernels' JSON line (each entry with its time, its plain
 version's, its bound and its launches on the main path; the batch entries
 once for each route, named ``entry/route``; K7's two rows also with
@@ -2864,6 +2900,394 @@ def phase_mesh3d_wide(dev) -> dict:
             "entry": (entry_ms, plain_ms, entry_bound)}
 
 
+NATIVE_STARTS = 20         # seeded maze starts walked by both host walkers
+NATIVE_POINTS = 5000       # each walk's point budget in phase native
+CASCADE_SIDE = 3072        # 3072^2 at 5 B a cell: 47 MB, past two thirds of the L2
+CASCADE_CAP = 20_000       # each level's cap on the 3072^2 pyramid
+CASCADE_VOLUME = (128, 256, 256)
+ND_SHAPE = (16, 16, 16, 16)
+FIELD = dict(rtol=2e-6, atol=1e-3)   # tests/test_torch_solver.py's fields across devices
+
+
+def host_s(fn):
+    """``fn()``'s result and its host-clock seconds, the card drained on both
+    sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def new_counts(what: str, drive, expect: dict) -> dict:
+    """Run ``drive()`` with every count zeroed just before and read just
+    after: exactly the launches of ``expect`` (entry -> count, or None for at
+    least one), and nothing else of the kernels or the plain versions."""
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_sweep3d, hopper_tile2d
+
+    zero_counts()
+    drive()
+    torch.cuda.synchronize()
+    ran = {k: v for d in (hopper_sweep.launches, hopper_tile2d.launches, hopper_sweep3d.launches)
+           for k, v in d.items() if v}
+    plain = {f"core.{k}": v for k, v in core.calls.items() if v}
+    require(not plain, f"{what}: the plain version ran on the main path: {plain}")
+    require(set(ran) == set(expect), f"{what}: launches {ran}, expected {expect}")
+    for k, n in expect.items():
+        require(n is None or ran[k] == n, f"{what}: {k} launched {ran[k]} times, not {n}")
+    return ran
+
+
+def phase_native(dev, maze, maze_solved) -> dict:
+    """The g++ build of the native helpers, then both host walkers on phase
+    2's K2-solved maze field from NATIVE_STARTS seeded free cells (step 0.2,
+    precision 0.4, at most NATIVE_POINTS points a walk: the NumPy walker
+    takes about 60 us a point on the chip host, so full walks of up to 85,000
+    points at the verb's step 0.05 would cost a minute): the same points (or
+    the same error), each walker's host time."""
+    from epic_tpu_torch import native, path
+
+    ok, load_s = host_s(native.available)
+    info = {k: v for k, v in native.build_info.items() if k != "log"}
+    emit(phase="native_build", available=ok, load_s=load_s, **info,
+         compiler_output=native.build_info.get("log", "")[-2000:])
+    require(ok, f"the native library did not build: {native.build_info}")
+    u = maze_solved.u.cpu().numpy()
+    locked = maze_solved.locked.cpu().numpy()
+    free = np.argwhere(~locked)
+    picks = free[np.random.default_rng(0).choice(len(free), NATIVE_STARTS, replace=False)]
+    times = {"numpy": [], "native": []}
+    points, errors = [], 0
+    for y, x in picks:
+        got = {}
+        for impl in ("numpy", "native"):
+            t0 = time.perf_counter()
+            try:
+                got[impl] = path.compute_path(u, locked, float(x), float(y), 0.2, 0.4,
+                                              NATIVE_POINTS, impl=impl)
+            except Exception as e:  # the error's type is part of the contract
+                got[impl] = type(e).__name__
+            times[impl].append(time.perf_counter() - t0)
+        a, b = got["numpy"], got["native"]
+        if isinstance(a, str) or isinstance(b, str):
+            require(a == b if isinstance(a, str) and isinstance(b, str) else False,
+                    f"walkers differ from ({x}, {y}): {a if isinstance(a, str) else len(a)} "
+                    f"vs {b if isinstance(b, str) else len(b)}")
+            errors += 1
+            continue
+        require(a.shape == b.shape and np.array_equal(a, b),
+                f"native and NumPy walks from ({x}, {y}) differ")
+        points.append(len(a))
+    require(len(points) >= NATIVE_STARTS // 2, f"only {len(points)} starts walked")
+    out = dict(starts=NATIVE_STARTS, walked=len(points), errors=errors, points=points,
+               numpy_s=float(np.sum(times["numpy"])), native_s=float(np.sum(times["native"])),
+               numpy_us_per_point=float(np.sum(times["numpy"]) / sum(points) * 1e6),
+               native_us_per_point=float(np.sum(times["native"]) / sum(points) * 1e6),
+               numpy_walk_s=times["numpy"], native_walk_s=times["native"])
+    emit(phase="native", **out)
+    return out
+
+
+def timed_levels(solve, clock: str):
+    """``solve`` wrapped to record each call's time (CUDA events on the card,
+    or the host clock for a host solver) in the returned list, and on the
+    card each call's bound (:func:`bound`) in the second list."""
+    log, bounds = [], []
+
+    def run(st, stagger, max_iterations):
+        res = {}
+        if clock == "host":
+            res["o"], secs = host_s(lambda: solve(st, stagger, max_iterations))
+            log.append(secs * 1e3)
+        else:
+            log.append(event_ms(lambda: res.__setitem__("o", solve(st, stagger, max_iterations))))
+            bounds.append(bound(st.locked, 0, int(res["o"].iteration), lse6=st.u.ndim == 3))
+        return res["o"]
+
+    return run, log, bounds
+
+
+def cascade_demo(dev, g, name: str, cold_ms: float) -> dict:
+    """Planner(cascade=True).solve() on a demo map, counted (coarse levels on
+    the native library, the fine level on K2 once, nothing else), held bit
+    for bit to the same cascade with core.solve as the fine solver on the
+    card. That plain cascade also times each coarse level (host clock) and
+    K2 on its fine level's warm start (CUDA events): the same bits again."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch.planner import Planner, PlannerConfig
+    from epic_tpu_torch.solver import cascade, core, hopper_sweep
+
+    img = g["img"]
+    pl = Planner(PlannerConfig(epsilon=EPS, stagger=STAGGER, cascade=True), device=dev)
+    pl.state = T.from_occupancy_image(img, EPS, device=dev)
+    ran = {}
+
+    def drive():
+        _, ran["s"] = host_s(pl.solve)
+
+    launches = new_counts(f"{name} cascade", drive, {"epic_sweep2d_solve": 1})
+    coarse, coarse_ms, _ = timed_levels(cascade.native_solver, "host")
+    fine = {}
+
+    def final(st, stagger, max_iterations):
+        warm = copy_state(st)
+        fine["ms"] = event_ms(lambda: fine.__setitem__(
+            "k", hopper_sweep.solve(warm, stagger, max_iterations)))
+        return core.solve(st, stagger, max_iterations)
+
+    plain, stats = cascade.solve_cascade(T.from_occupancy_image(img, EPS, device=dev),
+                                         solver=final, coarse_solver=coarse)
+    err = compare(pl.state, plain, f"{name} cascade against the plain cascade")
+    compare(fine["k"], plain, f"{name} K2 on the warm start against the plain cascade")
+    require(bool(plain.converged) and int(plain.iteration) == stats.iterations[-1],
+            f"{name} cascade: {stats}")
+    return dict(shape=list(img.shape), levels=[list(s) for s in stats.shapes],
+                iterations=list(stats.iterations),
+                total_fine_equivalent=stats.total_fine_equivalent,
+                level_ms=coarse_ms + [fine["ms"]],
+                level_clock=["host"] * len(coarse_ms) + ["cuda"],
+                fine_bound=bound(plain.locked, 0, stats.iterations[-1]),
+                planner_solve_s=ran["s"], max_abs_err=err, launches=launches,
+                cold_k2_solve_ms=cold_ms)
+
+
+def phase_cascade(dev, maze, umass, m, um, volume_arrays_fn) -> dict:
+    """The cascade on the card's kernels: the demo maps through the Planner,
+    a 3072^2 pyramid with every level on the card (K2 on the coarse levels,
+    the tile solve on the fine one), and a 3D pyramid on K7."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch import maps, solver
+    from epic_tpu_torch.solver import cascade, core
+
+    res = {"maze": cascade_demo(dev, maze, "maze", m["solve_ms"]),
+           "umass": cascade_demo(dev, umass, "umass", um["solve_ms"])}
+    img = maps.random_obstacles(CASCADE_SIDE, CASCADE_SIDE, density=0.1, seed=0)
+    out = {}
+
+    def drive():
+        out["k"], out["k_s"] = host_s(lambda: cascade.solve_cascade(
+            T.from_occupancy_image(img, EPS, device=dev), max_iterations=CASCADE_CAP))
+
+    launches = new_counts("3072^2 cascade", drive,
+                          {"epic_tile2d_solve": 1, "epic_sweep2d_solve": None})
+    k, stats = out["k"]
+    require(launches["epic_sweep2d_solve"] == len(stats.iterations) - 1,
+            f"3072^2 cascade: K2 on {launches['epic_sweep2d_solve']} of "
+            f"{len(stats.iterations) - 1} coarse levels")
+    level, level_ms, level_bounds = timed_levels(lambda st, a, b: solver.solve_grid(st, a, b),
+                                                 "cuda")
+    timed, _ = cascade.solve_cascade(T.from_occupancy_image(img, EPS, device=dev),
+                                     max_iterations=CASCADE_CAP, solver=level)
+    plain, pstats = cascade.solve_cascade(T.from_occupancy_image(img, EPS, device=dev),
+                                          max_iterations=CASCADE_CAP, solver=core.solve)
+    err = compare(k, plain, "3072^2 cascade against the plain cascade")
+    compare(timed, plain, "3072^2 timed cascade against the plain cascade")
+    require(stats == pstats, f"3072^2 cascade: {stats} vs {pstats}")
+    res["grid3072"] = dict(shape=[CASCADE_SIDE] * 2, cap=CASCADE_CAP,
+                           levels=[list(s) for s in stats.shapes],
+                           iterations=list(stats.iterations),
+                           converged=bool(k.converged),
+                           total_fine_equivalent=stats.total_fine_equivalent,
+                           level_ms=level_ms, level_bounds=level_bounds,
+                           solve_cascade_s=out["k_s"], max_abs_err=err,
+                           launches=launches)
+    u, locked = volume_arrays_fn(CASCADE_VOLUME)
+
+    def drive3():
+        out["v"], out["v_s"] = host_s(lambda: cascade.solve_cascade(
+            T.make_state(u, locked, EPS, device=dev)))
+
+    launches3 = new_counts("3D cascade", drive3, {"epic_sweep3d_solve": 2})
+    kv, vstats = out["v"]
+    require(vstats.shapes == (tuple(n // 2 for n in CASCADE_VOLUME), CASCADE_VOLUME),
+            f"3D cascade: {vstats.shapes}")
+    level, level3_ms, level3_bounds = timed_levels(lambda st, a, b: solver.solve_grid(st, a, b),
+                                                   "cuda")
+    timed, _ = cascade.solve_cascade(T.make_state(u, locked, EPS, device=dev), solver=level)
+    plain, pstats = cascade.solve_cascade(T.make_state(u, locked, EPS, device=dev),
+                                          solver=core.solve)
+    err3 = compare(kv, plain, "3D cascade against the plain cascade")
+    compare(timed, plain, "3D timed cascade against the plain cascade")
+    require(vstats == pstats and bool(kv.converged), f"3D cascade: {vstats} vs {pstats}")
+    res["volume"] = dict(shape=list(CASCADE_VOLUME), levels=[list(s) for s in vstats.shapes],
+                         iterations=list(vstats.iterations),
+                         total_fine_equivalent=vstats.total_fine_equivalent,
+                         level_ms=level3_ms, level_bounds=level3_bounds,
+                         solve_cascade_s=out["v_s"], max_abs_err=err3,
+                         launches=launches3)
+    emit(phase="cascade", **res)
+    return res
+
+
+def phase_nav_core(dev) -> dict:
+    """EpicNavCorePlugin on the card, two make_plan calls, counted (K2 once a
+    plan, nothing else); the plans equal a plugin's whose solve is the plain
+    core.solve on the card."""
+    from epic_tpu_torch import maps
+    from epic_tpu_torch.services import EpicNavCorePlugin
+    from epic_tpu_torch.solver import core
+
+    img = maps.recursive_maze(128, 128, seed=7)
+    costmap = np.where(img == 0, 254, 0).astype(np.uint8)
+    free = np.argwhere(img == 128)
+    requests = [(tuple(map(float, free[-3][::-1])), tuple(map(float, free[5][::-1]))),
+                (tuple(map(float, free[17][::-1])), tuple(map(float, free[len(free) // 2][::-1])))]
+    ours = EpicNavCorePlugin(device=dev)
+    plain = EpicNavCorePlugin(device=dev, solve_fn=core.solve)
+    for pl in (ours, plain):
+        pl.initialize(costmap)
+    plans, plan_s = [], []
+
+    def drive():
+        for start, goal in requests:
+            plan, secs = host_s(lambda: ours.make_plan(start, goal))
+            plans.append(plan)
+            plan_s.append(secs)
+
+    launches = new_counts("nav_core", drive, {"epic_sweep2d_solve": len(requests)})
+    for (start, goal), plan in zip(requests, plans):
+        ref = plain.make_plan(start, goal)
+        require((plan is None) == (ref is None), f"nav_core plan from {start}: {plan is None}")
+        require(plan is None or [dataclasses.astuple(p) for p in plan]
+                == [dataclasses.astuple(p) for p in ref], f"nav_core plans from {start} differ")
+    require(plans[-1] is not None, "nav_core: no plan")
+    # The last request again, on a warm plugin: the make_plan latency a
+    # replanning user sees (solve, host copy of the field, walk).
+    _, warm_s = host_s(lambda: ours.make_plan(*requests[-1]))
+    out = dict(shape=list(img.shape), plan_poses=[None if p is None else len(p) for p in plans],
+               make_plan_s=plan_s, make_plan_warm_s=warm_s, launches=launches)
+    emit(phase="nav_core", **out)
+    return out
+
+
+def phase_modules(dev, maze, maze_solved) -> dict:
+    """A 16^4 grid on the card through solver.solve_grid (the plain core: no
+    kernel may run) against the CPU plain solve; legacy.sor_red_black on the
+    card against the row-major NumPy SOR; a checkpoint round trip of a maze
+    planner (saved on the card, loaded on the card and on the CPU);
+    profiling.timed_solve on the card."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch import checkpoint, maps, profiling, solver
+    from epic_tpu_torch.planner import Planner, PlannerConfig
+    from epic_tpu_torch.solver import core, legacy
+
+    def nd_state(device):
+        st = T.empty_grid_nd(ND_SHAPE, EPS, device="cpu")
+        u = torch.where(st.locked, st.u, torch.full_like(st.u, -1e6))
+        locked = st.locked.clone()
+        rng = np.random.default_rng(0)
+        for _ in range(2):
+            goal = tuple(int(v) for v in rng.integers(1, np.array(ND_SHAPE) - 1))
+            u[goal] = 0.0
+            locked[goal] = True
+        return T.make_state(u, locked, EPS, device=device)
+
+    res = {}
+
+    def drive():
+        res["nd"], res["nd_s"] = host_s(lambda: solver.solve_grid(nd_state(dev)))
+
+    zero_counts()
+    drive()
+    torch.cuda.synchronize()
+    from epic_tpu_torch.solver import hopper_sweep, hopper_sweep3d, hopper_tile2d
+    ran = {k: v for d in (hopper_sweep.launches, hopper_tile2d.launches, hopper_sweep3d.launches)
+           for k, v in d.items() if v}
+    require(not ran, f"16^4 on the card launched a kernel: {ran}")
+    require(core.calls["solve"] == 1, f"16^4 did not run the plain core: {core.calls}")
+    cpu = core.solve(nd_state("cpu"))
+    nd = res["nd"]
+    require(int(nd.iteration) == int(cpu.iteration) and bool(nd.converged),
+            f"16^4: {int(nd.iteration)} iterations on the card, {int(cpu.iteration)} on the CPU")
+    np.testing.assert_allclose(nd.u.cpu().numpy(), cpu.u.numpy(), **FIELD)
+    nd_err = max_abs(nd.u.cpu(), cpu.u)
+
+    img = maps.open_room(24, 24)
+    u, locked = legacy.from_image(img, dtype=np.float32)
+    sor_ref, sor_it = legacy.sor_numpy(u.copy(), locked, epsilon=1e-6, min_iterations=2000,
+                                       max_iterations=4000)
+    sor_out = {}
+    sor_ms = event_ms(lambda: sor_out.__setitem__("r", legacy.sor_red_black(
+        torch.from_numpy(u).to(dev), torch.from_numpy(locked).to(dev), 1e-6,
+        min_iterations=2000, max_iterations=4000)))
+    sor_err = float(np.max(np.abs(sor_out["r"][0].cpu().numpy() - sor_ref)))
+    require(sor_err <= 1e-4, f"sor_red_black on the card differs from sor_numpy by {sor_err}")
+
+    pl = Planner(PlannerConfig(epsilon=EPS, resolution=0.1, origin_x=-3.0), device=dev)
+    pl.state = T.state_from_numpy(T.state_to_numpy(maze_solved), device=dev)
+    ck_dir = ROOT / "build" / "epic_tpu_torch" / "chip_smoke"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    f = ck_dir / "maze_planner.npz"
+    checkpoint.save_planner(f, pl)
+    ref = T.state_to_numpy(pl.state)
+    for where in (dev, "cpu"):
+        back = checkpoint.load_planner(f, device=where)
+        require(back.state.u.device == torch.device(where), f"checkpoint loaded on {back.state.u.device}")
+        got = T.state_to_numpy(back.state)
+        require(all(np.array_equal(got[k], ref[k]) for k in ref),
+                f"checkpoint round trip on {where}: bits differ")
+        require(back.config.resolution == 0.1 and back.config.origin_x == -3.0,
+                f"checkpoint round trip on {where}: transforms")
+    f.unlink()
+
+    solved, stats = profiling.timed_solve(solver.solve_grid,
+                                          T.from_occupancy_image(maze["img"], EPS, device=dev))
+    compare(solved, maze_solved, "profiling.timed_solve against phase 2's K2 solve")
+    out = dict(nd=dict(shape=list(ND_SHAPE), iterations=int(nd.iteration), solve_s=res["nd_s"],
+                       max_abs_err_vs_cpu=nd_err, kernel_launches=ran),
+               sor_red_black=dict(shape=list(img.shape), iterations=sor_out["r"][1],
+                                  numpy_iterations=sor_it, ms=sor_ms, max_abs_err=sor_err),
+               checkpoint="same bits on the card and the CPU",
+               timed_solve=dict(iterations=stats.iterations, wall_s=stats.wall_s,
+                                device_ms=stats.device_ms,
+                                cell_updates_per_s=stats.cell_updates_per_s))
+    emit(phase="modules", **out)
+    return out
+
+
+def phase_sampling(dev, maze) -> dict:
+    """The sampling_* verbs on an in-process server over a real socket:
+    sampling_occupancy with the maze, a goal, sampling_compute_path, a few
+    ticks of the anytime budget, and the info block."""
+    from epic_tpu_torch.config import EpicConfig
+    from epic_tpu_torch.services.navigation_node import EpicNavigationNodeRviz
+    from epic_tpu_torch.services.server import EpicClient, EpicServiceServer, ingest_map
+
+    cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
+    img = maze["img"]
+    h, w = img.shape
+    node = EpicNavigationNodeRviz(cfg, update_rate=cfg.service.update_rate_hz, device=dev)
+    ingest_map(node, img)
+    server = EpicServiceServer(node, "127.0.0.1", 0)
+    client = EpicClient(port=server.port, timeout=60.0)
+    s = LoopbackSession(server, client)
+    try:
+        occ = np.where(img == 0, 100, 0).astype(np.int8)
+        r, _ = s.call("sampling_occupancy", width=w, height=h, seed=0,
+                      data=occ.reshape(-1).tolist())
+        require(r["success"], f"sampling_occupancy: {r}")
+        gy, gx = np.argwhere(img == 255)[0]
+        r, _ = s.call("sampling_add_goals", goals=[[float(gx), float(gy)]])
+        require(r["success"], f"sampling_add_goals: {r}")
+        ys, xs = np.nonzero((img != 0) & (img != 255))
+        start = [float(xs[len(xs) // 3]), float(ys[len(ys) // 3])]
+        r, _ = s.call("sampling_compute_path", start=start)
+        require(r["success"], f"sampling_compute_path: {r}")
+        _, spin_s = host_s(lambda: s.spin(20))
+        r, _ = s.call("sampling_compute_path", start=start)
+        require(r["success"], f"sampling_compute_path after 20 ticks: {r}")
+        info, _ = s.call("info")
+        require(info["success"] and "sampling" in info, f"info has no sampling block: {info}")
+    finally:
+        client.close()
+        server.close()
+    out = dict(shape=[h, w], budget_s=server.sampling_budget_s, twenty_ticks_s=spin_s,
+               solved=r["solved"], iterations=r["iterations"], path_poses=len(r["path"]),
+               info=info["sampling"])
+    emit(phase="sampling", **out)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -2908,12 +3332,22 @@ def main() -> None:
     m3w = phase_mesh3d_wide(dev)
     res = phase_mesh_resident(dev, maze, mesh_s, mesh16)
     del mesh16["base"], mesh16["starts"], mesh16["ref"], mesh16["got"]
+    phase_native(dev, maze, m["solved"])
+    casc = phase_cascade(dev, maze, umass, m, um, volume_arrays)
+    nav = phase_nav_core(dev)
+    phase_modules(dev, maze, m["solved"])
+    phase_sampling(dev, maze)
     for counts in (mesh_s["launches"], mesh16["launches"], m3["launches"], m3z["launches"],
                    m3w["launches"], res["launches"]):
         add_counts(launches, counts)
     for name in big["launches"]:
         launches[name] = big["launches"][name] + wide["launches"][name]
     for counts in (big3["main"], big3["tile_launches"], wide3["main"], wide3["tile_launches"]):
+        add_counts(launches, counts)
+    # The launches of the cascade's and nav_core's counted runs (K2, the tile
+    # solve, K7).
+    for counts in (casc["maze"]["launches"], casc["umass"]["launches"],
+                   casc["grid3072"]["launches"], casc["volume"]["launches"], nav["launches"]):
         add_counts(launches, counts)
     tile_err = max(z["tile_err"], big["err"], wide["err"], small["err"])
     tile3d_err = max(big3["err"], wide3["err"], small3["err"])
@@ -2941,6 +3375,11 @@ def main() -> None:
         "epic_resident3d_cycle": max(m3["err"], m3z["err"], m3w["err"]),
         "epic_resident3d_solve": max(m3["err"], m3z["err"], m3w["err"]),
     }
+    # The cascade's counted runs held their fields to the plain cascade's.
+    for name, runs in (("epic_sweep2d_solve", ("maze", "umass", "grid3072")),
+                       ("epic_tile2d_solve", ("grid3072",)),
+                       ("epic_sweep3d_solve", ("volume",))):
+        errs[name] = max(errs[name], *(casc[r]["max_abs_err"] for r in runs))
     # (ms, plain_ms, bound) of one piece of work on each main path's shapes:
     # maze 482^2, the 30 x 256 x 256 volume, 4096 x 128^2 (the resident batch
     # route), 256 x 384^2 (the cluster one), 32 x 1024^2 (the tiled one), 8192^2, 32 x 2048 x 2048 (the

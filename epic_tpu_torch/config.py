@@ -52,8 +52,9 @@ class SolverConfig:
     # Planner's ticks and solves on that route.
     tile_band: int | None = None
     tile_depth: int = 16
-    # Opt-in coarse-to-fine warm start for blocking solves (solver.cascade
-    # in epic_tpu; not ported yet, the port's Planner raises on it).
+    # Opt-in coarse-to-fine warm start for blocking solves (solver.cascade).
+    # Planner(EpicConfig) drops it, as epic_tpu's does (ROADMAP, known
+    # divergences: R9): only PlannerConfig.cascade turns the cascade on.
     cascade: bool = False
 
     def __post_init__(self):

@@ -157,6 +157,26 @@ def empty_volume(
     return make_state(u, shell, epsilon, device=device)
 
 
+def empty_grid_nd(
+    shape: tuple[int, ...],
+    epsilon: float = C.DEFAULT_EPSILON,
+    *,
+    device: torch.device | str,
+) -> GridState:
+    """N-dimensional analogue of :func:`empty_state`/:func:`empty_volume`:
+    an all-free rank-n grid with u = 0 and the full boundary shell locked as
+    obstacles. The reference solves 2D/3D only and stubs 4D out
+    (harmonic_cpu.cpp:193-195); the plain solver (``solver.core``) handles
+    any rank >= 2 with the same update rule and protocol, on any device."""
+    if len(shape) < 2 or any(s < 3 for s in shape):
+        raise ValueError(f"need rank >= 2 with every dim >= 3, got {shape}")
+    u = np.zeros(shape, dtype=np.float32)
+    shell = np.ones(shape, dtype=bool)
+    shell[(slice(1, -1),) * len(shape)] = False
+    u[shell] = C.LOG_SPACE_OBSTACLE
+    return make_state(u, shell, epsilon, device=device)
+
+
 def from_occupancy_volume(
     vol: np.ndarray,
     epsilon: float = C.DEFAULT_EPSILON,

@@ -15,9 +15,11 @@ Host-side, float32, semantics matched to the reference's scalar CPU loop
   "not relaxed enough yet, keep relaxing and retry" (:207-212).
 
 A NumPy copy of ``epic_tpu.path``'s walker: the field is fetched to the
-host once per request and walked there. The batched device walker is
-:mod:`epic_tpu_torch.solver.batched_path` (``compute_paths``); the JAX
-package's native C++ twin of this walker is not ported.
+host once per request and walked there. Its native C++ twin with the same
+semantics is :mod:`epic_tpu_torch.native` (``impl="auto"`` takes it when it
+is built); this module is the always-available walker and the oracle for
+it. The batched device walker is :mod:`epic_tpu_torch.solver.batched_path`
+(``compute_paths``).
 """
 
 from __future__ import annotations
@@ -151,15 +153,30 @@ def compute_path(
     cd_precision: float = C.DEFAULT_CD_PRECISION,
     max_length: int = C.DEFAULT_MAX_LENGTH,
     mode: str = "reference",
+    impl: str = "auto",
 ) -> np.ndarray:
     """Gradient-ascent streamline from (x, y). Returns float32 [k, 2] of
     (x, y) points (harmonic_path_cpu.cpp:154-221).
+
+    impl: "auto" walks with the native C++ walker when it is built (the
+    same points; ``tests/test_torch_native.py``), else in NumPy; "numpy"
+    and "native" force one ("native" raises if the library is not built).
 
     Raises:
       InvalidLocationError: start outside the map or inside an obstacle.
       InvalidGradientError: gradient sampling failed mid-walk.
       InvalidPathError: <= 2 points produced (field not relaxed enough).
     """
+    if impl not in ("auto", "numpy", "native"):
+        raise ValueError(f"impl must be 'auto', 'numpy' or 'native', got {impl!r}")
+    if impl != "numpy":
+        from . import native
+
+        if native.available():
+            return native.compute_path(u, locked, x, y, step_size, cd_precision, max_length,
+                                       mode)
+        if impl == "native":
+            raise RuntimeError(f"native library unavailable: {native.build_info.get('error')}")
     u = np.asarray(u, dtype=np.float32)
     locked = np.asarray(locked).astype(bool)
     xc, yc = _check_location(u, locked, x, y)

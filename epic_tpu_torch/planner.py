@@ -13,8 +13,10 @@ blocked tile kernels beyond it (their ping-pong twin is scratch of
 Key semantic carried over (SURVEY §3.2): the planner NEVER stops relaxing —
 edits perturb ``u``/``locked`` and relaxation resumes from the current state.
 
-Not ported yet, and refused loudly: ``cascade=True`` solves
-(``solver.cascade``).
+``cascade=True`` solves warm-start through a resolution pyramid
+(``solver.cascade``): the coarse levels on the host's native C++ solve when
+it is built, the fine level on the same route as a cold solve (K2 or the
+tile solve on the card), with the same convergence certificate.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from . import grid as G
 from .config import EpicConfig, SolverConfig, check_backend
 from .errors import EpicError, InvalidLocationError
 from .path import compute_path
-from . import solver
-from .solver import batched_path
+from . import native, solver
+from .solver import batched_path, cascade
 
 logger = logging.getLogger("epic_tpu_torch.planner")
 
@@ -52,7 +54,9 @@ class PlannerConfig:
     # Kept so configs written for epic_tpu load; only "auto" is accepted
     # (the kernels on the card, the plain version on the CPU).
     backend: str = "auto"
-    # Coarse-to-fine warm start (epic_tpu.solver.cascade): not ported yet.
+    # Coarse-to-fine warm start (solver.cascade). Only this field turns it
+    # on: a Planner built from an EpicConfig drops solver.cascade, as
+    # epic_tpu's does (ROADMAP, known divergences: R9).
     cascade: bool = False
 
     def __post_init__(self):
@@ -168,15 +172,25 @@ class Planner:
     def solve(self, max_iterations: int | None = None) -> None:
         """Blocking solve-to-convergence (harmonic_complete semantics), as
         the nav_core plugin does per makePlan (epic_nav_core_plugin.cpp:256).
+        With ``config.cascade`` the solve warm-starts through a resolution
+        pyramid (``solver.cascade``): the same certificate, fewer sweeps;
+        the coarse levels run on the native C++ solve when it is built, the
+        fine level (capped) as a cold solve would.
         ``max_iterations`` caps the solve; a capped solve leaves
         ``state.converged`` False and can be resumed by calling again."""
-        if self.config.cascade:
-            raise NotImplementedError(
-                "cascade solves (epic_tpu.solver.cascade) are not ported to "
-                "epic_tpu_torch yet")
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
-        self.state = solver.solve_grid(self._require_state(), self.config.stagger, cap,
-                                       chunk_depth=self.solver_config.tile_depth)
+        depth = self.solver_config.tile_depth
+
+        def final(st, stagger, max_iterations):
+            return solver.solve_grid(st, stagger, min(max_iterations, cap), chunk_depth=depth)
+
+        if self.config.cascade:
+            coarse = cascade.native_solver if native.available() else final
+            self.state, _ = cascade.solve_cascade(
+                self._require_state(), stagger=self.config.stagger, solver=final,
+                coarse_solver=coarse)
+        else:
+            self.state = final(self._require_state(), self.config.stagger, cap)
 
     # -- service verbs -----------------------------------------------------
 

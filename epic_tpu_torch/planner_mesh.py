@@ -132,10 +132,8 @@ class MeshPlanner(Planner):
               segment_iterations: int | None = None) -> None:
         """Blocking solve to convergence on the resident blocks; with
         ``segment_iterations`` (the resident route) paused at stagger-aligned
-        bounds, the same trajectory."""
-        if self.config.cascade:
-            raise NotImplementedError(
-                "cascade solves (epic_tpu.solver.cascade) are not ported to epic_tpu_torch yet")
+        bounds, the same trajectory. ``config.cascade`` is not read: the mesh
+        solves cold, as ``epic_tpu``'s MeshPlanner does."""
         cap = 1_000_000 if max_iterations is None else int(max_iterations)
         _, conv = sharded.solve_resident(
             self._resident(), self.mesh, self.config.stagger, cap, self.chunk_depth, self.kernel,

@@ -18,9 +18,12 @@ window), compute_paths (batched multi-start paths) and the 3D family
 reset_free_cells_3d, set_status_3d, compute_path_3d, compute_paths_3d),
 which drives an independent volume session
 (:class:`epic_tpu_torch.planner3d.VolumePlanner`, on the 2D planner's
-device) that relaxes in the same anytime loop. The JAX package's sampling_*
-verbs are not ported yet; they answer ``{"success": false, "error": "<verb>
-is not ported yet"}``.
+device) that relaxes in the same anytime loop, and the sampling_* family
+(sampling_occupancy, sampling_add_goals, sampling_remove_goals,
+sampling_set_cells, sampling_compute_path) driving the sampling-based node
+(the reference's unbuilt OMPL node,
+:mod:`epic_tpu_torch.services.sampling_node`, on the host) with a per-tick
+anytime budget.
 
 Run:   python -m epic_tpu_torch.services.server --port 7171 --map maze.png
        [--host 0.0.0.0] [--log-json] [--mesh]   (--mesh: the grid sharded
@@ -46,17 +49,18 @@ from ..metrics import MetricsRegistry
 from ..planner3d import VolumePlanner, VolumePlannerConfig
 from . import messages as msg
 from .navigation_node import EpicNavigationNodeRviz
+from .sampling_node import EpicNavigationNodeSampling
 
 logger = logging.getLogger("epic_tpu_torch.server")
-
-NOT_PORTED = frozenset({
-    "sampling_occupancy", "sampling_add_goals", "sampling_remove_goals",
-    "sampling_set_cells", "sampling_compute_path",
-})
 
 VERBS_3D = frozenset({
     "add_goals_3d", "remove_goals_3d", "get_cell_3d", "set_cells_3d",
     "reset_free_cells_3d", "set_status_3d", "compute_path_3d", "compute_paths_3d",
+})
+
+VERBS_SAMPLING = frozenset({
+    "sampling_add_goals", "sampling_remove_goals", "sampling_set_cells",
+    "sampling_compute_path",
 })
 
 
@@ -81,6 +85,11 @@ class EpicServiceServer:
         # The 3D session, created by the first occupancy_volume ingest on
         # the 2D planner's device; ticks in spin_once beside the 2D planner.
         self.volume_planner: VolumePlanner | None = None
+        # The sampling-planner session, created by the first
+        # sampling_occupancy ingest (the reference's OMPL node as a service
+        # family); its anytime budget a tick mirrors ompl_planner->solve(t).
+        self.sampling_node: EpicNavigationNodeSampling | None = None
+        self.sampling_budget_s = 0.02
         self.sel = selectors.DefaultSelector()
         self.listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -190,6 +199,19 @@ class EpicServiceServer:
                 return {"success": True}
             if srv in VERBS_3D:
                 return self._handle_3d(srv, req)
+            if srv == "sampling_occupancy":
+                h, w = int(req["height"]), int(req["width"])
+                data = np.asarray(req["data"], dtype=np.int8).reshape(h, w)
+                if self.sampling_node is None:
+                    self.sampling_node = EpicNavigationNodeSampling(
+                        algorithm=int(req.get("algorithm", 0)), seed=req.get("seed"))
+                origin = req.get("origin") or (0.0, 0.0)
+                self.sampling_node.sub_occupancy_grid(msg.OccupancyGrid(
+                    w, h, float(req.get("resolution", 1.0)),
+                    float(origin[0]), float(origin[1]), data))
+                return {"success": True}
+            if srv in VERBS_SAMPLING:
+                return self._handle_sampling(srv, req)
             if srv == "get_field":
                 # A window of the potential field (the reference only exposes
                 # per-cell GetCell; remote UIs need the array).
@@ -240,16 +262,45 @@ class EpicServiceServer:
                         "delta": float(vol.state.delta),
                         "paused": vol.paused,
                     }
+                sn = self.sampling_node
+                if sn is not None:
+                    out["sampling"] = {
+                        "algorithm": sn.algorithm,
+                        "goal": list(sn.goal) if sn.goal else None,
+                        "solved": bool(sn.planner.solved) if sn.planner else False,
+                        "iterations": sn.planner.iterations if sn.planner else 0,
+                    }
                 return out
             if srv == "metrics":
                 return {"success": True, **self.metrics.snapshot()}
-            if srv in NOT_PORTED:
-                return {"success": False, "error": f"{srv} is not ported yet"}
             return {"success": False, "error": f"unknown srv {srv!r}"}
         except EpicError as e:
             return {"success": False, "error": str(e)}
         except (KeyError, ValueError, TypeError) as e:
             return {"success": False, "error": f"bad request: {e}"}
+
+    def _handle_sampling(self, srv: str, req: dict) -> dict:
+        """The sampling_* verbs after sampling_occupancy, on its session."""
+        sn = self.sampling_node
+        if sn is None:
+            return {"success": False,
+                    "error": "no sampling session (send sampling_occupancy first)"}
+        if srv in ("sampling_add_goals", "sampling_remove_goals"):
+            goals = [msg.PoseStamped(float(x), float(y)) for x, y in req["goals"]]
+            handler = sn.srv_add_goals if srv == "sampling_add_goals" else sn.srv_remove_goals
+            return {"success": handler(msg.ModifyGoalsRequest(goals)).success}
+        if srv == "sampling_set_cells":
+            r = sn.srv_set_cells(msg.SetCellsRequest([int(v) for v in req["v"]],
+                                                     [int(t) for t in req["types"]]))
+            return {"success": r.success}
+        x, y = float(req["start"][0]), float(req["start"][1])
+        r = sn.srv_compute_path(msg.ComputePathRequest(start=msg.PoseStamped(x, y)))
+        return {
+            "success": True,
+            "solved": bool(sn.planner.solved) if sn.planner else False,
+            "iterations": sn.planner.iterations if sn.planner else 0,
+            "path": [[p.x, p.y, p.yaw] for p in r.path.poses],
+        }
 
     def _handle_3d(self, srv: str, req: dict) -> dict:
         """The *_3d verbs on the volume session."""
@@ -367,13 +418,18 @@ class EpicServiceServer:
     def spin_once(self, num_steps: int | None = None) -> None:
         """One tick: service pending requests, then one relaxation chunk —
         the spinOnce()/update() interleave. A live 3D session relaxes in the
-        same tick."""
+        same tick, and a live sampling session searches for
+        ``sampling_budget_s``."""
         self._service_sockets()
         self.metrics.inc("ticks")
         with self.metrics.timed("tick.update"):
             self.node.update(num_steps)
             if self.volume_planner is not None:
                 self.volume_planner.update(num_steps)
+            if self.sampling_node is not None:
+                # ompl_planner->solve(t) per tick
+                # (epic_navigation_node_ompl.cpp:110-119).
+                self.sampling_node.update(budget_s=self.sampling_budget_s)
 
     def run_forever(self) -> None:  # pragma: no cover - long-running
         while True:

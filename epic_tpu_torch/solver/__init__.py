@@ -5,22 +5,21 @@ beyond the card's L2, ``hopper_sweep3d`` for every 3D volume, and
 library-level entries; the tile families'
 plain versions (``tiled``, ``tiled3d``); batched scenario solves over
 ``[B, H, W]`` lanes in plain torch (``batched``) and on their CUDA kernels
-(``hopper_batched``)."""
+(``hopper_batched``); the coarse-to-fine warm start (``cascade``), the
+legacy non-log SOR (``legacy``) and the NumPy oracle (``reference_np``).
 
-from . import (batched, core, hopper_batched, hopper_sweep, hopper_sweep3d, hopper_tile2d,
-               hopper_tile3d, tiled, tiled3d)
+A grid of rank 4 or more runs on the plain ``core`` on whatever device
+holds it, the card included: the one route on the card without a kernel of
+its own, as ``epic_tpu`` runs its XLA core there (no TPU kernel exists for
+rank >= 4)."""
+
+from . import (batched, cascade, core, hopper_batched, hopper_sweep, hopper_sweep3d,
+               hopper_tile2d, hopper_tile3d, legacy, reference_np, tiled, tiled3d)
 from .. import constants as _C
 
-__all__ = ["batched", "core", "hopper_batched", "hopper_sweep", "hopper_sweep3d",
-           "hopper_tile2d", "hopper_tile3d", "tiled", "tiled3d", "solve_grid", "update_grid",
-           "solve_volume", "update_volume"]
-
-
-def _check_rank(state) -> None:
-    """The card runs 2D and 3D grids; the plain version on the CPU any rank."""
-    if state.u.device.type != "cpu" and state.u.ndim not in (2, 3):
-        raise NotImplementedError(
-            f"a {state.u.ndim}D grid on the card waits for the N-d slice of the port")
+__all__ = ["batched", "cascade", "core", "hopper_batched", "hopper_sweep", "hopper_sweep3d",
+           "hopper_tile2d", "hopper_tile3d", "legacy", "reference_np", "tiled", "tiled3d",
+           "solve_grid", "update_grid", "solve_volume", "update_volume"]
 
 
 def _tiles(state) -> bool:
@@ -35,15 +34,17 @@ def solve_grid(state, stagger=None, max_iterations: int = 1_000_000,
     kernels (``hopper_tile2d``, halo depth ``chunk_depth``, by default its
     ``DEFAULT_DEPTH``) when it exceeds the L2 and the in-place kernels
     (``hopper_sweep``) otherwise; a 3D volume, with both keywords, through
-    :func:`solve_volume`; another rank on the card raises
-    NotImplementedError. ``segment_iterations`` runs the tile route's solve
+    :func:`solve_volume`; a grid of rank 4 or more, on any device, the plain
+    ``core.solve`` (no kernel: the tile keywords are ignored).
+    ``segment_iterations`` runs the tile route's solve
     as segments (``solve_segments``); the other routes' solve is one launch
     and ignores it, as ``epic_tpu``'s VMEM route does. Protocol identical on
     every route (harmonic_complete_cpu)."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
     if state.u.ndim == 3:
         return solve_volume(state, stagger, max_iterations, segment_iterations, chunk_depth)
-    _check_rank(state)
+    if state.u.ndim != 2:
+        return core.solve(state, stagger, max_iterations)
     if _tiles(state):
         k = hopper_tile2d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
         if segment_iterations is not None:
@@ -58,7 +59,8 @@ def update_grid(state, num_steps: int, chunk_depth: int | None = None):
     :func:`solve_grid`."""
     if state.u.ndim == 3:
         return update_volume(state, num_steps, chunk_depth)
-    _check_rank(state)
+    if state.u.ndim != 2:
+        return core.update_n(state, num_steps)
     if _tiles(state):
         k = hopper_tile2d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
         return hopper_tile2d.update_n(state, num_steps, k)

@@ -17,14 +17,17 @@ harmonic_cpu.cpp:136-184):
   exits only right after a passing check with ``iteration >= max(shape)``,
   keeping the post-check state. The verdict is not sticky.
 
-``calls`` counts the calls of ``update_n`` and ``solve``, so a run on the
-card can show that its main path never came here.
+``calls`` counts the calls of ``update_n``, ``solve`` and ``solve_py``, so
+a run on the card can show that its main path never came here (or, for a
+grid of rank 4 and more, the one route on the card without a kernel, that
+it did).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -33,7 +36,7 @@ from .. import constants as C
 from ..grid import GridState
 from ._sweep_body import lse2n, lse4, lse6
 
-calls = {"update_n": 0, "solve": 0}
+calls = {"update_n": 0, "solve": 0, "solve_py": 0}
 
 
 def _log2n(nd: int) -> float:
@@ -148,6 +151,45 @@ def solve(
     )
 
 
-# epic_tpu.solver.core has a jitted solve and a host-driven solve_py; the
-# plain torch version is host-driven either way, so the two are one.
-solve_py = solve
+def solve_py(
+    state: GridState,
+    stagger: int = C.DEFAULT_STAGGER,
+    max_iterations: int = 1_000_000,
+    sweep_fn: Callable | None = None,
+) -> GridState:
+    """Host-driven variant of :func:`solve` (``epic_tpu.solver.core.solve_py``):
+    the same protocol, with each checked sweep done by ``sweep_fn(u, locked,
+    iteration)`` (default :func:`sweep`) and its delta read on the host, so
+    a caller can observe each check or swap in another sweep (an oracle's).
+    The ``stagger - 1`` plain sweeps after a check are :func:`sweep`'s. With
+    the default ``sweep_fn`` the result has :func:`solve`'s bits on any
+    device."""
+    if stagger < 1:
+        raise ValueError(f"stagger must be >= 1, got {stagger}")
+    calls["solve_py"] += 1
+    sweep_fn = sweep_fn or sweep
+    m_max = max(state.u.shape)
+    locked = state.locked
+    u = state.u
+    eps = float(state.epsilon)
+    iteration = 0
+    delta = eps + 1.0
+    converged = False
+    while not converged and iteration < max_iterations:
+        u, d = sweep_fn(u, locked, iteration)
+        iteration += 1
+        delta = float(d)
+        if delta < eps and iteration >= m_max:
+            converged = True
+            break
+        for s in range(stagger - 1):
+            u, _ = sweep(u, locked, iteration + s)
+        iteration += stagger - 1
+    dev = u.device
+    return dataclasses.replace(
+        state,
+        u=u,
+        iteration=torch.tensor(iteration, dtype=torch.int32, device=dev),
+        delta=torch.tensor(delta, dtype=torch.float32, device=dev),
+        converged=torch.tensor(converged, dtype=torch.bool, device=dev),
+    )

@@ -38,7 +38,8 @@ def _check_cuda_state(state: GridState, ndim: int = 2) -> None:
     if u.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got one on {u.device}")
     if u.ndim != ndim:
-        where = _WRAPPER.get(u.ndim, "the N-d slice of the port, which is not ported yet")
+        where = _WRAPPER.get(u.ndim, "the plain core (solver.solve_grid / update_grid), which "
+                                     "has no kernel for rank >= 4")
         raise NotImplementedError(
             f"these CUDA kernels take a {ndim}D grid; a {u.ndim}D grid on the card "
             f"goes to {where}")

@@ -9,7 +9,9 @@ solver and MeshPlanner on a virtual mesh of eight shards on the one card,
 the shard chunk of the 3D mesh
 and its device route's cycle and solve entries (csrc/shard3d.cu) and the
 3D mesh solver and MeshVolumePlanner on virtual meshes of the card, the planners that drive them, and the batched walkers
-on the card against the same walkers on the CPU.
+on the card against the same walkers on the CPU; the cascade solve and the
+nav_core plugin on the card's kernels, and the plain route of a rank-4 grid
+on the card.
 Every test here needs a CUDA card and skips without one.
 
 This file imports neither JAX nor epic_tpu, so it runs on a host that has
@@ -33,7 +35,7 @@ import torch
 
 from epic_tpu_torch import constants as C
 from epic_tpu_torch import grid as TG
-from epic_tpu_torch import maps
+from epic_tpu_torch import maps, native
 import epic_tpu_torch.solver as TS
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
@@ -41,9 +43,10 @@ from epic_tpu_torch.planner_mesh import MeshPlanner, MeshVolumePlanner
 from epic_tpu_torch.parallel import (hopper_resident2d, hopper_resident3d, hopper_shard2d,
                                      hopper_shard3d, make_mesh, make_mesh3d, sharded, sharded3d)
 from epic_tpu_torch.parallel.sharded import Mesh
-from epic_tpu_torch.solver import (_build, batched, batched_path3d, core, hopper_batched,
-                                   hopper_sweep, hopper_sweep3d, hopper_tile2d, hopper_tile3d,
-                                   tiled, tiled3d)
+from epic_tpu_torch.services import EpicNavCorePlugin
+from epic_tpu_torch.solver import (_build, batched, batched_path3d, cascade, core,
+                                   hopper_batched, hopper_sweep, hopper_sweep3d, hopper_tile2d,
+                                   hopper_tile3d, tiled, tiled3d)
 
 pytestmark = pytest.mark.cuda
 
@@ -332,8 +335,8 @@ def test_3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
                 call(dataclasses.replace(st, **fields))
     four_d = dataclasses.replace(st, u=torch.zeros(3, 4, 5, 6, device=dev),
                                  locked=torch.zeros(3, 4, 5, 6, dtype=torch.bool, device=dev))
-    with pytest.raises(NotImplementedError, match="N-d"):
-        TS.solve_grid(four_d)
+    with pytest.raises(NotImplementedError, match="plain core"):
+        hopper_sweep.update_n(four_d, 1)
     with pytest.raises(NotImplementedError, match="hopper_sweep3d"):
         hopper_sweep.update_n(st, 1)
     assert hopper_sweep3d.launches == launches and core.calls == calls
@@ -1733,3 +1736,117 @@ def test_mesh_volume_planner_on_the_card_equals_the_volume_planner(dev):
     auto = MeshVolumePlanner(VolumePlannerConfig(**cfg))
     auto.init(40, 48, 20)
     assert auto.device == dev and auto.mesh.devices.size == torch.cuda.device_count()
+
+
+def _counts():
+    return (dict(hopper_sweep.launches), dict(hopper_tile2d.launches),
+            dict(hopper_sweep3d.launches), dict(core.calls))
+
+
+def _ran(before, after):
+    """The counts that moved between two ``_counts()``."""
+    return {k: after[i][k] - before[i][k] for i in range(4) for k in after[i]
+            if after[i][k] != before[i][k]}
+
+
+@pytest.mark.parametrize("side,entry", [(128, "epic_sweep2d_solve"),
+                                        (3072, "epic_tile2d_solve")])
+def test_planner_cascade_runs_the_kernels(dev, side, entry):
+    """Planner(cascade=True) on the card: the coarse levels on the native
+    library, the fine level (capped) on K2 within the L2 and on the tile
+    solve past two thirds of it; the same bits as the same cascade with the
+    plain core.solve on the card as its final solver."""
+    assert native.available(), native.build_info
+    img = maps.random_obstacles(side, side, density=0.1, seed=0)
+    cap = 1_000_000 if side == 128 else 3000
+    tp = Planner(PlannerConfig(epsilon=1e-3, cascade=True), device=dev)
+    tp.state = TG.from_occupancy_image(img, 1e-3, device=dev)
+    before = _counts()
+    tp.solve(max_iterations=cap)
+    torch.cuda.synchronize()
+    assert _ran(before, _counts()) == {entry: 1}
+    plain, stats = cascade.solve_cascade(
+        TG.from_occupancy_image(img, 1e-3, device=dev), coarse_solver=cascade.native_solver,
+        solver=lambda st, stagger, max_iterations: core.solve(st, stagger, min(max_iterations,
+                                                                               cap)))
+    _assert_same(tp.state, plain)
+    assert int(tp.state.iteration) == stats.iterations[-1] and len(stats.iterations) > 1
+
+
+def test_cascade_levels_on_the_card(dev):
+    """solve_cascade with the auto solver, every level on the card: K2 on each
+    level of a 2D pyramid, K7 on each level of a 3D one; the plain cascade's
+    bits on the card."""
+    img = maps.recursive_maze(192, 160, seed=4)
+    before = _counts()
+    k, ks = cascade.solve_cascade(TG.from_occupancy_image(img, 1e-3, device=dev))
+    torch.cuda.synchronize()
+    assert _ran(before, _counts()) == {"epic_sweep2d_solve": len(ks.iterations)}
+    p, ps = cascade.solve_cascade(TG.from_occupancy_image(img, 1e-3, device=dev),
+                                  solver=core.solve)
+    _assert_same(k, p)
+    assert ks == ps
+    vol = np.full((24, 48, 40), 128, np.uint8)
+    vol[12, 24, 20] = 255
+    before = _counts()
+    k, ks = cascade.solve_cascade(TG.from_occupancy_volume(vol, 1e-2, device=dev), levels=1,
+                                  min_extent=12)
+    torch.cuda.synchronize()
+    assert _ran(before, _counts()) == {"epic_sweep3d_solve": 2}
+    p, ps = cascade.solve_cascade(TG.from_occupancy_volume(vol, 1e-2, device=dev), levels=1,
+                                  min_extent=12, solver=core.solve)
+    _assert_same(k, p)
+    assert ks == ps and ks.shapes == ((12, 24, 20), (24, 48, 40))
+
+
+def test_nav_core_on_the_card(dev):
+    """EpicNavCorePlugin on the card: each make_plan solves on K2 (no plain
+    version), and the plans equal a plugin whose solve is the plain
+    core.solve on the card."""
+    img = maps.recursive_maze(96, 96, seed=7)
+    costmap = np.where(img == 0, 254, 0).astype(np.uint8)
+    ours = EpicNavCorePlugin(device=dev)
+    plain = EpicNavCorePlugin(device=dev, solve_fn=core.solve)
+    free = np.argwhere(img == 128)
+    requests = [(tuple(map(float, free[-3][::-1])), tuple(map(float, free[5][::-1]))),
+                (tuple(map(float, free[17][::-1])), tuple(map(float, free[len(free) // 2][::-1])))]
+    for pl in (ours, plain):
+        pl.initialize(costmap)
+    for start, goal in requests:
+        before = _counts()
+        a = ours.make_plan(start, goal)
+        torch.cuda.synchronize()
+        assert _ran(before, _counts()) == {"epic_sweep2d_solve": 1}
+        b = plain.make_plan(start, goal)
+        assert torch.equal(ours.state.u, plain.state.u)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert [dataclasses.astuple(p) for p in a] == [dataclasses.astuple(p) for p in b]
+    assert a is not None
+
+
+def test_rank4_on_the_card_runs_the_plain_core(dev):
+    """A 4D grid on the card: solver.solve_grid/update_grid run the plain core
+    on the CUDA tensor and launch no kernel; the result is the CPU plain
+    version's within tests/test_torch_solver.py's FIELD tolerance (the card's
+    and the host's exp differ by an ulp), with equal iterations."""
+    shape, goal = (16, 16, 16, 16), (5, 9, 7, 11)
+
+    def state(device):
+        st = TG.empty_grid_nd(shape, 1e-3, device=device)
+        u = torch.where(st.locked, st.u, torch.full_like(st.u, -1e6))
+        u[goal] = 0.0
+        locked = st.locked.clone()
+        locked[goal] = True
+        return TG.make_state(u, locked, 1e-3, device=device)
+
+    before = _counts()
+    k = TS.solve_grid(state(dev))
+    t = TS.update_grid(state(dev), 3)
+    torch.cuda.synchronize()
+    assert _ran(before, _counts()) == {"solve": 1, "update_n": 1}
+    c = core.solve(state("cpu"))
+    assert int(k.iteration) == int(c.iteration) and bool(k.converged)
+    np.testing.assert_allclose(k.u.cpu().numpy(), c.u.numpy(), rtol=2e-6, atol=1e-3)
+    np.testing.assert_allclose(t.u.cpu().numpy(), core.update_n(state("cpu"), 3).u.numpy(),
+                               rtol=2e-6, atol=1e-3)

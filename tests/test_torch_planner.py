@@ -232,9 +232,9 @@ def test_world_transforms_and_errors():
 
 
 def test_config_surface():
-    """configs/*.yaml load unchanged; only backend="auto" is accepted; the
-    part of the verb surface not ported yet (cascade solves) refuses
-    loudly."""
+    """configs/*.yaml load unchanged; only backend="auto" is accepted; a
+    cascade solve runs (tests/test_torch_cascade.py holds it to
+    epic_tpu's)."""
     cfg = EpicConfig.load_yaml(ROOT / "configs" / "maze.yaml")
     tp = Planner(cfg, device="cpu")
     assert tp.config.epsilon == 1e-3 and tp.config.steps_per_update == 50
@@ -248,7 +248,10 @@ def test_config_surface():
     tp.init(16, 16)
     # compute_paths_batch is ported: an unrelaxed field gives no path.
     assert tp.compute_paths_batch([(3.0, 3.0), (-1.0, 3.0)]) == [None, None]
-    with pytest.raises(NotImplementedError):
-        Planner(PlannerConfig(cascade=True), device="cpu").solve()
+    casc = Planner(PlannerConfig(cascade=True, epsilon=1e-2), device="cpu")
+    casc.init(24, 24)
+    casc.add_goals([(12.0, 12.0)])
+    casc.solve()
+    assert bool(casc.state.converged) and int(casc.state.iteration) % 100 == 1
     with pytest.raises(ValueError):
         EpicNavigationNode(PlannerConfig())

@@ -1,7 +1,8 @@
 """epic_tpu_torch's JSON/TCP server: verb sessions over a real socket,
 following tests/test_server.py, on the CPU (plain torch version): the 2D
 verbs, compute_paths, and the *_3d family on a volume session that ticks in
-the same loop. The verbs not ported yet (sampling_*) answer a clean error."""
+the same loop. Every verb of epic_tpu's server is served; the sampling_*
+sessions are tests/test_torch_sampling.py's."""
 
 import json
 import os
@@ -22,8 +23,8 @@ from epic_tpu.services import messages as jmsg
 from epic_tpu.services.navigation_node import EpicNavigationNodeRviz as JNode
 from epic_tpu_torch.planner import PlannerConfig
 from epic_tpu_torch.services.navigation_node import EpicNavigationNodeRviz
-from epic_tpu_torch.services.server import (NOT_PORTED, EpicClient, EpicServiceServer,
-                                            ingest_map)
+from epic_tpu_torch.services import server as server_mod
+from epic_tpu_torch.services.server import EpicClient, EpicServiceServer, ingest_map
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -126,23 +127,24 @@ def test_malformed_requests_get_clean_errors(server_client):
                                   "compute_path_3d", "sampling_occupancy",
                                   "sampling_compute_path"])
 def test_unported_verbs_answer_a_clean_error(server_client, verb):
-    """The sampling_* verbs are not ported and say so; compute_paths and the
-    3D verbs are ported now and, sent without a session or arguments,
-    answer a clean error of their own."""
+    """Every verb is ported: compute_paths, the 3D and the sampling verbs,
+    sent without a session or arguments, answer a clean error of their
+    own."""
     _, client = server_client
     r = client.call(verb, x=1.0, y=1.0, starts=[[1.0, 1.0]])
     assert not r["success"]
-    if verb.startswith("sampling_"):
-        assert verb in NOT_PORTED
-        assert r == {"success": False, "error": f"{verb} is not ported yet"}
-    else:
-        assert verb not in NOT_PORTED and "not ported" not in r["error"]
+    assert "not ported" not in r["error"] and "unknown srv" not in r["error"]
+    if verb == "sampling_compute_path":
+        assert r["error"] == "no sampling session (send sampling_occupancy first)"
     assert client.call("info")["success"]  # the loop carries on
 
 
 def test_only_the_sampling_verbs_are_not_ported():
-    assert NOT_PORTED == {"sampling_occupancy", "sampling_add_goals", "sampling_remove_goals",
-                          "sampling_set_cells", "sampling_compute_path"}
+    """The sampling verbs were the last unported ones; now none is, and the
+    server keeps no list of refused verbs."""
+    assert not hasattr(server_mod, "NOT_PORTED")
+    assert server_mod.VERBS_SAMPLING == {"sampling_add_goals", "sampling_remove_goals",
+                                         "sampling_set_cells", "sampling_compute_path"}
 
 
 def test_compute_paths_over_socket(server_client):

@@ -223,21 +223,26 @@ def test_hopper_sweep3d_routes_cpu_volumes_to_the_plain_version():
 
 def test_solver_entry_points_route_rank_3():
     """solve_grid/update_grid send a volume to the 3D entries; a grid of
-    another rank than 2 or 3 off the CPU is refused before any launch (a
-    meta tensor stands for a card here)."""
+    rank 4 or more goes to the plain core on whatever device holds it (on
+    the card too: no kernel exists for it; tests/test_torch_cuda.py)."""
     _, t = _states("6x8x17")
     np.testing.assert_array_equal(TS.update_grid(t, 9).u.numpy(), core.update_n(t, 9).u.numpy())
     s = TS.solve_grid(t)
     assert bool(s.converged) and int(s.iteration) == int(core.solve(t).iteration)
     with pytest.raises(ValueError):
         TS.solve_volume(TG.empty_state(6, 6, device="cpu"))
-    meta = TG.GridState(u=torch.empty(4, 4, 4, 4, device="meta"),
-                        locked=torch.empty(4, 4, 4, 4, dtype=torch.bool, device="meta"),
-                        iteration=t.iteration, delta=t.delta, converged=t.converged,
-                        epsilon=t.epsilon)
-    for call in (lambda: TS.solve_grid(meta), lambda: TS.update_grid(meta, 1)):
-        with pytest.raises(NotImplementedError, match="N-d"):
-            call()
+    st4 = TG.empty_grid_nd((4, 5, 4, 6), 1e-2, device="cpu")
+    st4 = TG.make_state(torch.where(st4.locked, st4.u, -1e6).index_put_(
+        (torch.tensor(2),) * 3 + (torch.tensor(3),), torch.tensor(0.0)),
+        st4.locked.index_put_((torch.tensor(2),) * 3 + (torch.tensor(3),), torch.tensor(True)),
+        1e-2, device="cpu")
+    calls = dict(core.calls)
+    np.testing.assert_array_equal(TS.update_grid(st4, 3).u.numpy(), core.update_n(st4, 3).u.numpy())
+    s4, c4 = TS.solve_grid(st4, 10), core.solve(st4, 10)
+    np.testing.assert_array_equal(s4.u.numpy(), c4.u.numpy())
+    assert int(s4.iteration) == int(c4.iteration)
+    assert core.calls["update_n"] == calls["update_n"] + 2
+    assert core.calls["solve"] == calls["solve"] + 2
     # The wrappers check the device first: a CPU volume is not a CUDA one.
     with pytest.raises(ValueError):
         hopper_sweep._check_cuda_state(t, 3)
