@@ -284,6 +284,33 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 sampling_occupancy with the maze, a goal, compute_path, 20
                 ticks of its anytime budget, and the info block.
 
+ 32. battery (run after phase 31; every phase from here on finds the
+                goldens' maze and umass images as the reference's PNGs
+                through $EPIC_REFERENCE_ROOT, a fixture tree under build/,
+                each PNG read back as its golden) — the battery tool
+                (epic_tpu_torch.tools.batch_bench) on maze and umass at eps
+                1e-3, --backend pallas, counted (K2 twice a domain, nothing
+                else): the kernel row's iterations the goldens' ref_iters
+                (49,301 and 32,701), its percent-valid the native row's and
+                docs/results_batch_tpu_r3.csv's 1.0, the native row equal
+                to that CSV's log_native_cpu row; the SOR rows printed
+                beside the CSV's (the tool prints its CSV rows first);
+ 33. precision — the overlay tool on the maze at eps 1e-3, counted (K2
+                once): the log-space region at least SOR f64's and f32's;
+ 34. demo     — the anytime demo tool on the maze, 40 ticks and 6 starts,
+                counted (K1 only): every start gets a path, the PNG written;
+ 35. loadtest — the load test tool, 4 clients x 25 rounds on a 256^2 maze
+                against an in-process server on the card, counted (K1
+                only): no protocol error, every verb sampled, the per-verb
+                percentiles printed;
+ 36. scaling  — the scaling tool on a 4096^2 random-obstacle grid, 100
+                sweeps, on 1, 2, 4 and 8 shards of a virtual mesh of the
+                card, kernel="auto" (the shard entry for the one shard past
+                RESIDENT_MAX_SHARD_CELLS, the resident cycle below) and
+                "pallas" (the shard entry only), each counted: every row's
+                field the 1-shard row's, both kernels' and core.update_n's,
+                bit for bit; throughput_vs_1dev printed.
+
 Each phase prints one JSON line and raises on failure.
 Then come the kernels' JSON line (each entry with its time, its plain
 version's, its bound and its launches on the main path; the batch entries
@@ -3288,6 +3315,221 @@ def phase_sampling(dev, maze) -> dict:
     return out
 
 
+SCRATCH = ROOT / "build" / "epic_tpu_torch" / "chip_smoke"
+R3_CSV = ROOT / "docs" / "results_batch_tpu_r3.csv"   # the reference's battery on a TPU
+LOADTEST = ["--clients", "4", "--rounds", "25", "--size", "256"]
+SCALING_SIDE = 4096       # 67 MB of u: past the L2 on one shard
+SCALING_SWEEPS = 100
+SCALING_SHARDS = [1, 2, 4, 8]
+
+
+def reference_tree(goldens: dict) -> pathlib.Path:
+    """The goldens' maze and umass images written as the reference's own
+    PNGs into a fixture tree that ``maps.REFERENCE_MAP_DIRS`` searches, named
+    by ``$EPIC_REFERENCE_ROOT`` from here on: the tools load the reference's
+    maps as the TPU battery did. Each PNG must read back as its golden."""
+    import os
+
+    from PIL import Image
+
+    from epic_tpu_torch import maps
+
+    root = SCRATCH / "reference"
+    d = root / maps.REFERENCE_MAP_DIRS[0]
+    d.mkdir(parents=True, exist_ok=True)
+    for name, g in goldens.items():
+        png = d / f"{name}.png"
+        Image.fromarray(g["img"]).save(png)
+        require(np.array_equal(maps.load_png(png), g["img"]), f"{name}.png round trip")
+    os.environ["EPIC_REFERENCE_ROOT"] = str(root)
+    for name in goldens:
+        require(maps.reference_map_path(f"{name}.png") == d / f"{name}.png",
+                f"{name}.png is not found through $EPIC_REFERENCE_ROOT")
+    return root
+
+
+def r3_rows() -> dict:
+    import csv
+
+    with open(R3_CSV, newline="") as f:
+        return {(r["Domain"], r["Solver"]): r for r in csv.DictReader(f)}
+
+
+def phase_battery(dev, goldens: dict) -> dict:
+    """The battery tool (epic_tpu_torch.tools.batch_bench) on the reference's
+    maze and umass at eps 1e-3, --backend pallas (the plain row would take
+    14 s of plain torch on the maze), counted: K2 twice a domain (warm-up
+    and timed run), nothing else on the card. The kernel row's iterations
+    must be the goldens' ref_iters, its percent-valid the native row's and
+    the TPU battery's (docs/results_batch_tpu_r3.csv) 1.0; the native row
+    must equal that battery's log_native_cpu row; the SOR rows are printed
+    beside its own."""
+    from epic_tpu_torch.config import EpicConfig, SolverConfig
+    from epic_tpu_torch.tools import batch_bench
+
+    r3 = r3_rows()
+    cfg = EpicConfig(solver=SolverConfig(epsilon=EPS))
+    out = {"launches": {}}
+    for name, g in goldens.items():
+        res = {}
+        ran = new_counts(f"battery {name}", lambda: res.__setitem__(
+            "rows", batch_bench.run(name, cfg, None, backend="pallas", device=dev)),
+            {"epic_sweep2d_solve": 2})
+        add_counts(out["launches"], ran)
+        rows = {r[1]: r for r in res["rows"]}
+        require(set(rows) == {"cpu_sor_f32", "cpu_sor_f64", "log_native_cpu", "log_hopper_cuda"},
+                f"battery {name}: rows {sorted(rows)}")
+        kern, nat = rows["log_hopper_cuda"], rows["log_native_cpu"]
+        tpu_nat = r3[(name, "log_native_cpu")]
+        require(kern[6] == int(g["ref_iters"]),
+                f"battery {name}: kernel row {kern[6]} iterations, goldens {int(g['ref_iters'])}")
+        require(kern[3] == nat[3] == float(tpu_nat["Percent Valid"]) == 1.0,
+                f"battery {name}: percent-valid kernel {kern[3]}, native {nat[3]}, "
+                f"TPU battery {tpu_nat['Percent Valid']}")
+        require(nat[6] == int(tpu_nat["Iterations"]),
+                f"battery {name}: native {nat[6]} iterations, TPU battery {tpu_nat['Iterations']}")
+        side = {label: dict(percent_valid=r[3], time_per_update_s=r[4], time_to_converge_s=r[5],
+                            iterations=r[6],
+                            tpu_battery=dict(percent_valid=float(r3[(name, label)]["Percent Valid"]),
+                                             time_to_converge_s=float(
+                                                 r3[(name, label)]["Time to Converge"]),
+                                             iterations=int(r3[(name, label)]["Iterations"]))
+                            if (name, label) in r3 else None)
+                for label, r in rows.items()}
+        side["log_hopper_cuda"]["tpu_battery_log_pallas"] = {
+            k: r3[(name, "log_pallas_tpu")][k]
+            for k in ("Percent Valid", "Time to Converge", "Iterations")}
+        out[name] = side
+        emit(phase="battery", domain=name, shape=list(g["img"].shape), epsilon=EPS,
+             launches=ran, rows=side)
+    return out
+
+
+def phase_precision(dev) -> dict:
+    """The precision overlay tool on the reference's maze at eps 1e-3 to a
+    PNG, counted (K2 once, nothing else on the card): the log-space region's
+    share of the free cells at least SOR f64's and SOR f32's."""
+    from epic_tpu_torch import maps
+    from epic_tpu_torch.tools import compare_precision
+
+    png = SCRATCH / "precision_maze.png"
+    png.unlink(missing_ok=True)
+    res = {}
+    ran = new_counts("precision", lambda: res.__setitem__("s", compare_precision.main(
+        ["--domain", "maze", "--epsilon", str(EPS), "--out", str(png), "--device", str(dev)])),
+        {"epic_sweep2d_solve": 1})
+    s = res["s"]
+    require(png.exists() and maps.load_png(png).shape == (482, 482), "precision: no overlay")
+    require(s["log"] >= s["sor_f64"] and s["log"] >= s["sor_f32"],
+            f"precision: log-space region smaller than SOR's: {s}")
+    emit(phase="precision", domain="maze", epsilon=EPS, shares=s, launches=ran)
+    return dict(shares=s, launches=ran)
+
+
+def phase_demo_tool(dev) -> dict:
+    """The anytime demo tool on the reference's maze: 40 ticks of 50 sweeps
+    (K1), then paths from 6 seeded starts with its retry rounds, counted (K1
+    only). Every start must get a path, and the PNG must be written."""
+    from epic_tpu_torch import maps
+    from epic_tpu_torch.tools import anytime_demo
+
+    png = SCRATCH / "demo_maze.png"
+    png.unlink(missing_ok=True)
+    res = {}
+    ran = new_counts("demo", lambda: res.__setitem__("d", anytime_demo.main(
+        ["--ticks", "40", "--starts", "6", "--out", str(png), "--device", str(dev)])),
+        {"epic_sweep2d_chunk": None})
+    d = res["d"]
+    require(d["sweeps"] == 2000, f"demo: {d['sweeps']} sweeps in the first loop")
+    require(not d["pending"] and len(d["poses"]) == 6, f"demo: starts without a path: {d}")
+    require(png.exists() and maps.load_png(png).shape == (482, 482), "demo: no PNG")
+    out = dict(loop_sweeps=d["sweeps"], loop_s=d["loop_s"], final_sweeps=d["final_sweeps"],
+               poses=d["poses"], launches=ran)
+    emit(phase="demo", **out)
+    return out
+
+
+def phase_loadtest(dev) -> dict:
+    """The load test tool: 4 clients x 25 rounds against an in-process
+    server on the card (a 256^2 maze), counted (the server's ticks on K1
+    only). No protocol error, and every verb sampled."""
+    from epic_tpu_torch.tools import server_loadtest
+
+    res = {}
+    ran = new_counts("loadtest", lambda: res.__setitem__("r", server_loadtest.main(
+        [*LOADTEST, "--device", str(dev)])), {"epic_sweep2d_chunk": None})
+    d = res["r"]["detail"]
+    require(d["protocol_errors"] == 0, f"loadtest: {d['protocol_errors']} protocol errors")
+    require(set(d["verbs"]) == {"compute_path", "get_cell", "set_cells"}
+            and all(v["n"] > 0 for v in d["verbs"].values()), f"loadtest: verbs {d['verbs']}")
+    require(d["verbs"]["compute_path"]["n"] == 100, "loadtest: compute_path samples")
+    out = dict(requests_per_s=res["r"]["value"], wall_s=d["wall_s"], verbs=d["verbs"],
+               protocol_errors=d["protocol_errors"], launches=ran)
+    emit(phase="loadtest", **out)
+    return out
+
+
+def phase_scaling(dev) -> dict:
+    """The scaling tool on a 4096^2 random-obstacle grid, 100 sweeps, on 1,
+    2, 4 and 8 shards of a virtual mesh of the card, for kernel="auto" and
+    "pallas", each counted: "pallas" runs the shard entry (K14/K15) only;
+    "auto" the shard entry where a shard is past RESIDENT_MAX_SHARD_CELLS
+    (one shard) and the resident cycle (K16/K17) below; nothing else. Every
+    row's field must equal the 1-shard row's, and both kernels' and
+    core.update_n's on the whole grid on the card, bit for bit."""
+    import epic_tpu_torch as T
+    from epic_tpu_torch import maps
+    from epic_tpu_torch.parallel import hopper_resident2d, hopper_shard2d, sharded
+    from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
+    from epic_tpu_torch.tools import scaling_bench
+
+    def route(n):
+        my, mx = sharded.near_square(n)
+        cells = -(-SCALING_SIDE // my) * -(-SCALING_SIDE // mx)
+        return ("epic_resident2d_cycle" if cells <= sharded.RESIDENT_MAX_SHARD_CELLS
+                else "epic_shard2d_chunk")
+
+    out = {"launches": {}, "err": 0.0}
+    first = None
+    for kernel in ("auto", "pallas"):
+        fields = {}
+        zero_counts()
+        rows = scaling_bench.run([SCALING_SIDE], SCALING_SWEEPS, SCALING_SHARDS, kernel, 16, dev,
+                                 fields=fields)
+        torch.cuda.synchronize()
+        mesh_ran = {k: v for d in (hopper_shard2d.launches, hopper_resident2d.launches)
+                    for k, v in d.items() if v}
+        others = {**{k: v for d in (hopper_sweep.launches, hopper_tile2d.launches)
+                     for k, v in d.items() if v},
+                  **{f"core.{k}": v for k, v in core.calls.items() if v},
+                  **{f"tiled.{k}": v for k, v in tiled.calls.items() if v},
+                  **{f"hopper_shard2d.{k}": v for k, v in hopper_shard2d.calls.items() if v},
+                  **{f"hopper_resident2d.{k}": v for k, v in hopper_resident2d.calls.items()
+                     if v}}
+        expect = ({route(n) for n in SCALING_SHARDS} if kernel == "auto"
+                  else {"epic_shard2d_chunk"})
+        require(set(mesh_ran) == expect, f"scaling {kernel}: launches {mesh_ran}, expected {expect}")
+        require(not others, f"scaling {kernel}: another kernel or a plain version ran: {others}")
+        add_counts(out["launches"], mesh_ran)
+        one = fields[(SCALING_SIDE, 1)]
+        if first is None:
+            first = one
+        for n in SCALING_SHARDS:
+            out["err"] = max(out["err"], same_field(fields[(SCALING_SIDE, n)], one,
+                                                    f"scaling {kernel}: {n} shards against 1"))
+        out["err"] = max(out["err"], same_field(one, first, f"scaling {kernel} against auto"))
+        out[kernel] = dict(rows=rows, launches=mesh_ran)
+        emit(phase="scaling", kernel=kernel, side=SCALING_SIDE, sweeps=SCALING_SWEEPS,
+             launches=mesh_ran,
+             throughput_vs_1dev={r["devices"]: r["throughput_vs_1dev"] for r in rows},
+             rows=rows)
+        del fields
+    img = maps.random_obstacles(SCALING_SIDE, SCALING_SIDE, density=0.1, seed=0)
+    ref = core.update_n(T.from_occupancy_image(img, 1e-6, device=dev), SCALING_SWEEPS)
+    out["err"] = max(out["err"], same_field(first, ref, "scaling: the mesh against core.update_n"))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -3337,6 +3579,17 @@ def main() -> None:
     nav = phase_nav_core(dev)
     phase_modules(dev, maze, m["solved"])
     phase_sampling(dev, maze)
+    reference_tree({"maze": maze, "umass": umass})
+    bat = phase_battery(dev, {"maze": maze, "umass": umass})
+    prec = phase_precision(dev)
+    demo = phase_demo_tool(dev)
+    load = phase_loadtest(dev)
+    scal = phase_scaling(dev)
+    # The tools' counted runs: K2 in the battery and the overlay, K1 in the
+    # demo and the load test, K14/K15 and K16/K17 in the scaling tool.
+    for counts in (bat["launches"], prec["launches"], demo["launches"], load["launches"],
+                   scal["launches"]):
+        add_counts(launches, counts)
     for counts in (mesh_s["launches"], mesh16["launches"], m3["launches"], m3z["launches"],
                    m3w["launches"], res["launches"]):
         add_counts(launches, counts)
@@ -3375,6 +3628,9 @@ def main() -> None:
         "epic_resident3d_cycle": max(m3["err"], m3z["err"], m3w["err"]),
         "epic_resident3d_solve": max(m3["err"], m3z["err"], m3w["err"]),
     }
+    # The scaling tool's meshes held their fields to core.update_n's.
+    for name in ("epic_shard2d_chunk", "epic_resident2d_cycle"):
+        errs[name] = max(errs[name], scal["err"])
     # The cascade's counted runs held their fields to the plain cascade's.
     for name, runs in (("epic_sweep2d_solve", ("maze", "umass", "grid3072")),
                        ("epic_tile2d_solve", ("grid3072",)),

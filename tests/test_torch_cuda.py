@@ -1850,3 +1850,59 @@ def test_rank4_on_the_card_runs_the_plain_core(dev):
     np.testing.assert_allclose(k.u.cpu().numpy(), c.u.numpy(), rtol=2e-6, atol=1e-3)
     np.testing.assert_allclose(t.u.cpu().numpy(), core.update_n(state("cpu"), 3).u.numpy(),
                                rtol=2e-6, atol=1e-3)
+
+
+def test_battery_kernel_row_matches_the_native_row(dev, monkeypatch):
+    """tools.batch_bench on the card on a 96^2 maze at eps 1e-3: with
+    --backend pallas the kernel row log_hopper_cuda (K2: a warm-up and a
+    timed run, nothing else on the card) gives log_native_cpu's iterations
+    and percent-valid; with "auto" the plain row log_torch_cuda gives the
+    same."""
+    from epic_tpu_torch.config import EpicConfig, SolverConfig
+    from epic_tpu_torch.tools import batch_bench
+
+    img = maps.recursive_maze(96, 96, seed=4)
+    monkeypatch.setitem(batch_bench.DOMAINS, "small", img.shape)
+    monkeypatch.setattr(batch_bench, "load_domain", lambda name: img)
+    cfg = EpicConfig(solver=SolverConfig(epsilon=1e-3))
+    before = _counts()
+    rows = {r[1]: r for r in batch_bench.run("small", cfg, None, backend="pallas", device=dev)}
+    torch.cuda.synchronize()
+    assert _ran(before, _counts()) == {"epic_sweep2d_solve": 2}
+    assert set(rows) == {"cpu_sor_f32", "cpu_sor_f64", "log_native_cpu", "log_hopper_cuda"}
+    assert rows["log_hopper_cuda"][6] == rows["log_native_cpu"][6]
+    assert rows["log_hopper_cuda"][3] == rows["log_native_cpu"][3]
+    auto = {r[1]: r for r in batch_bench.run("small", cfg, None, device=dev)}
+    assert set(auto) == set(rows) | {"log_torch_cuda"}
+    assert auto["log_torch_cuda"][6] == auto["log_hopper_cuda"][6] == rows["log_hopper_cuda"][6]
+    assert auto["log_torch_cuda"][3] == rows["log_hopper_cuda"][3]
+
+
+@pytest.mark.parametrize("kernel", ["auto", "pallas", "resident"])
+def test_scaling_bench_on_the_card_gives_cores_bits(dev, kernel):
+    """tools.scaling_bench on virtual meshes of 1, 2, 4 and 8 shards of the
+    card: every row's field is core.update_n's on the whole grid, bit for
+    bit, and the caveat names the shared card."""
+    from epic_tpu_torch.tools import scaling_bench
+
+    fields = {}
+    rows = scaling_bench.run([256], 20, [1, 2, 4, 8], kernel, 16, dev, fields=fields)
+    img = maps.random_obstacles(256, 256, density=0.1, seed=0)
+    ref = core.update_n(TG.from_occupancy_image(img, 1e-6, device=dev), 20)
+    for r in rows:
+        assert torch.equal(fields[(256, r["devices"])].u, ref.u), r
+        assert r["caveat"] == "virtual-mesh-shards-share-one-card" and r["backend"] == "cuda"
+
+
+def test_loadtest_on_the_card(dev):
+    """tools.server_loadtest with its in-process server on the card: no
+    protocol error, every verb sampled, the ticks on K1."""
+    from epic_tpu_torch.tools import server_loadtest
+
+    before = _counts()
+    rep = server_loadtest.main(["--clients", "2", "--rounds", "5", "--size", "64"])
+    torch.cuda.synchronize()
+    ran = _ran(before, _counts())
+    assert ran.get("epic_sweep2d_chunk", 0) > 0 and set(ran) == {"epic_sweep2d_chunk"}
+    assert rep["detail"]["protocol_errors"] == 0 and rep["detail"]["backend"] == "cuda"
+    assert set(rep["detail"]["verbs"]) == {"compute_path", "get_cell", "set_cells"}
