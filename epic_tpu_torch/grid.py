@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from . import profiling
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -414,12 +415,14 @@ def host_u(state: GridState) -> np.ndarray:
     """Host copy of state.u. There is no mirror cache: the CUDA kernels
     update ``u`` in place, so a copy keyed on the tensor could go stale.
     On a CPU state this is a view; do not mutate it."""
-    return state.u.detach().cpu().numpy()
+    with profiling.span("grid.host_copy"):
+        return state.u.detach().cpu().numpy()
 
 
 def host_locked(state: GridState) -> np.ndarray:
     """Host copy of state.locked (a view on a CPU state; do not mutate)."""
-    return state.locked.detach().cpu().numpy()
+    with profiling.span("grid.host_copy"):
+        return state.locked.detach().cpu().numpy()
 
 
 def _cell(state: GridState, x: int, y: int) -> tuple[bool, float]:

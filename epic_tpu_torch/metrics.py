@@ -9,8 +9,9 @@ framework-grade replacement: a process-local registry the service plane
 ``metrics`` verb and programmatically via :meth:`MetricsRegistry.snapshot`.
 
 Deliberately dependency-free and cheap: a counter bump is a dict add; a
-latency sample is five scalar updates. Not thread-safe by design — the
-server's event loop is single-threaded, and solver-side use is per-process.
+latency sample is five scalar updates and a bucket count. Not thread-safe by
+design — the server's event loop is single-threaded, and solver-side use is
+per-process.
 """
 
 from __future__ import annotations
@@ -19,14 +20,34 @@ import math
 import time
 from dataclasses import dataclass, field
 
+# The latency histogram's fixed buckets: BUCKETS_PER_DECADE log-spaced
+# buckets a decade from LOWEST_S to LOWEST_S * 10**DECADES, and one each
+# below and above. A bucket is 10**(1 / BUCKETS_PER_DECADE) - 1 = 5.9% wide.
+LOWEST_S = 1e-6
+BUCKETS_PER_DECADE = 40
+DECADES = 10
+N_BUCKETS = BUCKETS_PER_DECADE * DECADES + 2
+
+
+def bucket(seconds: float) -> int:
+    """The histogram bucket of a latency: 0 below ``LOWEST_S``, ``k`` for
+    ``[LOWEST_S * 10**((k-1)/40), LOWEST_S * 10**(k/40))``, the last above
+    the range."""
+    if seconds < LOWEST_S:
+        return 0
+    k = int(math.log10(seconds / LOWEST_S) * BUCKETS_PER_DECADE) + 1
+    return min(k, N_BUCKETS - 1)
+
 
 @dataclass
 class LatencyStat:
-    """Streaming latency summary (count / total / min / max / last, seconds).
+    """Streaming latency summary (count / total / min / max / last, seconds)
+    and percentiles from a histogram of fixed log-spaced buckets
+    (:func:`bucket`), so its memory is set by the buckets alone.
 
-    Mean comes out of count+total; no histogram — the service plane's verbs
-    are few and coarse enough that min/max/mean answer the operational
-    questions (is ComputePath regressing? did a solve stall?).
+    Mean comes out of count+total. A percentile is the geometric middle of
+    the bucket that holds it, clamped to [min, max]: within 2.9% of a value
+    of that bucket.
     """
 
     count: int = 0
@@ -34,6 +55,7 @@ class LatencyStat:
     min_s: float = math.inf
     max_s: float = 0.0
     last_s: float = 0.0
+    buckets: list[int] = field(default_factory=lambda: [0] * N_BUCKETS)
 
     def observe(self, seconds: float) -> None:
         self.count += 1
@@ -41,6 +63,25 @@ class LatencyStat:
         self.min_s = min(self.min_s, seconds)
         self.max_s = max(self.max_s, seconds)
         self.last_s = seconds
+        self.buckets[bucket(seconds)] += 1
+
+    def quantile(self, q: float) -> float:
+        """The ``q``-quantile (0 < q <= 1) of the observed latencies: the
+        ``ceil(q * count)``-th smallest, to its bucket; 0.0 before any."""
+        if not self.count:
+            return 0.0
+        rank = max(1, math.ceil(q * self.count))
+        seen = 0
+        for k, n in enumerate(self.buckets):
+            seen += n
+            if seen >= rank:
+                break
+        if k == 0:
+            return self.min_s
+        if k == N_BUCKETS - 1:
+            return self.max_s
+        middle = LOWEST_S * 10 ** ((k - 0.5) / BUCKETS_PER_DECADE)
+        return min(max(middle, self.min_s), self.max_s)
 
     def as_dict(self) -> dict:
         return {
@@ -50,6 +91,9 @@ class LatencyStat:
             "min_s": self.min_s if self.count else 0.0,
             "max_s": self.max_s,
             "last_s": self.last_s,
+            "p50_s": self.quantile(0.50),
+            "p95_s": self.quantile(0.95),
+            "p99_s": self.quantile(0.99),
         }
 
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import constants as C
+from . import profiling
 from .errors import (
     InvalidGradientError,
     InvalidLocationError,
@@ -167,42 +168,43 @@ def compute_path(
       InvalidGradientError: gradient sampling failed mid-walk.
       InvalidPathError: <= 2 points produced (field not relaxed enough).
     """
-    if impl not in ("auto", "numpy", "native"):
-        raise ValueError(f"impl must be 'auto', 'numpy' or 'native', got {impl!r}")
-    if impl != "numpy":
-        from . import native
+    with profiling.span("path.walk"):
+        if impl not in ("auto", "numpy", "native"):
+            raise ValueError(f"impl must be 'auto', 'numpy' or 'native', got {impl!r}")
+        if impl != "numpy":
+            from . import native
 
-        if native.available():
-            return native.compute_path(u, locked, x, y, step_size, cd_precision, max_length,
-                                       mode)
-        if impl == "native":
-            raise RuntimeError(f"native library unavailable: {native.build_info.get('error')}")
-    u = np.asarray(u, dtype=np.float32)
-    locked = np.asarray(locked).astype(bool)
-    xc, yc = _check_location(u, locked, x, y)
+            if native.available():
+                return native.compute_path(u, locked, x, y, step_size, cd_precision, max_length,
+                                           mode)
+            if impl == "native":
+                raise RuntimeError(f"native library unavailable: {native.build_info.get('error')}")
+        u = np.asarray(u, dtype=np.float32)
+        locked = np.asarray(locked).astype(bool)
+        xc, yc = _check_location(u, locked, x, y)
 
-    points: list[tuple[float, float]] = [(float(np.float32(x)), float(np.float32(y)))]
-    x = np.float32(x)
-    y = np.float32(y)
-    while (
-        not locked[yc, xc]
-        and not _is_stuck(points, step_size)
-        and len(points) < max_length
-    ):
-        px, py = compute_gradient(u, locked, float(x), float(y), cd_precision, mode)
-        x = np.float32(x + np.float32(px) * np.float32(step_size))
-        y = np.float32(y + np.float32(py) * np.float32(step_size))
-        points.append((float(x), float(y)))
-        xc = _cell_index(x)
-        yc = _cell_index(y)
-        if xc < 0 or yc < 0 or xc >= u.shape[1] or yc >= u.shape[0]:
-            raise InvalidGradientError(f"walked off the map at ({x}, {y})")
+        points: list[tuple[float, float]] = [(float(np.float32(x)), float(np.float32(y)))]
+        x = np.float32(x)
+        y = np.float32(y)
+        while (
+            not locked[yc, xc]
+            and not _is_stuck(points, step_size)
+            and len(points) < max_length
+        ):
+            px, py = compute_gradient(u, locked, float(x), float(y), cd_precision, mode)
+            x = np.float32(x + np.float32(px) * np.float32(step_size))
+            y = np.float32(y + np.float32(py) * np.float32(step_size))
+            points.append((float(x), float(y)))
+            xc = _cell_index(x)
+            yc = _cell_index(y)
+            if xc < 0 or yc < 0 or xc >= u.shape[1] or yc >= u.shape[0]:
+                raise InvalidGradientError(f"walked off the map at ({x}, {y})")
 
-    if len(points) <= 2:
-        raise InvalidPathError(
-            "path has <= 2 points; the field is not relaxed enough yet"
-        )
-    return np.asarray(points, dtype=np.float32)
+        if len(points) <= 2:
+            raise InvalidPathError(
+                "path has <= 2 points; the field is not relaxed enough yet"
+            )
+        return np.asarray(points, dtype=np.float32)
 
 
 def path_reaches_goal(

@@ -33,7 +33,7 @@ from . import grid as G
 from .config import EpicConfig, SolverConfig, check_backend
 from .errors import EpicError, InvalidLocationError
 from .path import compute_path
-from . import native, solver
+from . import native, profiling, solver
 from .solver import batched_path, cascade
 
 logger = logging.getLogger("epic_tpu_torch.planner")
@@ -162,12 +162,13 @@ class Planner:
     def update(self, num_steps: int | None = None) -> None:
         """Run a chunk of relaxation sweeps (no-op when paused / uninit),
         mirroring EpicNavigationNodeHarmonic::update (:165-204)."""
-        if self.state is None or self.paused:
-            return
-        n = num_steps if num_steps is not None else self.config.steps_per_update
-        if n < 1:
-            return
-        self.state = solver.update_grid(self.state, n, self.solver_config.tile_depth)
+        with profiling.span("planner.update"):
+            if self.state is None or self.paused:
+                return
+            n = num_steps if num_steps is not None else self.config.steps_per_update
+            if n < 1:
+                return
+            self.state = solver.update_grid(self.state, n, self.solver_config.tile_depth)
 
     def solve(self, max_iterations: int | None = None) -> None:
         """Blocking solve-to-convergence (harmonic_complete semantics), as
@@ -178,19 +179,20 @@ class Planner:
         fine level (capped) as a cold solve would.
         ``max_iterations`` caps the solve; a capped solve leaves
         ``state.converged`` False and can be resumed by calling again."""
-        cap = 1_000_000 if max_iterations is None else int(max_iterations)
-        depth = self.solver_config.tile_depth
+        with profiling.span("planner.solve"):
+            cap = 1_000_000 if max_iterations is None else int(max_iterations)
+            depth = self.solver_config.tile_depth
 
-        def final(st, stagger, max_iterations):
-            return solver.solve_grid(st, stagger, min(max_iterations, cap), chunk_depth=depth)
+            def final(st, stagger, max_iterations):
+                return solver.solve_grid(st, stagger, min(max_iterations, cap), chunk_depth=depth)
 
-        if self.config.cascade:
-            coarse = cascade.native_solver if native.available() else final
-            self.state, _ = cascade.solve_cascade(
-                self._require_state(), stagger=self.config.stagger, solver=final,
-                coarse_solver=coarse)
-        else:
-            self.state = final(self._require_state(), self.config.stagger, cap)
+            if self.config.cascade:
+                coarse = cascade.native_solver if native.available() else final
+                self.state, _ = cascade.solve_cascade(
+                    self._require_state(), stagger=self.config.stagger, solver=final,
+                    coarse_solver=coarse)
+            else:
+                self.state = final(self._require_state(), self.config.stagger, cap)
 
     # -- service verbs -----------------------------------------------------
 
@@ -201,50 +203,53 @@ class Planner:
 
     def set_cells(self, xy, types) -> bool:
         """srvSetCells (:545-579): raw cell coordinates, no world transform."""
-        st = self._require_state()
-        self.state = G.set_cells(st, xy, types)
-        return True
+        with profiling.span("planner.set_cells"):
+            st = self._require_state()
+            self.state = G.set_cells(st, xy, types)
+            return True
 
     def add_goals(self, world_points) -> bool:
         """srvAddGoals (:441-482): world coords -> cells; goals are refused
         inside obstacles; returns False if no goal could be added."""
-        st = self._require_state()
-        # One host fetch for the whole batch.
-        u_np = G.host_u(st)
-        locked_np = G.host_locked(st)
-        h, w = u_np.shape
-        xy = []
-        for wx, wy in world_points:
-            try:
-                mx, my = self.world_to_map(wx, wy)
-            except InvalidLocationError:
-                continue
-            cx, cy = int(mx + 0.5), int(my + 0.5)
-            is_obstacle = not (0 <= cx < w and 0 <= cy < h) or (
-                bool(locked_np[cy, cx])
-                and float(u_np[cy, cx]) == float(C.LOG_SPACE_OBSTACLE)
-            )
-            if is_obstacle:
-                continue
-            xy.append((int(mx), int(my)))
-        if not xy:
-            return False
-        self.state = G.set_cells(st, xy, [C.CELL_TYPE_GOAL] * len(xy))
-        return True
+        with profiling.span("planner.add_goals"):
+            st = self._require_state()
+            # One host fetch for the whole batch.
+            u_np = G.host_u(st)
+            locked_np = G.host_locked(st)
+            h, w = u_np.shape
+            xy = []
+            for wx, wy in world_points:
+                try:
+                    mx, my = self.world_to_map(wx, wy)
+                except InvalidLocationError:
+                    continue
+                cx, cy = int(mx + 0.5), int(my + 0.5)
+                is_obstacle = not (0 <= cx < w and 0 <= cy < h) or (
+                    bool(locked_np[cy, cx])
+                    and float(u_np[cy, cx]) == float(C.LOG_SPACE_OBSTACLE)
+                )
+                if is_obstacle:
+                    continue
+                xy.append((int(mx), int(my)))
+            if not xy:
+                return False
+            self.state = G.set_cells(st, xy, [C.CELL_TYPE_GOAL] * len(xy))
+            return True
 
     def remove_goals(self, world_points) -> bool:
         """srvRemoveGoals (:485-519): removed goals become FREE cells."""
-        st = self._require_state()
-        xy = []
-        for wx, wy in world_points:
-            try:
-                mx, my = self.world_to_map(wx, wy)
-            except InvalidLocationError:
-                continue
-            xy.append((int(mx), int(my)))
-        if xy:
-            self.state = G.set_cells(st, xy, [C.CELL_TYPE_FREE] * len(xy))
-        return True
+        with profiling.span("planner.remove_goals"):
+            st = self._require_state()
+            xy = []
+            for wx, wy in world_points:
+                try:
+                    mx, my = self.world_to_map(wx, wy)
+                except InvalidLocationError:
+                    continue
+                xy.append((int(mx), int(my)))
+            if xy:
+                self.state = G.set_cells(st, xy, [C.CELL_TYPE_FREE] * len(xy))
+            return True
 
     def get_cell(self, x: int, y: int) -> float:
         """srvGetCell (:522-542): the cell's log hitting probability, a
@@ -257,8 +262,9 @@ class Planner:
 
     def reset_free_cells(self) -> bool:
         """srvResetFreeCells (:582-611)."""
-        self.state = G.reset_free_cells(self._require_state())
-        return True
+        with profiling.span("planner.reset_free_cells"):
+            self.state = G.reset_free_cells(self._require_state())
+            return True
 
     def update_occupancy(
         self,
@@ -273,35 +279,36 @@ class Planner:
         cells untouched; size change triggers full reinit (goals are lost,
         as in the reference); boundary ring stays obstacle.
         """
-        data = np.asarray(data)
-        h, w = data.shape
-        if self.state is None or tuple(self.state.u.shape) != (h, w):
-            if self.state is not None:
-                logger.warning(
-                    "occupancy resize %s -> (%d, %d): full reinit, goals lost"
-                    " (reference behaviour)", tuple(self.state.u.shape), h, w)
-            self.uninit()
-            self.init(w, h)
-        if resolution is not None:
-            self.config.resolution = float(resolution)
-        if origin is not None:
-            self.config.origin_x, self.config.origin_y = map(float, origin)
+        with profiling.span("planner.update_occupancy"):
+            data = np.asarray(data)
+            h, w = data.shape
+            if self.state is None or tuple(self.state.u.shape) != (h, w):
+                if self.state is not None:
+                    logger.warning(
+                        "occupancy resize %s -> (%d, %d): full reinit, goals lost"
+                        " (reference behaviour)", tuple(self.state.u.shape), h, w)
+                self.uninit()
+                self.init(w, h)
+            if resolution is not None:
+                self.config.resolution = float(resolution)
+            if origin is not None:
+                self.config.origin_x, self.config.origin_y = map(float, origin)
 
-        st = self._require_state()
-        u_np = G.host_u(st)
-        locked_np = G.host_locked(st)
-        goal_mask = locked_np & (u_np == float(C.LOG_SPACE_GOAL))
+            st = self._require_state()
+            u_np = G.host_u(st)
+            locked_np = G.host_locked(st)
+            goal_mask = locked_np & (u_np == float(C.LOG_SPACE_GOAL))
 
-        interior = np.zeros((h, w), dtype=bool)
-        interior[1:-1, 1:-1] = True
-        changeable = interior & (data != C.OCCUPANCY_NO_CHANGE) & ~goal_mask
-        obstacle = changeable & (data >= C.OCCUPANCY_OBSTACLE_THRESHOLD)
-        free = changeable & ~obstacle
-        ys, xs = np.nonzero(obstacle | free)
-        if len(ys) == 0:
-            return
-        types = np.where(obstacle[ys, xs], C.CELL_TYPE_OBSTACLE, C.CELL_TYPE_FREE)
-        self.state = G.set_cells(st, np.stack([xs, ys], axis=1), types)
+            interior = np.zeros((h, w), dtype=bool)
+            interior[1:-1, 1:-1] = True
+            changeable = interior & (data != C.OCCUPANCY_NO_CHANGE) & ~goal_mask
+            obstacle = changeable & (data >= C.OCCUPANCY_OBSTACLE_THRESHOLD)
+            free = changeable & ~obstacle
+            ys, xs = np.nonzero(obstacle | free)
+            if len(ys) == 0:
+                return
+            types = np.where(obstacle[ys, xs], C.CELL_TYPE_OBSTACLE, C.CELL_TYPE_FREE)
+            self.state = G.set_cells(st, np.stack([xs, ys], axis=1), types)
 
     def compute_path(
         self,
@@ -316,35 +323,37 @@ class Planner:
         (epic_navigation_node_harmonic_rviz.cpp:114-116); max_length defaults
         to w*h/step_size as there.
         """
-        st = self._require_state()
-        h, w = st.u.shape
-        if max_length is None:
-            max_length = int(w * h / step_size)
-        mx, my = self.world_to_map(*start_world)
-        pts = compute_path(
-            G.host_u(st),
-            G.host_locked(st),
-            mx,
-            my,
-            step_size=step_size,
-            cd_precision=cd_precision,
-            max_length=max_length,
-            mode=self.config.interpolation,
-        )
-        return self._poses(pts)
+        with profiling.span("planner.compute_path"):
+            st = self._require_state()
+            h, w = st.u.shape
+            if max_length is None:
+                max_length = int(w * h / step_size)
+            mx, my = self.world_to_map(*start_world)
+            pts = compute_path(
+                G.host_u(st),
+                G.host_locked(st),
+                mx,
+                my,
+                step_size=step_size,
+                cd_precision=cd_precision,
+                max_length=max_length,
+                mode=self.config.interpolation,
+            )
+            return self._poses(pts)
 
     def _poses(self, pts: np.ndarray) -> list[PathPose]:
         """Map-frame points -> world poses with per-segment yaw
         (epic_navigation_node_harmonic.cpp:655-668)."""
-        poses: list[PathPose] = []
-        sx, sy = self.map_to_world(float(pts[0, 0]), float(pts[0, 1]))
-        poses.append(PathPose(sx, sy, 0.0))
-        for i in range(1, len(pts)):
-            x, y = float(pts[i, 0]), float(pts[i, 1])
-            yaw = math.atan2(y - float(pts[i - 1, 1]), x - float(pts[i - 1, 0]))
-            wx, wy = self.map_to_world(x, y)
-            poses.append(PathPose(wx, wy, yaw))
-        return poses
+        with profiling.span("planner.poses"):
+            poses: list[PathPose] = []
+            sx, sy = self.map_to_world(float(pts[0, 0]), float(pts[0, 1]))
+            poses.append(PathPose(sx, sy, 0.0))
+            for i in range(1, len(pts)):
+                x, y = float(pts[i, 0]), float(pts[i, 1])
+                yaw = math.atan2(y - float(pts[i - 1, 1]), x - float(pts[i - 1, 0]))
+                wx, wy = self.map_to_world(x, y)
+                poses.append(PathPose(wx, wy, yaw))
+            return poses
 
     def compute_paths_batch(
         self,

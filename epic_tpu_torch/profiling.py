@@ -9,17 +9,27 @@ a solve with wall/CPU timers and derives sweeps/s and cell-updates/s;
 On a CUDA tensor ``timed_solve`` waits for the card before it stops the
 clock (``torch.cuda.synchronize`` on the state's device) and also records
 the solve's CUDA-event time (``device_ms``).
+
+``span`` marks where the program's work happens: while a ``torch.profiler``
+records, a ``record_function`` range named ``epic.<name>``, on the clock of
+the device's operations in the same trace; otherwise one read of the
+profiler's flag and a shared context that does nothing. The first span
+opened while a profiler records also hooks Python's collector, so that each
+collection is a span of its own, ``epic.gc.gen<N>``, inside whatever span was
+open on its thread.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import os
 import pathlib
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 DEFAULT_TRACE_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "epic_tpu_torch" / "trace"
 
@@ -103,3 +113,57 @@ def trace(log_dir: str | pathlib.Path | None = None):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records on this process: the Python-side
+    flag that torch sets when a profiler starts and clears when it stops. A
+    test pins it, so a torch that moves the flag fails there, not in a
+    trace with no spans."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Off:
+    """The shared context of a span while nothing records. Both ends are one
+    C call that returns the empty string (``"".format`` ignores the
+    arguments it is given), so entering and leaving run no Python frame, and
+    an exception raised inside passes through."""
+
+    __slots__ = ()
+    __enter__ = __exit__ = "".format
+
+
+_OFF = _Off()
+_GC_NAMES = tuple(f"epic.gc.gen{g}" for g in range(3))
+_gc_open: list = []   # the range of the collection in progress, if it is recorded
+
+
+def span(name: str):
+    """A context manager around the work called ``name``: while a profiler
+    records, the range ``epic.<name>`` in its trace; otherwise the shared
+    context that does nothing (one flag read, nothing allocated). Ranges
+    nest on their thread."""
+    if not recording():
+        return _OFF
+    if _gc_span not in gc.callbacks:
+        gc.callbacks.append(_gc_span)
+    return torch.profiler.record_function("epic." + name)
+
+
+def _gc_span(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: a collection's range, opened at its ``start``
+    and closed at its ``stop``, while a profiler records."""
+    if phase == "start":
+        if recording():
+            rf = torch.profiler.record_function(_GC_NAMES[info["generation"]])
+            rf.__enter__()
+            _gc_open.append(rf)
+    elif _gc_open:
+        _gc_open.pop().__exit__(None, None, None)
+
+
+def remove_gc_spans() -> None:
+    """Take the collector's hook out again (the first span opened while a
+    profiler records puts it in, and it stays for the process)."""
+    while _gc_span in gc.callbacks:
+        gc.callbacks.remove(_gc_span)

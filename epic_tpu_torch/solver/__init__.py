@@ -16,6 +16,7 @@ rank >= 4)."""
 from . import (batched, cascade, core, hopper_batched, hopper_sweep, hopper_sweep3d,
                hopper_tile2d, hopper_tile3d, legacy, reference_np, tiled, tiled3d)
 from .. import constants as _C
+from .. import profiling as _profiling
 
 __all__ = ["batched", "cascade", "core", "hopper_batched", "hopper_sweep", "hopper_sweep3d",
            "hopper_tile2d", "hopper_tile3d", "legacy", "reference_np", "tiled", "tiled3d",
@@ -39,32 +40,41 @@ def solve_grid(state, stagger=None, max_iterations: int = 1_000_000,
     ``segment_iterations`` runs the tile route's solve
     as segments (``solve_segments``); the other routes' solve is one launch
     and ignores it, as ``epic_tpu``'s VMEM route does. Protocol identical on
-    every route (harmonic_complete_cpu)."""
+    every route (harmonic_complete_cpu). A 2D grid's or the plain route's
+    solve is the span ``solve.<route>`` (:func:`epic_tpu_torch.profiling.span`):
+    ``solve.sweep2d``, ``solve.tile2d``, or ``solve.core`` for a state on
+    the CPU or of rank 4 or more."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
     if state.u.ndim == 3:
         return solve_volume(state, stagger, max_iterations, segment_iterations, chunk_depth)
-    if state.u.ndim != 2:
-        return core.solve(state, stagger, max_iterations)
+    if state.u.ndim != 2 or state.u.device.type == "cpu":
+        with _profiling.span("solve.core"):
+            return core.solve(state, stagger, max_iterations)
     if _tiles(state):
         k = hopper_tile2d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
-        if segment_iterations is not None:
-            return hopper_tile2d.solve_segments(state, stagger, max_iterations,
-                                                segment_iterations, k)
-        return hopper_tile2d.solve(state, stagger, max_iterations, k)
-    return hopper_sweep.solve(state, stagger, max_iterations)
+        with _profiling.span("solve.tile2d"):
+            if segment_iterations is not None:
+                return hopper_tile2d.solve_segments(state, stagger, max_iterations,
+                                                    segment_iterations, k)
+            return hopper_tile2d.solve(state, stagger, max_iterations, k)
+    with _profiling.span("solve.sweep2d"):
+        return hopper_sweep.solve(state, stagger, max_iterations)
 
 
 def update_grid(state, num_steps: int, chunk_depth: int | None = None):
     """The anytime stepper on whatever device holds ``state``; routes as
-    :func:`solve_grid`."""
+    :func:`solve_grid`, and its spans are ``tick.<route>``."""
     if state.u.ndim == 3:
         return update_volume(state, num_steps, chunk_depth)
-    if state.u.ndim != 2:
-        return core.update_n(state, num_steps)
+    if state.u.ndim != 2 or state.u.device.type == "cpu":
+        with _profiling.span("tick.core"):
+            return core.update_n(state, num_steps)
     if _tiles(state):
         k = hopper_tile2d.DEFAULT_DEPTH if chunk_depth is None else chunk_depth
-        return hopper_tile2d.update_n(state, num_steps, k)
-    return hopper_sweep.update_n(state, num_steps)
+        with _profiling.span("tick.tile2d"):
+            return hopper_tile2d.update_n(state, num_steps, k)
+    with _profiling.span("tick.sweep2d"):
+        return hopper_sweep.update_n(state, num_steps)
 
 
 def solve_volume(state, stagger=None, max_iterations: int = 1_000_000,

@@ -41,7 +41,10 @@ is the same tensor; keep only what a call returns. The solves return
 tensors; ``solve_batch_device`` does not wait for the card.
 
 ``launches`` counts each kernel's launches and ``routes`` the route of each
-launch; nothing else changes them.
+launch; nothing else changes them. The spans of :mod:`..profiling` name the
+same route: ``solve.batched.<route>`` around ``solve_batch_device``'s launch,
+``tick.batched.<route>`` around each chunk launch (``core`` for a batch on
+the CPU), and ``batch.make_goals`` around ``make_goal_batch``.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import ctypes
 import torch
 
 from .. import constants as C
+from .. import profiling
 from . import _build, batched, hopper_tile2d
 from ._tiles import scratch_for
 from .hopper_sweep import _iteration, _stream
@@ -58,6 +62,8 @@ from .hopper_sweep import _iteration, _stream
 # K12's and K13's launches on every route, and each launch's route.
 launches = {"epic_batched2d_chunk": 0, "epic_batched2d_solve": 0}
 routes = {"resident": 0, "cluster": 0, "tiled": 0}
+_SOLVE_SPANS = {r: f"solve.batched.{r}" for r in (*routes, "core")}
+_TICK_SPANS = {r: f"tick.batched.{r}" for r in (*routes, "core")}
 # The tiled route's halo depth: the sweeps a chunk runs on a trip through
 # memory (the grid tiles' default; `tile_probe --batch` times 8, 16, 24).
 DEPTH = hopper_tile2d.DEFAULT_DEPTH
@@ -208,17 +214,18 @@ def _launch_chunk(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: i
     flag_ptr = None if flags is None else flags.data_ptr()
     # The tiled route max-accumulates into zeroed slots; the others write each.
     delta = (torch.empty if blocks else torch.zeros)(u.shape[0], dtype=torch.float32, device=dev)
-    if route == "tiled":
-        err = _build.load().epic_lanes2d_chunk(
-            u.data_ptr(), scratch_for(_scratch, u, "twin").data_ptr(), locked.data_ptr(),
-            *u.shape, it.data_ptr(), num_steps, flag_ptr, delta.data_ptr(), _depth(dev),
-            _stream(dev), dev.index)
-        _build.check(err, "epic_lanes2d_chunk")
-    else:
-        err = _build.load().epic_batched2d_chunk(
-            u.data_ptr(), locked.data_ptr(), *u.shape, it.data_ptr(), num_steps, flag_ptr,
-            delta.data_ptr(), blocks, _stream(dev), dev.index)
-        _build.check(err, "epic_batched2d_chunk")
+    with profiling.span(_TICK_SPANS[route]):
+        if route == "tiled":
+            err = _build.load().epic_lanes2d_chunk(
+                u.data_ptr(), scratch_for(_scratch, u, "twin").data_ptr(), locked.data_ptr(),
+                *u.shape, it.data_ptr(), num_steps, flag_ptr, delta.data_ptr(), _depth(dev),
+                _stream(dev), dev.index)
+            _build.check(err, "epic_lanes2d_chunk")
+        else:
+            err = _build.load().epic_batched2d_chunk(
+                u.data_ptr(), locked.data_ptr(), *u.shape, it.data_ptr(), num_steps, flag_ptr,
+                delta.data_ptr(), blocks, _stream(dev), dev.index)
+            _build.check(err, "epic_batched2d_chunk")
     launches["epic_batched2d_chunk"] += 1
     routes[route] += 1
     return u, delta
@@ -235,7 +242,8 @@ def update_n_batch(u: torch.Tensor, locked: torch.Tensor, iteration, num_steps: 
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     if u.device.type == "cpu":
-        return batched.update_n_batch(u, locked, iteration, num_steps, active)
+        with profiling.span(_TICK_SPANS["core"]):
+            return batched.update_n_batch(u, locked, iteration, num_steps, active)
     _check_cuda_batch(u, locked)
     return _launch_chunk(u, locked, iteration, num_steps, active)
 
@@ -265,7 +273,8 @@ def solve_batch_device(u: torch.Tensor, locked: torch.Tensor, epsilon=C.DEFAULT_
     if stagger < 1:
         raise ValueError(f"stagger must be >= 1, got {stagger}")
     if u.device.type == "cpu":
-        return batched.solve_batch(u, locked, epsilon, stagger, max_iterations)
+        with profiling.span(_SOLVE_SPANS["core"]):
+            return batched.solve_batch(u, locked, epsilon, stagger, max_iterations)
     _check_cuda_batch(u, locked)
     b, h, w = u.shape
     dev = u.device
@@ -275,23 +284,24 @@ def solve_batch_device(u: torch.Tensor, locked: torch.Tensor, epsilon=C.DEFAULT_
     deltas = eps + 1.0
     blocks, route = _blocks(b, h, w, dev)
     cap = min(max_iterations, 2**31 - 1 - stagger)
-    if route == "tiled":
-        # The protocol's scratch: two [B] delta halves and two lane counts.
-        acc = torch.zeros(2 * b, dtype=torch.int32, device=dev)
-        count = torch.zeros(2, dtype=torch.int32, device=dev)
-        err = _build.load().epic_lanes2d_solve(
-            u.data_ptr(), scratch_for(_scratch, u, "twin").data_ptr(),
-            scratch_for(_scratch, u, "u1").data_ptr(), locked.data_ptr(), b, h, w,
-            eps.data_ptr(), max(h, w), cap, stagger, acc.data_ptr(), count.data_ptr(),
-            retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), _depth(dev),
-            _stream(dev), dev.index)
-        _build.check(err, "epic_lanes2d_solve")
-    else:
-        err = _build.load().epic_batched2d_solve(
-            u.data_ptr(), locked.data_ptr(), b, h, w, eps.data_ptr(), max(h, w), cap, stagger,
-            retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), blocks, _stream(dev),
-            dev.index)
-        _build.check(err, "epic_batched2d_solve")
+    with profiling.span(_SOLVE_SPANS[route]):
+        if route == "tiled":
+            # The protocol's scratch: two [B] delta halves and two lane counts.
+            acc = torch.zeros(2 * b, dtype=torch.int32, device=dev)
+            count = torch.zeros(2, dtype=torch.int32, device=dev)
+            err = _build.load().epic_lanes2d_solve(
+                u.data_ptr(), scratch_for(_scratch, u, "twin").data_ptr(),
+                scratch_for(_scratch, u, "u1").data_ptr(), locked.data_ptr(), b, h, w,
+                eps.data_ptr(), max(h, w), cap, stagger, acc.data_ptr(), count.data_ptr(),
+                retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), _depth(dev),
+                _stream(dev), dev.index)
+            _build.check(err, "epic_lanes2d_solve")
+        else:
+            err = _build.load().epic_batched2d_solve(
+                u.data_ptr(), locked.data_ptr(), b, h, w, eps.data_ptr(), max(h, w), cap,
+                stagger, retired.data_ptr(), iters.data_ptr(), deltas.data_ptr(), blocks,
+                _stream(dev), dev.index)
+            _build.check(err, "epic_batched2d_solve")
     launches["epic_batched2d_solve"] += 1
     routes[route] += 1
     return u, iters, deltas, retired.bool()
@@ -318,39 +328,40 @@ def make_goal_batch(base_u, base_locked, goal_xy, obstacle_xy=None, *,
     negative coordinate or one beyond ``H x W`` is dropped. Unlike
     :func:`.batched.batch_from_goal_sets`, a goal on a base obstacle becomes a
     goal. Returns contiguous ``(u float32[B, H, W], locked bool[B, H, W])``."""
-    device = torch.device(device)
-    base_u = torch.as_tensor(base_u, dtype=torch.float32, device=device)
-    base_locked = torch.as_tensor(base_locked, device=device).bool()
-    if base_u.ndim != 2 or base_locked.shape != base_u.shape:
-        raise ValueError(f"need one 2D base map, got u {tuple(base_u.shape)} and "
-                         f"locked {tuple(base_locked.shape)}")
-    h, w = base_u.shape
-    goals = _coords(goal_xy, device)
-    b = goals.shape[0]
-    ring = torch.ones((h, w), dtype=torch.bool, device=device)
-    ring[1:-1, 1:-1] = False
-    n = b * h * w
-    # One spare cell past the batch takes every dropped coordinate (the JAX
-    # builder's out-of-bounds sentinel), so no mask is read on the host.
-    u = torch.empty(n + 1, dtype=torch.float32, device=device)
-    locked = torch.empty(n + 1, dtype=torch.bool, device=device)
-    u[:n].view(b, h, w).copy_(base_u.expand(b, h, w))
-    locked[:n].view(b, h, w).copy_((base_locked | ring).expand(b, h, w))
+    with profiling.span("batch.make_goals"):
+        device = torch.device(device)
+        base_u = torch.as_tensor(base_u, dtype=torch.float32, device=device)
+        base_locked = torch.as_tensor(base_locked, device=device).bool()
+        if base_u.ndim != 2 or base_locked.shape != base_u.shape:
+            raise ValueError(f"need one 2D base map, got u {tuple(base_u.shape)} and "
+                             f"locked {tuple(base_locked.shape)}")
+        h, w = base_u.shape
+        goals = _coords(goal_xy, device)
+        b = goals.shape[0]
+        ring = torch.ones((h, w), dtype=torch.bool, device=device)
+        ring[1:-1, 1:-1] = False
+        n = b * h * w
+        # One spare cell past the batch takes every dropped coordinate (the JAX
+        # builder's out-of-bounds sentinel), so no mask is read on the host.
+        u = torch.empty(n + 1, dtype=torch.float32, device=device)
+        locked = torch.empty(n + 1, dtype=torch.bool, device=device)
+        u[:n].view(b, h, w).copy_(base_u.expand(b, h, w))
+        locked[:n].view(b, h, w).copy_((base_locked | ring).expand(b, h, w))
 
-    def scatter(xy: torch.Tensor, value: float) -> None:
-        if xy.shape[0] != b:
-            raise ValueError(f"{xy.shape[0]} lanes of coordinates for {b} lanes of goals")
-        x, y = xy[..., 0], xy[..., 1]
-        lane = torch.arange(b, device=device).view(b, 1)
-        ok = (x >= 0) & (y >= 0) & (x < w) & (y < h)
-        flat = torch.where(ok, (lane * h + y) * w + x, n).reshape(-1)
-        u.index_fill_(0, flat, value)
-        locked.index_fill_(0, flat, True)
+        def scatter(xy: torch.Tensor, value: float) -> None:
+            if xy.shape[0] != b:
+                raise ValueError(f"{xy.shape[0]} lanes of coordinates for {b} lanes of goals")
+            x, y = xy[..., 0], xy[..., 1]
+            lane = torch.arange(b, device=device).view(b, 1)
+            ok = (x >= 0) & (y >= 0) & (x < w) & (y < h)
+            flat = torch.where(ok, (lane * h + y) * w + x, n).reshape(-1)
+            u.index_fill_(0, flat, value)
+            locked.index_fill_(0, flat, True)
 
-    if obstacle_xy is not None:
-        scatter(_coords(obstacle_xy, device), float(C.LOG_SPACE_OBSTACLE))
-    scatter(goals, float(C.LOG_SPACE_GOAL))
-    return u[:n].view(b, h, w), locked[:n].view(b, h, w)
+        if obstacle_xy is not None:
+            scatter(_coords(obstacle_xy, device), float(C.LOG_SPACE_OBSTACLE))
+        scatter(goals, float(C.LOG_SPACE_GOAL))
+        return u[:n].view(b, h, w), locked[:n].view(b, h, w)
 
 
 def solve_batch_goals(base_u, base_locked, goal_xy, obstacle_xy=None,

@@ -323,6 +323,33 @@ def test_metrics_verb_reports_latency_and_errors(server_client):
     assert m["counters"]["ticks"] >= 1
 
 
+def test_metrics_verb_reports_percentiles(server_client):
+    _, client = server_client
+    for _ in range(5):
+        client.call("get_cell", x=3, y=3)   # timed whether or not it succeeds
+    stat = client.call("metrics")["latencies"]["verb.get_cell"]
+    assert stat["count"] == 5
+    for key in ("p50_s", "p95_s", "p99_s"):
+        assert stat["min_s"] <= stat[key] <= stat["max_s"]
+    assert stat["p50_s"] <= stat["p95_s"] <= stat["p99_s"]
+
+
+def test_latency_percentiles_within_one_bucket_of_numpy():
+    from epic_tpu_torch import metrics
+
+    x = np.random.default_rng(7).lognormal(np.log(0.01), 1.0, 5000)
+    reg = metrics.MetricsRegistry()
+    for v in x:
+        reg.observe("verb", float(v))
+    stat = reg.snapshot()["latencies"]["verb"]
+    width = 10 ** (1 / metrics.BUCKETS_PER_DECADE) - 1   # a bucket's width, relative
+    for q in (50, 95, 99):
+        exact = np.percentile(x, q)
+        assert abs(stat[f"p{q}_s"] - exact) <= width * exact
+    assert stat["count"] == 5000 and stat["max_s"] == x.max() and stat["min_s"] == x.min()
+    assert len(reg.latencies["verb"].buckets) == metrics.N_BUCKETS   # fixed, whatever the count
+
+
 def test_ingest_map_matches_jax_server_startup():
     """ingest_map loads a map as epic_tpu's server main does (occupancy from
     the 0 pixels, goals from the 255 pixels): the same cells."""
