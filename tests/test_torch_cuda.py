@@ -27,6 +27,7 @@ walkers use only IEEE-exact ops (+, -, *, /, sqrt) and gathers.
 import copy
 import ctypes
 import dataclasses
+import math
 import pathlib
 
 import numpy as np
@@ -35,8 +36,9 @@ import torch
 
 from epic_tpu_torch import constants as C
 from epic_tpu_torch import grid as TG
-from epic_tpu_torch import maps, native
+from epic_tpu_torch import maps, native, path
 import epic_tpu_torch.solver as TS
+from epic_tpu_torch.errors import EpicError
 from epic_tpu_torch.planner import Planner, PlannerConfig
 from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.planner_mesh import MeshPlanner, MeshVolumePlanner
@@ -310,8 +312,46 @@ def test_planner_compute_paths_batch_on_the_card(dev):
     theirs = cpu.compute_paths_batch(starts, 0.2, 0.4, 2000)
     assert ours[2] is None and theirs[2] is None
     for a, b in zip(ours[:2], theirs[:2]):
-        assert [dataclasses.astuple(p) for p in a] == [dataclasses.astuple(p) for p in b]
+        assert list(a) == list(b)
         assert abs(a[-1].x - 36) < 2 and abs(a[-1].y - 24) < 2
+
+
+def test_planner_poses_after_k2_equal_the_pose_loop(dev):
+    """On the maze solved by K2, ``Planner.compute_path``'s poses hold the
+    bits of the per-point loop it replaced, run on the walk over the same
+    field: the arrays and the poses they give."""
+    g = np.load(GOLDENS / "maze.npz")
+    img = g["img"]
+    tp = Planner(PlannerConfig(epsilon=1e-3, resolution=0.1, origin_x=-12.3, origin_y=4.5),
+                 device=dev)
+    tp.state = TG.from_occupancy_image(img, 1e-3, device=dev)
+    before = hopper_sweep.launches["epic_sweep2d_solve"]
+    tp.solve()
+    assert hopper_sweep.launches["epic_sweep2d_solve"] == before + 1
+    assert bool(tp.state.converged)
+    u, locked = TG.host_u(tp.state), TG.host_locked(tp.state)
+    h, w = u.shape
+    done = 0
+    for x, y in g["starts"]:
+        start = tp.map_to_world(float(x), float(y))
+        try:
+            pts = path.compute_path(u, locked, *tp.world_to_map(*start), 0.05, 0.5,
+                                    int(w * h / 0.05))
+        except EpicError:
+            with pytest.raises(EpicError):
+                tp.compute_path(start)
+            continue
+        loop = [(*tp.map_to_world(float(pts[0, 0]), float(pts[0, 1])), 0.0)]
+        for i in range(1, len(pts)):
+            px, py = float(pts[i, 0]), float(pts[i, 1])
+            yaw = math.atan2(py - float(pts[i - 1, 1]), px - float(pts[i - 1, 0]))
+            loop.append((*tp.map_to_world(px, py), yaw))
+        ours = tp.compute_path(start)
+        got = np.stack([ours.x, ours.y, ours.yaw], axis=1)
+        assert np.array_equal(got.view(np.uint64), np.array(loop).view(np.uint64))
+        assert list(ours) == loop
+        done += len(pts) > 10_000
+    assert done >= 2
 
 
 def test_3d_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -1821,7 +1861,7 @@ def test_nav_core_on_the_card(dev):
         assert torch.equal(ours.state.u, plain.state.u)
         assert (a is None) == (b is None)
         if a is not None:
-            assert [dataclasses.astuple(p) for p in a] == [dataclasses.astuple(p) for p in b]
+            assert a == b
     assert a is not None
 
 
