@@ -3,9 +3,15 @@
 Everything is found by name. ``BENCHMARK.json`` names the cell's
 configuration and traffic mix; the configuration's file and map lie where
 its ``file`` says; the mix is ``benchmark/traffic/<mix>.json``, whose
-``driver`` names a module of ``benchmark/drivers``; each metric is read by
-``benchmark/metrics/<metric>.py``. A new configuration, mix or metric is a
-new file, and no file here changes for it.
+``driver`` names a module of ``benchmark/drivers`` and whose optional
+``check`` names a module of ``benchmark/checks`` (without it the comparison
+is ``benchmark/check.py``); each metric is read by
+``benchmark/metrics/<metric>.py``. A new configuration, mix, comparison or
+metric is a new file, and no file here changes for it.
+
+A comparison module exposes ``LIMITS`` (each compared number's limit),
+``compare(answers, obstacle, config, traffic, device)`` (the numbers over
+the answers the driver kept) and ``verdict(numbers)``.
 """
 
 from __future__ import annotations
@@ -66,6 +72,18 @@ def driver(name: str):
     return importlib.import_module(f"benchmark.drivers.{name}")
 
 
+def comparison(traffic: dict):
+    """The module that decides ``correct`` for a mix: ``benchmark/checks/
+    <name>.py`` where the mix names a ``check``, else ``benchmark/check.py``.
+    Raises ``KeyError`` for a name with no such module."""
+    name = traffic.get("check")
+    if name is None:
+        return check
+    if not (pathlib.Path(__file__).parent / "checks" / f"{name}.py").is_file():
+        raise KeyError(f"no comparison {name!r} in benchmark/checks")
+    return importlib.import_module(f"benchmark.checks.{name}")
+
+
 @dataclasses.dataclass
 class Run:
     """What a run recorded, as the metric readers see it."""
@@ -101,6 +119,7 @@ class Context:
         self.trace_path = trace_path
         self.answers: dict = {}
         self.longest: tuple[int, object] | None = None
+        self.kept: list = []
         self._reservoir = inputs.Reservoir(run.traffic["check_sample"], seed)
 
     def stream(self, warmup: bool = False) -> inputs.Stream:
@@ -132,11 +151,17 @@ class Context:
         if longest:
             self.longest = (length, a)
 
+    def keep(self, answer) -> None:
+        """Compare ``answer`` whatever the sample draws, as the longest
+        path's is."""
+        self.kept.append(answer)
+
     def clear(self) -> None:
         self.run.items.clear()
         self.run.groups.clear()
         self.answers.clear()
         self.longest = None
+        self.kept.clear()
         self._reservoir = inputs.Reservoir(self.traffic["check_sample"], self.seed)
 
     def window(self, step: Callable[[int], None]) -> None:
@@ -166,11 +191,14 @@ class Context:
             self.run.trace = trace_mod.stop(prof, self.trace_path)
 
 
-def kept_answers(ctx: Context) -> list[check.Answer]:
-    """The sample's answers, and the longest path's if it is not among them."""
+def kept_answers(ctx: Context) -> list:
+    """The sample's answers, then the longest path's and those the driver
+    kept, each once."""
     out = [ctx.answers[k] for k in sorted(ctx.answers)]
-    if ctx.longest is not None and not any(a is ctx.longest[1] for a in out):
-        out.append(ctx.longest[1])
+    extra = ([ctx.longest[1]] if ctx.longest is not None else []) + ctx.kept
+    for a in extra:
+        if not any(a is b for b in out):
+            out.append(a)
     return out
 
 
@@ -187,10 +215,11 @@ def _finite(x: float) -> float:
     return float(x) if np.isfinite(x) else 1e30
 
 
-def run(cell: str, seed: int, seconds: float, traced: bool, *, catalog: Catalog,
-        device, started: float) -> dict:
-    """Run one cell on ``device`` and return the result line's object (the
-    caller adds ``device``). The program's state is freed before the check."""
+def drive(cell: str, seed: int, seconds: float, traced: bool, *, catalog: Catalog,
+          device, started: float) -> tuple[Run, list, int]:
+    """Set up one cell on ``device`` and run its window: returns the run's
+    record, the answers kept for the comparison (their fields on the host)
+    and the device's memory peak. The program's state is freed."""
     import torch
 
     entry = catalog.cell(cell)
@@ -211,19 +240,32 @@ def run(cell: str, seed: int, seconds: float, traced: bool, *, catalog: Catalog,
             a.field = a.field.cpu().numpy()
     ctx.answers.clear()
     ctx.longest = None
+    ctx.kept.clear()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return record, answers, memory_peak
+
+
+def run(cell: str, seed: int, seconds: float, traced: bool, *, catalog: Catalog,
+        device, started: float) -> dict:
+    """Run one cell on ``device`` and return the result line's object (the
+    caller adds ``device``). The program's state is freed before the check."""
+    entry = catalog.cell(cell)
+    config, traffic = catalog.config(entry["config"]), catalog.traffic(entry["traffic"])
+    judge = comparison(traffic)     # an unknown name fails here, before set-up
+    record, answers, memory_peak = drive(cell, seed, seconds, traced, catalog=catalog,
+                                         device=device, started=started)
     metrics = {}
     for m in catalog.metrics(cell, traced):
         value = catalog.reader(m["name"])(record)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    numbers = check.compare(answers, record.map.obstacle, config, traffic, device)
+    numbers = judge.compare(answers, record.map.obstacle, config, traffic, device)
     failed = sum(1 for i in record.items if not i["ok"])
     out = {
         # Every request of the window has to succeed, and every compared
         # answer has to agree with the reference.
-        "correct": check.verdict(numbers) and len(answers) > 0 and failed == 0,
+        "correct": judge.verdict(numbers) and len(answers) > 0 and failed == 0,
         "attempted": len(record.items),
         "failed": failed,
         "metrics": metrics,
@@ -236,6 +278,6 @@ def run(cell: str, seed: int, seconds: float, traced: bool, *, catalog: Catalog,
         out["busy_s"] = record.trace.busy(start, end)
         out["window_s"] = end - start
         out["breakdown"] = trace_mod.breakdown(record.trace)
-    out["compared"] = {k: {"value": _finite(numbers[k]), "limit": check.LIMITS[k]}
-                       for k in check.LIMITS}
+    out["compared"] = {k: {"value": _finite(numbers[k]), "limit": judge.LIMITS[k]}
+                       for k in judge.LIMITS}
     return out
