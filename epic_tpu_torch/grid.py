@@ -277,6 +277,11 @@ _TYPE_TO_LOCKED = {
     C.CELL_TYPE_OBSTACLE: True,
     C.CELL_TYPE_FREE: False,
 }
+# The same two maps as arrays indexed by the type constant (0, 1, 2), for an
+# edit of millions of voxels at once (:func:`sanitize_cell_edits_3d`).
+_U_OF_TYPE = np.array([_TYPE_TO_U[t] for t in range(len(_TYPE_TO_U))], dtype=np.float32)
+_LOCKED_OF_TYPE = np.array([_TYPE_TO_LOCKED[t] for t in range(len(_TYPE_TO_LOCKED))],
+                           dtype=bool)
 
 
 def sanitize_cell_edits(xy, types, width: int, height: int):
@@ -357,9 +362,7 @@ def sanitize_cell_edits_3d(xyz, types, width: int, height: int, depth: int):
         keep = np.sort(len(flat) - 1 - last_idx)
         xyz = xyz[keep]
         types = types[keep]
-    u_vals = np.array([_TYPE_TO_U[t] for t in types], dtype=np.float32)
-    l_vals = np.array([_TYPE_TO_LOCKED[t] for t in types], dtype=bool)
-    return xyz, u_vals, l_vals
+    return xyz, _U_OF_TYPE[types], _LOCKED_OF_TYPE[types]
 
 
 def _scatter(state: GridState, index: tuple, u_vals, l_vals) -> GridState:

@@ -4,7 +4,9 @@ The counterpart of ``epic_tpu.native``: a host-side streamline walker, a
 scalar red-black sweep (an independent oracle), the whole log-space solve
 protocol on the host (the cascade's coarse levels), and the legacy non-log
 SOR in float, double and long double. ``epic_native.cc`` here is the port's
-own copy of the JAX package's source.
+own copy of the JAX package's source, with one entry of the port's own at
+its end: the 3D walker of :mod:`epic_tpu_torch.path3d`
+(:func:`compute_path_3d`).
 
 The library is compiled at first use with g++ and the reference Makefile's
 flags (``-O3 -std=c++17 -fPIC -Wall -Wextra -fopenmp -shared``, no fast
@@ -130,7 +132,12 @@ def _bind(lib: ct.CDLL) -> ct.CDLL:
                             ("epic_sor2d_f80", f80p, ct.c_longdouble)):
         getattr(lib, name).argtypes = [ptr, u8p, ct.c_int, ct.c_int, real, real,
                                        ct.c_uint, ct.POINTER(ct.c_uint)]
-    for name in ("epic_path2d_f32", "epic_sweep2d_f32", "epic_solve2d_f32",
+    lib.epic_path3d_f32.argtypes = [
+        f32p, u8p, ct.c_int, ct.c_int, ct.c_int,
+        ct.c_float, ct.c_float, ct.c_float, ct.c_double, ct.c_double,
+        ct.c_int64, f32p, ct.c_int64, ct.POINTER(ct.c_int64),
+    ]
+    for name in ("epic_path2d_f32", "epic_path3d_f32", "epic_sweep2d_f32", "epic_solve2d_f32",
                  "epic_sor2d_f32", "epic_sor2d_f64", "epic_sor2d_f80"):
         getattr(lib, name).restype = ct.c_int
     return lib
@@ -160,6 +167,31 @@ def available() -> bool:
     return _load() is not None
 
 
+def _points(walk, dims: int, count, max_length: int, first_cap: int | None,
+            where: str) -> np.ndarray:
+    """The points of a native walk, ``float32 [k, dims]``. ``walk(out, cap,
+    n)`` runs the entry into ``out``, which holds ``cap`` points, and sets
+    ``n`` (a ``count``). A 4M-point buffer first; a longer walk makes the
+    library report the true count (code 100) and the walk is rerun into an
+    exact-size buffer. The step budget is always max_length, never the
+    buffer's capacity. ``first_cap`` overrides the first capacity (the tests
+    exercise the retry). A walker's error code raises its error."""
+    cap = min(max_length, 4_000_000) if first_cap is None else first_cap
+    while True:
+        out = np.empty((cap, dims), dtype=np.float32)
+        n = count(0)
+        code = walk(out.reshape(-1), cap, ct.byref(n))
+        if code != 100:
+            break
+        cap = int(n.value)
+    if code != 0:
+        exc = _PATH_ERRORS.get(code)
+        if exc is not None:
+            raise exc(f"native path extraction failed at {where}")
+        raise EpicError(code, "native path extraction failed")
+    return out[: n.value].copy()
+
+
 def compute_path(
     u: np.ndarray,
     locked: np.ndarray,
@@ -177,29 +209,45 @@ def compute_path(
     u = np.ascontiguousarray(u, dtype=np.float32)
     locked_u8 = np.ascontiguousarray(locked, dtype=np.uint8)
     h, w = u.shape
-    # A 4M-point buffer first; a longer walk makes the library report the
-    # true count (code 100) and the walk is rerun into an exact-size buffer.
-    # The step budget is always max_length, never the buffer's capacity.
-    # _cap overrides the first capacity (the tests exercise the retry).
-    cap = min(max_length, 4_000_000) if _cap is None else _cap
-    while True:
-        out = np.empty((cap, 2), dtype=np.float32)
-        n = ct.c_int(0)
-        code = lib.epic_path2d_f32(
-            u, locked_u8, h, w,
-            float(x), float(y), float(step_size), float(cd_precision),
-            int(max_length), {"reference": 0, "bilinear": 1}[mode],
-            out.reshape(-1), cap, ct.byref(n),
-        )
-        if code != 100:
-            break
-        cap = int(n.value)
-    if code != 0:
-        exc = _PATH_ERRORS.get(code)
-        if exc is not None:
-            raise exc(f"native path extraction failed at ({x}, {y})")
-        raise EpicError(code, "native path extraction failed")
-    return out[: n.value].copy()
+    interp = {"reference": 0, "bilinear": 1}[mode]
+    return _points(
+        lambda out, cap, n: lib.epic_path2d_f32(
+            u, locked_u8, h, w, float(x), float(y), float(step_size), float(cd_precision),
+            int(max_length), interp, out, cap, n),
+        2, ct.c_int, max_length, _cap, f"({x}, {y})")
+
+
+def compute_path_3d(
+    u: np.ndarray,
+    locked: np.ndarray,
+    x: float,
+    y: float,
+    z: float,
+    step_size: float = 0.2,
+    cd_precision: float = 0.4,
+    max_length: int = 1_000_000,
+    _cap: int | None = None,
+) -> np.ndarray:
+    """Native 3D streamline extraction over ``u[z, y, x]``; the contract of
+    :func:`epic_tpu_torch.path3d.compute_path` (the same points). A boolean
+    ``locked`` is read in place, not copied."""
+    lib = _require()
+    u = np.ascontiguousarray(u, dtype=np.float32)
+    if u.ndim != 3:
+        raise ValueError(f"expected a 3D volume, got {u.ndim}D")
+    locked = np.asarray(locked)
+    if locked.shape != u.shape:
+        raise ValueError(f"locked shape {locked.shape} != u shape {u.shape}")
+    if locked.dtype == np.bool_ and locked.flags.c_contiguous:
+        locked_u8 = locked.view(np.uint8)
+    else:
+        locked_u8 = np.ascontiguousarray(locked.astype(bool), dtype=np.uint8)
+    d, h, w = u.shape
+    return _points(
+        lambda out, cap, n: lib.epic_path3d_f32(
+            u, locked_u8, d, h, w, float(x), float(y), float(z), float(step_size),
+            float(cd_precision), int(max_length), out, cap, n),
+        3, ct.c_int64, max_length, _cap, f"({x}, {y}, {z})")
 
 
 def sweep_2d(u: np.ndarray, locked: np.ndarray, iteration: int):

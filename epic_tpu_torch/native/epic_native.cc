@@ -1,6 +1,7 @@
 // epic_native — C++ helpers for epic_tpu_torch: the port's own copy of
 // epic_tpu/native/epic_native.cc. Below this header the code is the same
-// bytes; only this header comment is rewritten.
+// bytes up to the 3D streamline walker at the end, which is the port's own;
+// only this header comment is rewritten.
 //
 // The relaxation sweeps run as CUDA kernels (csrc/); this library
 // provides the host-side native pieces the reference implements in C++:
@@ -16,6 +17,8 @@
 //     baseline for the paper's comparison harness.
 //   * a scalar float32 red-black log-space sweep, used as an independent
 //     oracle for the solvers.
+//   * (the port's own, at the end) the 3D walker of
+//     epic_tpu_torch.path3d: trilinear potential, six central differences.
 //
 // Everything is a flat C ABI over caller-owned buffers (no structs, no
 // allocation except the caller-provided path buffer), loaded via ctypes.
@@ -313,6 +316,160 @@ int epic_sor2d_f80(long double* u, const uint8_t* locked, int h, int w,
                    long double eps, long double omega, unsigned int min_iters,
                    unsigned int* iters) {
   return sor_relax<long double>(u, locked, h, w, eps, omega, min_iters, iters);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The port's own addition: the 3D streamline walker. Everything above is the
+// JAX package's source byte for byte; everything below is this port's.
+//
+// The rule of epic_tpu_torch.path3d.compute_path, point for point: trilinear
+// potential over the 8 surrounding cell centres (corners floor(v) and
+// floor(v) + 1, clamped to the volume, never extrapolating), unit-normalised
+// central differences at cd_precision (sample points rounded once from the
+// double difference, the norm in double and rounded once), float32 steps,
+// the stuck test against the last 5 points in double, off-volume and
+// <=2-point errors. u and locked are [d, h, w], row major.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+inline int64_t voxel(int h, int w, int z, int y, int x) {
+  return (static_cast<int64_t>(z) * h + y) * w + x;
+}
+
+inline bool location_ok_3d(const float* u, const uint8_t* locked, int d, int h,
+                           int w, float x, float y, float z) {
+  const int xc = cell_index(x);
+  const int yc = cell_index(y);
+  const int zc = cell_index(z);
+  if (xc < 0 || yc < 0 || zc < 0 || xc >= w || yc >= h || zc >= d) return false;
+  const int64_t idx = voxel(h, w, zc, yc, xc);
+  return !(locked[idx] && u[idx] < 0.0f);
+}
+
+// Trilinear potential: bilinear on the z0 plane, then on z0 + 1, then a
+// lerp along z. Returns false if the location is invalid.
+inline bool potential_3d(const float* u, const uint8_t* locked, int d, int h,
+                         int w, float x, float y, float z, float* out) {
+  if (!location_ok_3d(u, locked, d, h, w, x, y, z)) return false;
+  int x0 = static_cast<int>(x);
+  int y0 = static_cast<int>(y);
+  int z0 = static_cast<int>(z);
+  if (x0 > w - 2) x0 = w - 2;
+  if (y0 > h - 2) y0 = h - 2;
+  if (z0 > d - 2) z0 = d - 2;
+  const float a = x - static_cast<float>(x0);
+  const float b = y - static_cast<float>(y0);
+  const float c = z - static_cast<float>(z0);
+  const float* p0 = u + voxel(h, w, z0, y0, x0);
+  const float* p1 = u + voxel(h, w, z0 + 1, y0, x0);
+  const float p00 = (1.0f - a) * p0[0] + a * p0[1];
+  const float p01 = (1.0f - a) * p0[w] + a * p0[w + 1];
+  const float pz0 = (1.0f - b) * p00 + b * p01;
+  const float p10 = (1.0f - a) * p1[0] + a * p1[1];
+  const float p11 = (1.0f - a) * p1[w] + a * p1[w + 1];
+  const float pz1 = (1.0f - b) * p10 + b * p11;
+  *out = (1.0f - c) * pz0 + c * pz1;
+  return true;
+}
+
+// The sample point v - cd or v + cd: the double difference rounded once to
+// float32, as the NumPy walker computes it from Python floats.
+inline float offset(float v, double cd) {
+  return static_cast<float>(static_cast<double>(v) + cd);
+}
+
+inline bool gradient_3d(const float* u, const uint8_t* locked, int d, int h,
+                        int w, float x, float y, float z, double cd, float* gx,
+                        float* gy, float* gz) {
+  float v[6];
+  if (!potential_3d(u, locked, d, h, w, offset(x, -cd), y, z, &v[0]) ||
+      !potential_3d(u, locked, d, h, w, offset(x, cd), y, z, &v[1]) ||
+      !potential_3d(u, locked, d, h, w, x, offset(y, -cd), z, &v[2]) ||
+      !potential_3d(u, locked, d, h, w, x, offset(y, cd), z, &v[3]) ||
+      !potential_3d(u, locked, d, h, w, x, y, offset(z, -cd), &v[4]) ||
+      !potential_3d(u, locked, d, h, w, x, y, offset(z, cd), &v[5])) {
+    return false;
+  }
+  const float cd2 = 2.0f * static_cast<float>(cd);
+  const float px = (v[1] - v[0]) / cd2;
+  const float py = (v[3] - v[2]) / cd2;
+  const float pz = (v[5] - v[4]) / cd2;
+  const float norm = static_cast<float>(
+      std::sqrt(static_cast<double>(px) * px + static_cast<double>(py) * py +
+                static_cast<double>(pz) * pz));
+  if (norm == 0.0f || !std::isfinite(norm)) return false;
+  *gx = px / norm;
+  *gy = py / norm;
+  *gz = pz / norm;
+  return true;
+}
+
+inline bool is_stuck_3d(const std::vector<float>& xyz, double step) {
+  const int64_t n = static_cast<int64_t>(xyz.size()) / 3;
+  if (n < 2) return false;
+  const double x = xyz[3 * (n - 1)];
+  const double y = xyz[3 * (n - 1) + 1];
+  const double z = xyz[3 * (n - 1) + 2];
+  const int64_t lo = n - 1 - kStuckHistory < 0 ? 0 : n - 1 - kStuckHistory;
+  for (int64_t i = n - 2; i >= lo; --i) {
+    const double dx = x - xyz[3 * i];
+    const double dy = y - xyz[3 * i + 1];
+    const double dz = z - xyz[3 * i + 2];
+    if (std::sqrt(dx * dx + dy * dy + dz * dz) < step / 2.0) return true;
+  }
+  return false;
+}
+
+}  // namespace
+
+extern "C" {
+
+// 3D streamline extraction from (x, y, z). out_xyz must hold 3*capacity
+// floats. Returns a result code; on success *n_out is the number of points
+// written; a walk longer than capacity returns kErrTruncated with its true
+// count in *n_out.
+int epic_path3d_f32(const float* u, const uint8_t* locked, int d, int h, int w,
+                    float x, float y, float z, double step, double cd,
+                    int64_t max_points, float* out_xyz, int64_t capacity,
+                    int64_t* n_out) {
+  if (u == nullptr || locked == nullptr || out_xyz == nullptr ||
+      n_out == nullptr || d < 2 || h < 2 || w < 2) {
+    return kErrInvalidData;
+  }
+  if (!location_ok_3d(u, locked, d, h, w, x, y, z)) return kErrInvalidLocation;
+  const float stepf = static_cast<float>(step);
+  std::vector<float> xyz{x, y, z};
+  int xc = cell_index(x);
+  int yc = cell_index(y);
+  int zc = cell_index(z);
+  while (!locked[voxel(h, w, zc, yc, xc)] && !is_stuck_3d(xyz, step) &&
+         static_cast<int64_t>(xyz.size()) / 3 < max_points) {
+    float gx, gy, gz;
+    if (!gradient_3d(u, locked, d, h, w, x, y, z, cd, &gx, &gy, &gz)) {
+      return kErrInvalidGradient;
+    }
+    x += gx * stepf;
+    y += gy * stepf;
+    z += gz * stepf;
+    xyz.push_back(x);
+    xyz.push_back(y);
+    xyz.push_back(z);
+    xc = cell_index(x);
+    yc = cell_index(y);
+    zc = cell_index(z);
+    if (xc < 0 || yc < 0 || zc < 0 || xc >= w || yc >= h || zc >= d) {
+      return kErrInvalidGradient;
+    }
+  }
+  const int64_t full = static_cast<int64_t>(xyz.size()) / 3;
+  if (full <= 2) return kErrInvalidPath;
+  const int64_t n = full > capacity ? capacity : full;
+  for (int64_t i = 0; i < 3 * n; ++i) out_xyz[i] = xyz[i];
+  *n_out = full;
+  return full > capacity ? kErrTruncated : kOk;
 }
 
 }  // extern "C"

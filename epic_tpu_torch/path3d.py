@@ -25,6 +25,11 @@ over:
 
 Coordinates are ``(x, y, z)`` continuous cell units over ``u[z, y, x]``
 (row-major ``[depth, height, width]``, matching GridState's 3D layout).
+
+Its native C++ twin with the same points is
+:func:`epic_tpu_torch.native.compute_path_3d` (``impl="auto"`` takes it
+when it is built); this module is the always-available walker and the
+oracle for it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import constants as C
+from . import profiling
 from .errors import (
     InvalidGradientError,
     InvalidLocationError,
@@ -141,50 +147,67 @@ def compute_path(
     step_size: float = C.DEFAULT_STEP_SIZE,
     cd_precision: float = C.DEFAULT_CD_PRECISION,
     max_length: int = C.DEFAULT_MAX_LENGTH,
+    impl: str = "auto",
 ) -> np.ndarray:
     """Gradient-ascent streamline from (x, y, z) through a 3D volume.
 
     Returns float32 [k, 3] of (x, y, z) points.
+
+    impl: "auto" walks with the native C++ walker when it is built (the
+    same points; ``tests/test_torch_path3d_native.py``), else in NumPy;
+    "numpy" and "native" force one ("native" raises if the library is not
+    built).
 
     Raises:
       InvalidLocationError: start outside the volume or inside an obstacle.
       InvalidGradientError: gradient sampling failed mid-walk.
       InvalidPathError: <= 2 points produced (field not relaxed enough).
     """
-    u = np.asarray(u, dtype=np.float32)
-    locked = np.asarray(locked).astype(bool)
-    if u.ndim != 3:
-        raise ValueError(f"expected a 3D volume, got {u.ndim}D")
-    xc, yc, zc = _check_location(u, locked, x, y, z)
+    with profiling.span("path3d.walk"):
+        if impl not in ("auto", "numpy", "native"):
+            raise ValueError(f"impl must be 'auto', 'numpy' or 'native', got {impl!r}")
+        if np.ndim(u) != 3:
+            raise ValueError(f"expected a 3D volume, got {np.ndim(u)}D")
+        if impl != "numpy":
+            from . import native
 
-    points: list[tuple[float, float, float]] = [
-        (float(np.float32(x)), float(np.float32(y)), float(np.float32(z)))
-    ]
-    x = np.float32(x)
-    y = np.float32(y)
-    z = np.float32(z)
-    d, h, w = u.shape
-    while (
-        not locked[zc, yc, xc]
-        and not _is_stuck(points, step_size)
-        and len(points) < max_length
-    ):
-        px, py, pz = compute_gradient(
-            u, locked, float(x), float(y), float(z), cd_precision
-        )
-        x = np.float32(x + np.float32(px) * np.float32(step_size))
-        y = np.float32(y + np.float32(py) * np.float32(step_size))
-        z = np.float32(z + np.float32(pz) * np.float32(step_size))
-        points.append((float(x), float(y), float(z)))
-        xc, yc, zc = _cell_index(x), _cell_index(y), _cell_index(z)
-        if xc < 0 or yc < 0 or zc < 0 or xc >= w or yc >= h or zc >= d:
-            raise InvalidGradientError(f"walked off the volume at ({x}, {y}, {z})")
+            if native.available():
+                return native.compute_path_3d(u, locked, x, y, z, step_size, cd_precision,
+                                              max_length)
+            if impl == "native":
+                raise RuntimeError(f"native library unavailable: {native.build_info.get('error')}")
+        u = np.asarray(u, dtype=np.float32)
+        locked = np.asarray(locked).astype(bool)
+        xc, yc, zc = _check_location(u, locked, x, y, z)
 
-    if len(points) <= 2:
-        raise InvalidPathError(
-            "path has <= 2 points; the field is not relaxed enough yet"
-        )
-    return np.asarray(points, dtype=np.float32)
+        points: list[tuple[float, float, float]] = [
+            (float(np.float32(x)), float(np.float32(y)), float(np.float32(z)))
+        ]
+        x = np.float32(x)
+        y = np.float32(y)
+        z = np.float32(z)
+        d, h, w = u.shape
+        while (
+            not locked[zc, yc, xc]
+            and not _is_stuck(points, step_size)
+            and len(points) < max_length
+        ):
+            px, py, pz = compute_gradient(
+                u, locked, float(x), float(y), float(z), cd_precision
+            )
+            x = np.float32(x + np.float32(px) * np.float32(step_size))
+            y = np.float32(y + np.float32(py) * np.float32(step_size))
+            z = np.float32(z + np.float32(pz) * np.float32(step_size))
+            points.append((float(x), float(y), float(z)))
+            xc, yc, zc = _cell_index(x), _cell_index(y), _cell_index(z)
+            if xc < 0 or yc < 0 or zc < 0 or xc >= w or yc >= h or zc >= d:
+                raise InvalidGradientError(f"walked off the volume at ({x}, {y}, {z})")
+
+        if len(points) <= 2:
+            raise InvalidPathError(
+                "path has <= 2 points; the field is not relaxed enough yet"
+            )
+        return np.asarray(points, dtype=np.float32)
 
 
 def path_reaches_goal(u: np.ndarray, locked: np.ndarray, path: np.ndarray) -> bool:

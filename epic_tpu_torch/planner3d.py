@@ -9,8 +9,11 @@ measured crossover beyond the L2 the tile kernels of ``csrc/tile3d.cu``;
 the plain torch version on the CPU. Either relaxes ``u`` in place, so there
 is no padded-buffer cache.
 Paths come from the trilinear walker (:mod:`epic_tpu_torch.path3d`, on the
-host) or, many at once, from :mod:`epic_tpu_torch.solver.batched_path3d` on
-the planner's device.
+host: the native C++ walker when it is built, else NumPy) or, many at once,
+from :mod:`epic_tpu_torch.solver.batched_path3d` on the planner's device.
+Their world poses come back as :class:`PathPoses3D`, five arrays, with no
+Python object per pose. The verbs are spans ``planner3d.<verb>``
+(:func:`epic_tpu_torch.profiling.span`).
 
 The reference's service layer is 2D-only; the core semantic carried over
 from the 2D planner is unchanged: the planner never stops relaxing, verbs
@@ -19,7 +22,9 @@ perturb ``u``/``locked`` and relaxation resumes warm from the current state.
 
 from __future__ import annotations
 
+import collections.abc
 import dataclasses
+import itertools
 import logging
 import math
 
@@ -31,10 +36,16 @@ from . import grid as G
 from .config import check_backend
 from .errors import EpicError, InvalidLocationError
 from .path3d import compute_path
-from . import solver
+from . import profiling, solver
 from .solver import batched_path3d
 
 logger = logging.getLogger("epic_tpu_torch.planner3d")
+
+# ``built`` counts the world poses ``VolumePlanner._poses`` computes, one a
+# walker point; ``boxed`` the ``PathPose3D`` objects a ``PathPoses3D`` makes
+# for its callers (an index one, an iteration all of its poses, counted as it
+# starts). Nothing else changes them.
+poses = {"built": 0, "boxed": 0}
 
 
 @dataclasses.dataclass
@@ -68,6 +79,60 @@ class PathPose3D:
     z: float
     yaw: float
     pitch: float
+
+
+class PathPoses3D(collections.abc.Sequence):
+    """A 3D path's world poses, held as five read-only float64 arrays ``x``,
+    ``y``, ``z``, ``yaw`` and ``pitch``.
+
+    A sequence of :class:`PathPose3D`: an index gives a pose (negative ones
+    too), a slice another ``PathPoses3D``, and iteration makes each pose as
+    it is reached. ``list(poses)`` gives the poses as a list."""
+
+    __slots__ = ("_x", "_y", "_z", "_yaw", "_pitch")
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, z: np.ndarray, yaw: np.ndarray,
+                 pitch: np.ndarray):
+        for a in (x, y, z, yaw, pitch):
+            a.flags.writeable = False
+        self._x, self._y, self._z, self._yaw, self._pitch = x, y, z, yaw, pitch
+
+    @property
+    def x(self) -> np.ndarray:
+        return self._x
+
+    @property
+    def y(self) -> np.ndarray:
+        return self._y
+
+    @property
+    def z(self) -> np.ndarray:
+        return self._z
+
+    @property
+    def yaw(self) -> np.ndarray:
+        return self._yaw
+
+    @property
+    def pitch(self) -> np.ndarray:
+        return self._pitch
+
+    def _arrays(self) -> tuple:
+        return self._x, self._y, self._z, self._yaw, self._pitch
+
+    def __len__(self) -> int:
+        return len(self._x)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return PathPoses3D(*(a[i] for a in self._arrays()))
+        pose = PathPose3D(*(float(a[i]) for a in self._arrays()))
+        poses["boxed"] += 1
+        return pose
+
+    def __iter__(self):
+        poses["boxed"] += len(self._x)
+        return map(PathPose3D, *(a.tolist() for a in self._arrays()))
 
 
 class VolumePlanner:
@@ -152,19 +217,21 @@ class VolumePlanner:
 
     def update(self, num_steps: int | None = None) -> None:
         """Run a chunk of relaxation sweeps (no-op when paused / uninit)."""
-        if self.state is None or self.paused:
-            return
-        n = num_steps if num_steps is not None else self.config.steps_per_update
-        if n < 1:
-            return
-        self.state = solver.update_volume(self.state, n)
+        with profiling.span("planner3d.update"):
+            if self.state is None or self.paused:
+                return
+            n = num_steps if num_steps is not None else self.config.steps_per_update
+            if n < 1:
+                return
+            self.state = solver.update_volume(self.state, n)
 
     def solve(self, max_iterations: int | None = None) -> None:
         """Blocking solve-to-convergence (harmonic_complete semantics).
         ``max_iterations`` caps the solve; a capped solve leaves
         ``state.converged`` False and can be resumed by calling again."""
-        cap = 1_000_000 if max_iterations is None else int(max_iterations)
-        self.state = solver.solve_volume(self._require_state(), self.config.stagger, cap)
+        with profiling.span("planner3d.solve"):
+            cap = 1_000_000 if max_iterations is None else int(max_iterations)
+            self.state = solver.solve_volume(self._require_state(), self.config.stagger, cap)
 
     # -- service verbs -----------------------------------------------------
 
@@ -174,48 +241,51 @@ class VolumePlanner:
 
     def set_cells(self, xyz, types) -> bool:
         """SetCells on voxel coordinates, no world transform."""
-        self.state = G.set_cells_3d(self._require_state(), xyz, types)
-        return True
+        with profiling.span("planner3d.set_cells"):
+            self.state = G.set_cells_3d(self._require_state(), xyz, types)
+            return True
 
     def add_goals(self, world_points) -> bool:
         """ModifyGoals(add): world (x, y, z) -> voxels; goals refused inside
         obstacles; False when no goal could be added."""
-        st = self._require_state()
-        u_np = G.host_u(st)
-        locked_np = G.host_locked(st)
-        d, h, w = u_np.shape
-        xyz = []
-        for wx, wy, wz in world_points:
-            try:
-                mx, my, mz = self.world_to_map(wx, wy, wz)
-            except InvalidLocationError:
-                continue
-            cx, cy, cz = int(mx + 0.5), int(my + 0.5), int(mz + 0.5)
-            is_obstacle = not (0 <= cx < w and 0 <= cy < h and 0 <= cz < d) or (
-                bool(locked_np[cz, cy, cx])
-                and float(u_np[cz, cy, cx]) == float(C.LOG_SPACE_OBSTACLE)
-            )
-            if is_obstacle:
-                continue
-            xyz.append((int(mx), int(my), int(mz)))
-        if not xyz:
-            return False
-        self.state = G.set_cells_3d(st, xyz, [C.CELL_TYPE_GOAL] * len(xyz))
-        return True
+        with profiling.span("planner3d.add_goals"):
+            st = self._require_state()
+            u_np = G.host_u(st)
+            locked_np = G.host_locked(st)
+            d, h, w = u_np.shape
+            xyz = []
+            for wx, wy, wz in world_points:
+                try:
+                    mx, my, mz = self.world_to_map(wx, wy, wz)
+                except InvalidLocationError:
+                    continue
+                cx, cy, cz = int(mx + 0.5), int(my + 0.5), int(mz + 0.5)
+                is_obstacle = not (0 <= cx < w and 0 <= cy < h and 0 <= cz < d) or (
+                    bool(locked_np[cz, cy, cx])
+                    and float(u_np[cz, cy, cx]) == float(C.LOG_SPACE_OBSTACLE)
+                )
+                if is_obstacle:
+                    continue
+                xyz.append((int(mx), int(my), int(mz)))
+            if not xyz:
+                return False
+            self.state = G.set_cells_3d(st, xyz, [C.CELL_TYPE_GOAL] * len(xyz))
+            return True
 
     def remove_goals(self, world_points) -> bool:
         """ModifyGoals(remove): removed goals become FREE voxels."""
-        st = self._require_state()
-        xyz = []
-        for wx, wy, wz in world_points:
-            try:
-                mx, my, mz = self.world_to_map(wx, wy, wz)
-            except InvalidLocationError:
-                continue
-            xyz.append((int(mx), int(my), int(mz)))
-        if xyz:
-            self.state = G.set_cells_3d(st, xyz, [C.CELL_TYPE_FREE] * len(xyz))
-        return True
+        with profiling.span("planner3d.remove_goals"):
+            st = self._require_state()
+            xyz = []
+            for wx, wy, wz in world_points:
+                try:
+                    mx, my, mz = self.world_to_map(wx, wy, wz)
+                except InvalidLocationError:
+                    continue
+                xyz.append((int(mx), int(my), int(mz)))
+            if xyz:
+                self.state = G.set_cells_3d(st, xyz, [C.CELL_TYPE_FREE] * len(xyz))
+            return True
 
     def get_cell(self, x: int, y: int, z: int) -> float:
         """GetCell: the voxel's log hitting probability, a 4-byte read."""
@@ -226,8 +296,9 @@ class VolumePlanner:
         return float(st.u[z, y, x])
 
     def reset_free_cells(self) -> bool:
-        self.state = G.reset_free_cells(self._require_state())
-        return True
+        with profiling.span("planner3d.reset_free_cells"):
+            self.state = G.reset_free_cells(self._require_state())
+            return True
 
     def update_occupancy(
         self,
@@ -240,50 +311,58 @@ class VolumePlanner:
         OBSTACLE, else FREE; NO_CHANGE (-2) and existing-goal voxels
         untouched; size change triggers full reinit (goals lost); the
         boundary shell stays obstacle."""
-        data = np.asarray(data)
-        d, h, w = data.shape
-        if self.state is None or tuple(self.state.u.shape) != (d, h, w):
-            if self.state is not None:
-                logger.warning(
-                    "occupancy resize %s -> (%d, %d, %d): full reinit, goals"
-                    " lost (reference behaviour)", tuple(self.state.u.shape), d, h, w)
-            self.uninit()
-            self.init(w, h, d)
-        if resolution is not None:
-            self.config.resolution = float(resolution)
-        if origin is not None:
-            (self.config.origin_x, self.config.origin_y,
-             self.config.origin_z) = map(float, origin)
+        with profiling.span("planner3d.update_occupancy"):
+            data = np.asarray(data)
+            d, h, w = data.shape
+            if self.state is None or tuple(self.state.u.shape) != (d, h, w):
+                if self.state is not None:
+                    logger.warning(
+                        "occupancy resize %s -> (%d, %d, %d): full reinit, goals"
+                        " lost (reference behaviour)", tuple(self.state.u.shape), d, h, w)
+                self.uninit()
+                self.init(w, h, d)
+            if resolution is not None:
+                self.config.resolution = float(resolution)
+            if origin is not None:
+                (self.config.origin_x, self.config.origin_y,
+                 self.config.origin_z) = map(float, origin)
 
-        st = self._require_state()
-        u_np = G.host_u(st)
-        locked_np = G.host_locked(st)
-        goal_mask = locked_np & (u_np == float(C.LOG_SPACE_GOAL))
+            st = self._require_state()
+            u_np = G.host_u(st)
+            locked_np = G.host_locked(st)
+            goal_mask = locked_np & (u_np == float(C.LOG_SPACE_GOAL))
 
-        interior = np.zeros((d, h, w), dtype=bool)
-        interior[1:-1, 1:-1, 1:-1] = True
-        changeable = interior & (data != C.OCCUPANCY_NO_CHANGE) & ~goal_mask
-        obstacle = changeable & (data >= C.OCCUPANCY_OBSTACLE_THRESHOLD)
-        free = changeable & ~obstacle
-        zs, ys, xs = np.nonzero(obstacle | free)
-        if len(zs) == 0:
-            return
-        types = np.where(obstacle[zs, ys, xs], C.CELL_TYPE_OBSTACLE, C.CELL_TYPE_FREE)
-        self.state = G.set_cells_3d(st, np.stack([xs, ys, zs], axis=1), types)
+            interior = np.zeros((d, h, w), dtype=bool)
+            interior[1:-1, 1:-1, 1:-1] = True
+            changeable = interior & (data != C.OCCUPANCY_NO_CHANGE) & ~goal_mask
+            obstacle = changeable & (data >= C.OCCUPANCY_OBSTACLE_THRESHOLD)
+            free = changeable & ~obstacle
+            zs, ys, xs = np.nonzero(obstacle | free)
+            if len(zs) == 0:
+                return
+            types = np.where(obstacle[zs, ys, xs], C.CELL_TYPE_OBSTACLE, C.CELL_TYPE_FREE)
+            self.state = G.set_cells_3d(st, np.stack([xs, ys, zs], axis=1), types)
 
-    def _poses(self, pts: np.ndarray) -> list[PathPose3D]:
+    def _poses(self, pts: np.ndarray) -> PathPoses3D:
         """Map-frame points -> world poses with per-segment yaw (about z)
-        and pitch (elevation)."""
-        poses = [PathPose3D(*self.map_to_world(*map(float, pts[0])), 0.0, 0.0)]
-        for i in range(1, len(pts)):
-            x, y, z = map(float, pts[i])
-            dx = x - float(pts[i - 1, 0])
-            dy = y - float(pts[i - 1, 1])
-            dz = z - float(pts[i - 1, 2])
-            yaw = math.atan2(dy, dx)
-            pitch = math.atan2(dz, math.hypot(dx, dy))
-            poses.append(PathPose3D(*self.map_to_world(x, y, z), yaw, pitch))
-        return poses
+        and pitch (elevation), in one pass over the points:
+        ``map_to_world``'s float64 operations on whole arrays, and the yaw
+        and pitch, 0 at the start, from ``math.atan2`` and ``math.hypot`` of
+        each step's float64 differences (NumPy's ``arctan2`` and ``hypot``
+        round some differently)."""
+        with profiling.span("planner3d.poses"):
+            cfg = self.config
+            p = np.asarray(pts, dtype=np.float64).reshape(-1, 3)
+            dx, dy, dz = (p[1:] - p[:-1]).T.tolist()
+            yaw = np.fromiter(itertools.chain((0.0,), map(math.atan2, dy, dx)),
+                              np.float64, len(p))
+            pitch = np.fromiter(
+                itertools.chain((0.0,), map(math.atan2, dz, map(math.hypot, dx, dy))),
+                np.float64, len(p))
+            poses["built"] += len(p)
+            return PathPoses3D(cfg.origin_x + p[:, 0] * cfg.resolution,
+                               cfg.origin_y + p[:, 1] * cfg.resolution,
+                               cfg.origin_z + p[:, 2] * cfg.resolution, yaw, pitch)
 
     def compute_path(
         self,
@@ -291,18 +370,19 @@ class VolumePlanner:
         step_size: float = 0.05,
         cd_precision: float = 0.5,
         max_length: int | None = None,
-    ) -> list[PathPose3D]:
+    ) -> PathPoses3D:
         """ComputePath: trilinear streamline from the current field (fetched
-        to the host), as world poses."""
-        st = self._require_state()
-        d, h, w = st.u.shape
-        if max_length is None:
-            max_length = int(w * h * d / step_size)
-        mx, my, mz = self.world_to_map(*start_world)
-        pts = compute_path(G.host_u(st), G.host_locked(st), mx, my, mz,
-                           step_size=step_size, cd_precision=cd_precision,
-                           max_length=max_length)
-        return self._poses(pts)
+        to the host), as world poses (:class:`PathPoses3D`)."""
+        with profiling.span("planner3d.compute_path"):
+            st = self._require_state()
+            d, h, w = st.u.shape
+            if max_length is None:
+                max_length = int(w * h * d / step_size)
+            mx, my, mz = self.world_to_map(*start_world)
+            pts = compute_path(G.host_u(st), G.host_locked(st), mx, my, mz,
+                               step_size=step_size, cd_precision=cd_precision,
+                               max_length=max_length)
+            return self._poses(pts)
 
     def compute_paths_batch(
         self,
@@ -310,10 +390,11 @@ class VolumePlanner:
         step_size: float = 0.05,
         cd_precision: float = 0.5,
         max_steps: int = 4096,
-    ) -> list[list[PathPose3D] | None]:
+    ) -> list[PathPoses3D | None]:
         """Many 3D streamlines at once through the batched walker
         (:mod:`epic_tpu_torch.solver.batched_path3d`) on the planner's
-        device. Entries are None for invalid starts or <= 2-point walks.
+        device. Entries are :class:`PathPoses3D`, or None for invalid starts
+        or <= 2-point walks.
         Lanes are padded to a power of two (at least 8) with off-map starts,
         as in ``epic_tpu``."""
         st = self._require_state()
@@ -325,7 +406,7 @@ class VolumePlanner:
                 valid_idx.append(i)
             except InvalidLocationError:
                 continue
-        results: list[list[PathPose3D] | None] = [None] * len(starts_world)
+        results: list[PathPoses3D | None] = [None] * len(starts_world)
         if not starts_map:
             return results
         n_lanes = max(8, 1 << (len(starts_map) - 1).bit_length())

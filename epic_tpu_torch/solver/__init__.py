@@ -86,12 +86,16 @@ def solve_volume(state, stagger=None, max_iterations: int = 1_000_000,
     volume it ran on an H100 (PERF.md), so no volume goes to those. The
     solve is one launch: ``segment_iterations`` and ``chunk_depth``, which
     only a tile route would use, are ignored, as ``epic_tpu``'s VMEM route
-    does."""
+    does. The solve is the span ``solve.sweep3d`` on the card, one K7
+    solve, and ``solve.core`` on the CPU."""
     stagger = _C.DEFAULT_STAGGER if stagger is None else stagger
-    return hopper_sweep3d.solve(state, stagger, max_iterations)
+    with _profiling.span("solve.core" if state.u.device.type == "cpu" else "solve.sweep3d"):
+        return hopper_sweep3d.solve(state, stagger, max_iterations)
 
 
 def update_volume(state, num_steps: int, chunk_depth: int | None = None):
     """The 3D anytime stepper: ``hopper_sweep3d`` for every volume, as
-    :func:`solve_volume`; ``chunk_depth`` is ignored."""
-    return hopper_sweep3d.update_n(state, num_steps)
+    :func:`solve_volume`; ``chunk_depth`` is ignored. Its span is
+    ``tick.sweep3d``, or ``tick.core`` on the CPU."""
+    with _profiling.span("tick.core" if state.u.device.type == "cpu" else "tick.sweep3d"):
+        return hopper_sweep3d.update_n(state, num_steps)

@@ -153,6 +153,47 @@ def test_sanitize_cell_edits_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
+def test_type_lookup_arrays_hold_the_dicts_values():
+    """The indexed lookups of the 3D ingest give each type constant the
+    value and lock of the type maps, and nothing else is a type."""
+    assert sorted(TG._TYPE_TO_U) == list(range(len(TG._U_OF_TYPE)))
+    for t in (C.CELL_TYPE_GOAL, C.CELL_TYPE_OBSTACLE, C.CELL_TYPE_FREE):
+        assert TG._U_OF_TYPE[t] == np.float32(TG._TYPE_TO_U[t])
+        assert bool(TG._LOCKED_OF_TYPE[t]) is TG._TYPE_TO_LOCKED[t]
+    assert TG._U_OF_TYPE.dtype == np.float32 and TG._LOCKED_OF_TYPE.dtype == bool
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sanitize_cell_edits_3d_matches_the_dicts_and_jax(seed):
+    """Random 3D edits, out of bounds, unknown types and duplicates among
+    them: the same voxels, values and locks as the per-voxel dict lookups
+    and as epic_tpu's."""
+    rng = np.random.default_rng(seed)
+    n = 400
+    xyz = np.stack([rng.integers(-2, 12, n), rng.integers(-2, 9, n), rng.integers(-2, 7, n)],
+                   axis=1)
+    types = rng.integers(-1, 4, n)
+    ours = TG.sanitize_cell_edits_3d(xyz, types, 10, 7, 5)
+    kept = ours[0]
+    assert 0 < len(kept) < n
+    # The dicts, voxel by voxel, on the kept edits' types (last wins).
+    last = {}
+    for (x, y, z), t in zip(xyz.tolist(), types.tolist()):
+        if 0 <= x < 10 and 0 <= y < 7 and 0 <= z < 5 and t in TG._TYPE_TO_U:
+            last[(x, y, z)] = t
+    want_t = [last[tuple(v)] for v in kept.tolist()]
+    np.testing.assert_array_equal(
+        ours[1], np.array([TG._TYPE_TO_U[t] for t in want_t], dtype=np.float32))
+    np.testing.assert_array_equal(
+        ours[2], np.array([TG._TYPE_TO_LOCKED[t] for t in want_t], dtype=bool))
+    assert ours[1].dtype == np.float32 and ours[2].dtype == bool
+    for a, b in zip(ours, JG.sanitize_cell_edits_3d(xyz, types, 10, 7, 5)):
+        np.testing.assert_array_equal(a, b)
+    empty = TG.sanitize_cell_edits_3d(np.zeros((0, 3), int), [], 10, 7, 5)
+    assert [len(a) for a in empty] == [0, 0, 0]
+    assert empty[1].dtype == np.float32 and empty[2].dtype == bool
+
+
 def test_import_leaves_jax_out():
     """The port imports torch and NumPy, never JAX or epic_tpu."""
     code = ("import sys, epic_tpu_torch, epic_tpu_torch.services.server, "

@@ -45,13 +45,18 @@ def _walk(fn, *args, **kw):
 
 def test_source_is_the_port_copy():
     """The port compiles its own copy: below the header comment, the same
-    bytes as epic_tpu/native/epic_native.cc."""
+    bytes as epic_tpu/native/epic_native.cc, then the port's own 3D walker
+    and nothing else."""
     def body(p):
         text = p.read_text()
         return text[text.index("#include"):]
 
     assert native.SOURCE == ROOT / "epic_tpu_torch" / "native" / "epic_native.cc"
-    assert body(native.SOURCE) == body(ROOT / "epic_tpu" / "native" / "epic_native.cc")
+    ours, theirs = body(native.SOURCE), body(ROOT / "epic_tpu" / "native" / "epic_native.cc")
+    assert ours.startswith(theirs)
+    added = ours[len(theirs):]
+    assert added.lstrip("\n").startswith("// ---")
+    assert "epic_path3d_f32" in added and "epic_path2d_f32" not in added
 
 
 def test_builds_into_the_build_directory():

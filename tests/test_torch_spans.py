@@ -1,7 +1,8 @@
 """The program's spans (epic_tpu_torch.profiling.span): off, a flag read and a
 shared context that does nothing; on, ``epic.*`` ranges in the profiler's
-trace at the Planner verbs, the host copies, the walk, the pose loop, the
-route taken, and the collector's ``epic.gc.gen<N>`` ranges.
+trace at the Planner's and the VolumePlanner's verbs, the host copies, the
+2D and 3D walks, the pose loops, the route taken, and the collector's
+``epic.gc.gen<N>`` ranges.
 
 This file imports neither JAX nor epic_tpu. Its one ``cuda`` test runs on a
 host that has only torch:
@@ -18,7 +19,9 @@ import torch
 
 from epic_tpu_torch import constants as C
 from epic_tpu_torch import maps, path, profiling
+from epic_tpu_torch import path3d
 from epic_tpu_torch.planner import Planner, PlannerConfig
+from epic_tpu_torch.planner3d import VolumePlanner, VolumePlannerConfig
 from epic_tpu_torch.solver import hopper_batched
 
 
@@ -168,6 +171,59 @@ def test_goal_batch_spans_on_the_cpu(tmp_path):
     assert names == ["batch.make_goals", "solve.batched.core"]
 
 
+def _volume_planner(device="cpu") -> VolumePlanner:
+    p = VolumePlanner(VolumePlannerConfig(epsilon=1e-2, stagger=10), device=device)
+    occ = np.zeros((8, 12, 14), np.int16)
+    occ[:, 5, 3:9] = 100
+    p.update_occupancy(occ, 1.0, (0.0, 0.0, 0.0))
+    return p
+
+
+def _volume_request(p: VolumePlanner):
+    """One request as a 3D planner makes it: reset, a new goal, solve, a path."""
+    p.reset_free_cells()
+    p.set_cells([(10, 9, 4)], [C.CELL_TYPE_GOAL])
+    p.solve()
+    return p.compute_path((3.0, 2.0, 3.0), step_size=0.5)
+
+
+def test_volume_request_off_creates_no_range(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function created with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    hooks = list(gc.callbacks)
+    p = _volume_planner()
+    poses = _volume_request(p)
+    p.update(3)
+    assert len(poses) > 2 and gc.callbacks == hooks
+
+
+def test_volume_request_names_the_verbs_and_nests_the_walk(tmp_path):
+    p = _volume_planner()
+    with profiling.trace(tmp_path):
+        _volume_request(p)
+        p.update(3)
+    spans = _spans(tmp_path)
+    names = [s[0] for s in spans]
+    assert names[:3] == ["planner3d.reset_free_cells", "planner3d.set_cells", "planner3d.solve"]
+    assert sorted(_inside(spans, "planner3d.compute_path")) == [
+        "grid.host_copy", "grid.host_copy", "path3d.walk", "planner3d.poses"]
+    assert _inside(spans, "planner3d.solve") == ["solve.core"]
+    assert _inside(spans, "planner3d.update") == ["tick.core"]
+
+
+def test_volume_walk_alone_is_a_span(tmp_path):
+    u = np.broadcast_to(-np.linspace(5, 1, 14, dtype=np.float32), (8, 12, 14)).copy()
+    locked = np.zeros(u.shape, bool)
+    u[4, 6, 12], locked[4, 6, 12] = 0.0, True
+    with profiling.trace(tmp_path):
+        for impl in ("numpy", "native"):
+            assert len(path3d.compute_path(u, locked, 2.0, 6.0, 4.0, 0.5, impl=impl)) > 2
+    assert [s[0] for s in _spans(tmp_path)] == ["path3d.walk", "path3d.walk"]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -188,3 +244,15 @@ def test_batched_route_span_names_the_counted_route(card, tmp_path):
     (route,) = [r for r, n in hopper_batched.routes.items() if n != before[r]]
     names = [s[0] for s in _spans(tmp_path)]
     assert names == ["batch.make_goals", f"solve.batched.{route}"]
+
+
+@pytest.mark.cuda
+def test_volume_solve_and_tick_spans_name_k7(card, tmp_path):
+    p = _volume_planner(card)
+    with profiling.trace(tmp_path):
+        _volume_request(p)
+        p.update(3)
+        torch.cuda.synchronize(card)
+    spans = _spans(tmp_path)
+    assert _inside(spans, "planner3d.solve") == ["solve.sweep3d"]
+    assert _inside(spans, "planner3d.update") == ["tick.sweep3d"]
