@@ -9,9 +9,12 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 version on the maze demo map (tests/goldens/maze.npz),
                 through a Planner with the counts zeroed around it: a
                 50-sweep tick at an even and an odd start iteration and a
-                full solve (K1 twice, K2 once, nothing else); then the
-                tick's mean of 50. Tolerance: the same bits (max abs diff
-                0.0); then the same on umass 310 x 940 (phase "umass");
+                full solve (K1 twice, K2's resident entry once, nothing
+                else); then the tick's mean of 50 and the in-place K2's
+                solve beside the resident one's, counted on its own (the
+                in-place entry once, nothing else). Tolerance: the same bits
+                (max abs diff 0.0); then the same on umass 310 x 940
+                (phase "umass");
   3. goldens  — the 2D kernels on maze and umass against the reference
                 binary's goldens, by tests/test_goldens.py's rules: 300
                 sweeps within 1e-3 of the recorded field; the solve's
@@ -33,9 +36,11 @@ It builds the CUDA kernels from ``epic_tpu_torch/csrc/`` with nvcc, then:
                 then grid2048 — a 2048 x 2048 grid within two thirds of
                 the L2, which the planner keeps on K1/K2: counted
                 Planner ticks of 100 sweeps from an even and an odd
-                iteration and a solve capped at 2000 (K1 and K2 must run,
-                the tiles and the plain versions must not), against core,
-                same bits, the tick's mean of 10;
+                iteration and a solve capped at 2000 (K1 and K2's
+                resident entry must run, the in-place K2, the tiles and the
+                plain versions must not), against core, same bits, the
+                tick's mean of 10, and the in-place K2's capped solve,
+                counted on its own (the in-place entry once);
   6. volume   — the 3D kernels against the plain version on a 30 x 256 x 256
                 volume (numpy default_rng(0), 10% obstacle voxels, the shell
                 locked, one goal voxel, as tests/test_pallas3d.py builds
@@ -411,6 +416,7 @@ BYTES_PER_CELL = 9           # u read, locked read, u written
 SOURCES = {
     "epic_sweep2d_chunk": "epic_tpu_torch/csrc/sweep2d.cu",
     "epic_sweep2d_solve": "epic_tpu_torch/csrc/sweep2d.cu",
+    "epic_sweep2d_solve_resident": "epic_tpu_torch/csrc/sweep2d.cu",
     "epic_sweep3d_chunk": "epic_tpu_torch/csrc/sweep3d.cu",
     "epic_sweep3d_solve": "epic_tpu_torch/csrc/sweep3d.cu",
     # One row an entry and route (hopper_batched.lane_resident and lane_cluster
@@ -437,6 +443,7 @@ SOURCES = {
 REPLACES = {
     "epic_sweep2d_chunk": "epic_tpu/solver/pallas_sweep.py:90",
     "epic_sweep2d_solve": "epic_tpu/solver/pallas_sweep.py:130",
+    "epic_sweep2d_solve_resident": "epic_tpu/solver/pallas_sweep.py:130",
     # K7; ticks via sweep3d_chunk_flat (:110 -> :125), solves via _solve_padded (:261)
     "epic_sweep3d_chunk": "epic_tpu/solver/pallas_sweep3d.py:88",
     "epic_sweep3d_solve": "epic_tpu/solver/pallas_sweep3d.py:88",
@@ -672,9 +679,11 @@ def phase_demo(dev, g, name: str) -> dict:
     The main path, counts zeroed just before and read just after: a Planner
     (configs/maze.yaml: 50 sweeps a tick, eps 1e-3, stagger 100) ticks from
     the map's 300-sweep field at an even and an odd iteration and solves it
-    in full; K1 must run twice and K2 once, the tiles and the plain versions
-    never. Then, outside the count, the tick's mean of 50 on ``hopper_sweep``
-    and the plain versions' times."""
+    in full; K1 must run twice and K2's resident entry once, the in-place K2,
+    the tiles and the plain versions never. Then, outside the count, the
+    tick's mean of 50 on ``hopper_sweep``, the in-place K2's solve (the same
+    bits; counted on its own: the in-place entry once, nothing else, the
+    count the ``kernels`` line's row reads) and the plain versions' times."""
     import epic_tpu_torch as T
     from epic_tpu_torch.config import EpicConfig
     from epic_tpu_torch.solver import core, hopper_sweep, hopper_tile2d, tiled
@@ -697,10 +706,10 @@ def phase_demo(dev, g, name: str) -> dict:
     solve_k_ms = event_ms(lambda: planner.solve())
     out["k"] = planner.state
     torch.cuda.synchronize()
-    launches = dict(hopper_sweep.launches)
+    launches = {k: v for k, v in hopper_sweep.launches.items() if v}
     others = {**hopper_tile2d.launches, **{f"core.{k}": v for k, v in core.calls.items()},
               **{f"tiled.{k}": v for k, v in tiled.calls.items()}}
-    require(launches == {"epic_sweep2d_chunk": 2, "epic_sweep2d_solve": 1},
+    require(launches == {"epic_sweep2d_chunk": 2, "epic_sweep2d_solve_resident": 1},
             f"{name}: K1/K2 launches {launches}")
     require(all(v == 0 for v in others.values()),
             f"{name}: another kernel or the plain version ran on the main path: {others}")
@@ -718,17 +727,27 @@ def phase_demo(dev, g, name: str) -> dict:
     solve_p_ms = event_ms(lambda: out.__setitem__(
         "p", core.solve(T.from_occupancy_image(g["img"], EPS, device=dev), STAGGER)))
     solve_err = compare(out["k"], out["p"], f"{name} full solve")
+    in_place = {}
+    in_place_ran = new_counts(f"{name} in-place K2", lambda: in_place.__setitem__(
+        "ms", event_ms(lambda: out.__setitem__("i", hopper_sweep.solve_in_place(
+            T.from_occupancy_image(g["img"], EPS, device=dev), STAGGER)))),
+        {"epic_sweep2d_solve": 1})
+    in_place_ms = in_place["ms"]
+    in_place_err = compare(out["i"], out["p"], f"{name} full solve (in-place K2)")
     locked_t = out["k"].locked
     bounds = {"tick": bound(locked_t, 0, 50), "solve": bound(locked_t, 0, int(out["k"].iteration))}
     emit(phase=name, shape=list(g["img"].shape), launches=launches, tick_sweeps=50,
          tick_max_abs_err=max(errs), tick_kernel_ms=tick_k_ms, tick_plain_ms=tick_p_ms,
          solve_iterations=int(out["k"].iteration), solve_delta=float(out["k"].delta),
-         solve_max_abs_err=solve_err, solve_kernel_ms=solve_k_ms, solve_plain_ms=solve_p_ms,
-         bounds=bounds)
+         solve_max_abs_err=solve_err, solve_kernel_ms=solve_k_ms,
+         solve_plan=hopper_sweep.plan_on(g["img"].shape, dev)._asdict(),
+         solve_in_place_ms=in_place_ms, solve_in_place_max_abs_err=in_place_err,
+         solve_plain_ms=solve_p_ms, bounds=bounds)
     return {"tick_err": max(errs), "tick_ms": tick_k_ms, "tick_plain_ms": tick_p_ms,
             "solve_err": solve_err, "solve_ms": solve_k_ms, "solve_plain_ms": solve_p_ms,
+            "in_place_err": in_place_err, "in_place_ms": in_place_ms,
             "solved": out["k"], "tick_bound": bounds["tick"], "solve_bound": bounds["solve"],
-            "launches": launches}
+            "launches": {**launches, **in_place_ran}}
 
 
 def check_golden(name: str, g, solved, u300) -> dict:
@@ -905,7 +924,10 @@ def phase_session(dev, maze) -> dict:
         raise
     launches = dict(hopper_sweep.launches)
     plain = dict(core.calls)
-    require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")
+    require(launches["epic_sweep2d_chunk"] > 0 and launches["epic_sweep2d_solve_resident"] > 0,
+            f"a kernel never ran on the main path: {launches}")
+    require(launches["epic_sweep2d_solve"] == 0,
+            f"the maze's solve took the in-place K2: {launches}")
     require(all(v == 0 for v in plain.values()), f"the plain version ran on the main path: {plain}")
     emit(phase="session", config="configs/maze.yaml", ticks=s.ticks, sweeps_per_tick=steps,
          ten_ticks_s=ten_ticks_s, solve_iterations=solve_iterations, solve_s=solve_s,
@@ -967,8 +989,10 @@ def phase_grid2048(dev) -> dict:
     """2048^2 (21 MB of u and locked): within two thirds of the L2,
     where the planner keeps K1/K2. The main path, counts zeroed just before and read just after: Planner.update
     of 100 sweeps from an even and an odd iteration and Planner.solve capped
-    at 2000; K1 and K2 must run, the tiles and the plain versions must not.
-    Each against core, the same bits; the tick's mean of 10."""
+    at 2000; K1 and K2's resident entry must run, the in-place K2, the tiles
+    and the plain versions must not. Each against core, the same bits; the
+    tick's mean of 10; then the in-place K2's capped solve, timed, the same
+    bits, counted on its own (the in-place entry once, nothing else)."""
     import epic_tpu_torch as T
     from epic_tpu_torch import maps
     from epic_tpu_torch.config import EpicConfig
@@ -995,16 +1019,20 @@ def phase_grid2048(dev) -> dict:
     times["solve"] = event_ms(lambda: planner.solve(max_iterations=BIG_CAP))
     res["ks"] = planner.state
     torch.cuda.synchronize()
-    launches = dict(hopper_sweep.launches)
+    launches = {k: v for k, v in hopper_sweep.launches.items() if v}
     others = {**hopper_tile2d.launches, **{f"core.{k}": v for k, v in core.calls.items()},
               **{f"tiled.{k}": v for k, v in tiled.calls.items()}}
-    require(launches == {"epic_sweep2d_chunk": 2, "epic_sweep2d_solve": 1},
+    require(launches == {"epic_sweep2d_chunk": 2, "epic_sweep2d_solve_resident": 1},
             f"{side}^2: K1/K2 launches {launches}")
     require(all(v == 0 for v in others.values()),
             f"{side}^2: another kernel or the plain version ran on the main path: {others}")
     tick_err = max(compare(got[t], plain[t], f"{side}^2 100-sweep tick from iteration {t}")
                    for t in (0, 1))
     solve_err = compare(res["ks"], res["ps"], f"{side}^2 solve capped at {BIG_CAP}")
+    in_place_ran = new_counts(f"{side}^2 in-place K2", lambda: times.__setitem__(
+        "in_place", event_ms(lambda: res.__setitem__("is", hopper_sweep.solve_in_place(
+            copy_state(base), STAGGER, BIG_CAP)))), {"epic_sweep2d_solve": 1})
+    in_place_err = compare(res["is"], res["ps"], f"{side}^2 solve capped at {BIG_CAP} (in place)")
     planner.state = copy_state(starts[0])
     times["tick10"] = event_ms(lambda: planner.update(100), reps=10)
     iters = int(res["ks"].iteration)
@@ -1013,10 +1041,14 @@ def phase_grid2048(dev) -> dict:
          tick_max_abs_err=tick_err, tick_kernel_ms_mean10=times["tick10"],
          tick_plain_ms=tick_p_ms, solve_cap=BIG_CAP, solve_iterations=iters,
          solve_max_abs_err=solve_err, solve_kernel_ms=times["solve"], solve_plain_ms=solve_p_ms,
+         solve_plan=hopper_sweep.plan_on((side, side), dev)._asdict(),
+         solve_in_place_ms=times["in_place"], solve_in_place_max_abs_err=in_place_err,
          cell_updates_per_s=(side - 2) ** 2 / 2 * 100 / (times["tick10"] / 1e3), bounds=bounds)
-    return {"launches": launches, "tick_err": tick_err, "solve_err": solve_err,
+    return {"launches": {**launches, **in_place_ran}, "tick_err": tick_err,
+            "solve_err": solve_err, "in_place_err": in_place_err,
             "tick": (times["tick10"], tick_p_ms, bounds["tick"]),
-            "solve": (times["solve"], solve_p_ms, bounds["solve"])}
+            "solve": (times["solve"], solve_p_ms, bounds["solve"]),
+            "in_place": (times["in_place"], solve_p_ms, bounds["solve"])}
 
 
 def counted_main_path(what: str, drive) -> dict:
@@ -3052,7 +3084,7 @@ def cascade_demo(dev, g, name: str, cold_ms: float) -> dict:
     def drive():
         _, ran["s"] = host_s(pl.solve)
 
-    launches = new_counts(f"{name} cascade", drive, {"epic_sweep2d_solve": 1})
+    launches = new_counts(f"{name} cascade", drive, {"epic_sweep2d_solve_resident": 1})
     coarse, coarse_ms, _ = timed_levels(cascade.native_solver, "host")
     fine = {}
 
@@ -3096,10 +3128,10 @@ def phase_cascade(dev, maze, umass, m, um, volume_arrays_fn) -> dict:
             T.from_occupancy_image(img, EPS, device=dev), max_iterations=CASCADE_CAP))
 
     launches = new_counts("3072^2 cascade", drive,
-                          {"epic_tile2d_solve": 1, "epic_sweep2d_solve": None})
+                          {"epic_tile2d_solve": 1, "epic_sweep2d_solve_resident": None})
     k, stats = out["k"]
-    require(launches["epic_sweep2d_solve"] == len(stats.iterations) - 1,
-            f"3072^2 cascade: K2 on {launches['epic_sweep2d_solve']} of "
+    require(launches["epic_sweep2d_solve_resident"] == len(stats.iterations) - 1,
+            f"3072^2 cascade: K2 on {launches['epic_sweep2d_solve_resident']} of "
             f"{len(stats.iterations) - 1} coarse levels")
     level, level_ms, level_bounds = timed_levels(lambda st, a, b: solver.solve_grid(st, a, b),
                                                  "cuda")
@@ -3171,7 +3203,7 @@ def phase_nav_core(dev) -> dict:
             plans.append(plan)
             plan_s.append(secs)
 
-    launches = new_counts("nav_core", drive, {"epic_sweep2d_solve": len(requests)})
+    launches = new_counts("nav_core", drive, {"epic_sweep2d_solve_resident": len(requests)})
     for (start, goal), plan in zip(requests, plans):
         ref = plain.make_plan(start, goal)
         require((plan is None) == (ref is None), f"nav_core plan from {start}: {plan is None}")
@@ -3373,7 +3405,7 @@ def phase_battery(dev, goldens: dict) -> dict:
         res = {}
         ran = new_counts(f"battery {name}", lambda: res.__setitem__(
             "rows", batch_bench.run(name, cfg, None, backend="pallas", device=dev)),
-            {"epic_sweep2d_solve": 2})
+            {"epic_sweep2d_solve_resident": 2})
         add_counts(out["launches"], ran)
         rows = {r[1]: r for r in res["rows"]}
         require(set(rows) == {"cpu_sor_f32", "cpu_sor_f64", "log_native_cpu", "log_hopper_cuda"},
@@ -3416,7 +3448,7 @@ def phase_precision(dev) -> dict:
     res = {}
     ran = new_counts("precision", lambda: res.__setitem__("s", compare_precision.main(
         ["--domain", "maze", "--epsilon", str(EPS), "--out", str(png), "--device", str(dev)])),
-        {"epic_sweep2d_solve": 1})
+        {"epic_sweep2d_solve_resident": 1})
     s = res["s"]
     require(png.exists() and maps.load_png(png).shape == (482, 482), "precision: no overlay")
     require(s["log"] >= s["sor_f64"] and s["log"] >= s["sor_f32"],
@@ -3605,7 +3637,9 @@ def main() -> None:
     tile3d_err = max(big3["err"], wide3["err"], small3["err"])
     errs = {
         "epic_sweep2d_chunk": max(m["tick_err"], um["tick_err"], z["tick_err"], g2["tick_err"]),
-        "epic_sweep2d_solve": max(m["solve_err"], um["solve_err"], z["solve_err"], g2["solve_err"]),
+        "epic_sweep2d_solve": max(m["in_place_err"], um["in_place_err"], z["solve_err"],
+                                  g2["in_place_err"]),
+        "epic_sweep2d_solve_resident": max(m["solve_err"], um["solve_err"], g2["solve_err"]),
         "epic_sweep3d_chunk": max(v["tick_max_abs_err"], z3["tick_max_abs_err"]),
         "epic_sweep3d_solve": max(v["solve_max_abs_err"], z3["solve_max_abs_err"]),
         "epic_batched2d_chunk/resident": b["chunk_err"],
@@ -3631,7 +3665,7 @@ def main() -> None:
     for name in ("epic_shard2d_chunk", "epic_resident2d_cycle"):
         errs[name] = max(errs[name], scal["err"])
     # The cascade's counted runs held their fields to the plain cascade's.
-    for name, runs in (("epic_sweep2d_solve", ("maze", "umass", "grid3072")),
+    for name, runs in (("epic_sweep2d_solve_resident", ("maze", "umass", "grid3072")),
                        ("epic_tile2d_solve", ("grid3072",)),
                        ("epic_sweep3d_solve", ("volume",))):
         errs[name] = max(errs[name], *(casc[r]["max_abs_err"] for r in runs))
@@ -3645,7 +3679,8 @@ def main() -> None:
     # 256^3 on 2 x 4 (a 100-sweep cycle, a solve capped at 300).
     times = {
         "epic_sweep2d_chunk": (m["tick_ms"], m["tick_plain_ms"], m["tick_bound"]),
-        "epic_sweep2d_solve": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
+        "epic_sweep2d_solve": (m["in_place_ms"], m["solve_plain_ms"], m["solve_bound"]),
+        "epic_sweep2d_solve_resident": (m["solve_ms"], m["solve_plain_ms"], m["solve_bound"]),
         "epic_sweep3d_chunk": (v["tick_kernel_ms"], v["tick_plain_ms"], v["bounds"]["tick"]),
         "epic_sweep3d_solve": (v["solve_kernel_ms"], v["solve_plain_ms"], v["bounds"]["solve"]),
         "epic_batched2d_chunk/resident": (b["chunk_ms"], b["chunk_plain_ms"], b["chunk_bound"]),
@@ -3680,9 +3715,14 @@ def main() -> None:
         "epic_sweep2d_chunk": {"umass": (um, "tick_err", (um["tick_ms"], um["tick_plain_ms"],
                                                           um["tick_bound"])),
                                "grid2048": (g2, "tick_err", g2["tick"])},
-        "epic_sweep2d_solve": {"umass": (um, "solve_err", (um["solve_ms"], um["solve_plain_ms"],
-                                                           um["solve_bound"])),
-                               "grid2048": (g2, "solve_err", g2["solve"])},
+        "epic_sweep2d_solve": {"umass": (um, "in_place_err", (um["in_place_ms"],
+                                                              um["solve_plain_ms"],
+                                                              um["solve_bound"])),
+                               "grid2048": (g2, "in_place_err", g2["in_place"])},
+        "epic_sweep2d_solve_resident": {"umass": (um, "solve_err", (um["solve_ms"],
+                                                                    um["solve_plain_ms"],
+                                                                    um["solve_bound"])),
+                                        "grid2048": (g2, "solve_err", g2["solve"])},
     }
     shapes = {"umass": list(umass["img"].shape), "grid2048": [GRID_SIDE, GRID_SIDE]}
     for row in kernels:

@@ -115,6 +115,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.epic_sweep2d_chunk.argtypes = [p, p, i, i, p, i, p, p, i]
     lib.epic_sweep2d_solve.argtypes = [p, p, i, i, p, i, i, i, p, p, p, p, p, i]
+    lib.epic_sweep2d_solve_resident.argtypes = [p, p, i, i, p, i, i, i, p, p, p, p, p, i, i, p, i]
+    lib.epic_sweep2d_solve_resident.restype = i
     lib.epic_sweep3d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, i]
     lib.epic_sweep3d_solve.argtypes = [p, p, i, i, i, p, i, i, i, p, p, p, p, p, i]
     lib.epic_batched2d_chunk.argtypes = [p, p, i, i, i, p, i, p, p, i, p, i]

@@ -120,6 +120,13 @@ and power limit, then one JSON line per measurement, CUDA events, mean of
   the barrier (``ABLATE_INPLACE``); then squares of ``SWEEP2D_SIDES``
   around the L2 crossover, a tick and a capped solve on K1/K2 and on the
   tiles, in turns, the same bits (the source of ``past_crossover``);
+- ``--resident``: K2's resident route (``hopper_sweep.solve_resident``)
+  built at each K of ``RESIDENT_DEPTHS`` and as ``RESIDENT_DESIGN`` copies,
+  cold solves of the maze and umass goldens against the in-place entry in
+  turns, the same bits (the source of ``RESIDENT_DEPTH``); the
+  ``RESIDENT_ABLATE`` copies on capped solves; then the route boundary
+  (``hopper_sweep.plan_on``) on the squares of ``RESIDENT_SIDES`` and the
+  first past them;
 - ``--sass``: the SASS instructions of one ``lse4`` and one ``lse6``
   update (``sweep_common.cuh``), counted with ``cuobjdump -sass`` in a
   kernel that computes one a thread, less a kernel that adds the same
@@ -240,6 +247,31 @@ ABLATE_INPLACE = {
 SWEEP2D_SIDES = (768, 1024, 1280, 1536, 1792, 2048, 2304, 2432, 2560, 2624, 2688, 2736, 2816)
 SWEEP2D_TICK = 100
 SWEEP2D_CAP = 2000
+# --resident: K2's resident route (csrc/sweep2d.cu epic_sweep2d_solve_resident)
+# built at each halo depth K of RESIDENT_DEPTHS (kDepth), and at the source's
+# K copies without the grid barrier of an exchange, without the exchange's
+# border and halo copies (its barrier kept), with each lse4 replaced by a
+# max, or with no sweep (text edits; their bits are not the plain version's);
+# the squares of RESIDENT_SIDES are chip_smoke.py's 2048^2 and the largest
+# square whose tile plan fits an H100, 2530^2 (2531^2, the first that does
+# not, runs in place).
+RESIDENT_DEPTHS = (2, 4, 8)
+RESIDENT_ABLATE = {
+    "no_grid_barrier": (("  grid.sync();\n  // Asynchronous copies", "  // Asynchronous copies"),),
+    "no_copies": (("  ring(t.ch, t.cw, warp,", "  ring(0, t.cw, warp,"),
+                  ("  ring(t.rows, t.cols, warp,", "  ring(0, t.cols, warp,")),
+    "no_lse4": (("const float v0 = lse4(above, b1, w0, mid);",
+                 "const float v0 = fmaxf(fmaxf(above, b1), fmaxf(w0, mid));"),
+                ("const float v1 = lse4(mid, b2, b1, e1);",
+                 "const float v1 = fmaxf(fmaxf(mid, b2), fmaxf(b1, e1));")),
+    "no_walk": (("  if (first > last) return local;", "  return local;"),),
+}
+# Design copies that keep the bits, timed beside the source's K.
+RESIDENT_DESIGN = {
+    "threads768": (("constexpr int kThreads = 512;", "constexpr int kThreads = 768;"),),
+}
+RESIDENT_SIDES = (2048, 2530)
+RESIDENT_CAP = 10_000
 # --sweep3d: K7's in-place kernels (csrc/sweep3d.cu) and, with --baseline, an
 # earlier sweep3d.cu (the per-row design before the z walk: ``git show
 # cd16244:epic_tpu_torch/csrc/sweep3d.cu``), each beside copies without the
@@ -1408,9 +1440,10 @@ def probe_sweep2d(dev, reps: int) -> None:
             outs = {}
             for name in [*names, *reversed(names)]:
                 mod = hopper_tile2d if name == "tiles" else hopper_sweep
+                solve = hopper_tile2d.solve if name == "tiles" else hopper_sweep.solve_in_place
                 x = dataclasses.replace(st, u=st.u.clone())
                 t_ms = event_ms(lambda: mod.update_n(x, SWEEP2D_TICK), reps)
-                s_ms = event_ms(lambda: outs.__setitem__(name, mod.solve(
+                s_ms = event_ms(lambda: outs.__setitem__(name, solve(
                     dataclasses.replace(st, u=st.u.clone()), 100, SWEEP2D_CAP)), 1)
                 times[name].append((t_ms, s_ms))
             torch.cuda.synchronize()
@@ -1422,6 +1455,98 @@ def probe_sweep2d(dev, reps: int) -> None:
             del st, outs
     finally:
         _build._lib = None
+
+
+def probe_resident(dev, reps: int, sides=RESIDENT_SIDES) -> None:
+    """K for K2's resident route, where its time goes, and where it beats the
+    in-place entry. The maze and umass goldens solved cold to convergence on
+    the in-place entry and on the resident one built at each K of
+    RESIDENT_DEPTHS (each on its own plan: ``RESIDENT_DEPTH`` set to its K
+    while it runs), in turns, each held to the in-place bits; the same maps
+    capped at RESIDENT_CAP sweeps with epsilon 0 on the source's K and on
+    each RESIDENT_ABLATE copy; then squares of ``sides`` seeded as
+    ``random_state`` and capped at SWEEP2D_CAP on both entries in turns, the
+    same bits, and the first square past the last that fits on the
+    in-place entry as the route rule sends it."""
+    import numpy as np
+
+    from .grid import from_occupancy_image
+
+    text = (_build.CSRC / "sweep2d.cu").read_text()
+    source_k = f"constexpr int kDepth = {hopper_sweep.RESIDENT_DEPTH};"
+    variants = {f"k{k}": edited(text, ((source_k, f"constexpr int kDepth = {k};"),),
+                                f"sweep2d.cu (K = {k})") for k in RESIDENT_DEPTHS}
+    variants.update({name: edited(text, edits, f"sweep2d.cu ({name})")
+                     for name, edits in (*RESIDENT_ABLATE.items(), *RESIDENT_DESIGN.items())})
+    libs = build_libraries({"source": text, **variants}, "sweep2d.cu")
+    goldens = pathlib.Path(__file__).resolve().parents[1] / "tests" / "goldens"
+    source_depth = hopper_sweep.RESIDENT_DEPTH
+    depths = {f"k{k}": k for k in RESIDENT_DEPTHS}
+
+    def run(lib, fn, st, cap):
+        _build._lib = libs[lib]
+        hopper_sweep.RESIDENT_DEPTH = depths.get(lib, source_depth)
+        out = {}
+        ms = event_ms(lambda: out.__setitem__("s", fn(dataclasses.replace(st, u=st.u.clone()),
+                                                     100, cap)), reps)
+        return ms, out["s"]
+
+    try:
+        for name in ("maze", "umass"):
+            st = from_occupancy_image(np.load(goldens / f"{name}.npz")["img"], 1e-3, device=dev)
+            order = ["in_place", *(f"k{k}" for k in RESIDENT_DEPTHS), *RESIDENT_DESIGN]
+            times = {n: [] for n in order}
+            same = {}
+            for n in [*order, *reversed(order)]:
+                fn = hopper_sweep.solve_in_place if n == "in_place" else hopper_sweep.solve_resident
+                ms, out = run("source" if n == "in_place" else n, fn, st, 1_000_000)
+                times[n].append(ms)
+                same[n] = out
+            ref = same["in_place"]
+            sweeps = int(ref.iteration)
+            plans = {}
+            for n, k in depths.items():
+                hopper_sweep.RESIDENT_DEPTH = k
+                plans[n] = hopper_sweep.plan_on(st.u.shape, dev)._asdict()
+            hopper_sweep.RESIDENT_DEPTH = source_depth
+            print(json.dumps(dict(
+                probe="resident_depths", map=name, shape=list(st.u.shape), sweeps=sweeps,
+                plans=plans, solve_ms=times,
+                us_per_sweep={n: [t / sweeps * 1e3 for t in ts] for n, ts in times.items()},
+                same_bits={n: bool(torch.equal(o.u, ref.u)) and int(o.iteration) == sweeps
+                           for n, o in same.items()})), flush=True)
+            capped = dataclasses.replace(st, epsilon=torch.zeros_like(st.epsilon))
+            order = ["source", *RESIDENT_ABLATE]
+            times = {n: [] for n in order}
+            for n in [*order, *reversed(order)]:
+                times[n].append(run(n, hopper_sweep.solve_resident, capped, RESIDENT_CAP)[0])
+            print(json.dumps(dict(
+                probe="resident_ablate", map=name, sweeps=RESIDENT_CAP, solve_ms=times,
+                us_per_sweep={n: [t / RESIDENT_CAP * 1e3 for t in ts]
+                              for n, ts in times.items()})), flush=True)
+        _build._lib = libs["source"]
+        hopper_sweep.RESIDENT_DEPTH = source_depth
+        for s in (*sides, sides[-1] + 1):
+            st = random_state((s, s), dev)
+            fits = hopper_sweep.plan_on((s, s), dev) is not None
+            order = ["in_place", "resident"] if fits else ["in_place"]
+            times = {n: [] for n in order}
+            outs = {}
+            for n in [*order, *reversed(order)]:
+                fn = getattr(hopper_sweep, f"solve_{n}")
+                ms, outs[n] = run("source", fn, st, SWEEP2D_CAP)
+                times[n].append(ms)
+            torch.cuda.synchronize()
+            print(json.dumps(dict(
+                probe="resident_sides", side=s, solve_cap=SWEEP2D_CAP, resident_fits=fits,
+                plan=hopper_sweep.plan_on((s, s), dev)._asdict() if fits else None,
+                use_tiles=hopper_tile2d.use_tiles((s, s), dev), solve_ms=times,
+                same_bits=all(bool(torch.equal(o.u, outs["in_place"].u)) for o in outs.values()))),
+                flush=True)
+            del st, outs
+    finally:
+        _build._lib = None
+        hopper_sweep.RESIDENT_DEPTH = source_depth
 
 
 def sass_ops(lib_path, kernels=("chunk3d_kernel", "solve3d_kernel"),
@@ -1554,6 +1679,10 @@ def main() -> None:
     ap.add_argument("--sweep2d", action="store_true",
                     help="time K1 without its grid barrier or with only it, and K1/K2 against the"
                          " tiles on squares around the crossover")
+    ap.add_argument("--resident", action="store_true",
+                    help="time K2's resident route at each K, its ablations, and against the"
+                         " in-place entry on the demo maps and on squares up to the largest"
+                         " that fits")
     ap.add_argument("--sweep3d", action="store_true",
                     help="time K7 without its grid barrier or with only it, its design copies,"
                          " and (with --baseline) an earlier sweep3d.cu")
@@ -1571,6 +1700,8 @@ def main() -> None:
     volumes = VOLUMES if not args.volumes else args.volumes
     if args.sweep2d:
         probe_sweep2d(dev, args.reps)
+    elif args.resident:
+        probe_resident(dev, args.reps)
     elif args.sweep3d and args.volumes:
         probe_sweep3d(dev, args.reps, args.baseline, args.volumes, SWEEP3D_SWEEPS // 5, ())
     elif args.sweep3d:

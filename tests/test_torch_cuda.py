@@ -95,19 +95,114 @@ def test_chunk_kernel_gives_the_plain_versions_bits(dev, name, t0):
         assert hopper_sweep.launches["epic_sweep2d_chunk"] == before + 1
 
 
-@pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000),
-                                         (100, 250), (10, 95)])
+SOLVE_CASES = [(100, 1_000_000), (1, 1_000_000), (7, 1_000_000), (100, 250), (10, 95)]
+
+
+@pytest.mark.parametrize("stagger,cap", SOLVE_CASES)
 @pytest.mark.parametrize("name", NAMES)
 def test_solve_kernel_gives_the_plain_versions_bits(dev, name, stagger, cap):
     """Converged solves at several staggers, and capped ones that end on a
-    cycle boundary, as the plain version does."""
-    before = hopper_sweep.launches["epic_sweep2d_solve"]
+    cycle boundary, as the plain version does; these grids' tile plans fit,
+    so ``solve`` runs the resident entry."""
+    before = dict(hopper_sweep.launches)
     k = hopper_sweep.solve(_state(name, dev, t0=5), stagger, cap)
     p = core.solve(_state(name, dev, t0=5), stagger, cap)
     _assert_same(k, p)
-    assert hopper_sweep.launches["epic_sweep2d_solve"] == before + 1
+    assert hopper_sweep.launches["epic_sweep2d_solve_resident"] == \
+        before["epic_sweep2d_solve_resident"] + 1
+    assert hopper_sweep.launches["epic_sweep2d_solve"] == before["epic_sweep2d_solve"]
     if cap == 1_000_000:
         assert bool(k.converged) and int(k.iteration) % stagger == 1 % stagger
+
+
+@pytest.mark.parametrize("stagger,cap", SOLVE_CASES)
+@pytest.mark.parametrize("name", NAMES)
+def test_in_place_solve_kernel_gives_the_plain_versions_bits(dev, name, stagger, cap):
+    """The in-place entry on the same grids, called directly."""
+    before = hopper_sweep.launches["epic_sweep2d_solve"]
+    k = hopper_sweep.solve_in_place(_state(name, dev, t0=5), stagger, cap)
+    p = core.solve(_state(name, dev, t0=5), stagger, cap)
+    _assert_same(k, p)
+    assert hopper_sweep.launches["epic_sweep2d_solve"] == before + 1
+
+
+def _seeded_grid(h, w, dev, seed=0):
+    """An h x w grid with 10% of its cells locked as obstacles, its ring
+    locked, and a goal cell at the centre."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    locked = torch.rand((h, w), generator=gen, device=dev) < 0.1
+    locked[0, :] = locked[-1, :] = locked[:, 0] = locked[:, -1] = True
+    u = torch.full((h, w), -1e6, device=dev)
+    u[h // 2, w // 2] = 0.0
+    locked[h // 2, w // 2] = True
+    return TG.make_state(u, locked, 1e-3, device=dev)
+
+
+def _k2_grid(name, dev):
+    if name in ("maze", "umass"):
+        return TG.from_occupancy_image(np.load(GOLDENS / f"{name}.npz")["img"], 1e-3, device=dev)
+    return _seeded_grid(*map(int, name.split("x")), dev)
+
+
+@pytest.mark.parametrize("stagger,cap", [(100, 1_000_000), (7, 1_000_000), (1, 1_000_000),
+                                         (100, 250), (7, 95), (1, 40)])
+@pytest.mark.parametrize("name", ["maze", "umass", "3x3", "5x1000", "1000x5", "487x479"])
+def test_resident_solve_gives_the_plain_versions_bits(dev, name, stagger, cap):
+    """The resident entry on the golden demo maps, thin grids and a grid of
+    prime sides, converged and cut by max_iterations at staggers 1, 7 and
+    100: the plain version's field, delta, iteration and verdict."""
+    before = dict(hopper_sweep.launches)
+    k = hopper_sweep.solve_resident(_k2_grid(name, dev), stagger, cap)
+    p = core.solve(_k2_grid(name, dev), stagger, cap)
+    _assert_same(k, p)
+    assert hopper_sweep.launches["epic_sweep2d_solve_resident"] == \
+        before["epic_sweep2d_solve_resident"] + 1
+    if cap == 1_000_000:
+        assert bool(k.converged)
+
+
+def _largest_resident_square(dev) -> int:
+    """The largest side whose square grid's resident plan fits the card."""
+    lo, hi = 2, 2
+    while hopper_sweep.plan_on((hi, hi), dev) is not None:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if hopper_sweep.plan_on((mid, mid), dev) is not None else (lo, mid)
+    return lo
+
+
+def test_solve_routes_by_the_resident_plan(dev):
+    """The largest square whose plan fits runs the resident entry, the next
+    side (still inside the L2's two thirds) the in-place one; both give the
+    plain version's bits, and ``solve_resident`` refuses the second."""
+    side = _largest_resident_square(dev)
+    assert hopper_sweep.plan_on((side, side), dev) is not None
+    assert hopper_sweep.plan_on((side + 1, side + 1), dev) is None
+    assert not hopper_tile2d.use_tiles((side + 1, side + 1), dev)
+    for s, entry in ((side, "epic_sweep2d_solve_resident"), (side + 1, "epic_sweep2d_solve")):
+        before = _counts()
+        k = hopper_sweep.solve(_seeded_grid(s, s, dev), 100, 300)
+        torch.cuda.synchronize()
+        assert _ran(before, _counts()) == {entry: 1}
+        _assert_same(k, core.solve(_seeded_grid(s, s, dev), 100, 300))
+    with pytest.raises(ValueError):
+        hopper_sweep.solve_resident(_seeded_grid(side + 1, side + 1, dev))
+
+
+def test_resident_entry_refuses_a_plan_the_card_cannot_hold(dev):
+    """The C entry checks the tile it is given: an odd width, and more tiles
+    than SMs, return an error before any launch."""
+    st = _seeded_grid(400, 400, dev)
+    lib = _build.load()
+    scratch = torch.empty((2, 400, 400), device=dev)
+    ints = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in range(3)]
+    for th, tw in ((40, 41), (1, 2)):
+        err = lib.epic_sweep2d_solve_resident(
+            st.u.data_ptr(), st.locked.data_ptr(), 400, 400, st.epsilon.data_ptr(), 400, 1000,
+            100, ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(), ints[2].data_ptr(),
+            scratch.data_ptr(), th, tw, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        assert err != 0
 
 
 def test_planner_session_runs_the_kernels(dev):
@@ -129,7 +224,9 @@ def test_planner_session_runs_the_kernels(dev):
     assert bool(tp.state.converged)
     assert tp.get_cell(36, 24) == 0.0 and tp.get_cell(10, 10) == -1e6
     assert hopper_sweep.launches["epic_sweep2d_chunk"] == launches["epic_sweep2d_chunk"] + 5
-    assert hopper_sweep.launches["epic_sweep2d_solve"] == launches["epic_sweep2d_solve"] + 1
+    assert hopper_sweep.launches["epic_sweep2d_solve_resident"] == \
+        launches["epic_sweep2d_solve_resident"] + 1
+    assert hopper_sweep.launches["epic_sweep2d_solve"] == launches["epic_sweep2d_solve"]
     assert core.calls == calls
 
     for _ in range(4):
@@ -325,9 +422,9 @@ def test_planner_poses_after_k2_equal_the_pose_loop(dev):
     tp = Planner(PlannerConfig(epsilon=1e-3, resolution=0.1, origin_x=-12.3, origin_y=4.5),
                  device=dev)
     tp.state = TG.from_occupancy_image(img, 1e-3, device=dev)
-    before = hopper_sweep.launches["epic_sweep2d_solve"]
+    before = hopper_sweep.launches["epic_sweep2d_solve_resident"]
     tp.solve()
-    assert hopper_sweep.launches["epic_sweep2d_solve"] == before + 1
+    assert hopper_sweep.launches["epic_sweep2d_solve_resident"] == before + 1
     assert bool(tp.state.converged)
     u, locked = TG.host_u(tp.state), TG.host_locked(tp.state)
     h, w = u.shape
@@ -1789,7 +1886,7 @@ def _ran(before, after):
             if after[i][k] != before[i][k]}
 
 
-@pytest.mark.parametrize("side,entry", [(128, "epic_sweep2d_solve"),
+@pytest.mark.parametrize("side,entry", [(128, "epic_sweep2d_solve_resident"),
                                         (3072, "epic_tile2d_solve")])
 def test_planner_cascade_runs_the_kernels(dev, side, entry):
     """Planner(cascade=True) on the card: the coarse levels on the native
@@ -1821,7 +1918,7 @@ def test_cascade_levels_on_the_card(dev):
     before = _counts()
     k, ks = cascade.solve_cascade(TG.from_occupancy_image(img, 1e-3, device=dev))
     torch.cuda.synchronize()
-    assert _ran(before, _counts()) == {"epic_sweep2d_solve": len(ks.iterations)}
+    assert _ran(before, _counts()) == {"epic_sweep2d_solve_resident": len(ks.iterations)}
     p, ps = cascade.solve_cascade(TG.from_occupancy_image(img, 1e-3, device=dev),
                                   solver=core.solve)
     _assert_same(k, p)
@@ -1856,7 +1953,7 @@ def test_nav_core_on_the_card(dev):
         before = _counts()
         a = ours.make_plan(start, goal)
         torch.cuda.synchronize()
-        assert _ran(before, _counts()) == {"epic_sweep2d_solve": 1}
+        assert _ran(before, _counts()) == {"epic_sweep2d_solve_resident": 1}
         b = plain.make_plan(start, goal)
         assert torch.equal(ours.state.u, plain.state.u)
         assert (a is None) == (b is None)
@@ -1908,7 +2005,7 @@ def test_battery_kernel_row_matches_the_native_row(dev, monkeypatch):
     before = _counts()
     rows = {r[1]: r for r in batch_bench.run("small", cfg, None, backend="pallas", device=dev)}
     torch.cuda.synchronize()
-    assert _ran(before, _counts()) == {"epic_sweep2d_solve": 2}
+    assert _ran(before, _counts()) == {"epic_sweep2d_solve_resident": 2}
     assert set(rows) == {"cpu_sor_f32", "cpu_sor_f64", "log_native_cpu", "log_hopper_cuda"}
     assert rows["log_hopper_cuda"][6] == rows["log_native_cpu"][6]
     assert rows["log_hopper_cuda"][3] == rows["log_native_cpu"][3]
